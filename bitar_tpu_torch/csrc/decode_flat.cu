@@ -34,7 +34,8 @@
 // the device traffic is the comp bytes, the plan wire and the output.
 
 #include <cstdint>
-#include <cuda_runtime.h>
+
+#include "cuda_util.cuh"
 
 namespace {
 
@@ -188,15 +189,6 @@ __global__ void __launch_bounds__(kThreads, 1) decode_flat_kernel(Args a) {
 
 }  // namespace
 
-// Opts the kernel in to its largest out plane (kThreads * kMaxWords words of
-// dynamic shared memory) on the current device.  Call once per device before
-// the first launch there; returns the CUDA error code (0 on success).
-extern "C" int bt_decode_flat_init() {
-  return static_cast<int>(cudaFuncSetAttribute(
-      decode_flat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kThreads * kMaxWords * 4));
-}
-
 // Launches one CTA per block on `stream`; returns cudaGetLastError() (0 on
 // success).  Pointers are device pointers; the caller allocates `out`.
 extern "C" int bt_decode_flat_launch(
@@ -211,6 +203,8 @@ extern "C" int bt_decode_flat_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const int smem = out_rows * kLanes;
+  const cudaError_t err = bt::smem_opt_in(decode_flat_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   Args a;
   a.comp = static_cast<const uint8_t*>(comp);
   a.comp_stride = comp_stride;
@@ -232,8 +226,4 @@ extern "C" int bt_decode_flat_launch(
   a.out_rows = out_rows;
   decode_flat_kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" const char* bt_decode_flat_error(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

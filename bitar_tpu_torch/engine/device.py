@@ -11,6 +11,9 @@ The main path, as in the reference package:
 * ``compress`` runs the native host matcher (C++ threads) and stages the
   compressed blocks; with ``commit="deferred"`` they reach the device arena
   at first use (``_ensure_committed``), with ``"eager"`` during compress.
+  With ``compress_matcher="device"`` and LZ4 it compresses on the device
+  instead (``_compress_device_full``: detector, match kernel, emitter
+  kernel) and writes the rows into the arena there.
 * ``ensure_plans`` joins (or runs) the native batch planner, which turns
   every block into a flat decode plan.  The planner's arguments are the
   reference engine's, so both packages build the same plan.
@@ -25,7 +28,7 @@ host or to the plain PyTorch decode.  ``Engine(device="cpu")`` runs the
 plain PyTorch decode on CPU tensors (the test path).
 
 Not ported yet: the sequence-table decode path, Zstd literal planes, the
-tpu/tpu-sort/device compress matchers, streams and batched decode.
+tpu/tpu-sort compress matchers, streams and batched decode.
 """
 
 from __future__ import annotations
@@ -39,13 +42,21 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..config import Checksum, Codec, DeviceCapabilities, EngineConfig, capabilities_for_device
+from ..config import (
+    DEVICE_PARSE_SEG,
+    Checksum,
+    Codec,
+    DeviceCapabilities,
+    EngineConfig,
+    capabilities_for_device,
+)
 from ..manifest import BlockManifest, CompressedBuffers, checksum_of, codec_id
 from ..memory.arena import CompressedBlockRef, DeviceArena
 from ..memory.host_pool import PoolBackend, get_memory_pool
 from ..ops import registry
 from ..ops.cpu import native
 from ..ops.decode_flat import CB, DCHUNK, KBAND, LANES, _S_QUANTUM, decode_blocks_flat, plan_tensors
+from ..ops.device_compress import _emit, lz4_bound, match_parse_device
 from ..status import Status, StatusError
 from ..utils.logging import get_logger
 
@@ -192,9 +203,11 @@ class Engine:
         self.caps = capabilities_for_device(self.device)
         cfg.validate(self.caps).with_context(
             f"Engine(device={self.device})").raise_if_error()
-        if cfg.compress_matcher != "host":
+        if cfg.compress_matcher in ("tpu", "tpu-sort"):
             raise StatusError(Status.NotImplemented(
-                f"compress_matcher {cfg.compress_matcher!r} is not ported yet"))
+                f"compress_matcher {cfg.compress_matcher!r} is not ported yet: it "
+                f"needs kernel B3 (bitar_tpu/ops/pallas/lz4_match.py:84) and the "
+                f"sort matcher (bitar_tpu/ops/pallas/lz4_match_sort.py:34)"))
         if cfg.use_tpu_kernels and cfg.block_size % _PLANNED_BLOCK_QUANTUM:
             raise StatusError(Status.NotImplemented(
                 f"device decode needs block_size % {_PLANNED_BLOCK_QUANTUM} == 0 "
@@ -249,6 +262,18 @@ class Engine:
         manifest.checksum_kind = cfg.checksum
         n = manifest.nblocks
         slot = cfg.slot_size
+
+        if cfg.compress_matcher == "device" and cfg.codec == Codec.LZ4:
+            # Full offload: detect, match, parse and emit on the device;
+            # the compressed rows land in the arena there, and only the
+            # size vector crosses back.
+            refs, manifest.comp_len, manifest.codec_ids = self._compress_device_full(
+                raw, manifest)
+            self._set_checksums(manifest, raw)
+            self.stats.enqueued_blocks += n
+            self.stats.dequeued_blocks += n
+            self.stats.bytes_compressed += int(manifest.total_raw)
+            return CompressedUnit(manifest=manifest, refs=refs, engine=self)
 
         # Pooled, page-aligned staging; no zero fill (every consumer
         # slices to per-block lengths).
@@ -315,10 +340,7 @@ class Engine:
 
         manifest.comp_len = dst_len.astype(np.int32)
         manifest.codec_ids = codec_ids
-        if cfg.checksum != Checksum.NONE:
-            for i in range(n):
-                o, ln = int(manifest.raw_off[i]), int(manifest.raw_len[i])
-                manifest.checksums[i] = checksum_of(cfg.checksum, raw[o:o + ln])
+        self._set_checksums(manifest, raw)
         self.stats.dequeued_blocks += n
         self.stats.bytes_compressed += int(manifest.total_raw)
         unit = CompressedUnit(manifest=manifest, refs=refs, engine=self,
@@ -328,6 +350,65 @@ class Engine:
                 and not (codec_ids == _ZSTD_ID).any()):
             unit._plan_future = self._submit_plan_build(manifest, staging)
         return unit
+
+    def _set_checksums(self, manifest: BlockManifest, raw: np.ndarray) -> None:
+        if self.config.checksum == Checksum.NONE:
+            return
+        for i in range(manifest.nblocks):
+            o, ln = int(manifest.raw_off[i]), int(manifest.raw_len[i])
+            manifest.checksums[i] = checksum_of(self.config.checksum, raw[o:o + ln])
+
+    def _compress_device_full(self, raw: np.ndarray, manifest: BlockManifest):
+        """Fully offloaded LZ4 compression (``ops/device_compress.py``): the
+        raw planes go up once, the device matches, parses and emits, and
+        the emitted rows are written into arena slots on the device.  Blocks
+        the stream cannot shrink below their raw length store RAW from the
+        same device planes.  Returns (refs, comp_len, codec_ids)."""
+        cfg = self.config
+        n, L = manifest.nblocks, cfg.block_size
+        planes = np.zeros((n, L), np.uint8)
+        for i in range(n):
+            o, ln = int(manifest.raw_off[i]), int(manifest.raw_len[i])
+            planes[i, :ln] = raw[o:o + ln]
+        dplanes = torch.from_numpy(planes).to(self.device)
+        raw_len = manifest.raw_len.astype(np.int32)
+        dlen = torch.from_numpy(raw_len).to(self.device)
+        layout = match_parse_device(
+            dplanes, dlen, seg=min(DEVICE_PARSE_SEG, L), min_match=cfg.min_match,
+            offsets=tuple(cfg.match_offsets) or None, detect_fft=cfg.detect_fft,
+            fft_k=cfg.fft_k)
+        szs = layout["total"].cpu().numpy()
+        fallback = szs >= raw_len
+        dst_len = np.where(fallback, raw_len, szs).astype(np.int32)
+        cids = np.where(fallback, _RAW_ID, codec_id(Codec.LZ4)).astype(np.int32)
+        refs = self.arena.take_refs([int(x) for x in dst_len], [int(c) for c in cids])
+        try:
+            good = np.flatnonzero(~fallback)
+            bad = np.flatnonzero(fallback)
+            if good.size:
+                # Emission width: the largest compressible block's size to a
+                # power of two (3/4 steps above 16 KiB), at most the LZ4 bound.
+                wmax = int(szs[good].max(initial=128))
+                width = 128 << max(0, (-(-wmax // 128) - 1).bit_length())
+                if width > 16384 and wmax <= (width // 4) * 3:
+                    width = (width // 4) * 3
+                width = min(width, -(-lz4_bound(L) // 128) * 128)
+                out = _emit(dplanes, layout, out_width=width, lengths=dlen)
+                self._write_rows(refs, good, out)
+            if bad.size:
+                self._write_rows(refs, bad, dplanes)
+        except Exception:
+            self.arena.recycle(refs)
+            raise
+        return refs, dst_len, cids
+
+    def _write_rows(self, refs, idx: np.ndarray, rows: torch.Tensor) -> None:
+        """Write ``rows[idx]`` (on the device) into the slots of ``refs[idx]``,
+        burst by burst."""
+        sel = rows[torch.from_numpy(idx).to(rows.device)]
+        for s in range(0, idx.size, self.config.burst_size):
+            e = min(idx.size, s + self.config.burst_size)
+            self.arena.write_burst([refs[int(i)].slot for i in idx[s:e]], sel[s:e])
 
     def _ensure_committed(self, unit: CompressedUnit) -> None:
         """Upload a deferred-commit unit's compressed bytes to the arena

@@ -1,9 +1,10 @@
 """Build a shared library at first use, safely across processes.
 
-The port builds two libraries from sources in the checkout: the host codec
-library (g++, from ``bitar_tpu/ops/cpu/*.cc``) and the CUDA decode kernel
-(nvcc, from ``csrc/*.cu``).  Several processes may ask for the same library
-at once (pytest workers, a server's replicas), so the build:
+The port builds two kinds of library from sources in the checkout: the host
+codec library (g++, from ``bitar_tpu/ops/cpu/*.cc``) and one library per
+CUDA kernel source (nvcc, from ``csrc/*.cu``).  Several processes may ask
+for the same library at once (pytest workers, a server's replicas), so the
+build:
 
 * names its output after a hash of the sources and the command, so a stale
   library is never loaded and no timestamp check is needed;
@@ -11,19 +12,30 @@ at once (pytest workers, a server's replicas), so the build:
   checks again for the output once it holds the lock;
 * compiles into a temporary name and ``os.replace``s it into place, so no
   process ever loads a half-written library.
+
+The kernels' Python wrappers share the rest of their plumbing here: loading
+a kernel library once per process, checking their inputs and the CUDA error
+code a launch returns.
 """
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
 import hashlib
 import os
+import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 from ..status import Status, StatusError
 
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+
+_kernels: dict[str, ctypes.CDLL] = {}
+_kernels_lock = threading.Lock()
 
 
 def build_library(stem: str, sources: list[Path], command) -> Path:
@@ -57,3 +69,60 @@ def build_library(stem: str, sources: list[Path], command) -> Path:
         finally:
             tmp.unlink(missing_ok=True)
     return out
+
+
+def nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).exists():
+            return cand
+    raise StatusError(Status.IOError(
+        "nvcc not found on PATH or in /usr/local/cuda/bin: the CUDA kernels "
+        "cannot be built"))
+
+
+def build_cuda_library(stem: str, source: Path, headers: tuple[Path, ...] = ()) -> Path:
+    """Build ``source`` (a ``.cu`` with a plain C interface) for sm_90a into
+    a shared library; ``headers`` it includes join the source hash.  The
+    compiler's report (``-Xptxas -v``: registers, spills, shared memory) is
+    kept beside the library as ``<library>.log``."""
+    compiler = nvcc()
+    return build_library(stem, [source, *headers], lambda out: [
+        compiler, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", str(out), str(source)])
+
+
+def load_cuda_kernel(stem: str, bind, headers: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build ``csrc/<stem>.cu`` at first use (``headers``: the ``csrc/``
+    files it includes besides ``cuda_util.cuh``) and load it once per
+    process; ``bind(lib)`` declares the library's launch function before any
+    caller sees it.  Kernels of other stems build at the same time (the
+    build itself is locked per stem)."""
+    lib = _kernels.get(stem)
+    if lib is None:
+        path = build_cuda_library(stem, CSRC / f"{stem}.cu",
+                                  tuple(CSRC / h for h in ("cuda_util.cuh", *headers)))
+        with _kernels_lock:
+            lib = _kernels.get(stem)
+            if lib is None:
+                lib = ctypes.CDLL(str(path))
+                lib.bt_error.restype = ctypes.c_char_p
+                lib.bt_error.argtypes = [ctypes.c_int]
+                bind(lib)
+                _kernels[stem] = lib
+    return lib
+
+
+def require(cond: bool, msg: str) -> None:
+    """Raise StatusError(Invalid(msg)) unless ``cond``: a wrapper's check of
+    what its kernel takes."""
+    if not cond:
+        raise StatusError(Status.Invalid(msg))
+
+
+def check_cuda(rc: int, what: str, lib: ctypes.CDLL) -> None:
+    """Raise StatusError(IOError) when kernel library ``lib`` returned CUDA
+    error ``rc``."""
+    if rc != 0:
+        raise StatusError(Status.IOError(
+            f"{what} failed: CUDA error {rc} ({lib.bt_error(rc).decode()})"))

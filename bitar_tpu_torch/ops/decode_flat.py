@@ -31,15 +31,12 @@ Every source index clips to its plane; comp bytes past the row width read 0.
 from __future__ import annotations
 
 import ctypes
-import shutil
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..config import DECODE_FLAT_MAX_ROWS
-from ..status import Status, StatusError
-from ._build import build_library
+from ._build import check_cuda, load_cuda_kernel, require
 
 LANES = 128
 CB = 4                # passes per planner batch (plans pad to CB multiples)
@@ -47,21 +44,10 @@ DCHUNK = CB           # slack plan rows past the last pass
 _S_QUANTUM = 512      # plan-array length rounds up to this
 KBAND = 256           # row quantum of comp planes taller than 128 rows
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc" / "decode_flat.cu"
-
 #: Kernel launches made by ``decode_blocks_flat`` on CUDA tensors (one per
 #: call).  Read it to show that a run went through the kernel; reset it to
 #: 0 before such a run.
 launches = 0
-
-_kernel_lib: ctypes.CDLL | None = None
-#: CUDA device indices on which the kernel's shared-memory opt-in is set.
-_smem_ready: set[int] = set()
-
-
-def _invalid(cond: bool, msg: str) -> None:
-    if not cond:
-        raise StatusError(Status.Invalid(msg))
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +126,7 @@ def attach_dense_planes(plans: dict, dq: np.ndarray, row_a: np.ndarray,
     plans["dq"] = dq
     dmax = max(1, int(dense.max(initial=0)))
     dcap = min(D, 1 << (dmax - 1).bit_length())
-    _invalid(nrows % LANES == 0, "dense planes need lane-tiled rows")
+    require(nrows % LANES == 0, "dense planes need lane-tiled rows")
     plans["row_a"] = pack_row_a_planes(row_a, dcap)
     plans["dense"] = dense.astype(np.int32)
     return plans
@@ -308,88 +294,56 @@ def decode_flat_reference(comp: torch.Tensor, plans: dict, comp_rows: int,
 # The CUDA kernel
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and Path(cand).exists():
-            return cand
-    raise StatusError(Status.IOError(
-        "nvcc not found on PATH or in /usr/local/cuda/bin: the CUDA decode "
-        "kernel cannot be built"))
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bt_decode_flat_launch.restype = c_int
+    lib.bt_decode_flat_launch.argtypes = [
+        vp, c_ll, c_int, c_int,           # comp, row stride, width, comp_rows
+        vp, vp, vp, vp, vp,               # p_used, p_off, p0, dense, dq_idx
+        vp, vp, c_ll,                     # se, shift, wire rows
+        vp, c_int, vp, c_int,             # dq, dq rows, row_a, dcap
+        vp, c_int, c_int, vp]             # out, n, out_rows, stream
 
 
 def load_kernel() -> ctypes.CDLL:
-    """Build (at first use, for sm_90a) and load ``csrc/decode_flat.cu``.
-    The compiler's report (``-Xptxas -v``: registers, spills, shared
-    memory) is kept beside the library as ``<library>.log``."""
-    global _kernel_lib
-    if _kernel_lib is None:
-        nvcc = _nvcc()
-        path = build_library("decode_flat", [_CSRC], lambda out: [
-            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(out), str(_CSRC)])
-        lib = ctypes.CDLL(str(path))
-        vp, c_int, c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.bt_decode_flat_launch.restype = c_int
-        lib.bt_decode_flat_launch.argtypes = [
-            vp, c_ll, c_int, c_int,           # comp, row stride, width, comp_rows
-            vp, vp, vp, vp, vp,               # p_used, p_off, p0, dense, dq_idx
-            vp, vp, c_ll,                     # se, shift, wire rows
-            vp, c_int, vp, c_int,             # dq, dq rows, row_a, dcap
-            vp, c_int, c_int, vp]             # out, n, out_rows, stream
-        lib.bt_decode_flat_init.restype = c_int
-        lib.bt_decode_flat_init.argtypes = []
-        lib.bt_decode_flat_error.restype = ctypes.c_char_p
-        lib.bt_decode_flat_error.argtypes = [c_int]
-        _kernel_lib = lib
-    return _kernel_lib
-
-
-def _cuda_check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        raise StatusError(Status.IOError(
-            f"decode_flat {what} failed: CUDA error {rc} "
-            f"({lib.bt_decode_flat_error(rc).decode()})"))
+    """Build (at first use, for sm_90a) and load ``csrc/decode_flat.cu``."""
+    return load_cuda_kernel("decode_flat", _bind)
 
 
 def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
                    out_rows: int) -> torch.Tensor:
     global launches
-    _invalid(out_rows <= DECODE_FLAT_MAX_ROWS,
-             f"decode_flat kernel holds at most {DECODE_FLAT_MAX_ROWS} rows "
-             f"per block, got {out_rows}")
+    require(out_rows <= DECODE_FLAT_MAX_ROWS,
+            f"decode_flat kernel holds at most {DECODE_FLAT_MAX_ROWS} rows "
+            f"per block, got {out_rows}")
     n = comp.shape[0]
     for k in ("p_used", "p_off", "p0", "dense", "dq_idx"):
         t = pt[k]
-        _invalid(t.device == comp.device and t.dtype == torch.int32
-                 and t.is_contiguous() and t.shape == (n,),
-                 f"plan {k}: want contiguous int32 [{n}] on {comp.device}")
+        require(t.device == comp.device and t.dtype == torch.int32
+                and t.is_contiguous() and t.shape == (n,),
+                f"plan {k}: want contiguous int32 [{n}] on {comp.device}")
     for k, dt in (("se", torch.int16), ("shift", torch.int32),
                   ("dq", torch.int16), ("row_a", torch.int32)):
         t = pt[k]
-        _invalid(t.device == comp.device and t.dtype == dt and t.is_contiguous(),
-                 f"plan {k}: want contiguous {dt} on {comp.device}")
+        require(t.device == comp.device and t.dtype == dt and t.is_contiguous(),
+                f"plan {k}: want contiguous {dt} on {comp.device}")
     tiles = out_rows // LANES
     s_rows = pt["se"].numel() // out_rows
-    _invalid(pt["se"].shape[1:] == (tiles, LANES)
-             and pt["shift"].shape == pt["se"].shape,
-             f"se/shift: want [S, {tiles}, 128], got {tuple(pt['se'].shape)}")
+    require(pt["se"].shape[1:] == (tiles, LANES)
+            and pt["shift"].shape == pt["se"].shape,
+            f"se/shift: want [S, {tiles}, 128], got {tuple(pt['se'].shape)}")
     dq_rows = pt["dq"].shape[0]
-    _invalid(pt["dq"].shape == (dq_rows, out_rows, LANES),
-             f"dq: want [m, {out_rows}, 128], got {tuple(pt['dq'].shape)}")
+    require(pt["dq"].shape == (dq_rows, out_rows, LANES),
+            f"dq: want [m, {out_rows}, 128], got {tuple(pt['dq'].shape)}")
     ra = pt["row_a"]
-    _invalid(ra.ndim == 4 and ra.shape[0] == dq_rows
-             and ra.shape[2:] == (LANES, tiles),
-             f"row_a: want [{dq_rows}, dcap, 128, {tiles}], got {tuple(ra.shape)}")
+    require(ra.ndim == 4 and ra.shape[0] == dq_rows
+            and ra.shape[2:] == (LANES, tiles),
+            f"row_a: want [{dq_rows}, dcap, 128, {tiles}], got {tuple(ra.shape)}")
     out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=comp.device)
     if n == 0:
         return out
     lib = load_kernel()
     with torch.cuda.device(comp.device):      # launch on the tensors' device
-        dev = torch.cuda.current_device()
-        if dev not in _smem_ready:
-            _cuda_check(lib, lib.bt_decode_flat_init(), "shared-memory opt-in")
-            _smem_ready.add(dev)
         stream = torch.cuda.current_stream(comp.device).cuda_stream
         rc = lib.bt_decode_flat_launch(
             comp.data_ptr(), comp.stride(0), comp.shape[1], comp_rows,
@@ -398,7 +352,7 @@ def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
             pt["se"].data_ptr(), pt["shift"].data_ptr(), s_rows,
             pt["dq"].data_ptr(), dq_rows, ra.data_ptr(), ra.shape[1],
             out.data_ptr(), n, out_rows, stream)
-    _cuda_check(lib, rc, "launch")
+    check_cuda(rc, "decode_flat launch", lib)
     launches += 1
     return out
 
@@ -412,12 +366,12 @@ def decode_blocks_flat(comp: torch.Tensor, plans: dict, *, comp_rows: int,
     device.  Returns [N, out_rows, 128] uint8 decoded planes.  A CPU
     ``comp`` runs :func:`decode_flat_reference`; a CUDA one launches the
     kernel or raises StatusError."""
-    _invalid(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
-             f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
-    _invalid(out_rows % LANES == 0 and comp_rows % LANES == 0,
-             "comp_rows and out_rows must be multiples of 128")
+    require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
+            f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
+    require(out_rows % LANES == 0 and comp_rows % LANES == 0,
+            "comp_rows and out_rows must be multiples of 128")
     if comp.device.type == "cpu":
         return decode_flat_reference(comp, plans, comp_rows, out_rows)
-    _invalid(comp.device.type == "cuda",
-             f"decode_blocks_flat: no kernel for device {comp.device}")
+    require(comp.device.type == "cuda",
+            f"decode_blocks_flat: no kernel for device {comp.device}")
     return _launch_kernel(comp, plans, comp_rows, out_rows)

@@ -1,0 +1,345 @@
+"""Per-block dynamic-offset matching: offset detectors, B5 and B4.
+
+Counterpart of ``bitar_tpu/ops/pallas/lz4_match_dyn.py``.
+
+* ``detect_offsets`` / ``detect_offsets_fft``: each block's candidate match
+  offsets, from a sampled 4-byte sort (delta histogram, halving-refined) or
+  from the FFT autocorrelation.  XLA in the reference, plain torch ops here.
+* ``find_matches_parse_dyn``: scores every offset at every position and
+  runs the greedy per-segment parse (kernel B5, ``csrc/match_walk.cu``).
+* ``find_matches_dyn``: the same scoring, returning the per-position best
+  run and offset planes (kernel B4, ``csrc/match_dyn.cu``).
+
+Scoring, per block and per offset ``d`` in ``offs[b, :noff[b]]`` in order:
+``run[p]`` is the number of consecutive positions ``p' >= p`` with
+``x[p'] == x[p' - d]`` and ``p' >= d``, capped at ``max_match``; a position
+keeps the first offset whose run is strictly the longest.  The reference
+computes runs by log-doubling over a cyclic plane (``run[(p + s) mod L]``);
+the plain versions here repeat that.  For ``d >= 1`` position 0 never
+matches, so a run that reaches the plane end stops there and the cyclic
+and the linear run agree: the kernels count linear runs.
+
+The reference derives B5's source segment as ``(g - q) & (G - 1)``, which is
+``mod G`` only for a power-of-two segment count ``G``; at other counts it
+compares against the wrong segment (ROADMAP Queue C).  The port uses the
+true source position ``p - d`` everywhere, which equals the reference
+whenever ``G`` is a power of two.
+
+Each wrapper runs its plain version for CPU tensors and launches its kernel
+for CUDA tensors, or raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import check_cuda, load_cuda_kernel, require
+
+LANES = 128
+#: offset slots per block of the sampled detector; unused slots carry 0
+DEFAULT_K = 4
+#: sampling stride of the detector (a multiple of 64 dividing the plane)
+DEFAULT_STRIDE = 64
+
+#: Kernel launches made by ``find_matches_parse_dyn`` (B5) and
+#: ``find_matches_dyn`` (B4) on CUDA tensors, one per call.  Reset to 0
+#: before a run whose kernel use is to be shown.
+walk_launches = 0
+dyn_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Offset detectors (torch ops)
+
+
+def _hash32(v: torch.Tensor) -> torch.Tensor:
+    """``v * 2654435761 mod 2**32`` for int64 ``v < 2**32``, without an int64
+    overflow: the multiplier's high half only contributes its product's low
+    16 bits."""
+    c_lo, c_hi = 2654435761 & 0xFFFF, 2654435761 >> 16
+    return (v * c_lo + (((v * c_hi) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+
+def _topk_lowest_index(score: torch.Tensor, k: int):
+    """Top ``k`` of each row, ties lowest index first (``lax.top_k``'s order)."""
+    _, order = torch.sort(score, dim=1, descending=True, stable=True)
+    ti = order[:, :k]
+    return score.gather(1, ti), ti
+
+
+def detect_offsets(planes: torch.Tensor, *, k: int = DEFAULT_K,
+                   stride: int = DEFAULT_STRIDE, max_off: int = 0xFFFF,
+                   min_hits: int = 4):
+    """Top-k repeated-content offsets per block from strided samples.
+
+    ``planes``: [N, L] uint8.  Returns (offs [N, k] int32, cnt [N, k] int32):
+    offsets (0 = empty slot) most frequent first, each seen at least
+    ``min_hits`` times among sample neighbours, in [1, max_off], each
+    halving-refined toward the true period."""
+    if stride % 64:
+        raise ValueError("detector stride must be a multiple of 64")
+    n, L = planes.shape
+    s = L // stride
+    if s > 2048:
+        raise ValueError("sample index must fit 11 bits")
+    dev = planes.device
+    ps = planes.reshape(n, s, stride)[:, :, :4].long()
+    v = ps[:, :, 0] | (ps[:, :, 1] << 8) | (ps[:, :, 2] << 16) | (ps[:, :, 3] << 24)
+    # One sort of hash(21 bits) | sample index(11 bits).
+    key = (_hash32(v) & 0xFFFFF800) | torch.arange(s, device=dev)
+    sk = torch.sort(key, dim=1).values
+    sp = sk & 0x7FF
+    hv = sk >> 11
+    false = torch.zeros((n, 1), dtype=torch.bool, device=dev)
+    same = torch.cat([false, hv[:, 1:] == hv[:, :-1]], dim=1)
+    prev = torch.cat([torch.zeros_like(sp[:, :1]), sp[:, :-1]], dim=1)
+    delta = (sp - prev) * stride
+    ok = same & (delta > 0) & (delta <= max_off)
+    delta = torch.where(ok, delta, 0)
+    # Frequency of each distinct delta from run boundaries of the sorted row.
+    ds = torch.sort(delta, dim=1).values
+    i = torch.arange(s, device=dev)
+    diff = ds[:, 1:] != ds[:, :-1]
+    new_run = torch.cat([~false, diff], dim=1)
+    rstart = torch.cummax(torch.where(new_run, i, 0), dim=1).values
+    run_len = i - rstart + 1
+    last = torch.cat([diff, ~false], dim=1)
+    score = torch.where(last & (ds > 0) & (run_len >= min_hits), run_len, 0)
+    top, ti = _topk_lowest_index(score, k)
+    offs = torch.where(top > 0, ds.gather(1, ti), 0)
+
+    # Halving refinement: an exact 4-byte equality test at 8 positions of
+    # the block's last 4 KiB for each of 8 halvings of every candidate.
+    s2, halvings = 8, 8
+    win = min(L, 4096)
+    wb = planes[:, L - win:].long()
+    w32 = (wb[:, 0:win - 3] | (wb[:, 1:win - 2] << 8)
+           | (wb[:, 2:win - 1] << 16) | (wb[:, 3:win] << 24))
+    step2 = max(1, (win - 8) // (2 * s2))
+    p_i = win - 8 - torch.arange(s2, device=dev) * step2                 # [S2]
+    cand = torch.clamp(offs[:, :, None] >> torch.arange(halvings, device=dev), min=1)
+    src = p_i - cand[:, :, :, None]                                      # [N,K,H,S2]
+    gat = w32.gather(1, src.clamp(0, win - 4).reshape(n, -1)).reshape(n, k, halvings, s2)
+    base = w32[:, p_i]
+    valid = ((gat == base[:, None, None, :]) & (src >= 0)).all(dim=3)
+    valid = valid & (cand >= 1) & (offs[:, :, None] > 0)
+    best = torch.where(valid, cand, 1 << 30).min(dim=2).values
+    offs = torch.where(offs > 0, torch.minimum(best, offs), 0)
+    return offs.int(), top.int()
+
+
+def detect_offsets_fft(planes: torch.Tensor, *, k: int = 2, max_off: int = 0xFFFF):
+    """Top-k match offsets by FFT autocorrelation, in float32.
+
+    Returns (offs [N, k] int32 in [8, max_off], 0 where the peak is not
+    positive; the peak scores [N, k] float32)."""
+    n, L = planes.shape
+    x = planes.float()
+    x = x - x.mean(dim=1, keepdim=True)
+    f = torch.fft.rfft(x, dim=1)
+    ac = torch.fft.irfft(f * f.conj(), n=L, dim=1)
+    ac[:, :8] = float("-inf")
+    top, ti = _topk_lowest_index(ac[:, :min(max_off, L - 1) + 1], k)
+    return torch.where(top > 0, ti, 0).int(), top
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch scoring and walk
+
+
+def _score_reference(x: torch.Tensor, noff: torch.Tensor, offs: torch.Tensor,
+                     max_match: int):
+    """(best run, its offset), both [N, L] int32, by the reference's cyclic
+    log-doubling."""
+    n, L = x.shape
+    dev = x.device
+    xi = x.int()
+    p = torch.arange(L, device=dev)
+    run_best = torch.zeros((n, L), dtype=torch.int32, device=dev)
+    off_best = torch.zeros_like(run_best)
+    noff = noff.long()
+    for k in range(offs.shape[1]):
+        live = k < noff
+        if not bool(live.any()):
+            continue
+        d = offs[:, k].long()[:, None]
+        shifted = xi.gather(1, torch.remainder(p - d, L))
+        run = ((xi == shifted) & (p >= d)).int()
+        step = 1
+        while step < max_match:
+            run = torch.where(run == step, run + torch.roll(run, -step, dims=1), run)
+            step *= 2
+        run = run.clamp(max=max_match)
+        better = live[:, None] & (run > run_best)
+        run_best = torch.where(better, run, run_best)
+        off_best = torch.where(better, d.int(), off_best)
+    return run_best, off_best
+
+
+def match_walk_reference(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Tensor,
+                         lengths: torch.Tensor, *, seg: int, min_match: int,
+                         wcap: int, max_match: int) -> torch.Tensor:
+    """Plain version of B5: ``rec [N, 3*wcap + 1, nseg]`` int32, rows [0, W)
+    match positions (-1 empty), [W, 2W) truncated lengths, [2W, 3W)
+    offsets, row 3W the segment's overflow flag."""
+    n, L = comp.shape
+    G = L // seg
+    dev = comp.device
+    run, off = _score_reference(comp, noff, offs, max_match)
+    run3, off3 = run.view(n, G, seg), off.view(n, G, seg)
+    brow = torch.arange(seg, device=dev).view(1, 1, seg)
+    g = torch.arange(G, device=dev).view(1, G, 1)
+    blen = lengths.long().view(n, 1, 1)
+    lim = torch.clamp(blen - 5 - g * seg, max=seg)
+    m_t = torch.minimum(run3.long(), lim - brow)
+    valid = (m_t >= min_match) & (g * seg + brow < blen - 12) & (off3 >= 1)
+    inf = 2 * seg
+    cand_base = torch.where(valid, brow, inf)
+    pos = torch.zeros((n, G, 1), dtype=torch.long, device=dev)
+    rec = torch.empty((n, 3 * wcap + 1, G), dtype=torch.int32, device=dev)
+    for t in range(wcap):
+        nxt = torch.where(brow >= pos, cand_base, inf).min(dim=2, keepdim=True).values
+        took = nxt < seg
+        idx = nxt.clamp(max=seg - 1)
+        m_at = m_t.gather(2, idx)
+        o_at = off3.gather(2, idx).long()
+        rec[:, t] = torch.where(took, nxt + g * seg, -1)[:, :, 0]
+        rec[:, wcap + t] = torch.where(took, m_at, 0)[:, :, 0]
+        rec[:, 2 * wcap + t] = torch.where(took, o_at, 0)[:, :, 0]
+        pos = torch.where(took, nxt + m_at, seg)
+    left = torch.where(brow >= pos, cand_base, inf).min(dim=2).values
+    rec[:, 3 * wcap] = (left < seg).int()
+    return rec
+
+
+def match_dyn_reference(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Tensor,
+                        *, max_match: int):
+    """Plain version of B4: (mlen, moff), each [N, L] int32."""
+    return _score_reference(comp, noff, offs, max_match)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels
+
+
+_vp, _int = ctypes.c_void_p, ctypes.c_int
+_WALK_ARGS = [_vp, _vp, _vp, _int, _vp, _vp,   # planes, noff, offs, K, lengths, rec
+              _int, _int, _int,                # n, L, seg
+              _int, _int, _int, _vp]           # min_match, wcap, max_match, stream
+_DYN_ARGS = [_vp, _vp, _vp, _int, _vp, _vp,    # planes, noff, offs, K, mlen, moff
+             _int, _int, _int, _vp]            # n, L, max_match, stream
+
+
+def _load(stem: str, argtypes: list) -> ctypes.CDLL:
+    def bind(lib: ctypes.CDLL) -> None:
+        fn = getattr(lib, f"bt_{stem}_launch")
+        fn.restype = _int
+        fn.argtypes = argtypes
+    return load_cuda_kernel(stem, bind, ("match_score.cuh",))
+
+
+def load_walk_kernel() -> ctypes.CDLL:
+    """Build (at first use, for sm_90a) and load ``csrc/match_walk.cu``."""
+    return _load("match_walk", _WALK_ARGS)
+
+
+def load_dyn_kernel() -> ctypes.CDLL:
+    """Build (at first use, for sm_90a) and load ``csrc/match_dyn.cu``."""
+    return _load("match_dyn", _DYN_ARGS)
+
+
+def _check_inputs(comp, noff, offs, lengths=None) -> None:
+    n = comp.shape[0]
+    require(comp.dtype == torch.uint8 and comp.is_contiguous(),
+            f"planes: want contiguous uint8, got {comp.dtype}")
+    named = [("noff", noff, (n,)), ("offs", offs, (n, offs.shape[-1]))]
+    if lengths is not None:
+        named.append(("lengths", lengths, (n,)))
+    for name, t, shape in named:
+        require(t.device == comp.device and t.dtype == torch.int32
+                and t.is_contiguous() and tuple(t.shape) == shape,
+                f"{name}: want contiguous int32 {list(shape)} on {comp.device}, "
+                f"got {t.dtype} {list(t.shape)} on {t.device}")
+
+
+def _as_planes(comp: torch.Tensor, nrows: int) -> torch.Tensor:
+    n = comp.shape[0]
+    require(comp.numel() == n * nrows * LANES,
+            f"planes: want [N, {nrows}, 128] bytes, got {list(comp.shape)}")
+    return comp.reshape(n, nrows * LANES)
+
+
+def find_matches_parse_dyn(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Tensor,
+                           lengths: torch.Tensor, *, nrows: int, seg: int,
+                           min_match: int, wcap: int = 8, max_match: int = 1024):
+    """Fused dynamic-offset match + greedy segment parse (B5).
+
+    ``comp``: [N, nrows, 128] uint8 raw planes; ``noff`` [N], ``offs``
+    [N, K] and ``lengths`` [N] int32.  Returns (P, M, O [N, nseg * wcap]
+    int32 in position order, P = -1 for an empty slot; overflow [N] bool).
+    Requires seg % 128 == 0, nseg <= 128 and max_match <= seg."""
+    global walk_launches
+    L = nrows * LANES
+    if seg % LANES or L % seg:
+        raise ValueError("seg must be lane-aligned and divide the plane")
+    nseg = L // seg
+    if nseg > 128:
+        raise ValueError("find_matches_parse_dyn: nseg must fit one lane tile")
+    if max_match > seg:
+        raise ValueError("max_match must be <= seg (segment truncation)")
+    x = _as_planes(comp, nrows)
+    n = x.shape[0]
+    if x.device.type == "cpu":
+        rec = match_walk_reference(x, noff, offs, lengths, seg=seg, min_match=min_match,
+                                   wcap=wcap, max_match=max_match)
+    else:
+        require(x.device.type == "cuda",
+                f"find_matches_parse_dyn: no kernel for device {x.device}")
+        _check_inputs(x, noff, offs, lengths)
+        rec = torch.empty((n, 3 * wcap + 1, nseg), dtype=torch.int32, device=x.device)
+        if n:
+            lib = load_walk_kernel()
+            with torch.cuda.device(x.device):
+                rc = lib.bt_match_walk_launch(
+                    x.data_ptr(), noff.data_ptr(), offs.data_ptr(), offs.shape[1],
+                    lengths.data_ptr(), rec.data_ptr(), n, L, seg, min_match, wcap,
+                    max_match, torch.cuda.current_stream(x.device).cuda_stream)
+            check_cuda(rc, "match_walk launch", lib)
+            walk_launches += 1
+    P = rec[:, :wcap, :].transpose(1, 2).reshape(n, nseg * wcap)
+    M = rec[:, wcap:2 * wcap, :].transpose(1, 2).reshape(n, nseg * wcap)
+    O = rec[:, 2 * wcap:3 * wcap, :].transpose(1, 2).reshape(n, nseg * wcap)
+    overflow = (rec[:, 3 * wcap, :] != 0).any(dim=1)
+    return P, M, O, overflow
+
+
+def find_matches_dyn(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Tensor, *,
+                     nrows: int, max_match: int = 512):
+    """Per-block dynamic-offset scoring (B4).
+
+    Returns (mlen, moff), each [N, nrows, 128] int32: the best run at each
+    position capped at ``max_match`` (every prefix byte-true) and its
+    offset."""
+    global dyn_launches
+    x = _as_planes(comp, nrows)
+    n, L = x.shape
+    if x.device.type == "cpu":
+        mlen, moff = match_dyn_reference(x, noff, offs, max_match=max_match)
+    else:
+        require(x.device.type == "cuda", f"find_matches_dyn: no kernel for device {x.device}")
+        require(1 <= max_match <= 2047, f"max_match {max_match} outside [1, 2047]")
+        _check_inputs(x, noff, offs)
+        mlen = torch.empty((n, L), dtype=torch.int32, device=x.device)
+        moff = torch.empty_like(mlen)
+        if n:
+            lib = load_dyn_kernel()
+            with torch.cuda.device(x.device):
+                rc = lib.bt_match_dyn_launch(
+                    x.data_ptr(), noff.data_ptr(), offs.data_ptr(), offs.shape[1],
+                    mlen.data_ptr(), moff.data_ptr(), n, L, max_match,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+            check_cuda(rc, "match_dyn launch", lib)
+            dyn_launches += 1
+    return mlen.reshape(n, nrows, LANES), moff.reshape(n, nrows, LANES)

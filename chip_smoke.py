@@ -6,35 +6,54 @@ that the port still starts on the card.
 Phases (any failure raises, and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the host codec library (g++) and the decode kernel (nvcc, sm_90a)
-   from the sources in the checkout, timed;
-3. kernel against its plain PyTorch version on the card, byte for byte, on
-   the plans of the bench corpus (1024 x 128 KiB), of the markdown text
-   corpus (256 x 128 KiB, the deepest out-pass schedules) and of a
-   RAW-heavy batch;
-4. the main path, LZ4 then Snappy, at the bench's size:
-   ``Engine(EngineConfig(block_size=128 KiB, burst_size=1024,
-   max_pool_slots=1056, commit="deferred"), device="cuda")`` ->
-   ``compress`` -> ``ensure_plans`` -> ``decompress`` (bit-exact, no block
-   decoded on the host) -> ``prepare_device_decode`` (same bytes) ->
-   ``recycle``, with the kernel's launch count reset before and read after;
-5. decode time with CUDA events, kernel and plain version in turns (plain,
-   kernel, kernel, plain), at the bench shape and on the text corpus;
-6. only with ``--profile``: where the time of the main path goes, for one
-   warm LZ4 unit (a second unit on the same engine): each step on the host
-   clock with a device sync after it, ``torch.profiler`` over its first
-   ``decompress`` (``profile:`` lines, one per operator, by device time),
-   and a second ``decompress`` unprofiled.
+2. build the host codec library (g++) and the four CUDA kernels (nvcc,
+   sm_90a, one process per source, all started together), timed;
+3. every kernel against its plain PyTorch version on the card, byte for
+   byte, at the shapes its path gives it:
+   - ``decode_flat`` (B1) on the plans of the bench corpus (1024 x 128 KiB),
+     of the markdown text corpus (256 x 128 KiB) and of a RAW-heavy batch;
+   - ``match_walk`` (B5) on 256 x 128 KiB of the bench corpus, seg 1024;
+   - ``match_dyn`` (B4) on 64 x 128 KiB of it with the offsets that
+     ``compress_blocks_device(seg=256)`` detects;
+   - both on inputs where the choice between offsets matters: 64 x 128 KiB
+     of the text corpus with the offsets of ``detect_fft=True, fft_k=6``,
+     and a batch with hand-set offsets (ties, duplicates, a 0 inside the
+     first ``noff``, ``noff = 0``, runs that reach the plane end);
+   - ``emit`` at widths 128, 2048 and the adaptive one: LZ4 on the bench
+     corpus, on the text corpus with ``detect_fft=True`` and on short RLE
+     blocks that fit 128 bytes, and Snappy at 8192;
+4. the main paths, each with every kernel's launch count set to 0 just
+   before it and read just after:
+   - host compress -> decode, LZ4 then Snappy, at the bench's size:
+     ``Engine(EngineConfig(block_size=128 KiB, burst_size=1024,
+     max_pool_slots=1056, commit="deferred"))`` -> ``compress`` ->
+     ``ensure_plans`` -> ``decompress`` (bit-exact, no block decoded on the
+     host) -> ``prepare_device_decode`` (same bytes) -> ``recycle``;
+   - device compress: the same engine with ``compress_matcher="device"``
+     (commit eager): ``compress`` of the bench corpus (B5 + emitter) ->
+     ``decompress`` (B1, bit-exact) -> ``recycle``;
+   - ``compress_blocks_device(seg=256)`` on 64 x 128 KiB (B4 + emitter),
+     every compressed row decoded by the host codec, bit-exact;
+5. times with CUDA events, kernel and plain version in turns (plain, kernel,
+   kernel, plain): B1 at the bench shape and on the text corpus; B5, B4 and
+   the emitter at the shapes of phase 3; the whole
+   ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
+6. only with ``--profile``: where the time of each engine main path (host
+   compress, device compress) goes, for one warm LZ4 unit: host-clock
+   phases and the ``torch.profiler`` rows with the most device time.
 
-The line before the last is one JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
-prints no result and exits 1.  It imports nothing of JAX.
+The line before the last is one JSON object describing each kernel (its
+times, launches on the main paths and the least time the card could take
+for its work); the last line is ``{"ok": true, "device": {...}}``.  Without
+CUDA the script prints no result and exits 1.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
+import math
 import subprocess
 import sys
 import time
@@ -46,7 +65,13 @@ BLOCK = 128 * 1024
 NBLOCKS = 1024
 TEXT_BLOCKS = 256
 RAW_BLOCKS = 256
+MATCH_BLOCKS = 256            # B5 / emitter / whole-pipeline batch (the bench's)
+DYN_BLOCKS = 64               # B4 batch (seg 256)
+FFT_TEXT_BLOCKS = 64          # text batch of the B5 / B4 / emitter checks
+SHORT_BLOCKS = 32             # short RLE blocks of the width-128 emitter check
 TIMED_REPS = (3, 20)          # (plain, kernel) launches per timed turn
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
+INT32_OPS_PER_S = 33.5e12     # 132 SMs x 128 lanes x 1.98 GHz, one op per lane per cycle
 
 
 def log(msg: str) -> None:
@@ -59,10 +84,38 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def engine(btt, codec):
+def engine(btt, codec, **kw):
+    kw.setdefault("commit", "deferred")
     cfg = btt.EngineConfig(codec=codec, block_size=BLOCK, burst_size=NBLOCKS,
-                           max_pool_slots=NBLOCKS + 32, commit="deferred")
+                           max_pool_slots=NBLOCKS + 32, **kw)
     return btt.Engine(cfg, device="cuda").initialize()
+
+
+def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+    """Least time for ``nbytes`` of device traffic and ``ops`` int32 ops."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
+
+
+def turns(timing, kernel, plain):
+    """Plain, kernel, kernel, plain: mean ms per call of each, and the turns."""
+    plain_reps, kernel_reps = TIMED_REPS
+    ms = {"plain": [], "kernel": []}
+    for name, fn, reps in (("plain", plain, plain_reps), ("kernel", kernel, kernel_reps),
+                           ("kernel", kernel, kernel_reps), ("plain", plain, plain_reps)):
+        ms[name].append(timing.device_time_ms(fn, reps))
+    return {k: sum(v) / len(v) for k, v in ms.items()}, ms
+
+
+def report(label, card, res, ms, raw_bytes):
+    for k in ("kernel", "plain"):
+        log(f"{label} [{card}] {k}: {res[k]:.4f} ms/launch "
+            f"(turns {', '.join(f'{x:.4f}' for x in ms[k])}), "
+            f"{raw_bytes / res[k] / 1e6:.3f} GB/s of raw bytes")
+
+
+# ---------------------------------------------------------------------------
+# B1: flat-plan decode
 
 
 def planned_batch(btt, data: bytes):
@@ -73,30 +126,43 @@ def planned_batch(btt, data: bytes):
     eng.ensure_plans(unit)
     pf = unit.plan_flat
     rows = eng.arena.gather_burst([r.slot for r in unit.refs])
+    comp_bytes = int(unit.manifest.comp_len.sum())
     stats = (f"blocks={unit.nblocks} ratio={unit.manifest.ratio():.3f} "
              f"passes={int(pf['p_used'].sum())} "
              f"dense_passes={int(np.maximum(pf['dense'], 0).sum())} "
              f"raw_blocks={int((pf['dense'] < 0).sum())} "
              f"host_blocks={pf['host_blocks'].size}")
-    batch = (rows, unit.plan_device_arrays(), unit.plan_comp_rows, stats)
+    batch = (rows, unit.plan_device_arrays(), unit.plan_comp_rows, comp_bytes, stats)
     eng.recycle(unit)
     eng.release()
     return batch
 
 
-def compare(df, rows, pt, comp_rows) -> int:
+def compare_decode(df, rows, pt, comp_rows) -> int:
     """Kernel vs plain version on the same inputs; returns max |diff|."""
     got = df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=BLOCK // 128)
     torch.cuda.synchronize()
     want = df.decode_flat_reference(rows, pt, comp_rows, BLOCK // 128)
-    err = int((got.int() - want.int()).abs().max())
+    return check_equal("decode_flat", got, want)
+
+
+def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
     if err != 0 or not torch.equal(got, want):
         bad = int((got != want).reshape(got.shape[0], -1).any(1).sum())
-        raise AssertionError(f"kernel != plain version on {bad} blocks (max |diff| {err})")
+        raise AssertionError(f"{name}: kernel != plain version on {bad} rows "
+                             f"(max |diff| {err})")
     return err
 
 
-def main_path(btt, df, codec, data: bytes) -> None:
+def decode_bound(rows, pt, comp_bytes) -> tuple[float, str]:
+    """The stored bytes of every block read, its plane written, the plan
+    wire read."""
+    wire = sum(t.numel() * t.element_size() for t in pt.values())
+    return bound_ms(comp_bytes + rows.shape[0] * BLOCK + wire)
+
+
+def host_path(btt, codec, data: bytes) -> None:
     eng = engine(btt, codec)
     t0 = time.perf_counter()
     unit = eng.compress(data)
@@ -118,150 +184,507 @@ def main_path(btt, df, codec, data: bytes) -> None:
     eng.release()
     if n != unit.nblocks:
         raise AssertionError(f"{codec.value}: recycled {n} of {unit.nblocks} slots")
-    log(f"main path {codec.value}: {unit.nblocks} x {BLOCK} B bit-exact, "
+    log(f"main path host compress {codec.value}: {unit.nblocks} x {BLOCK} B bit-exact, "
         f"ratio {unit.manifest.ratio():.3f}, host-decoded blocks 0; "
         f"host clock: compress {1e3 * (t1 - t0):.1f} ms, plan join "
         f"{1e3 * (t2 - t1):.1f} ms, decompress incl. readback "
         f"{1e3 * (t3 - t2):.1f} ms")
 
 
-def timed(timing, df, rows, pt, comp_rows, card: str, label: str):
-    """Plain, kernel, kernel, plain: mean ms per launch of each."""
-    nrows = BLOCK // 128
-
-    def kernel():
-        df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nrows)
-
-    def plain():
-        df.decode_flat_reference(rows, pt, comp_rows, nrows)
-
-    plain_reps, kernel_reps = TIMED_REPS
-    turns = [("plain", plain, plain_reps), ("kernel", kernel, kernel_reps),
-             ("kernel", kernel, kernel_reps), ("plain", plain, plain_reps)]
-    ms = {"plain": [], "kernel": []}
-    for name, fn, reps in turns:
-        ms[name].append(timing.device_time_ms(fn, reps))
-    raw = rows.shape[0] * BLOCK
-    res = {k: sum(v) / len(v) for k, v in ms.items()}
-    for k in ("kernel", "plain"):
-        log(f"decode {label} [{card}] {k}: {res[k]:.4f} ms/launch "
-            f"(turns {', '.join(f'{x:.4f}' for x in ms[k])}), "
-            f"{raw / res[k] / 1e6:.3f} GB/s of raw bytes")
-    return res["kernel"], res["plain"]
-
-
-def profile_main_path(btt, data: bytes, card: str, top: int = 12) -> None:
-    """Phase breakdown of one warm LZ4 unit through the main path."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities):
-        torch.ones(1, device="cuda").add_(1)     # pays the tracer's start-up here
-    eng = engine(btt, btt.Codec.LZ4)
-    warm = eng.compress(data)
-    eng.decompress(warm)
-    eng.recycle(warm)
-    clock = [("start", time.perf_counter())]
-
-    def mark(phase: str) -> None:
-        torch.cuda.synchronize()
-        clock.append((phase, time.perf_counter()))
-
+def device_path(btt, data: bytes) -> None:
+    """The device-compress main path: compress on the card, decode on it."""
+    eng = engine(btt, btt.Codec.LZ4, commit="eager", compress_matcher="device")
+    t0 = time.perf_counter()
     unit = eng.compress(data)
-    mark("compress (host matcher; plan build queued)")
-    eng._ensure_committed(unit)       # the upload ensure_plans would start
-    mark("commit upload (H2D + index_copy_)")
-    eng.ensure_plans(unit)
-    mark("plan join")
-    with torch.profiler.profile(activities=activities) as prof:
-        eng.decompress(unit)
-        torch.cuda.synchronize()
-    mark("first decompress, under torch.profiler (plan upload, readback)")
-    eng.decompress(unit)
-    mark("second decompress (plan already on the card; readback)")
-    eng.recycle(unit)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = eng.decompress(unit)
+    t2 = time.perf_counter()
+    if out.tobytes() != data:
+        raise AssertionError("device compress: round trip not bit-exact")
+    if unit.plan_flat["host_blocks"].size:
+        raise AssertionError("device compress: blocks decoded on the host")
+    m = unit.manifest
+    raw_blocks = int((m.codec_ids == btt.manifest.codec_id(btt.Codec.RAW)).sum())
+    n = eng.recycle(unit)
     eng.release()
-    for (_, t0), (phase, t1) in zip(clock, clock[1:]):
-        log(f"profile phase [{card}] {phase}: {1e3 * (t1 - t0):.3f} ms")
+    if n != unit.nblocks:
+        raise AssertionError(f"device compress: recycled {n} of {unit.nblocks} slots")
+    log(f"main path device compress lz4: {unit.nblocks} x {BLOCK} B bit-exact, "
+        f"ratio {m.ratio():.3f}, RAW blocks {raw_blocks}; host clock: compress "
+        f"{1e3 * (t1 - t0):.1f} ms, decompress (plan build, decode, readback) "
+        f"{1e3 * (t2 - t1):.1f} ms")
 
-    def device_us(e) -> float:
-        t = getattr(e, "device_time_total", None)     # cuda_time_total before torch 2.4
-        return float(t if t is not None else e.cuda_time_total)
 
-    events = sorted(prof.key_averages(), key=device_us, reverse=True)
-    for e in events[:top]:
-        log(f"profile: {e.key} | calls {e.count} | device {device_us(e) / 1e3:.3f} ms "
-            f"| host {e.cpu_time_total / 1e3:.3f} ms")
+# ---------------------------------------------------------------------------
+# B5, B4 and the emitter
+
+
+def planes_of(data: bytes, n: int) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(data[:n * BLOCK], np.uint8).reshape(n, BLOCK)
+                            .copy()).cuda()
+
+
+def detected(md, planes):
+    """(noff, offs, lengths) that the pipeline's detector stage gives
+    ``planes`` (full-length blocks)."""
+    n = planes.shape[0]
+    lens = torch.full((n,), BLOCK, dtype=torch.int32, device=planes.device)
+    offs, _ = md.detect_offsets(planes, k=4, max_off=min(0xFFFF, BLOCK - 128))
+    offs = offs.contiguous()
+    return (offs > 0).sum(dim=1).int(), offs, lens
+
+
+def split_rec(rec: torch.Tensor, wcap: int = 8):
+    """B5's record tensor -> (P, M, O, overflow), as its wrapper slices it."""
+    n = rec.shape[0]
+    return (*(rec[:, i * wcap:(i + 1) * wcap].transpose(1, 2).reshape(n, -1)
+              for i in range(3)), (rec[:, 3 * wcap] != 0).any(dim=1))
+
+
+def check_host_decode(native_reg, out: torch.Tensor, sizes: torch.Tensor,
+                      planes: torch.Tensor, lengths: torch.Tensor, codec) -> int:
+    """Decode every compressed row (size below its length and within the
+    width) with the host codec; returns the count."""
+    out_np, sz = out.cpu().numpy(), sizes.cpu().numpy()
+    raw, lens = planes.cpu().numpy(), lengths.cpu().numpy()
+    n, w = out_np.shape
+    good = np.flatnonzero((sz < lens) & (sz <= w))
+    dst = np.zeros(good.size * BLOCK, np.uint8)
+    dl, st = native_reg.host_decompress_batch(
+        codec, np.ascontiguousarray(out_np[good]).reshape(-1),
+        np.arange(good.size, dtype=np.int64) * w, sz[good].astype(np.int32), dst,
+        np.arange(good.size, dtype=np.int64) * BLOCK, lens[good].astype(np.int32))
+    if (st != 0).any() or (dl != lens[good]).any() or any(
+            dst[i * BLOCK:i * BLOCK + lens[b]].tobytes() != raw[b, :lens[b]].tobytes()
+            for i, b in enumerate(good)):
+        raise AssertionError(f"{codec.value}: emitted rows do not decode to their blocks")
+    return int(good.size)
+
+
+def hand_batch():
+    """Blocks with hand-set offsets where the choice between offsets
+    matters: equal runs of several offsets (the first strictly longest
+    wins), duplicates, a 0 inside the first ``noff``, ``noff = 0``, runs that
+    reach the plane end, two tail lengths.  (planes, noff, offs, lengths)."""
+    rng = np.random.default_rng(11)
+    tail = rng.integers(0, 256, BLOCK, np.uint8)
+    tail[BLOCK - 700:] = 0x41
+    planes = np.stack([
+        np.frombuffer((b"The quick brown fox jumps over the lazy dog 7. "
+                       * (BLOCK // 47 + 1))[:BLOCK], np.uint8),
+        np.full(BLOCK, 7, np.uint8),
+        rng.integers(0, 256, BLOCK, np.uint8),
+        rng.integers(0, 4, BLOCK, np.uint8),
+        np.tile(rng.integers(32, 127, 1338, np.uint8), BLOCK // 1338 + 1)[:BLOCK],
+        tail])
+    offs = np.array([[94, 47, 141, 0],          # equal runs from position 141 on
+                     [1, 2, 3, 0],              # every run reaches the plane end
+                     [5, 9, 0, 0],              # noff = 0
+                     [3, 3, 2, 1],              # duplicates
+                     [2676, 1338, 669, 0],
+                     [1, 0, 300, 0]], np.int32)  # a 0 inside the first noff
+    noff = np.array([3, 3, 0, 4, 3, 3], np.int32)
+    lengths = np.array([BLOCK, BLOCK, BLOCK, BLOCK - 1000, BLOCK - 37, BLOCK], np.int32)
+    for b, ln in enumerate(lengths):
+        planes[b, ln:] = 0
+    return tuple(torch.from_numpy(a).cuda() for a in (planes, noff, offs, lengths))
+
+
+def short_batch():
+    """Short RLE blocks (1-12 KiB of one byte, zero after) that compress to
+    fewer than 128 bytes: rows a width-128 emission really emits."""
+    lengths = (1024 + 512 * (np.arange(SHORT_BLOCKS) % 23)).astype(np.int32)
+    planes = np.zeros((SHORT_BLOCKS, BLOCK), np.uint8)
+    for b, ln in enumerate(lengths):
+        planes[b, :ln] = 1 + b
+    return torch.from_numpy(planes).cuda(), torch.from_numpy(lengths).cuda()
+
+
+def compare_walk(md, planes, noff, offs, lens, what: str):
+    """B5 against its plain version, seg 1024; returns (max |diff|, P/M/O/overflow)."""
+    n = planes.shape[0]
+    got = md.find_matches_parse_dyn(planes.view(n, -1, 128), noff, offs, lens,
+                                    nrows=BLOCK // 128, seg=1024, min_match=6, max_match=1024)
+    torch.cuda.synchronize()
+    want = split_rec(md.match_walk_reference(planes, noff, offs, lens, seg=1024, min_match=6,
+                                             wcap=8, max_match=1024))
+    return max(check_equal(f"match_walk {what} {k}", g, w)
+               for k, g, w in zip("PMOo", got, want)), got
+
+
+def compare_dyn(md, planes, noff, offs, what: str, max_match: int = 256):
+    """B4 against its plain version; returns (max |diff|, the positions whose
+    best offset is not the block's first)."""
+    n = planes.shape[0]
+    got = md.find_matches_dyn(planes.view(n, -1, 128), noff, offs, nrows=BLOCK // 128,
+                              max_match=max_match)
+    torch.cuda.synchronize()
+    want = md.match_dyn_reference(planes, noff, offs, max_match=max_match)
+    err = max(check_equal(f"match_dyn {what} mlen", got[0].view(n, -1), want[0]),
+              check_equal(f"match_dyn {what} moff", got[1].view(n, -1), want[1]))
+    return err, int(((want[1] > 0) & (want[1] != offs[:, :1])).sum())
+
+
+def emit_bound(lay, ow: int) -> tuple[float, str]:
+    """Bytes an LZ4 emission at width ``ow`` must move: the literal bytes of
+    each row's first min(total, ow) output bytes and the five fields of the
+    slots that start there read, [N, ow] written."""
+    lim = lay["total"].long().clamp(max=ow)[:, None]
+    starts, ll = lay["starts"].long(), lay["lit_len"].long()
+    lo = starts + 1 + torch.where(ll >= 15, (ll - 15) // 255 + 1, 0)
+    lit = (torch.minimum(lo + ll, lim) - lo).clamp(min=0)
+    slots = (starts < lim) & lay["taken"]
+    n = starts.shape[0]
+    return bound_ms(int(lit.sum()) + 20 * int(slots.sum()) + 4 * n + n * ow)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add the phase breakdown of one warm LZ4 unit")
+                    help="add the phase breakdown of one warm LZ4 unit per main path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no result",
               file=sys.stderr)
         return 1
-    import bench
     import bitar_tpu_torch as btt
     from bitar_tpu_torch.ops import decode_flat as df
+    from bitar_tpu_torch.ops import device_compress as dc
+    from bitar_tpu_torch.ops import emit as em
+    from bitar_tpu_torch.ops import match_dyn as md
+    from bitar_tpu_torch.ops import registry
     from bitar_tpu_torch.ops._build import BUILD_DIR
     from bitar_tpu_torch.ops.cpu import native
     from bitar_tpu_torch.utils import timing
+    from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
 
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
 
+    builds = {"host library (g++)": native.load, "decode_flat.cu": df.load_kernel,
+              "match_walk.cu": md.load_walk_kernel, "match_dyn.cu": md.load_dyn_kernel,
+              "emit.cu": em.load_kernel}
     t0 = time.perf_counter()
-    native.load()
-    t1 = time.perf_counter()
-    df.load_kernel()
-    t2 = time.perf_counter()
-    log(f"build: host library (g++) {t1 - t0:.2f} s, decode_flat.cu "
-        f"(nvcc sm_90a) {t2 - t1:.2f} s")
-    for report in BUILD_DIR.glob("libdecode_flat-*.so.log"):
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
+        futs = {name: ex.submit(lambda f=f: (f(), time.perf_counter())[1])
+                for name, f in builds.items()}
+        done = {name: fut.result() - t0 for name, fut in futs.items()}
+    log("build (all started together): " + ", ".join(
+        f"{name} {s:.2f} s" for name, s in done.items()))
+    for stem in ("decode_flat", "match_walk", "match_dyn", "emit"):
+        for report_file in BUILD_DIR.glob(f"lib{stem}-*.so.log"):
+            for line in report_file.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"ptxas {stem}: {line.strip()}")
 
-    corpus = bench.make_corpus(NBLOCKS)
+    corpus = make_corpus(NBLOCKS)
+    text = make_text_corpus(TEXT_BLOCKS)
     rng = np.random.default_rng(7)
     raw_heavy = b"".join(
         rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes() if i % 8 else
         (b"raw-heavy batch %d " % i) * (BLOCK // 18 + 1)
         for i in range(RAW_BLOCKS))[:RAW_BLOCKS * BLOCK]
-    batches = {"bench": planned_batch(btt, corpus),
-               "text": planned_batch(btt, bench.make_text_corpus(TEXT_BLOCKS)),
+    kernels = {}
+
+    # -- phase 3: every kernel against its plain version -------------------
+    batches = {"bench": planned_batch(btt, corpus), "text": planned_batch(btt, text),
                "raw_heavy": planned_batch(btt, raw_heavy)}
-    max_err = 0
-    for name, (rows, pt, comp_rows, stats) in batches.items():
-        max_err = max(max_err, compare(df, rows, pt, comp_rows))
-        log(f"kernel == plain version, byte for byte: {name} ({stats})")
+    err = 0
+    for name, (rows, pt, comp_rows, _, stats) in batches.items():
+        err = max(err, compare_decode(df, rows, pt, comp_rows))
+        log(f"decode_flat == plain version, byte for byte: {name} ({stats})")
+    kernels["decode_flat"] = {"max_abs_err": err}
 
+    mplanes = planes_of(corpus, MATCH_BLOCKS)
+    nrows = BLOCK // 128
+    noff, offs, mlens = detected(md, mplanes)
+    tplanes = planes_of(text, FFT_TEXT_BLOCKS)
+    tnoff, toffs = dc.candidate_offsets(tplanes, detect_fft=True, fft_k=6)
+    tlens = mlens[:FFT_TEXT_BLOCKS]
+    hplanes, hnoff, hoffs, hlens = hand_batch()
+
+    def walk_kernel():
+        return md.find_matches_parse_dyn(mplanes.view(-1, nrows, 128), noff, offs, mlens,
+                                         nrows=nrows, seg=1024, min_match=6, max_match=1024)
+
+    def walk_plain():
+        return md.match_walk_reference(mplanes, noff, offs, mlens, seg=1024, min_match=6,
+                                       wcap=8, max_match=1024)
+
+    err = 0
+    for what, (pl, nf, of, ln) in {"bench": (mplanes, noff, offs, mlens),
+                                   "text detect_fft": (tplanes, tnoff, toffs, tlens),
+                                   "hand-set offsets": (hplanes, hnoff, hoffs, hlens)}.items():
+        e, got = compare_walk(md, pl, nf, of, ln, what)
+        err = max(err, e)
+        log(f"match_walk == plain version (P/M/O/overflow): {what}, {pl.shape[0]} x {BLOCK} "
+            f"B, seg 1024, offsets per block {nf.float().mean():.2f} (K {of.shape[1]}), "
+            f"sequences {int((got[0] >= 0).sum())}, overflowing blocks {int(got[3].sum())}")
+    kernels["match_walk"] = {"max_abs_err": err}
+
+    dplanes = planes_of(corpus, DYN_BLOCKS)
+    dnoff, doffs, _ = detected(md, dplanes)
+
+    def dyn_kernel():
+        return md.find_matches_dyn(dplanes.view(-1, nrows, 128), dnoff, doffs,
+                                   nrows=nrows, max_match=256)
+
+    def dyn_plain():
+        return md.match_dyn_reference(dplanes, dnoff, doffs, max_match=256)
+
+    err = 0
+    for what, (pl, nf, of) in {"bench": (dplanes, dnoff, doffs),
+                               "text detect_fft": (tplanes, tnoff, toffs),
+                               "hand-set offsets": (hplanes, hnoff, hoffs)}.items():
+        e, later = compare_dyn(md, pl, nf, of, what)
+        err = max(err, e)
+        log(f"match_dyn == plain version (mlen/moff): {what}, {pl.shape[0]} x {BLOCK} B, "
+            f"max_match 256, positions whose best offset is not the first: {later}")
+    kernels["match_dyn"] = {"max_abs_err": err}
+
+    splanes, slens = short_batch()
+    layouts = {
+        "bench lz4": (mplanes, mlens, dc.match_parse_device(mplanes, mlens)),
+        "text lz4 detect_fft": (tplanes, tlens, dc.match_parse_device(
+            tplanes, tlens, detect_fft=True, fft_k=6)),
+        "short RLE lz4": (splanes, slens, dc.match_parse_device(splanes, slens)),
+        "bench snappy": (mplanes, mlens, dc.match_parse_device(mplanes, mlens, fmt="snappy")),
+    }
+    err = 0
+    emit_main = None
+    for name, (pl, ln, lay) in layouts.items():
+        fmt = "snappy" if "snappy" in name else "lz4"
+        n = pl.shape[0]
+        adaptive = dc.adaptive_width(lay["total"].cpu().numpy(), ln.cpu().numpy(), BLOCK, 1024)
+        widths = (8192,) if fmt == "snappy" else (128, 2048, adaptive)
+        for ow in widths:
+            got = em.emit_blocks(pl, lay, out_width=ow, fmt=fmt, lengths=ln)
+            torch.cuda.synchronize()
+            want = em.emit_reference(pl, lay, out_width=ow, fmt=fmt, lengths=ln)
+            err = max(err, check_equal(f"emit {name} ow {ow}", got, want))
+            codec = btt.Codec.SNAPPY if fmt == "snappy" else btt.Codec.LZ4
+            rows = check_host_decode(registry, got, lay["total"], pl, ln, codec)
+            if name == "short RLE lz4" and rows == 0:
+                raise AssertionError(f"emit {name} ow {ow}: no row fits the width")
+            log(f"emit == plain version: {name}, {n} x {BLOCK} B, out_width {ow}; "
+                f"{rows} compressed rows decode bit-exact on the host")
+            if name == "bench lz4" and ow == 2048:
+                emit_main = (pl, lay, ow)
+    kernels["emit"] = {"max_abs_err": err}
+
+    # -- phase 4: the main paths, launch counts reset just before each -------
+    counts = {}
     df.launches = 0
-    main_path(btt, df, btt.Codec.LZ4, corpus)
-    main_path(btt, df, btt.Codec.SNAPPY, corpus)
-    main_launches = df.launches
-    if main_launches <= 0:
-        raise AssertionError("the main path launched no decode_flat kernel")
-    log(f"decode_flat launches on the main path: {main_launches}")
+    host_path(btt, btt.Codec.LZ4, corpus)
+    host_path(btt, btt.Codec.SNAPPY, corpus)
+    counts["host path"] = {"decode_flat": df.launches}
 
-    ms, plain_ms = timed(timing, df, *batches["bench"][:3], card, "bench 1024 x 128 KiB")
-    timed(timing, df, *batches["text"][:3], card, "text 256 x 128 KiB")
+    df.launches, md.walk_launches, md.dyn_launches, em.launches = 0, 0, 0, 0
+    device_path(btt, corpus)
+    counts["device path"] = {"decode_flat": df.launches, "match_walk": md.walk_launches,
+                             "emit": em.launches}
+    if md.dyn_launches:
+        raise AssertionError("the device path (seg 1024) launched match_dyn")
+
+    md.walk_launches, md.dyn_launches, em.launches = 0, 0, 0
+    out, sizes = dc.compress_blocks_device(dplanes, mlens[:DYN_BLOCKS], seg=256)
+    torch.cuda.synchronize()
+    rows = check_host_decode(registry, out, sizes, dplanes, mlens[:DYN_BLOCKS], btt.Codec.LZ4)
+    counts["compress_blocks_device seg 256"] = {"match_dyn": md.dyn_launches,
+                                                "emit": em.launches}
+    log(f"main path compress_blocks_device(seg=256): {DYN_BLOCKS} x {BLOCK} B, width "
+        f"{out.shape[1]}, {rows} compressed rows decode bit-exact on the host")
+    for path, c in counts.items():
+        log(f"launches on the {path}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
+    for name in ("decode_flat", "match_walk", "match_dyn", "emit"):
+        total = sum(c.get(name, 0) for c in counts.values())
+        if total <= 0:
+            raise AssertionError(f"the main paths launched no {name} kernel")
+        kernels[name]["launches"] = total
+    for path, c in counts.items():
+        for name, v in c.items():
+            if v <= 0:
+                raise AssertionError(f"the {path} launched no {name} kernel")
+
+    # -- phase 5: times ----------------------------------------------------
+    rows, pt, comp_rows, comp_bytes, _ = batches["bench"]
+    nblk = rows.shape[0]
+    res, ms = turns(timing, lambda: df.decode_blocks_flat(rows, pt, comp_rows=comp_rows,
+                                                          out_rows=nrows),
+                    lambda: df.decode_flat_reference(rows, pt, comp_rows, nrows))
+    report(f"decode_flat bench {nblk} x 128 KiB", card, res, ms, nblk * BLOCK)
+    kernels["decode_flat"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["decode_flat"]["bound"] = decode_bound(rows, pt, comp_bytes)
+    trows, tpt, tcomp, _, _ = batches["text"]
+    res, ms = turns(timing, lambda: df.decode_blocks_flat(trows, tpt, comp_rows=tcomp,
+                                                          out_rows=nrows),
+                    lambda: df.decode_flat_reference(trows, tpt, tcomp, nrows))
+    report(f"decode_flat text {trows.shape[0]} x 128 KiB", card, res, ms,
+           trows.shape[0] * BLOCK)
+
+    steps = math.ceil(math.log2(1024)) + 1
+    res, ms = turns(timing, walk_kernel, walk_plain)
+    report(f"match_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024", card, res, ms,
+           MATCH_BLOCKS * BLOCK)
+    kernels["match_walk"].update(ms=res["kernel"], plain_ms=res["plain"])
+    # A block with noff = 0 needs no plane byte: its output is all empty.
+    rec_bytes = MATCH_BLOCKS * 25 * (BLOCK // 1024) * 4
+    kernels["match_walk"]["bound"] = bound_ms(
+        int((noff > 0).sum()) * BLOCK + rec_bytes, float(noff.sum()) * BLOCK * steps)
+
+    res, ms = turns(timing, dyn_kernel, dyn_plain)
+    report(f"match_dyn bench {DYN_BLOCKS} x 128 KiB max_match 256", card, res, ms,
+           DYN_BLOCKS * BLOCK)
+    kernels["match_dyn"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["match_dyn"]["bound"] = bound_ms(
+        int((dnoff > 0).sum()) * BLOCK + DYN_BLOCKS * BLOCK * 8,
+        float(dnoff.sum()) * BLOCK * (math.ceil(math.log2(256)) + 1))
+
+    pl, lay, ow = emit_main
+    res, ms = turns(timing, lambda: em.emit_blocks(pl, lay, out_width=ow),
+                    lambda: em.emit_reference(pl, lay, out_width=ow))
+    report(f"emit bench lz4 {MATCH_BLOCKS} x 128 KiB out_width {ow}", card, res, ms,
+           MATCH_BLOCKS * BLOCK)
+    kernels["emit"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["emit"]["bound"] = emit_bound(lay, ow)
+
+    def pipeline():
+        return dc.compress_blocks_device(mplanes, mlens, seg=1024, out_width=2048)
+
+    def pipeline_plain():
+        # The same stages with the plain versions of B5 and the emitter.
+        pn, po, _ = detected(md, mplanes)
+        rec = md.match_walk_reference(mplanes, pn, po, mlens, seg=1024, min_match=6,
+                                      wcap=8, max_match=1024)
+        lay = dc._layout_from_records(*split_rec(rec), mlens)
+        return em.emit_reference(mplanes, lay, out_width=2048), lay["total"]
+
+    if not all(torch.equal(a, b) for a, b in zip(pipeline(), pipeline_plain())):
+        raise AssertionError("compress_blocks_device: kernels != plain versions")
+    res, ms = turns(timing, pipeline, pipeline_plain)
+    report(f"compress_blocks_device(seg=1024, out_width=2048) {MATCH_BLOCKS} x 128 KiB "
+           f"(detector, B5, layout, emitter)", card, res, ms, MATCH_BLOCKS * BLOCK)
+
     if args.profile:
         profile_main_path(btt, corpus, card)
+        profile_device_path(btt, corpus, card)
 
-    log(json.dumps({"kernels": [{
-        "name": "decode_flat", "route": "cuda",
-        "source": "bitar_tpu_torch/csrc/decode_flat.cu",
-        "replaces": "bitar_tpu/ops/pallas/lz4_decode_flat.py:101",
-        "launches": main_launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    sources = {
+        "decode_flat": ("bitar_tpu_torch/csrc/decode_flat.cu",
+                        "bitar_tpu/ops/pallas/lz4_decode_flat.py:101"),
+        "match_walk": ("bitar_tpu_torch/csrc/match_walk.cu",
+                       "bitar_tpu/ops/pallas/lz4_match_dyn.py:270"),
+        "match_dyn": ("bitar_tpu_torch/csrc/match_dyn.cu",
+                      "bitar_tpu/ops/pallas/lz4_match_dyn.py:199"),
+        "emit": ("bitar_tpu_torch/csrc/emit.cu",
+                 "bitar_tpu/ops/pallas/lz4_emit.py:338 (B8), lz4_emit.py:84 (B9), "
+                 "lz4_emit.py:101 (B10), bitar_tpu/ops/device_compress.py:317 (XLA)"),
+    }
+    line = []
+    for name, k in kernels.items():
+        b_ms, b_by = k["bound"]
+        line.append({"name": name, "route": "cuda", "source": sources[name][0],
+                     "replaces": sources[name][1], "launches": k["launches"],
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
+    log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+
+def device_us(e) -> float:
+    t = getattr(e, "device_time_total", None)     # cuda_time_total before torch 2.4
+    return float(t if t is not None else e.cuda_time_total)
+
+
+def log_profile(prof, what: str, top: int) -> None:
+    """The ``top`` rows of a ``torch.profiler`` run by device time."""
+    events = sorted(prof.key_averages(), key=device_us, reverse=True)
+    for e in events[:top]:
+        log(f"profile {what}: {e.key} | calls {e.count} | device {device_us(e) / 1e3:.3f} ms "
+            f"| host {e.cpu_time_total / 1e3:.3f} ms")
+
+
+class PhaseClock:
+    """Host-clock phases, each ended by a device sync."""
+
+    def __init__(self, card: str, path: str):
+        self.card, self.path = card, path
+        self.marks = [("start", time.perf_counter())]
+
+    def mark(self, phase: str) -> None:
+        torch.cuda.synchronize()
+        self.marks.append((phase, time.perf_counter()))
+
+    def log(self) -> None:
+        for (_, t0), (phase, t1) in zip(self.marks, self.marks[1:]):
+            log(f"profile phase [{self.card}] {self.path}: {phase}: {1e3 * (t1 - t0):.3f} ms")
+
+
+def warm_engine(btt, **kw):
+    with torch.profiler.profile(activities=ACTIVITIES):
+        torch.ones(1, device="cuda").add_(1)     # pays the tracer's start-up here
+    return engine(btt, btt.Codec.LZ4, **kw)
+
+
+def profile_main_path(btt, data: bytes, card: str, top: int = 12) -> None:
+    """Phase breakdown of one warm LZ4 unit through the host-compress path."""
+    eng = warm_engine(btt)
+    warm = eng.compress(data)
+    eng.decompress(warm)
+    eng.recycle(warm)
+    clock = PhaseClock(card, "host compress")
+    unit = eng.compress(data)
+    clock.mark("compress (host matcher; plan build queued)")
+    eng._ensure_committed(unit)       # the upload ensure_plans would start
+    clock.mark("commit upload (H2D + index_copy_)")
+    eng.ensure_plans(unit)
+    clock.mark("plan join")
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
+        eng.decompress(unit)
+        torch.cuda.synchronize()
+    clock.mark("first decompress, under torch.profiler (plan upload, readback)")
+    eng.decompress(unit)
+    clock.mark("second decompress (plan already on the card; readback)")
+    eng.recycle(unit)
+    eng.release()
+    clock.log()
+    log_profile(prof, "host compress, first decompress", top)
+
+
+def profile_device_path(btt, data: bytes, card: str, top: int = 12) -> None:
+    """Phase breakdown of one warm LZ4 unit through the device-compress path."""
+    eng = warm_engine(btt, commit="eager", compress_matcher="device")
+    warm = eng.compress(data)
+    eng.decompress(warm)
+    eng.recycle(warm)
+    clock = PhaseClock(card, "device compress")
+    with torch.profiler.profile(activities=ACTIVITIES) as prof_c:
+        unit = eng.compress(data)
+        torch.cuda.synchronize()
+    clock.mark("compress, under torch.profiler (planes, upload, detect, B5, emit, arena)")
+    eng.ensure_plans(unit)
+    clock.mark("ensure_plans (arena gather to the host + planner)")
+    with torch.profiler.profile(activities=ACTIVITIES) as prof_d:
+        eng.decompress(unit)
+        torch.cuda.synchronize()
+    clock.mark("first decompress, under torch.profiler (plan upload, readback)")
+    eng.decompress(unit)
+    clock.mark("second decompress (plan already on the card; readback)")
+    eng.recycle(unit)
+    eng.release()
+    clock.log()
+    log_profile(prof_c, "device compress", top)
+    log_profile(prof_d, "device compress, first decompress", top)
 
 
 if __name__ == "__main__":

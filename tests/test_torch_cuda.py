@@ -1,13 +1,14 @@
-"""Tests of the port that need a CUDA device: the decode kernel against its
-plain PyTorch version on the card, and the engine's main path there.
+"""Tests of the port that need a CUDA device: every kernel (decode, B5 match
+walk, B4 match scoring, emitter) against its plain PyTorch version on the
+card, and the engine's main paths there (host and device compress).
 
 They skip without CUDA.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports JAX, so on the card run this file alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Inputs are made from a numpy seed with the port's own host library;
-tolerance 0 (byte equality on the whole decoded plane).
+Inputs are made from a numpy seed with the port's own host library and
+corpus functions; tolerance 0 (byte and integer equality).
 """
 
 from pathlib import Path
@@ -18,7 +19,12 @@ import torch
 
 import bitar_tpu_torch as btt
 from bitar_tpu_torch.ops import decode_flat as tflat
+from bitar_tpu_torch.ops import device_compress as tdc
+from bitar_tpu_torch.ops import emit as temit
+from bitar_tpu_torch.ops import match_dyn as tmd
+from bitar_tpu_torch.ops import registry
 from bitar_tpu_torch.ops.cpu import native
+from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
 
 pytestmark = pytest.mark.cuda
 ROOT = Path(__file__).resolve().parent.parent
@@ -27,7 +33,7 @@ ROOT = Path(__file__).resolve().parent.parent
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the decode kernel has no CPU mode)")
+        pytest.skip("needs a CUDA device (the CUDA kernels have no CPU mode)")
     return torch.device("cuda")
 
 
@@ -159,3 +165,191 @@ def test_arena_on_card(cuda_device):
     assert got.device.type == "cuda"
     np.testing.assert_array_equal(got[:, :200].cpu().numpy(), rows)
     assert not got[:, 200:].any()
+
+
+def assert_rows_decode(codec: str, out, sizes, planes, lengths) -> int:
+    """Every row that compresses (size < length, size <= width) decodes to
+    its block through the host codec; returns how many there are."""
+    out, sizes = out.cpu().numpy(), sizes.cpu().numpy()
+    raw, lens = planes.cpu().numpy(), lengths.cpu().numpy()
+    w, cap = out.shape[1], raw.shape[1]
+    good = np.flatnonzero((sizes < lens) & (sizes <= w))
+    dst = np.zeros(good.size * cap, np.uint8)
+    dl, st = registry.host_decompress_batch(
+        btt.Codec(codec), np.ascontiguousarray(out[good]).reshape(-1),
+        np.arange(good.size, dtype=np.int64) * w, sizes[good].astype(np.int32), dst,
+        np.arange(good.size, dtype=np.int64) * cap, lens[good].astype(np.int32))
+    assert (st == 0).all() and (dl == lens[good]).all()
+    for i, b in enumerate(good):
+        assert dst[i * cap:i * cap + lens[b]].tobytes() == raw[b, :lens[b]].tobytes(), b
+    return good.size
+
+
+def corpus_planes(device, block=128 * 1024, n=8):
+    """[n, block] planes of the bench corpus with two tail blocks, and lengths."""
+    planes = np.frombuffer(make_corpus(n), np.uint8).reshape(n, -1)[:, :block].copy()
+    lengths = np.full(n, block, np.int32)
+    lengths[[3, 6]] = [block - 1000, block - 37]
+    for b, ln in enumerate(lengths):
+        planes[b, ln:] = 0
+    return (torch.from_numpy(planes).to(device),
+            torch.from_numpy(lengths).to(device))
+
+
+@pytest.mark.parametrize("block,seg,wcap", [(128 * 1024, 1024, 8), (48 * 1024, 1024, 8),
+                                            (64 * 1024, 2048, 2)])
+def test_match_walk_kernel_matches_plain(block, seg, wcap, cuda_device):
+    planes, lengths = corpus_planes(cuda_device, block)
+    n = planes.shape[0]
+    offs, _ = tmd.detect_offsets(planes, k=4, max_off=min(0xFFFF, block - 128))
+    offs = offs.contiguous()
+    noff = (offs > 0).sum(dim=1).int()
+    before = tmd.walk_launches
+    got = tmd.find_matches_parse_dyn(planes.view(n, -1, 128), noff, offs, lengths,
+                                     nrows=block // 128, seg=seg, min_match=6, wcap=wcap)
+    torch.cuda.synchronize()
+    assert tmd.walk_launches == before + 1
+    rec = tmd.match_walk_reference(planes, noff, offs, lengths, seg=seg, min_match=6,
+                                   wcap=wcap, max_match=1024)
+    for i, g in enumerate(got[:3]):
+        want = rec[:, i * wcap:(i + 1) * wcap].transpose(1, 2).reshape(n, -1)
+        assert torch.equal(g, want), "PMO"[i]
+    assert torch.equal(got[3], (rec[:, 3 * wcap] != 0).any(dim=1))
+
+
+def hand_offsets_batch(device, L=32 * 1024):
+    """Blocks with hand-set offsets where the choice between offsets
+    matters: equal runs of several offsets, duplicates, a 0 inside the first
+    noff, noff = 0, runs that reach the plane end; two tail lengths."""
+    rng = np.random.default_rng(54)
+    tail = rng.integers(0, 256, L, np.uint8)
+    tail[L - 700:] = 0x41
+    planes = np.stack([
+        np.frombuffer((b"The quick brown fox jumps over the lazy dog 7. "
+                       * (L // 47 + 1))[:L], np.uint8),
+        np.full(L, 7, np.uint8),
+        rng.integers(0, 256, L, np.uint8),
+        rng.integers(0, 4, L, np.uint8),
+        np.tile(rng.integers(32, 127, 1338, np.uint8), L // 1338 + 1)[:L],
+        tail])
+    offs = np.array([[94, 47, 141, 0], [1, 2, 3, 0], [5, 9, 0, 0], [3, 3, 2, 1],
+                     [2676, 1338, 669, 0], [1, 0, 300, 0]], np.int32)
+    noff = np.array([3, 3, 0, 4, 3, 3], np.int32)
+    lengths = np.array([L, L, L, L - 1000, L - 37, L], np.int32)
+    for b, ln in enumerate(lengths):
+        planes[b, ln:] = 0
+    return tuple(torch.from_numpy(a).to(device) for a in (planes, noff, offs, lengths))
+
+
+def text_fft_batch(device):
+    """4 x 128 KiB of the text corpus with the offsets of detect_fft=True,
+    fft_k=6 (up to 10 per block)."""
+    planes = torch.from_numpy(np.frombuffer(make_text_corpus(4), np.uint8)
+                              .reshape(4, -1).copy()).to(device)
+    noff, offs = tdc.candidate_offsets(planes, detect_fft=True, fft_k=6)
+    assert (noff >= 2).all(), "the text blocks must carry several offsets"
+    lengths = torch.full((4,), planes.shape[1], dtype=torch.int32, device=device)
+    return planes, noff, offs, lengths
+
+
+MULTI_OFFSET = {"hand": hand_offsets_batch, "text_fft": text_fft_batch}
+
+
+@pytest.mark.parametrize("batch", sorted(MULTI_OFFSET))
+def test_match_walk_kernel_chooses_among_offsets(batch, cuda_device):
+    planes, noff, offs, lengths = MULTI_OFFSET[batch](cuda_device)
+    n, L = planes.shape
+    got = tmd.find_matches_parse_dyn(planes.view(n, -1, 128), noff, offs, lengths,
+                                     nrows=L // 128, seg=1024, min_match=6)
+    rec = tmd.match_walk_reference(planes, noff, offs, lengths, seg=1024, min_match=6,
+                                   wcap=8, max_match=1024)
+    for i, g in enumerate(got[:3]):
+        want = rec[:, i * 8:(i + 1) * 8].transpose(1, 2).reshape(n, -1)
+        assert torch.equal(g, want), "PMO"[i]
+    assert torch.equal(got[3], (rec[:, 24] != 0).any(dim=1))
+
+
+@pytest.mark.parametrize("batch", sorted(MULTI_OFFSET))
+def test_match_dyn_kernel_chooses_among_offsets(batch, cuda_device):
+    planes, noff, offs, _ = MULTI_OFFSET[batch](cuda_device)
+    n, L = planes.shape
+    mlen, moff = tmd.find_matches_dyn(planes.view(n, -1, 128), noff, offs,
+                                      nrows=L // 128, max_match=256)
+    want = tmd.match_dyn_reference(planes, noff, offs, max_match=256)
+    assert torch.equal(mlen.view(n, -1), want[0])
+    assert torch.equal(moff.view(n, -1), want[1])
+    assert ((want[1] > 0) & (want[1] != offs[:, :1])).any(), "a later offset must win"
+
+
+def short_rle_planes(device, block=128 * 1024, n=8):
+    """Short RLE blocks (1-8 KiB, zero after) that fit a 128-byte row."""
+    lengths = (1024 * (1 + np.arange(n) % 8)).astype(np.int32)
+    planes = np.zeros((n, block), np.uint8)
+    for b, ln in enumerate(lengths):
+        planes[b, :ln] = 1 + b
+    return torch.from_numpy(planes).to(device), torch.from_numpy(lengths).to(device)
+
+
+@pytest.mark.parametrize("max_match", [256, 2047])
+def test_match_dyn_kernel_matches_plain(max_match, cuda_device):
+    planes, _ = corpus_planes(cuda_device, 64 * 1024)
+    n = planes.shape[0]
+    offs, _ = tmd.detect_offsets(planes, k=4, max_off=64 * 1024 - 128)
+    offs = offs.contiguous()
+    noff = (offs > 0).sum(dim=1).int()
+    before = tmd.dyn_launches
+    mlen, moff = tmd.find_matches_dyn(planes.view(n, -1, 128), noff, offs,
+                                      nrows=512, max_match=max_match)
+    torch.cuda.synchronize()
+    assert tmd.dyn_launches == before + 1
+    want = tmd.match_dyn_reference(planes, noff, offs, max_match=max_match)
+    assert torch.equal(mlen.view(n, -1), want[0])
+    assert torch.equal(moff.view(n, -1), want[1])
+
+
+@pytest.mark.parametrize("fmt,ow,fft", [("lz4", 128, False), ("lz4", 2048, False),
+                                        ("lz4", 131712, False), ("lz4", 65536, True),
+                                        ("snappy", 8192, False)])
+def test_emit_kernel_matches_plain(fmt, ow, fft, cuda_device):
+    block = 128 * 1024
+    if fft:
+        planes = torch.from_numpy(np.frombuffer(make_text_corpus(4), np.uint8)
+                                  .reshape(4, block).copy()).to(cuda_device)
+        lengths = torch.full((4,), block, dtype=torch.int32, device=cuda_device)
+    elif ow == 128:                        # no 128 KiB block fits 128 bytes
+        planes, lengths = short_rle_planes(cuda_device, block)
+    else:
+        planes, lengths = corpus_planes(cuda_device, block)
+    layout = tdc.match_parse_device(planes, lengths, fmt=fmt, detect_fft=fft, fft_k=6)
+    before = temit.launches
+    got = temit.emit_blocks(planes, layout, out_width=ow, fmt=fmt, lengths=lengths)
+    torch.cuda.synchronize()
+    assert temit.launches == before + 1
+    assert torch.equal(got, temit.emit_reference(planes, layout, out_width=ow, fmt=fmt,
+                                                 lengths=lengths))
+    assert assert_rows_decode(fmt, got, layout["total"], planes, lengths) > 0
+
+
+@pytest.mark.parametrize("block", [128 * 1024, 48 * 1024])
+def test_device_compress_engine_on_card(block, cuda_device):
+    data = make_corpus(8)[:8 * block - 5000]
+    cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=block, burst_size=4,
+                           max_pool_slots=32, compress_matcher="device")
+    with btt.Engine(cfg, device=cuda_device) as eng:
+        walk, emitted, decoded = tmd.walk_launches, temit.launches, tflat.launches
+        unit = eng.compress(data)
+        assert tmd.walk_launches == walk + 1 and temit.launches == emitted + 1
+        assert eng.decompress(unit).tobytes() == data
+        assert tflat.launches > decoded
+        assert unit.plan_flat["host_blocks"].size == 0
+        assert unit.manifest.ratio() > 1.3
+        assert eng.recycle(unit) == unit.nblocks
+
+
+def test_compress_blocks_device_seg_256_on_card(cuda_device):
+    planes, lengths = corpus_planes(cuda_device, 128 * 1024)
+    before = tmd.dyn_launches
+    out, sizes = tdc.compress_blocks_device(planes, lengths, seg=256)
+    torch.cuda.synchronize()
+    assert tmd.dyn_launches == before + 1
+    assert assert_rows_decode("lz4", out, sizes, planes, lengths) > 0
