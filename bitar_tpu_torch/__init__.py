@@ -2,9 +2,10 @@
 
 The second package beside ``bitar_tpu`` (JAX, the reference).  It imports
 torch and numpy, never JAX or ``bitar_tpu``; the host codec library is the
-same C++ (``bitar_tpu/ops/cpu/*.cc``), compiled by path.  Block decode runs
-the hand-written CUDA kernel ``csrc/decode_flat.cu`` on a CUDA device, and
-its plain PyTorch version on the CPU.
+same C++ (``bitar_tpu/ops/cpu/*.cc``), compiled by path.  Its device work
+runs hand-written CUDA kernels (``csrc/*.cu``: flat-plan and sequence-table
+decode, the match kernels, the emitter) on a CUDA device, and their plain
+PyTorch versions on the CPU.
 
 Quick start::
 
@@ -18,13 +19,17 @@ Quick start::
 """
 
 from .config import Checksum, Codec, DeviceCapabilities, EngineConfig, compress_bound
-from .engine.device import CompressedUnit, Engine, EngineState, EngineStats
+from .engine.device import CompressedUnit, Engine, EngineState, EngineStats, prepare_batched_decode
+from .engine.driver import Driver
+from .engine.stream import (ASYNC_RETURN_OK, CompressParam, DecompressParam, Stream,
+                            make_streams, wait_all)
 from .manifest import BlockManifest, CompressedBuffers
 from .memory.arena import ArenaStats, CompressedBlockRef, DeviceArena
 from .memory.host_pool import HostMemoryPool, PoolBackend, get_memory_pool
 from .status import Result, Status, StatusCode, StatusError
 
 __all__ = [
+    "ASYNC_RETURN_OK",
     "ArenaStats",
     "BlockManifest",
     "Checksum",
@@ -32,8 +37,11 @@ __all__ = [
     "CompressedBlockRef",
     "CompressedBuffers",
     "CompressedUnit",
+    "CompressParam",
+    "DecompressParam",
     "DeviceArena",
     "DeviceCapabilities",
+    "Driver",
     "Engine",
     "EngineConfig",
     "EngineState",
@@ -44,6 +52,10 @@ __all__ = [
     "Status",
     "StatusCode",
     "StatusError",
+    "Stream",
     "compress_bound",
     "get_memory_pool",
+    "make_streams",
+    "prepare_batched_decode",
+    "wait_all",
 ]

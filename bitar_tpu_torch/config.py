@@ -182,7 +182,7 @@ class EngineConfig:
     use_tpu_kernels: bool = True        # False -> host (native C++) codec path;
                                         # True -> the device decode kernel
     interpret: bool = False             # Pallas interpreter: accepted, ignored
-    compress_matcher: str = "host"      # "host" or "device" ("tpu*" not ported)
+    compress_matcher: str = "host"      # "host", "tpu", "tpu-sort" or "device"
     match_offsets: tuple[int, ...] = ()
     detect_fft: bool | str = False
     fft_k: int = 6

@@ -6,29 +6,34 @@ device's capabilities at ``initialize``, walks the state machine CREATED ->
 STARTED -> RELEASED, runs ``compress``/``decompress`` and recycles units'
 arena slots.
 
-The main path, as in the reference package:
+The paths, as in the reference package:
 
 * ``compress`` runs the native host matcher (C++ threads) and stages the
   compressed blocks; with ``commit="deferred"`` they reach the device arena
   at first use (``_ensure_committed``), with ``"eager"`` during compress.
-  With ``compress_matcher="device"`` and LZ4 it compresses on the device
-  instead (``_compress_device_full``: detector, match kernel, emitter
-  kernel) and writes the rows into the arena there.
+  ``compress_matcher="device"`` (LZ4) compresses on the device instead
+  (``_compress_device_full``: detector, match kernel, emitter kernel) and
+  writes the rows into the arena there.  ``"tpu"`` scores a static offset
+  set on the device (kernel B3, ``ops/match.py``) and ``"tpu-sort"`` finds
+  each position's last 4-byte repeat by a device sort (``ops/match_sort.py``);
+  both bring the hints back and the native emitter writes LZ4 or Snappy.
 * ``ensure_plans`` joins (or runs) the native batch planner, which turns
-  every block into a flat decode plan.  The planner's arguments are the
-  reference engine's, so both packages build the same plan.
+  every block into a flat decode plan (Zstd blocks: over their
+  entropy-decoded literal planes).  The planner's arguments are the
+  reference engine's, so both packages build the same plan.  A unit with no
+  plannable block, or with blocks narrower than 128 rows, gets sequence
+  tables instead (``_build_tables``).
 * ``decompress`` gathers each burst's slots from the arena and launches the
-  flat decode kernel (``ops/decode_flat.py``); blocks the planner rejected
-  decode per block on the host while the kernel runs.  A well-formed unit
-  with no plannable block raises NotImplemented: the reference decodes it
-  through its sequence-table path, which is not ported yet.
+  flat decode kernel (``ops/decode_flat.py``; blocks the planner rejected
+  decode on the host meanwhile) or the sequence-table kernel
+  (``ops/decode_tables.py``; the host re-walks the framing of slots written
+  since it last looked, meanwhile).  A unit with neither decodes on the host.
+* ``prepare_batched_decode`` merges several planned units into one flat
+  decode launch.
 
 On a CUDA device a kernel or build failure raises: nothing falls back to the
-host or to the plain PyTorch decode.  ``Engine(device="cpu")`` runs the
-plain PyTorch decode on CPU tensors (the test path).
-
-Not ported yet: the sequence-table decode path, Zstd literal planes, the
-tpu/tpu-sort compress matchers, streams and batched decode.
+host or to a plain PyTorch version.  ``Engine(device="cpu")`` runs the plain
+PyTorch versions on CPU tensors (the test path).
 """
 
 from __future__ import annotations
@@ -50,13 +55,17 @@ from ..config import (
     EngineConfig,
     capabilities_for_device,
 )
-from ..manifest import BlockManifest, CompressedBuffers, checksum_of, codec_id
+from ..manifest import BlockManifest, CompressedBuffers, checksum_of, codec_from_id, codec_id
 from ..memory.arena import CompressedBlockRef, DeviceArena
 from ..memory.host_pool import PoolBackend, get_memory_pool
 from ..ops import registry
 from ..ops.cpu import native
+from ..ops.cpu.native import SEQUENCE_KEYS
 from ..ops.decode_flat import CB, DCHUNK, KBAND, LANES, _S_QUANTUM, decode_blocks_flat, plan_tensors
+from ..ops.decode_tables import decode_blocks, pad_tables, table_tensors
 from ..ops.device_compress import _emit, lz4_bound, match_parse_device
+from ..ops.match import DEFAULT_OFFSETS, find_matches
+from ..ops.match_sort import find_matches_sorted
 from ..status import Status, StatusError
 from ..utils.logging import get_logger
 
@@ -66,11 +75,8 @@ _RAW_ID = codec_id(Codec.RAW)
 _ZSTD_ID = codec_id(Codec.ZSTD)
 #: per-block entries of the plan wire (sliced per burst)
 _BLOCK_KEYS = ("p_used", "p_off", "p0", "dense", "dq_idx")
-#: smallest block the planned path takes: 128 rows of 128 bytes
-_PLANNED_BLOCK_QUANTUM = 128 * LANES
-#: planner status of a well-formed block over the pass budget (plan.cc
-#: BT_ERR_CAPACITY); any other negative status means a malformed block
-_PLAN_OVER_BUDGET = Status.CapacityError("").to_int()
+#: the host parser of each codec the sequence tables take
+_PARSERS = {Codec.LZ4: "lz4", Codec.SNAPPY: "snappy"}
 
 
 class EngineState(enum.Enum):
@@ -98,19 +104,27 @@ class EngineStats:
 @dataclass
 class CompressedUnit:
     """A compressed buffer set: manifest + device-resident arena slots +
-    the flat decode plan once ``ensure_plans`` built it."""
+    the decode sidecar once ``ensure_plans`` built it: a flat plan, or
+    sequence tables when the unit cannot be planned."""
 
     manifest: BlockManifest
     refs: list[CompressedBlockRef]
     engine: "Engine"
+    #: Sequence tables (host numpy): lit_ptr/lit_len/off/mlen/out_pos
+    #: [nblocks, S] int32, and nseq [nblocks].
+    tables: dict[str, np.ndarray] | None = None
+    nseq: np.ndarray | None = None
     #: Flat plan (host numpy): p_used/p_off/p0/dense/dq_idx [nblocks] int32,
     #: se [S, tiles, 128] int16, shift [S, tiles, 128] int32, dq
-    #: [m, nrows, 128] int16, row_a [m, dcap, 128, tiles] int32, and
-    #: host_blocks (blocks the planner rejected; they decode on the host).
+    #: [m, nrows, 128] int16, row_a [m, dcap, 128, tiles] int32, host_blocks
+    #: (blocks the planner rejected; they decode on the host) and, for Zstd
+    #: blocks, lit_planes {block: entropy-decoded literal plane}.
     plan_flat: dict[str, np.ndarray] | None = None
     plan_comp_rows: int = 0
     recycled: bool = field(default=False)
     _plan_dev: dict | None = field(default=None, repr=False)
+    _table_dev: tuple | None = field(default=None, repr=False)
+    _lit_dev: tuple | None = field(default=None, repr=False)
     #: Host copy of the staged slot rows (compress/import), dropped once
     #: plans exist.
     _staging: np.ndarray | None = field(default=None, repr=False)
@@ -120,6 +134,10 @@ class CompressedUnit:
     _plan_future: object | None = field(default=None, repr=False)
     #: False while the compressed bytes live only in host staging.
     _committed: bool = field(default=True, repr=False)
+    #: Table-path validation cache: per block, the slot's write generation
+    #: and the status of the last framing walk.
+    _val_gen: np.ndarray | None = field(default=None, repr=False)
+    _val_status: np.ndarray | None = field(default=None, repr=False)
 
     def plan_device_arrays(self) -> dict[str, torch.Tensor]:
         """The unit's plan wire on the engine's device, uploaded once and
@@ -127,6 +145,32 @@ class CompressedUnit:
         if self._plan_dev is None:
             self._plan_dev = plan_tensors(self.plan_flat, self.engine.device)
         return self._plan_dev
+
+    def table_device_arrays(self) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """(nseq, tables) on the engine's device, uploaded once."""
+        if self._table_dev is None:
+            self._table_dev = table_tensors(self.tables, self.nseq, self.engine.device)
+        return self._table_dev
+
+    def lit_device_arrays(self, width: int) -> tuple[torch.Tensor | None, dict[int, int]]:
+        """The Zstd blocks' literal planes as ``[k, width]`` uint8 rows on
+        the device (zero past each plane) and the {block: row} map; they
+        replace those blocks' comp rows in every decode launch.  Uploaded
+        once, but never cached before plans exist: the planner makes them."""
+        if self._lit_dev is None:
+            if self.plan_flat is None:
+                return None, {}
+            lit_planes = self.plan_flat.get("lit_planes") or {}
+            if not lit_planes:
+                self._lit_dev = (None, {})
+            else:
+                stack = np.zeros((len(lit_planes), width), np.uint8)
+                pos = {}
+                for k, (i, lit) in enumerate(sorted(lit_planes.items())):
+                    stack[k, :lit.shape[0]] = lit
+                    pos[i] = k
+                self._lit_dev = (torch.from_numpy(stack).to(self.engine.device), pos)
+        return self._lit_dev
 
     @property
     def nblocks(self) -> int:
@@ -150,13 +194,6 @@ class CompressedUnit:
     def _check_live(self) -> None:
         if self.recycled:
             raise StatusError(Status.Invalid("compressed unit already recycled"))
-
-
-def _no_device_zstd(manifest: BlockManifest) -> None:
-    if bool((manifest.codec_ids == _ZSTD_ID).any()):
-        raise StatusError(Status.NotImplemented(
-            "device decode of zstd blocks needs the literal-plane override, "
-            "which is not ported yet; use use_tpu_kernels=False"))
 
 
 class Engine:
@@ -203,15 +240,6 @@ class Engine:
         self.caps = capabilities_for_device(self.device)
         cfg.validate(self.caps).with_context(
             f"Engine(device={self.device})").raise_if_error()
-        if cfg.compress_matcher in ("tpu", "tpu-sort"):
-            raise StatusError(Status.NotImplemented(
-                f"compress_matcher {cfg.compress_matcher!r} is not ported yet: it "
-                f"needs kernel B3 (bitar_tpu/ops/pallas/lz4_match.py:84) and the "
-                f"sort matcher (bitar_tpu/ops/pallas/lz4_match_sort.py:34)"))
-        if cfg.use_tpu_kernels and cfg.block_size % _PLANNED_BLOCK_QUANTUM:
-            raise StatusError(Status.NotImplemented(
-                f"device decode needs block_size % {_PLANNED_BLOCK_QUANTUM} == 0 "
-                f"(the planned path); the sequence-table path is not ported yet"))
         self.arena = DeviceArena(
             slot_size=cfg.slot_size, preallocated=cfg.max_pool_slots,
             max_slots=cfg.max_pool_slots, device=self.device)
@@ -262,6 +290,8 @@ class Engine:
         manifest.checksum_kind = cfg.checksum
         n = manifest.nblocks
         slot = cfg.slot_size
+        # BlockManifest.raw_off is a cumsum per access: read it once.
+        raw_off = manifest.raw_off
 
         if cfg.compress_matcher == "device" and cfg.codec == Codec.LZ4:
             # Full offload: detect, match, parse and emit on the device;
@@ -290,7 +320,7 @@ class Engine:
 
         def _match(s: int, e: int):
             return registry.host_compress_batch(
-                cfg.codec, cfg.level, raw, manifest.raw_off[s:e],
+                cfg.codec, cfg.level, raw, raw_off[s:e],
                 manifest.raw_len[s:e], staging.reshape(-1),
                 dst_off[s:e], caps[s:e], min_match=cfg.min_match)
 
@@ -307,7 +337,7 @@ class Engine:
             for j in np.flatnonzero(dl >= manifest.raw_len[s:e]):
                 i = s + int(j)
                 ln = int(manifest.raw_len[i])
-                o = int(manifest.raw_off[i])
+                o = int(raw_off[i])
                 staging[i, :ln] = raw[o:o + ln]
                 dst_len[i] = ln
                 codec_ids[i] = _RAW_ID
@@ -321,17 +351,20 @@ class Engine:
             self.arena.write_burst([r.slot for r in chunk_refs], staging[s:e, :w])
 
         try:
-            # The matcher chews chunk k+1 on its own threads (ctypes drops
-            # the GIL) while this thread lands chunk k.
-            step = min(cfg.burst_size, 64)
-            with concurrent.futures.ThreadPoolExecutor(1) as ex:
-                fut = ex.submit(_match, 0, min(step, n))
-                for s in range(0, n, step):
-                    e = min(s + step, n)
-                    dl, st = fut.result()
-                    if e < n:
-                        fut = ex.submit(_match, e, min(e + step, n))
-                    _land(s, e, dl, st)
+            if cfg.compress_matcher in ("tpu", "tpu-sort"):
+                _land(0, n, *self._compress_tpu_match(raw, manifest, staging))
+            else:
+                # The matcher chews chunk k+1 on its own threads (ctypes
+                # drops the GIL) while this thread lands chunk k.
+                step = min(cfg.burst_size, 64)
+                with concurrent.futures.ThreadPoolExecutor(1) as ex:
+                    fut = ex.submit(_match, 0, min(step, n))
+                    for s in range(0, n, step):
+                        e = min(s + step, n)
+                        dl, st = fut.result()
+                        if e < n:
+                            fut = ex.submit(_match, e, min(e + step, n))
+                        _land(s, e, dl, st)
         except Exception:
             if refs:
                 self.arena.recycle(refs)
@@ -346,16 +379,16 @@ class Engine:
         unit = CompressedUnit(manifest=manifest, refs=refs, engine=self,
                               _staging=staging, _staging_buf=staging_buf,
                               _committed=(cfg.commit == "eager"))
-        if (cfg.use_tpu_kernels and cfg.plan_build == "background"
-                and not (codec_ids == _ZSTD_ID).any()):
+        if cfg.use_tpu_kernels and cfg.plan_build == "background":
             unit._plan_future = self._submit_plan_build(manifest, staging)
         return unit
 
     def _set_checksums(self, manifest: BlockManifest, raw: np.ndarray) -> None:
         if self.config.checksum == Checksum.NONE:
             return
+        raw_off = manifest.raw_off
         for i in range(manifest.nblocks):
-            o, ln = int(manifest.raw_off[i]), int(manifest.raw_len[i])
+            o, ln = int(raw_off[i]), int(manifest.raw_len[i])
             manifest.checksums[i] = checksum_of(self.config.checksum, raw[o:o + ln])
 
     def _compress_device_full(self, raw: np.ndarray, manifest: BlockManifest):
@@ -367,8 +400,9 @@ class Engine:
         cfg = self.config
         n, L = manifest.nblocks, cfg.block_size
         planes = np.zeros((n, L), np.uint8)
+        raw_off = manifest.raw_off
         for i in range(n):
-            o, ln = int(manifest.raw_off[i]), int(manifest.raw_len[i])
+            o, ln = int(raw_off[i]), int(manifest.raw_len[i])
             planes[i, :ln] = raw[o:o + ln]
         dplanes = torch.from_numpy(planes).to(self.device)
         raw_len = manifest.raw_len.astype(np.int32)
@@ -410,6 +444,48 @@ class Engine:
             e = min(idx.size, s + self.config.burst_size)
             self.arena.write_burst([refs[int(i)].slot for i in idx[s:e]], sel[s:e])
 
+    def _compress_tpu_match(self, raw: np.ndarray, manifest: BlockManifest,
+                            staging: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Compress with device match hints: ``"tpu"`` scores the static
+        offset set (kernel B3), ``"tpu-sort"`` finds each position's last
+        4-byte repeat by a sort.  The hints (8 bytes per raw byte) come back
+        to the host, whose emitter verifies and extends each one and writes
+        the LZ4 or Snappy stream into ``staging``.  Returns (comp_len,
+        status) per block."""
+        cfg = self.config
+        emit = (native.snappy_emit_sequences if cfg.codec == Codec.SNAPPY
+                else native.lz4_emit_sequences)
+        offsets = tuple(cfg.match_offsets) or DEFAULT_OFFSETS
+        nrows = cfg.block_size // LANES
+        n = manifest.nblocks
+        planes = np.zeros((n, nrows, LANES), np.uint8)
+        raw_off = manifest.raw_off
+        for i in range(n):
+            o, ln = int(raw_off[i]), int(manifest.raw_len[i])
+            planes[i].reshape(-1)[:ln] = raw[o:o + ln]
+        dplanes = torch.from_numpy(planes).to(self.device)
+        if cfg.compress_matcher == "tpu-sort":
+            oidx = find_matches_sorted(dplanes.reshape(n, -1),
+                                       length=cfg.block_size).cpu().numpy()
+            mlen = np.where(oidx > 0, 4, 0).astype(np.int32)
+            offsets = None                # the hints carry offsets themselves
+        else:
+            mlen, oidx = find_matches(dplanes, offsets=offsets, nrows=nrows)
+            mlen, oidx = mlen.cpu().numpy(), oidx.cpu().numpy()
+        dst_len = np.zeros(n, np.int32)
+        status = np.zeros(n, np.int32)
+        native.set_emit_min_match(cfg.min_match)   # thread-local: the emits below
+        for i in range(n):
+            o, ln = int(raw_off[i]), int(manifest.raw_len[i])
+            try:
+                comp = emit(raw[o:o + ln], mlen[i].reshape(-1), oidx[i].reshape(-1),
+                            offsets, dst_cap=staging.shape[1])
+                staging[i, :comp.shape[0]] = comp
+                dst_len[i] = comp.shape[0]
+            except StatusError as e:
+                status[i] = e.status.to_int()
+        return dst_len, status
+
     def _ensure_committed(self, unit: CompressedUnit) -> None:
         """Upload a deferred-commit unit's compressed bytes to the arena
         before any device read."""
@@ -431,19 +507,21 @@ class Engine:
     def _build_plans(self, manifest: BlockManifest, staging: np.ndarray):
         """Plan every block with the native batch planner.
 
-        Returns (plans, comp_rows).  Blocks the planner rejects keep
+        Returns (plans, comp_rows), or None when the blocks are narrower
+        than 128 rows or the planner takes no block: the unit then decodes
+        through its sequence tables.  Blocks the planner rejects keep
         ``p_used == 0`` (the kernel writes zeros for them) and are listed
-        in ``plans["host_blocks"]`` for per-block host decode.  When it
-        rejects every block and none as malformed, raises NotImplemented:
-        the reference engine decodes such a unit on the device through
-        its sequence-table path (kernel B2), not ported yet.  A unit with
-        a malformed block and no plannable one decodes on the host, as in
-        the reference (its sequence tables fail on the malformed block)."""
-        _no_device_zstd(manifest)
+        in ``plans["host_blocks"]`` for per-block host decode.  Zstd blocks
+        plan over their entropy-decoded literal planes
+        (``plans["lit_planes"]``)."""
         cfg = self.config
         nrows = cfg.block_size // LANES
+        if nrows % LANES:
+            return None
         n = manifest.nblocks
         slot = staging.shape[1]
+        has_zstd = bool((manifest.codec_ids == _ZSTD_ID).any())
+        lit_out = np.empty(n * cfg.block_size, np.uint8) if has_zstd else None
         # The reference engine schedules > 1024-row planes under its
         # banded-gather constraint; kept so the plans stay identical.
         band_rows = KBAND if (nrows % min(KBAND, nrows) == 0 and nrows > 1024) else 0
@@ -454,17 +532,20 @@ class Engine:
             # it reports dense (plan.cc Densify).
             dq_buf = np.empty((e - s, nrows, LANES), np.int16)
             ra_buf = np.empty((e - s, native.DENSE_PLANES, nrows), np.int32)
-            ctx, pu, p0c, st, _, dq, ra, ds = native.plan_batch_begin(
+            lit = (lit_out[s * cfg.block_size:e * cfg.block_size]
+                   if lit_out is not None else None)
+            ctx, pu, p0c, st, lu, dq, ra, ds = native.plan_batch_begin(
                 staging[s:e].reshape(-1),
                 np.arange(e - s, dtype=np.int64) * slot,
                 manifest.comp_len[s:e], manifest.raw_len[s:e],
                 manifest.codec_ids[s:e], nrows, self._PLAN_MAX_PASSES, cb=CB,
+                lit_out=lit, lit_stride=cfg.block_size,
                 band_rows=brows, dq_buf=dq_buf, ra_buf=ra_buf)
             bad = st != 0
             pu[bad] = 0
             p0c[bad] = 0
             ds[bad] = 0
-            return (ctx, s, e), pu, p0c, st, dq, ra, ds
+            return (ctx, s, e), pu, p0c, st, lu, dq, ra, ds
 
         def plan_all(brows: int):
             # Chunks plan concurrently: each is one native call that drops
@@ -474,30 +555,24 @@ class Engine:
                     min(len(spans), os.cpu_count() or 1)) as pool:
                 parts = list(pool.map(lambda se: plan_one(se[0], se[1], brows), spans))
             return ([p[0] for p in parts],
-                    np.concatenate([p[1] for p in parts]),
-                    np.concatenate([p[2] for p in parts]),
-                    np.concatenate([p[3] for p in parts]),
-                    [p[4] for p in parts], [p[5] for p in parts],
-                    np.concatenate([p[6] for p in parts]))
+                    *(np.concatenate([p[k] for p in parts]) for k in (1, 2, 3, 4)),
+                    [p[5] for p in parts], [p[6] for p in parts],
+                    np.concatenate([p[7] for p in parts]))
 
         def abort_all(ctxs):
             for ctx, _, _ in ctxs:
                 native.plan_batch_abort(ctx)
 
-        ctxs, p_used, p0, st, dq_parts, ra_parts, dense = plan_all(band_rows)
+        ctxs, p_used, p0, st, lit_used, dq_parts, ra_parts, dense = plan_all(band_rows)
         if band_rows and (st != 0).any():
             # Banding must never shrink device coverage: re-plan unbanded.
             abort_all(ctxs)
             band_rows = 0
-            ctxs, p_used, p0, st, dq_parts, ra_parts, dense = plan_all(0)
+            ctxs, p_used, p0, st, lit_used, dq_parts, ra_parts, dense = plan_all(0)
         ok = st == 0
-        if not ok.any() and (st == _PLAN_OVER_BUDGET).all():
+        if not ok.any():
             abort_all(ctxs)
-            raise StatusError(Status.NotImplemented(
-                f"all {n} blocks of this unit exceed the plan budget of "
-                f"{self._PLAN_MAX_PASSES} passes; the reference decodes such a "
-                f"unit through the sequence-table path (kernel B2), which is "
-                f"not ported yet"))
+            return None
 
         # Flat wire: S quantized as in the reference, plus DCHUNK slack rows.
         p_off = np.zeros(n, np.int64)
@@ -539,6 +614,16 @@ class Engine:
                  "p0": p0.astype(np.int32), "se": se, "shift": sh,
                  "dq": dq_c, "row_a": ra_c, "dense": dense, "dq_idx": dq_idx,
                  "host_blocks": np.flatnonzero(~ok).astype(np.int32)}
+        # Source-plane bytes per block: the compressed stream, or a Zstd
+        # block's literal plane.
+        plane_bytes = manifest.comp_len.astype(np.int64).copy()
+        if has_zstd:
+            zmask = ok & (lit_used > 0)
+            plane_bytes[zmask] = lit_used[zmask]
+            plans["lit_planes"] = {
+                int(i): lit_out[int(i) * cfg.block_size:
+                                int(i) * cfg.block_size + int(lit_used[i])].copy()
+                for i in np.flatnonzero(zmask)}
 
         def _round_rows(nbytes: int) -> int:
             r = max(128, -(-nbytes // 128))
@@ -547,8 +632,44 @@ class Engine:
                 r = -(-r // KBAND) * KBAND
             return r
 
-        comp_rows = _round_rows(int(manifest.comp_len.max(initial=1)))
+        comp_rows = _round_rows(int(plane_bytes.max(initial=1)))
         return plans, comp_rows
+
+    def _build_tables(self, manifest: BlockManifest, staging: np.ndarray
+                      ) -> tuple[dict[str, np.ndarray] | None, np.ndarray | None]:
+        """Parse every block's sequence table; a RAW block is one literal
+        run of its stored bytes.  Returns (tables, nseq) padded to a
+        power-of-two row count of at least 128, or (None, None) when a
+        block is Zstd, malformed, or decodes to another size than its
+        manifest says: the unit then decodes on the host."""
+        per_block: list[dict[str, np.ndarray]] = []
+        for i in range(manifest.nblocks):
+            codec = codec_from_id(int(manifest.codec_ids[i]))
+            ln = int(manifest.raw_len[i])
+            if codec == Codec.RAW:
+                per_block.append({"lit_ptr": np.zeros(1, np.int32),
+                                  "lit_len": np.array([ln], np.int32),
+                                  "off": np.zeros(1, np.int32),
+                                  "mlen": np.zeros(1, np.int32),
+                                  "out_pos": np.zeros(1, np.int32)})
+                continue
+            if codec not in _PARSERS:
+                return None, None
+            try:
+                t = native.parse_sequences(staging[i, :int(manifest.comp_len[i])],
+                                           _PARSERS[codec])
+            except StatusError:
+                return None, None
+            ends = t["out_pos"] + t["lit_len"] + t["mlen"]
+            total = int(ends[-1]) if ends.shape[0] else 0
+            if total != ln or (ends.shape[0] and int(ends.max()) > self.config.block_size):
+                logger.warning("block %d: parsed decode size %d != manifest raw_len %d; "
+                               "the unit decodes on the host", i, total, ln)
+                return None, None
+            per_block.append(t)
+        cap = max(t["lit_ptr"].shape[0] for t in per_block)
+        cap = max(128, 1 << (cap - 1).bit_length())
+        return pad_tables(per_block, SEQUENCE_KEYS, multiple=cap)
 
     def _submit_plan_build(self, manifest: BlockManifest, staging: np.ndarray):
         """Queue a plan build on the engine's single plan worker."""
@@ -573,17 +694,17 @@ class Engine:
         return fut.result()
 
     def ensure_plans(self, unit: CompressedUnit) -> None:
-        """Build the unit's decode plan on demand (once).
+        """Build the unit's decode sidecar on demand (once).
 
-        With ``plan_build="background"`` compress already started the
-        build and this joins it; otherwise the plan builds here.  A
+        With ``plan_build="background"`` compress already started the plan
+        build and this joins it; otherwise the plan builds here.  A unit
+        that cannot be planned gets sequence tables instead.  A
         deferred-commit unit is uploaded here, before its staging copy is
         dropped."""
         self._entry_guard()
         unit._check_live()
         if unit._planned:
             return
-        _no_device_zstd(unit.manifest)
         staging = self._staging_rows(unit)
         self._ensure_committed(unit)
         if unit._plan_future is not None:
@@ -591,9 +712,22 @@ class Engine:
         else:
             with self._plan_lock:
                 plans = self._build_plans(unit.manifest, staging)
-        unit.plan_flat, unit.plan_comp_rows = plans
+        if plans is not None:
+            unit.plan_flat, unit.plan_comp_rows = plans
+        elif unit.tables is None:
+            unit.tables, unit.nseq = self._build_tables(unit.manifest, staging)
         unit._planned = True
         unit._drop_staging()
+
+    def ensure_tables(self, unit: CompressedUnit) -> None:
+        """Build the unit's sequence tables on demand, from its staging copy
+        or its arena slots (for callers that want the table path of a unit
+        that also has plans)."""
+        self._entry_guard()
+        unit._check_live()
+        if unit.tables is None:
+            unit.tables, unit.nseq = self._build_tables(
+                unit.manifest, self._staging_rows(unit))
 
     # ------------------------------------------------------------------
     def decompress(self, unit: CompressedUnit, out: np.ndarray | None = None
@@ -631,17 +765,22 @@ class Engine:
             raise StatusError(Status.CapacityError(
                 f"output buffer {out.shape[0]} < total_raw {m.total_raw}"))
 
-        if self.config.use_tpu_kernels:
+        kernels = self.config.use_tpu_kernels
+        if kernels:
             self.ensure_plans(unit)
+        if kernels and unit.plan_flat is not None:
             status = self._decompress_gpu_planned(unit, out)
+        elif kernels and unit.tables is not None:
+            status = self._decompress_gpu_tables(unit, out)
         else:
             status = self._decompress_host(unit, out)
 
         if m.checksum_kind != Checksum.NONE:
+            raw_off = m.raw_off
             for i in range(m.nblocks):
                 if status[i] < 0:
                     continue
-                o, ln = int(m.raw_off[i]), int(m.raw_len[i])
+                o, ln = int(raw_off[i]), int(m.raw_len[i])
                 if checksum_of(m.checksum_kind, out[o:o + ln]) != int(m.checksums[i]):
                     status[i] = Status.IOError("").to_int()
         bad = int((status < 0).sum())
@@ -663,9 +802,47 @@ class Engine:
         self._entry_guard()
         unit._check_live()
         self.ensure_plans(unit)
-        results = [r for _, _, r in self._planned_bursts(unit)]
+        if unit.plan_flat is not None:
+            results = [r for _, _, r in self._planned_bursts(unit)]
+        elif unit.tables is not None:
+            results = [r for _, _, r in self._decode_bursts(unit)]
+        else:
+            raise StatusError(Status.NotImplemented(
+                "device-resident decompress requires a device-decodable unit "
+                "(lz4/snappy/raw with sequence tables, or a plan)"))
         self.stats.device_decode_bursts += len(results)
         return results
+
+    def _decode_bursts(self, unit: CompressedUnit):
+        """Launch the sequence-table decode kernel burst by burst.
+
+        Returns [(start, stop, device result [stop - start, nrows, 128])],
+        launches already queued.  The tables upload once per unit."""
+        cfg = self.config
+        self._ensure_committed(unit)
+        nrows = cfg.block_size // LANES
+        nseq, cols = unit.table_device_arrays()
+        launches = []
+        for start in range(0, unit.nblocks, cfg.burst_size):
+            stop = min(unit.nblocks, start + cfg.burst_size)
+            rows = self.arena.gather_burst([r.slot for r in unit.refs[start:stop]])
+            result = decode_blocks(rows, nseq[start:stop],
+                                   {k: v[start:stop] for k, v in cols.items()},
+                                   out_rows=nrows)
+            launches.append((start, stop, result))
+            self.stats.enqueued_blocks += stop - start
+        return launches
+
+    def _unit_rows(self, unit: CompressedUnit, idx: list[int]) -> torch.Tensor:
+        """The arena rows of blocks ``idx``, with Zstd blocks' literal
+        planes in place of their compressed bytes."""
+        rows = self.arena.gather_burst([unit.refs[i].slot for i in idx])
+        lit_dev, lit_pos = unit.lit_device_arrays(rows.shape[1])
+        js = [j for j, i in enumerate(idx) if i in lit_pos]
+        if js:
+            ks = torch.tensor([lit_pos[idx[j]] for j in js], device=rows.device)
+            rows[torch.tensor(js, device=rows.device)] = lit_dev[ks]
+        return rows
 
     def _planned_bursts(self, unit: CompressedUnit):
         """Launch the flat decode kernel burst by burst.
@@ -680,7 +857,7 @@ class Engine:
         launches = []
         for start in range(0, unit.nblocks, cfg.burst_size):
             stop = min(unit.nblocks, start + cfg.burst_size)
-            rows = self.arena.gather_burst([r.slot for r in unit.refs[start:stop]])
+            rows = self._unit_rows(unit, list(range(start, stop)))
             burst = dict(pt)
             for k in _BLOCK_KEYS:
                 burst[k] = pt[k][start:stop]
@@ -699,13 +876,13 @@ class Engine:
         self._entry_guard()
         unit._check_live()
         self.ensure_plans(unit)
-        if unit.plan_flat["host_blocks"].size:
+        if unit.plan_flat is None or unit.plan_flat["host_blocks"].size:
             raise StatusError(Status.NotImplemented(
                 "prepare_device_decode requires a fully-planned unit"))
         self._ensure_committed(unit)
         nrows = self.config.block_size // LANES
         comp_rows = unit.plan_comp_rows
-        rows = self.arena.gather_burst([r.slot for r in unit.refs])
+        rows = self._unit_rows(unit, list(range(unit.nblocks)))
         pt = unit.plan_device_arrays()
 
         def launch() -> torch.Tensor:
@@ -735,6 +912,66 @@ class Engine:
                 out[o:o + ln] = host[i - start, :ln]
             self.stats.dequeued_blocks += stop - start
         return status
+
+    def _decompress_gpu_tables(self, unit: CompressedUnit, out: np.ndarray) -> np.ndarray:
+        """Sequence-table device decode.  While the launches run, the host
+        re-walks the framing of every slot written since the last walk
+        (``_validate_table_unit``), so the status stays real per block."""
+        m = unit.manifest
+        status = np.zeros(m.nblocks, np.int32)
+        launches = self._decode_bursts(unit)
+        self.stats.device_decode_bursts += len(launches)
+        raw_off = m.raw_off
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            vfut = ex.submit(self._validate_table_unit, unit, status)
+            for start, stop, result in launches:
+                host = result.cpu().numpy().reshape(stop - start, -1)
+                for i in range(start, stop):
+                    o, ln = int(raw_off[i]), int(m.raw_len[i])
+                    out[o:o + ln] = host[i - start, :ln]
+                self.stats.dequeued_blocks += stop - start
+            vfut.result()
+        return status
+
+    def _validate_table_unit(self, unit: CompressedUnit, status: np.ndarray) -> None:
+        """Re-parse the current slot bytes of every block whose slot was
+        written since the last walk, and check its decoded extent against
+        the manifest; failures land in ``status``.  The tables the kernel
+        runs were parsed earlier, so a slot rewritten since would otherwise
+        decode garbage silently.  Generations are read before the bytes, so
+        a write racing the gather is walked again next time."""
+        m = unit.manifest
+        slots = [r.slot for r in unit.refs]
+        gens = self.arena.slot_generations(slots)
+        if unit._val_gen is None:
+            stale = np.arange(m.nblocks)
+            unit._val_status = np.zeros(m.nblocks, np.int32)
+        else:
+            stale = np.flatnonzero(gens != unit._val_gen)
+        bad_io = Status.IOError("").to_int()
+        for start in range(0, stale.shape[0], self.config.burst_size):
+            idx = stale[start:start + self.config.burst_size]
+            rows = self.arena.gather_burst([slots[int(i)] for i in idx]).cpu().numpy()
+            for j, ii in enumerate(idx):
+                i = int(ii)
+                st = 0
+                codec = codec_from_id(int(m.codec_ids[i]))
+                if codec == Codec.RAW:
+                    if int(m.comp_len[i]) != int(m.raw_len[i]):
+                        st = bad_io
+                else:
+                    try:
+                        t = native.parse_sequences(rows[j, :int(m.comp_len[i])],
+                                                   _PARSERS[codec])
+                        ends = t["out_pos"] + t["lit_len"] + t["mlen"]
+                        if (int(ends[-1]) if ends.shape[0] else 0) != int(m.raw_len[i]):
+                            st = bad_io
+                    except StatusError as e:
+                        st = e.status.to_int()
+                unit._val_status[i] = st
+        unit._val_gen = gens
+        bad = unit._val_status < 0
+        status[bad] = unit._val_status[bad]
 
     def _decompress_host_subset(self, unit: CompressedUnit, out: np.ndarray,
                                 idx: np.ndarray, status: np.ndarray) -> None:
@@ -785,8 +1022,9 @@ class Engine:
         staging_buf = get_memory_pool(PoolBackend.ALIGNED).allocate(
             n * self.config.slot_size)
         staging = staging_buf.view().reshape(n, self.config.slot_size)
+        comp_off = m.comp_off
         for i in range(n):
-            o, ln = int(m.comp_off[i]), int(m.comp_len[i])
+            o, ln = int(comp_off[i]), int(m.comp_len[i])
             staging[i, :ln] = cb.packed[o:o + ln]
             staging[i, ln:] = 0
         refs = self.arena.take_refs(
@@ -817,7 +1055,83 @@ class Engine:
                 logger.warning("discarding failed plan build of a recycled "
                                "unit: %s", e)
         count = self.arena.recycle(unit.refs)
-        unit._plan_dev = None
+        unit._plan_dev = unit._table_dev = unit._lit_dev = None
         unit._drop_staging()
         unit.recycled = True
         return count
+
+
+def prepare_batched_decode(items):
+    """Merge several units' decodes into ONE flat-kernel launch.
+
+    ``items``: ``(engine, unit)`` pairs, possibly of different engines
+    (mixed codecs) on one device, with one ``block_size``; every unit must
+    be fully planned.  Returns ``(launch, slices)``: ``launch()`` decodes
+    every unit's blocks in one launch and returns ``[total_blocks, nrows,
+    128]`` uint8 on the device; ``slices[i]`` is unit i's ``(start, stop)``
+    row range.  The plan wires merge: ``p_off`` re-bases by the running pass
+    count, ``dq_idx`` by the running dense rows, and ``row_a`` pads to the
+    batch's largest ``dcap``."""
+    if not items:
+        raise StatusError(Status.Invalid("prepare_batched_decode: no units"))
+    eng0 = items[0][0]
+    block_size = eng0.config.block_size
+    nrows = block_size // LANES
+    plans_list = []
+    for eng, unit in items:
+        if eng.config.block_size != block_size:
+            raise StatusError(Status.Invalid("prepare_batched_decode: mixed block sizes"))
+        if eng.device != eng0.device:
+            raise StatusError(Status.Invalid("prepare_batched_decode: mixed devices"))
+        eng._entry_guard()
+        unit._check_live()
+        eng.ensure_plans(unit)
+        p = unit.plan_flat
+        if p is None or p["host_blocks"].size:
+            raise StatusError(Status.NotImplemented(
+                "prepare_batched_decode requires fully-planned units"))
+        plans_list.append(p)
+
+    comp_rows = max(u.plan_comp_rows for _, u in items)
+    tiles = nrows // LANES
+    S_total = sum(int(p["p_used"].astype(np.int64).sum()) for p in plans_list)
+    s_pad = -(-(S_total + DCHUNK) // _S_QUANTUM) * _S_QUANTUM
+    se = np.zeros((s_pad, tiles, LANES), np.int16)
+    sh = np.zeros((s_pad, tiles, LANES), np.int32)
+    dcap = max(p["row_a"].shape[1] for p in plans_list)
+    parts = {k: [] for k in ("p_used", "p_off", "p0", "dense", "dq_idx", "dq", "row_a")}
+    s_base = nd_base = 0
+    for p in plans_list:
+        S_i = int(p["p_used"].astype(np.int64).sum())
+        se[s_base:s_base + S_i] = p["se"][:S_i]
+        sh[s_base:s_base + S_i] = p["shift"][:S_i]
+        parts["p_used"].append(p["p_used"])
+        parts["p_off"].append(p["p_off"].astype(np.int64) + s_base)
+        parts["p0"].append(p["p0"])
+        parts["dense"].append(p["dense"])
+        parts["dq_idx"].append(p["dq_idx"] + nd_base)
+        parts["dq"].append(p["dq"])
+        ra = p["row_a"]
+        parts["row_a"].append(np.pad(ra, ((0, 0), (0, dcap - ra.shape[1]), (0, 0), (0, 0))))
+        s_base += S_i
+        nd_base += p["dq"].shape[0]
+    merged = {k: np.concatenate(v) for k, v in parts.items()}
+    merged["p_off"] = merged["p_off"].astype(np.int32)
+    merged.update(se=se, shift=sh)
+    pt = plan_tensors(merged, eng0.device)
+
+    # Every unit's rows once, Zstd literal planes in place, padded to one width.
+    row_parts, slices = [], []
+    start = 0
+    for eng, unit in items:
+        row_parts.append(eng._unit_rows(unit, list(range(unit.nblocks))))
+        slices.append((start, start + unit.nblocks))
+        start += unit.nblocks
+    width = max(r.shape[1] for r in row_parts)
+    rows = torch.cat([torch.nn.functional.pad(r, (0, width - r.shape[1]))
+                      for r in row_parts])
+
+    def launch() -> torch.Tensor:
+        return decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nrows)
+
+    return launch, slices

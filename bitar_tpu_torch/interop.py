@@ -32,8 +32,8 @@ def plans_from_reference(plan_flat: dict, device) -> dict[str, torch.Tensor]:
     its arrays is refused here rather than clamped on the device."""
     if plan_flat.get("lit_planes"):
         raise StatusError(Status.NotImplemented(
-            "plan carries zstd literal planes; the port does not decode zstd "
-            "on the device yet"))
+            "plan carries zstd literal planes, which replace those blocks' comp "
+            "rows; decode such a unit through an engine (unit_from_reference)"))
     plan = {k: v for k, v in plan_flat.items()
             if k not in TPU_ONLY_PLAN_KEYS and k not in ("lit_planes", "host_blocks")}
     p_used = plan["p_used"].astype(np.int64)

@@ -134,8 +134,9 @@ class DeviceArena:
     """The device-resident compressed-block pool for one engine.
 
     Holds one ``[max_slots, slot_size]`` uint8 tensor on ``device``.
-    ``write_burst`` stores a burst of compressed rows into taken slots;
-    ``gather_burst`` pulls slot rows back out for decode or host readout.
+    ``write_burst`` stores a burst of compressed rows into taken slots and
+    bumps their write generation; ``gather_burst`` pulls slot rows back out
+    for decode or host readout.
     """
 
     def __init__(self, slot_size: int, preallocated: int, max_slots: int,
@@ -148,6 +149,9 @@ class DeviceArena:
         self._buf = torch.zeros((max_slots, self.slot_size), dtype=torch.uint8,
                                 device=self.device)
         self._tracker: dict[int, int] = {}  # id(ref) -> slot
+        # Per-slot write generation, bumped by every write_burst: the table
+        # decode's validator re-walks only slots written since it last looked.
+        self._slot_gen = np.zeros(max_slots, np.int64)
         self._buf_lock = threading.Lock()
 
     def _index(self, slot_ids) -> torch.Tensor:
@@ -174,7 +178,13 @@ class DeviceArena:
         full[:, :rows.shape[1]].copy_(rows)
         idx = self._index(slot_ids)
         with self._buf_lock:
+            self._slot_gen[np.asarray(slot_ids, dtype=np.int64)] += 1
             self._buf.index_copy_(0, idx, full)
+
+    def slot_generations(self, slot_ids: list[int]) -> np.ndarray:
+        """Each slot's write generation (a validation-cache key)."""
+        with self._buf_lock:
+            return self._slot_gen[np.asarray(slot_ids, dtype=np.int64)].copy()
 
     def gather_burst(self, slot_ids: list[int]) -> torch.Tensor:
         """``[len(slot_ids), slot_size]`` uint8 copy of the slots, on device."""

@@ -1,8 +1,9 @@
 """ctypes bindings to the host codec library, for the calls the port needs.
 
 The library is the JAX package's own C++ (``bitar_tpu/ops/cpu/*.cc``: the
-LZ4/Snappy/Zstd codecs, the batch engine and the batch planner
-``bt_plan_batch*``), compiled by path with g++ into the port's build
+LZ4/Snappy/Zstd codecs, the batch engine, the batch planner
+``bt_plan_batch*``, the sequence parsers and the hint-driven emitters),
+compiled by path with g++ into the port's build
 directory.  The sources are shared, never forked, so both packages plan and
 code the same bytes; nothing of the ``bitar_tpu`` Python package is
 imported.
@@ -24,6 +25,8 @@ SRC_DIR = Path(__file__).resolve().parents[3] / "bitar_tpu" / "ops" / "cpu"
 _SOURCES = ["lz4.cc", "snappy.cc", "zstd.cc", "batch.cc", "plan.cc"]
 _ABI_VERSION = 6
 DENSE_PLANES = 64     # row_a anchor planes per block (plan.cc kDenseMax)
+#: Columns of a sequence table, in the order the parsers write them.
+SEQUENCE_KEYS = ("lit_ptr", "lit_len", "off", "mlen", "out_pos")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -70,6 +73,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bt_plan_dense_pack.restype = None
     lib.bt_plan_dense_pack.argtypes = [
         c_int, c_int, _i64p, _i16p, _i16p, _i32p, _i32p, c_int, c_int, c_int, _i32p]
+    for name in ("bt_lz4_parse", "bt_snappy_parse"):
+        fn = getattr(lib, name)
+        fn.restype = c_int
+        fn.argtypes = [_u8p, c_int, c_int, _i32p, _i32p, _i32p, _i32p, _i32p]
+    for name in ("bt_lz4_emit_sequences", "bt_snappy_emit_sequences"):
+        fn = getattr(lib, name)
+        fn.restype = c_int
+        fn.argtypes = [_u8p, c_int, _i32p, _i32p, _i32p, c_int, _u8p, c_int]
+    lib.bt_set_emit_min_match.restype = None
+    lib.bt_set_emit_min_match.argtypes = [c_int]
     lib.bt_abi_version.restype = c_int
     lib.bt_abi_version.argtypes = []
     return lib
@@ -184,9 +197,9 @@ def plan_batch_flat(src: np.ndarray, src_off: np.ndarray, src_len: np.ndarray,
     Returns (se [n, max_passes, nrows] int16, shift int32, p_used [n], p0
     [n], status [n], lit_used [n], dq [n, nrows, 128] int16, row_a [n,
     DENSE_PLANES, nrows] int32, dense [n]); the same call and results as
-    ``bitar_tpu.ops.cpu.native.plan_batch_flat`` (zstd literal planes are
-    not requested: the port does not decode zstd on the device yet).  Only
-    tests call it; the engine plans through :func:`plan_batch_begin`."""
+    ``bitar_tpu.ops.cpu.native.plan_batch_flat`` without zstd literal
+    planes.  Only tests call it; the engine plans through
+    :func:`plan_batch_begin`."""
     n = int(src_len.shape[0])
     se = np.zeros((n, max_passes, nrows), np.int16)
     shift = np.zeros((n, max_passes, nrows), np.int32)
@@ -210,12 +223,16 @@ def plan_batch_flat(src: np.ndarray, src_off: np.ndarray, src_len: np.ndarray,
 def plan_batch_begin(src: np.ndarray, src_off: np.ndarray, src_len: np.ndarray,
                      out_len: np.ndarray, codec_ids: np.ndarray, nrows: int,
                      max_passes: int, cb: int, split_limit: int = 128,
-                     nthreads: int = 0, band_rows: int = 0, band_tile: int = 0,
+                     nthreads: int = 0, lit_out: np.ndarray | None = None,
+                     lit_stride: int = 0, band_rows: int = 0, band_tile: int = 0,
                      dq_buf: np.ndarray | None = None,
                      ra_buf: np.ndarray | None = None):
     """Phase 1 of the compact two-phase planner: plans every block into a
     native context.  Returns (ctx, p_used, p0, status, lit_used, dq, row_a,
     dense); pass ctx to :func:`plan_batch_pack` or :func:`plan_batch_abort`.
+    ``lit_out`` (flat ``[n * lit_stride]`` uint8) receives each zstd
+    block's entropy-decoded literal plane; ``lit_used[i] > 0`` marks a block
+    whose plan reads that plane instead of its compressed bytes.
     ``dq_buf``/``ra_buf`` may be dirty: the planner defines every plane of
     a block it reports dense (plan.cc Densify)."""
     n = int(src_len.shape[0])
@@ -232,7 +249,8 @@ def plan_batch_begin(src: np.ndarray, src_off: np.ndarray, src_len: np.ndarray,
         _i32ptr(np.ascontiguousarray(out_len, np.int32)),
         nrows, max_passes, split_limit, cb, band_rows, band_tile,
         _i32ptr(p_used), _i32ptr(p0), _i32ptr(status),
-        None, 0, _i32ptr(lit_used), _i16ptr(dq), _i32ptr(row_a), _i32ptr(dense))
+        _u8ptr(lit_out) if lit_out is not None else None, lit_stride,
+        _i32ptr(lit_used), _i16ptr(dq), _i32ptr(row_a), _i32ptr(dense))
     return ctx, p_used, p0, status, lit_used, dq, row_a, dense
 
 
@@ -262,3 +280,59 @@ def plan_dense_pack(sel: np.ndarray, dq_src: np.ndarray, dq_dst: np.ndarray,
         _i16ptr(dq_src), _i16ptr(dq_dst), _i32ptr(ra_src), _i32ptr(ra_dst),
         nrows, ra_src.shape[1], dcap,
         _i32ptr(np.ascontiguousarray(ndense, np.int32)))
+
+
+def parse_sequences(data, codec: str = "lz4", max_seq: int | None = None
+                    ) -> dict[str, np.ndarray]:
+    """The sequence table of one LZ4 or Snappy block: int32 columns
+    lit_ptr, lit_len, off, mlen, out_pos of length nseq (``bt_lz4_parse``
+    / ``bt_snappy_parse``).  Raises StatusError on a malformed block."""
+    src = _as_u8(data)
+    if max_seq is None:
+        max_seq = max(16, len(src) + 1)
+    cols = {k: np.zeros(max_seq, dtype=np.int32) for k in SEQUENCE_KEYS}
+    fn = load().bt_lz4_parse if codec == "lz4" else load().bt_snappy_parse
+    rc = _check(fn(_u8ptr(src), len(src), max_seq,
+                   *(_i32ptr(cols[k]) for k in SEQUENCE_KEYS)), f"{codec}_parse")
+    return {k: v[:rc] for k, v in cols.items()}
+
+
+def set_emit_min_match(v: int) -> None:
+    """Minimum match length the hint-driven emitters accept (at least 4).
+    Thread-local: it applies to the calling thread's later
+    ``*_emit_sequences`` calls."""
+    load().bt_set_emit_min_match(int(v))
+
+
+def lz4_emit_sequences(data, mlen: np.ndarray, off_idx: np.ndarray, offsets,
+                       dst_cap: int | None = None) -> np.ndarray:
+    """An LZ4 block from device match hints, every hint verified on emit."""
+    return _emit_sequences("lz4", data, mlen, off_idx, offsets, dst_cap)
+
+
+def snappy_emit_sequences(data, mlen: np.ndarray, off_idx: np.ndarray, offsets,
+                          dst_cap: int | None = None) -> np.ndarray:
+    """A Snappy block from the same codec-agnostic hints."""
+    return _emit_sequences("snappy", data, mlen, off_idx, offsets, dst_cap)
+
+
+def _emit_sequences(codec: str, data, mlen, off_idx, offsets,
+                    dst_cap: int | None) -> np.ndarray:
+    """``offsets=None``: ``off_idx[i]`` is the offset itself; otherwise it
+    indexes ``offsets``."""
+    src = _as_u8(data)
+    n = len(src)
+    if dst_cap is None:
+        dst_cap = n + n // 255 + 16
+    dst = np.empty(dst_cap, dtype=np.uint8)
+    mlen = np.ascontiguousarray(mlen[:n], dtype=np.int32)
+    off_idx = np.ascontiguousarray(off_idx[:n], dtype=np.int32)
+    if offsets is None:
+        offs_ptr, noffs = None, 0
+    else:
+        offs = np.ascontiguousarray(offsets, dtype=np.int32)
+        offs_ptr, noffs = _i32ptr(offs), len(offs)
+    fn = load().bt_lz4_emit_sequences if codec == "lz4" else load().bt_snappy_emit_sequences
+    rc = _check(fn(_u8ptr(src), n, _i32ptr(mlen), _i32ptr(off_idx), offs_ptr, noffs,
+                   _u8ptr(dst), dst_cap), f"{codec}_emit_sequences")
+    return dst[:rc]

@@ -5,6 +5,8 @@ planes ``[N, L]`` on one device:
 
 1. ``detect_offsets`` (+ ``detect_offsets_fft`` with ``detect_fft``) picks
    each block's candidate match offsets (torch ops, ``ops/match_dyn.py``);
+   with ``offsets`` given, kernel B3 (``ops/match.py``) scores that static
+   tuple instead, and :func:`parse_and_size` parses with no sequence cap;
 2. kernel B5 (``find_matches_parse_dyn``) scores the offsets and parses
    each ``seg``-byte segment greedily into at most ``wcap`` sequences;
    below ``seg = 1024`` kernel B4 (``find_matches_dyn``) scores and
@@ -16,9 +18,6 @@ planes ``[N, L]`` on one device:
 The stream is standard LZ4 (or Snappy): the last 5 bytes of a block are
 literals and no match starts in its last 12 bytes.  Rows whose size is
 ``>= lengths[b]`` or above the emission width are the caller's to store RAW.
-
-The reference's static-offset matcher (``offsets`` given, kernel B3) is not
-ported: it raises NotImplemented.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from ..status import Status, StatusError
 from .emit import emit_blocks
 from .emit import ext_bytes as _ext_bytes
 from .emit import snappy_len_extra as _snappy_len_extra
+from .match import find_matches
 from .match_dyn import detect_offsets, detect_offsets_fft, find_matches_dyn, find_matches_parse_dyn
 
 
@@ -194,13 +194,16 @@ def _match_parse(planes, lengths, *, seg, min_match, mm, detect_k, offsets, wcap
     """Detect, match and parse: the layout of every block."""
     n, L = planes.shape
     nrows = L // 128
+    lengths = lengths.int().contiguous()
     if offsets is not None:
-        raise StatusError(Status.NotImplemented(
-            "static match offsets need kernel B3 (bitar_tpu/ops/pallas/lz4_match.py:84, "
-            "_match_kernel), which is not ported yet; leave offsets unset"))
+        # The static tuple keeps the worst-case sequence budget, as in the
+        # reference.
+        mlen, moff = find_matches(planes.reshape(n, nrows, 128), offsets=offsets, nrows=nrows,
+                                  max_match=mm, emit_values=True)
+        return parse_and_size(mlen.reshape(n, L), moff.reshape(n, L), lengths, seg=seg,
+                              min_match=min_match, length=L, wcap=None, fmt=fmt)
     noff, offs = candidate_offsets(planes, detect_k=detect_k, detect_fft=detect_fft,
                                    fft_k=fft_k)
-    lengths = lengths.int().contiguous()
     if seg % 128 == 0 and L % seg == 0 and L // seg <= 128 and mm <= seg and seg >= 1024:
         P, M, O, overflow = find_matches_parse_dyn(
             planes.reshape(n, nrows, 128), noff, offs, lengths, nrows=nrows, seg=seg,

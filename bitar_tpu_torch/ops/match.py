@@ -1,0 +1,116 @@
+"""Static candidate-offset match scoring (kernel B3), for the ``"tpu"``
+compress matcher and for device compression with ``match_offsets``.
+
+Counterpart of ``bitar_tpu/ops/pallas/lz4_match.py``.  For every position
+``p`` of a block's raw plane ``x[0, L)`` (the whole padded plane) and each
+offset ``d`` of one tuple shared by all blocks, in order:
+
+* ``eq[p] = x[p] == x[p - d] and p >= d``;
+* ``run[p]`` is the number of consecutive ``eq`` positions from ``p``,
+  capped at ``cap``, the power of two at or above ``max_match``: the
+  reference doubles runs up to that cap over a cyclic plane, and its wrap
+  lands on a position below ``d``, which never matches, so its run is this
+  linear one.  ``d == 0`` matches everywhere, cyclically: every run is
+  ``cap``;
+* a position keeps the first offset whose run is strictly the longest.
+
+The outputs are the best run capped at ``max_match`` and the offset's index
+in the tuple (its value with ``emit_values``); 0 and 0 where nothing
+matches.  The wrapper runs the plain version on CPU tensors and launches
+``csrc/match.cu`` on CUDA tensors, or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import check_cuda, load_cuda_kernel, require
+
+LANES = 128
+
+#: Dense short range (RLE, small periods), then power-of-two-ish strides.
+DEFAULT_OFFSETS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 16, 20, 24, 32, 48, 64,
+                   96, 128, 192, 256, 384, 512, 1024, 2048, 4096, 8192)
+#: Default run cap; the host emitter extends matches past it.
+MAX_MATCH = 64
+#: Largest ``max_match`` the kernel takes: its packed runs have 11 bits
+#: (``match_score.cuh``) and hold the doubling cap, at most 1024.
+KERNEL_MAX_MATCH = 1024
+
+#: Kernel launches made by ``find_matches`` on CUDA tensors (one per call).
+launches = 0
+
+
+def match_reference(x: torch.Tensor, offsets: tuple[int, ...], *, max_match: int,
+                    emit_values: bool = False):
+    """Plain version: (mlen, index or value), each [N, L] int32, by the
+    reference's cyclic log-doubling."""
+    n, L = x.shape
+    dev = x.device
+    xi = x.int()
+    p = torch.arange(L, device=dev)
+    best_len = torch.zeros((n, L), dtype=torch.int32, device=dev)
+    best_idx = torch.zeros_like(best_len)
+    for di, d in enumerate(offsets):
+        shifted = xi[:, torch.remainder(p - d, L)]
+        run = ((xi == shifted) & (p >= d)).int()
+        step = 1
+        while step < max_match:
+            run = torch.where(run == step, run + torch.roll(run, -step, dims=1), run)
+            step *= 2
+        better = run > best_len
+        best_len = torch.where(better, run, best_len)
+        best_idx = torch.where(better, d if emit_values else di, best_idx)
+    return best_len.clamp(max=max_match), best_idx
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, c_int = ctypes.c_void_p, ctypes.c_int
+    lib.bt_match_launch.restype = c_int
+    lib.bt_match_launch.argtypes = [vp, vp, c_int, vp, vp,   # planes, offs, K, mlen, idx
+                                    c_int, c_int, c_int,     # n, L, max_match
+                                    c_int, vp]               # emit_values, stream
+
+
+def load_kernel() -> ctypes.CDLL:
+    """Build (at first use, for sm_90a) and load ``csrc/match.cu``."""
+    return load_cuda_kernel("match", _bind, ("match_score.cuh",))
+
+
+def find_matches(comp: torch.Tensor, *, offsets: tuple[int, ...] = DEFAULT_OFFSETS,
+                 nrows: int, max_match: int = MAX_MATCH, emit_values: bool = False):
+    """Score candidate-offset matches for a batch of blocks.
+
+    ``comp``: [N, nrows, 128] uint8 raw planes.  Returns (mlen, index or
+    value), each [N, nrows, 128] int32 (see the module docstring)."""
+    global launches
+    n = comp.shape[0]
+    L = nrows * LANES
+    require(comp.dtype == torch.uint8 and comp.numel() == n * L,
+            f"planes: want [N, {nrows}, 128] uint8, got {list(comp.shape)} {comp.dtype}")
+    require(all(d >= 0 for d in offsets), f"offsets {offsets} must be >= 0")
+    x = comp.reshape(n, L)
+    if x.device.type == "cpu":
+        mlen, idx = match_reference(x, offsets, max_match=max_match, emit_values=emit_values)
+        return mlen.reshape(n, nrows, LANES), idx.reshape(n, nrows, LANES)
+    require(x.device.type == "cuda", f"find_matches: no kernel for device {x.device}")
+    require(1 <= max_match <= KERNEL_MAX_MATCH,
+            f"max_match {max_match} outside the kernel's [1, {KERNEL_MAX_MATCH}]")
+    require(len(offsets) >= 1 and max(offsets) < (1 << 20),
+            "the kernel takes 1 or more offsets below 2^20")
+    x = x.contiguous()
+    offs = torch.tensor(offsets, dtype=torch.int32, device=x.device)
+    mlen = torch.empty((n, L), dtype=torch.int32, device=x.device)
+    idx = torch.empty_like(mlen)
+    if n:
+        lib = load_kernel()
+        with torch.cuda.device(x.device):
+            rc = lib.bt_match_launch(
+                x.data_ptr(), offs.data_ptr(), len(offsets), mlen.data_ptr(),
+                idx.data_ptr(), n, L, max_match, int(emit_values),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        check_cuda(rc, "match launch", lib)
+        launches += 1
+    return mlen.reshape(n, nrows, LANES), idx.reshape(n, nrows, LANES)

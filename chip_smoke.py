@@ -6,7 +6,7 @@ that the port still starts on the card.
 Phases (any failure raises, and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the host codec library (g++) and the four CUDA kernels (nvcc,
+2. build the host codec library (g++) and the six CUDA kernels (nvcc,
    sm_90a, one process per source, all started together), timed;
 3. every kernel against its plain PyTorch version on the card, byte for
    byte, at the shapes its path gives it:
@@ -22,6 +22,13 @@ Phases (any failure raises, and the script exits non-zero):
    - ``emit`` at widths 128, 2048 and the adaptive one: LZ4 on the bench
      corpus, on the text corpus with ``detect_fft=True`` and on short RLE
      blocks that fit 128 bytes, and Snappy at 8192;
+   - ``decode_tables`` (B2) on the sequence tables of 4 KiB blocks of the
+     bench corpus (8192 blocks), of the markdown text corpus at 128 KiB
+     under an 8-pass plan budget (deep tables) and of RLE blocks with
+     offsets 1-130 (both sides of the 128-byte row);
+   - ``match`` (B3) on 64 x 128 KiB of the bench corpus (indices,
+     max_match 64; values, max_match 1024) and on hand-set offsets that tie
+     (values, max_match 1024);
 4. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    - host compress -> decode, LZ4 then Snappy, at the bench's size:
@@ -34,10 +41,23 @@ Phases (any failure raises, and the script exits non-zero):
      ``decompress`` (B1, bit-exact) -> ``recycle``;
    - ``compress_blocks_device(seg=256)`` on 64 x 128 KiB (B4 + emitter),
      every compressed row decoded by the host codec, bit-exact;
+   - the sequence-table path: ``EngineConfig(block_size=4096,
+     burst_size=1024)`` over the bench corpus (32768 blocks; B2 only);
+   - a Zstd unit of 1024 x 128 KiB (B1 over the literal planes);
+   - ``compress_matcher="tpu"`` (B3 hints, host emitter), LZ4 and Snappy,
+     and ``"tpu-sort"``, each decoded through B1;
+   - ``compress_matcher="device", match_offsets=DEFAULT_OFFSETS`` (B3 +
+     emitter, then B1);
+   - ``prepare_batched_decode`` over an LZ4, a Zstd and a Snappy unit (one
+     B1 launch);
+   - four streams on one engine (``make_streams``/``wait_all``);
+   every one bit-exact with no block decoded on the host;
 5. times with CUDA events, kernel and plain version in turns (plain, kernel,
-   kernel, plain): B1 at the bench shape and on the text corpus; B5, B4 and
-   the emitter at the shapes of phase 3; the whole
+   kernel, plain): B1 at the bench shape and on the text corpus; B5, B4,
+   the emitter, B2 and B3 at the shapes of phase 3; the whole
    ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
+   and the host-clock phases of the tpu matcher's compress (plane packing,
+   upload, B3, hint readback, host emission) at 1024 x 128 KiB;
 6. only with ``--profile``: where the time of each engine main path (host
    compress, device compress) goes, for one warm LZ4 unit: host-clock
    phases and the ``torch.profiler`` rows with the most device time.
@@ -66,7 +86,13 @@ NBLOCKS = 1024
 TEXT_BLOCKS = 256
 RAW_BLOCKS = 256
 MATCH_BLOCKS = 256            # B5 / emitter / whole-pipeline batch (the bench's)
-DYN_BLOCKS = 64               # B4 batch (seg 256)
+DYN_BLOCKS = 64               # B4 batch (seg 256); also the B3 batch
+TABLE_BLOCK = 4096            # block size of the sequence-table path
+TABLE_CHECK_BLOCKS = 8192     # B2 batch of phase 3 (32 MiB of the corpus)
+BATCH_UNIT_BLOCKS = 256       # blocks of each unit of the batched decode
+#: Offsets that tie: multiples of one period, duplicates, a 0 that matches
+#: everywhere, one past the block.
+TIES = (94, 47, 141, 47, 3, 6, 0, 140000)
 FFT_TEXT_BLOCKS = 64          # text batch of the B5 / B4 / emitter checks
 SHORT_BLOCKS = 32             # short RLE blocks of the width-128 emitter check
 TIMED_REPS = (3, 20)          # (plain, kernel) launches per timed turn
@@ -84,10 +110,10 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def engine(btt, codec, **kw):
+def engine(btt, codec, block=BLOCK, nblocks=NBLOCKS, **kw):
     kw.setdefault("commit", "deferred")
-    cfg = btt.EngineConfig(codec=codec, block_size=BLOCK, burst_size=NBLOCKS,
-                           max_pool_slots=NBLOCKS + 32, **kw)
+    cfg = btt.EngineConfig(codec=codec, block_size=block, burst_size=min(nblocks, 1024),
+                           max_pool_slots=nblocks + 32, **kw)
     return btt.Engine(cfg, device="cuda").initialize()
 
 
@@ -339,6 +365,229 @@ def emit_bound(lay, ow: int) -> tuple[float, str]:
     return bound_ms(int(lit.sum()) + 20 * int(slots.sum()) + 4 * n + n * ow)
 
 
+# ---------------------------------------------------------------------------
+# B2: sequence-table decode; B3: static-offset match
+
+
+def table_batch(btt, data: bytes, block: int, max_passes: int | None = None):
+    """Compress ``data`` through an engine whose units decode from sequence
+    tables (blocks of fewer than 128 rows, or a plan budget no block meets);
+    return the unit's gathered rows, table tensors, stored bytes and stats."""
+    n = -(-len(data) // block)
+    eng = engine(btt, btt.Codec.LZ4, block=block, nblocks=n, plan_build="lazy")
+    if max_passes is not None:
+        eng._PLAN_MAX_PASSES = max_passes
+    unit = eng.compress(data)
+    eng.ensure_plans(unit)
+    if unit.plan_flat is not None or unit.tables is None:
+        raise AssertionError(f"{n} x {block} B: the unit did not take the table path")
+    rows = eng.arena.gather_burst([r.slot for r in unit.refs])
+    nseq, tables = unit.table_device_arrays()
+    stats = (f"{n} x {block} B, ratio {unit.manifest.ratio():.3f}, sequences "
+             f"{int(unit.nseq.sum())} (max {int(unit.nseq.max())} per block, S "
+             f"{unit.tables['lit_ptr'].shape[1]})")
+    batch = (rows, nseq, tables, block, int(unit.manifest.comp_len.sum()), stats)
+    eng.recycle(unit)
+    eng.release()
+    return batch
+
+
+def rle_table_batch(dt, block: int = TABLE_BLOCK):
+    """Offsets 1..130, both sides of the 128-byte row: d literal bytes, one
+    match of offset d, 5 final literals; 4 KiB blocks."""
+    rng = np.random.default_rng(12)
+    n = 130
+    rows = rng.integers(0, 256, (n, 256), np.uint8)
+    tables = {k: np.zeros((n, 128), np.int32) for k in ("lit_ptr", "lit_len", "off", "mlen",
+                                                         "out_pos")}
+    for i in range(n):
+        d = i + 1
+        tables["lit_len"][i, :2] = [d, 5]
+        tables["off"][i, 0] = d
+        tables["mlen"][i, 0] = block - d - 5
+        tables["lit_ptr"][i, 1] = d
+        tables["out_pos"][i, 1] = block - 5
+    nseq, tt = dt.table_tensors(tables, np.full(n, 2, np.int32), "cuda")
+    want = np.stack([np.concatenate([np.tile(rows[i, :i + 1], block // (i + 1) + 1)[:block - 5],
+                                     rows[i, i + 1:i + 6]]) for i in range(n)])
+    return torch.from_numpy(rows).cuda(), nseq, tt, block, n * 256, want
+
+
+def compare_tables(dt, rows, nseq, tables, block: int) -> tuple[int, torch.Tensor]:
+    got = dt.decode_blocks(rows, nseq, tables, out_rows=block // 128)
+    torch.cuda.synchronize()
+    want = dt.decode_tables_reference(rows, nseq, tables, block // 128)
+    return check_equal("decode_tables", got, want), got
+
+
+def tables_bound(rows, nseq, comp_bytes: int, block: int) -> tuple[float, str]:
+    """Stored bytes read, 20 bytes of table per sequence, the planes written."""
+    return bound_ms(comp_bytes + 20 * int(nseq.sum()) + rows.shape[0] * block)
+
+
+def compare_match(mt, planes, offsets, max_match: int, emit_values: bool, what: str):
+    n = planes.shape[0]
+    got = mt.find_matches(planes.view(n, -1, 128), offsets=offsets, nrows=BLOCK // 128,
+                          max_match=max_match, emit_values=emit_values)
+    torch.cuda.synchronize()
+    want = mt.match_reference(planes, offsets, max_match=max_match, emit_values=emit_values)
+    err = max(check_equal(f"match {what} mlen", got[0].view(n, -1), want[0]),
+              check_equal(f"match {what} idx", got[1].view(n, -1), want[1]))
+    first = offsets[0] if emit_values else 0
+    later = int(((want[0] > 0) & (want[1] != first)).sum())
+    return err, later, float((want[0] > 0).float().mean())
+
+
+def match_bound(n: int, nk: int) -> tuple[float, str]:
+    """The planes read, 8 bytes per position written; two int32 operations
+    per position and offset (the equality, the comparison with the best)."""
+    return bound_ms(n * BLOCK * 9, 2.0 * n * BLOCK * nk)
+
+
+# ---------------------------------------------------------------------------
+# The main paths added with B2 and B3
+
+
+def roundtrip(eng, data: bytes, what: str):
+    """compress -> ensure_plans -> decompress on ``eng``: bit-exact, no
+    block decoded on the host.  Returns the unit and host-clock phases."""
+    t0 = time.perf_counter()
+    unit = eng.compress(data)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    eng.ensure_plans(unit)
+    t2 = time.perf_counter()
+    out = eng.decompress(unit)
+    t3 = time.perf_counter()
+    if out.tobytes() != data:
+        raise AssertionError(f"{what}: round trip not bit-exact")
+    if eng.stats.host_decode_bursts or (
+            unit.plan_flat is not None and unit.plan_flat["host_blocks"].size):
+        raise AssertionError(f"{what}: blocks decoded on the host")
+    return unit, {"compress": t1 - t0, "ensure_plans": t2 - t1, "decompress": t3 - t2}
+
+
+def log_path(what: str, unit, card: str, phases: dict, extra: str = "") -> None:
+    log(f"main path {what}: {unit.nblocks} x {unit.manifest.block_size} B bit-exact, ratio "
+        f"{unit.manifest.ratio():.3f}, host-decoded blocks 0{extra}; host clock [{card}]: "
+        + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in phases.items()))
+
+
+def tables_path(btt, data: bytes, card: str) -> None:
+    n = len(data) // TABLE_BLOCK
+    eng = engine(btt, btt.Codec.LZ4, block=TABLE_BLOCK, nblocks=n)
+    unit, phases = roundtrip(eng, data, "tables")
+    if unit.tables is None or unit.plan_flat is not None:
+        raise AssertionError("tables path: the unit did not decode from its tables")
+    t0 = time.perf_counter()
+    again = eng.decompress(unit)
+    phases["second decompress (no slot re-walked)"] = time.perf_counter() - t0
+    if again.tobytes() != data:
+        raise AssertionError("tables path: second decompress differs")
+    log_path("sequence tables lz4", unit, card, phases,
+             f", sequences {int(unit.nseq.sum())}")
+    eng.recycle(unit)
+    eng.release()
+
+
+def zstd_path(btt, data: bytes, card: str) -> None:
+    eng = engine(btt, btt.Codec.ZSTD)
+    unit, phases = roundtrip(eng, data, "zstd")
+    got = eng.prepare_device_decode(unit)().reshape(unit.nblocks, -1).cpu().numpy()
+    if got.tobytes() != data:
+        raise AssertionError("zstd: prepare_device_decode bytes differ")
+    log_path("zstd", unit, card, phases,
+             f", literal planes {len(unit.plan_flat['lit_planes'])}")
+    eng.recycle(unit)
+    eng.release()
+
+
+def matcher_path(btt, data: bytes, card: str, codec, **kw) -> None:
+    eng = engine(btt, codec, **kw)
+    unit, phases = roundtrip(eng, data, f"{kw} {codec.value}")
+    log_path(f"{kw} {codec.value}", unit, card, phases)
+    eng.recycle(unit)
+    eng.release()
+
+
+def batched_path(btt, data: bytes, df) -> None:
+    items = []
+    part = data[:BATCH_UNIT_BLOCKS * BLOCK]
+    for codec in (btt.Codec.LZ4, btt.Codec.ZSTD, btt.Codec.SNAPPY):
+        eng = engine(btt, codec, nblocks=BATCH_UNIT_BLOCKS)
+        items.append((eng, eng.compress(part)))
+    before = df.launches
+    launch, slices = btt.prepare_batched_decode(items)
+    out = launch().reshape(3 * BATCH_UNIT_BLOCKS, -1).cpu().numpy()
+    if df.launches != before + 1:
+        raise AssertionError("batched decode: not one decode_flat launch")
+    for lo, hi in slices:
+        if out[lo:hi].tobytes() != part:
+            raise AssertionError(f"batched decode: rows {lo}:{hi} differ")
+    for eng, unit in items:
+        eng.recycle(unit)
+        eng.release()
+    log(f"main path prepare_batched_decode: lz4 + zstd + snappy units of "
+        f"{BATCH_UNIT_BLOCKS} x {BLOCK} B in one decode_flat launch, bit-exact")
+
+
+def streams_path(btt, data: bytes) -> None:
+    eng = engine(btt, btt.Codec.LZ4)
+    streams = btt.make_streams([eng], 4)
+    q = len(data) // 4
+    segs = [data[i * q:(i + 1) * q] for i in range(4)]
+    units, outs = {}, {}
+
+    def keep(store, i):
+        def cb(stream, result):
+            store[i] = result.value_or_raise()
+            return btt.ASYNC_RETURN_OK
+        return cb
+
+    for i, st in enumerate(streams):
+        if not st.compress_async(btt.CompressParam(eng, segs[i], keep(units, i))).ok():
+            raise AssertionError(f"stream {i}: compress refused")
+    if btt.wait_all(streams) != [btt.ASYNC_RETURN_OK] * 4:
+        raise AssertionError("streams: compress failed")
+    for i, st in enumerate(streams):
+        if not st.decompress_async(btt.DecompressParam(eng, units[i],
+                                                       result_callback=keep(outs, i))).ok():
+            raise AssertionError(f"stream {i}: decompress refused")
+    if btt.wait_all(streams) != [btt.ASYNC_RETURN_OK] * 4:
+        raise AssertionError("streams: decompress failed")
+    for i in range(4):
+        if outs[i].tobytes() != segs[i] or eng.recycle(units[i]) != units[i].nblocks:
+            raise AssertionError(f"stream {i}: not bit-exact")
+    for st in streams:
+        st.close()
+    if eng.stats.host_decode_bursts:
+        raise AssertionError("streams: blocks decoded on the host")
+    eng.release()
+    log(f"main path streams: 4 streams on one engine, {len(data)} B, bit-exact")
+
+
+def tpu_phases(btt, mt, native_mod, data: bytes, card: str) -> None:
+    """Host-clock phases of the tpu matcher's compress, as
+    ``Engine._compress_tpu_match`` runs them, each ended by a sync."""
+    n = len(data) // BLOCK
+    clock = PhaseClock(card, f"tpu matcher compress, {n} x 128 KiB")
+    planes = np.frombuffer(data, np.uint8).reshape(n, BLOCK // 128, 128).copy()
+    clock.mark("plane packing (numpy)")
+    dplanes = torch.from_numpy(planes).cuda()
+    clock.mark("upload (pageable H2D)")
+    mlen, oidx = mt.find_matches(dplanes, offsets=mt.DEFAULT_OFFSETS, nrows=BLOCK // 128)
+    clock.mark("match kernel (B3)")
+    mlen, oidx = mlen.cpu().numpy(), oidx.cpu().numpy()
+    clock.mark(f"hint readback ({2 * mlen.nbytes >> 20} MiB, D2H)")
+    native_mod.set_emit_min_match(6)
+    raw = np.frombuffer(data, np.uint8)
+    for i in range(n):
+        native_mod.lz4_emit_sequences(raw[i * BLOCK:(i + 1) * BLOCK], mlen[i].reshape(-1),
+                                      oidx[i].reshape(-1), mt.DEFAULT_OFFSETS)
+    clock.mark("host emission (one thread)")
+    clock.log()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -350,8 +599,10 @@ def main() -> int:
         return 1
     import bitar_tpu_torch as btt
     from bitar_tpu_torch.ops import decode_flat as df
+    from bitar_tpu_torch.ops import decode_tables as dt
     from bitar_tpu_torch.ops import device_compress as dc
     from bitar_tpu_torch.ops import emit as em
+    from bitar_tpu_torch.ops import match as mt
     from bitar_tpu_torch.ops import match_dyn as md
     from bitar_tpu_torch.ops import registry
     from bitar_tpu_torch.ops._build import BUILD_DIR
@@ -366,7 +617,8 @@ def main() -> int:
 
     builds = {"host library (g++)": native.load, "decode_flat.cu": df.load_kernel,
               "match_walk.cu": md.load_walk_kernel, "match_dyn.cu": md.load_dyn_kernel,
-              "emit.cu": em.load_kernel}
+              "emit.cu": em.load_kernel, "decode_tables.cu": dt.load_kernel,
+              "match.cu": mt.load_kernel}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
         futs = {name: ex.submit(lambda f=f: (f(), time.perf_counter())[1])
@@ -374,7 +626,7 @@ def main() -> int:
         done = {name: fut.result() - t0 for name, fut in futs.items()}
     log("build (all started together): " + ", ".join(
         f"{name} {s:.2f} s" for name, s in done.items()))
-    for stem in ("decode_flat", "match_walk", "match_dyn", "emit"):
+    for stem in ("decode_flat", "match_walk", "match_dyn", "emit", "decode_tables", "match"):
         for report_file in BUILD_DIR.glob(f"lib{stem}-*.so.log"):
             for line in report_file.read_text().splitlines():
                 if "registers" in line or "spill" in line:
@@ -475,6 +727,36 @@ def main() -> int:
                 emit_main = (pl, lay, ow)
     kernels["emit"] = {"max_abs_err": err}
 
+    tbatches = {"bench 4 KiB": table_batch(btt, corpus[:TABLE_CHECK_BLOCKS * TABLE_BLOCK],
+                                           TABLE_BLOCK),
+                "text 128 KiB, 8-pass plan budget": table_batch(btt, text, BLOCK, max_passes=8)}
+    err = 0
+    for name, (rows, nseq, tables, block, _, stats) in tbatches.items():
+        e, _ = compare_tables(dt, rows, nseq, tables, block)
+        err = max(err, e)
+        log(f"decode_tables == plain version, byte for byte: {name} ({stats})")
+    rrows, rnseq, rtables, rblock, _, rwant = rle_table_batch(dt)
+    e, got = compare_tables(dt, rrows, rnseq, rtables, rblock)
+    if got.reshape(rwant.shape[0], -1).cpu().numpy().tobytes() != rwant.tobytes():
+        raise AssertionError("decode_tables: RLE offsets 1-130 decode wrong")
+    err = max(err, e)
+    log("decode_tables == plain version, byte for byte: RLE offsets 1-130, 4 KiB blocks, "
+        "each the expected period")
+    kernels["decode_tables"] = {"max_abs_err": err}
+
+    err = 0
+    for what, (pl, offsets, mm, values) in {
+            "bench, indices, max_match 64": (dplanes, mt.DEFAULT_OFFSETS, 64, False),
+            "bench, values, max_match 1024": (dplanes, mt.DEFAULT_OFFSETS, 1024, True),
+            "hand-set batch, offsets that tie, values, max_match 1024": (hplanes, TIES, 1024,
+                                                                         True)}.items():
+        e, later, share = compare_match(mt, pl, offsets, mm, values, what)
+        err = max(err, e)
+        log(f"match == plain version (mlen/idx): {what}, {pl.shape[0]} x {BLOCK} B, "
+            f"{len(offsets)} offsets; positions with a match {share:.4f}, whose offset is "
+            f"not the first: {later}")
+    kernels["match"] = {"max_abs_err": err}
+
     # -- phase 4: the main paths, launch counts reset just before each -------
     counts = {}
     df.launches = 0
@@ -497,9 +779,47 @@ def main() -> int:
                                                 "emit": em.launches}
     log(f"main path compress_blocks_device(seg=256): {DYN_BLOCKS} x {BLOCK} B, width "
         f"{out.shape[1]}, {rows} compressed rows decode bit-exact on the host")
+
+    df.launches, dt.launches = 0, 0
+    tables_path(btt, corpus, card)
+    counts["tables path"] = {"decode_tables": dt.launches}
+    if df.launches:
+        raise AssertionError("the tables path launched decode_flat")
+
+    df.launches = 0
+    zstd_path(btt, corpus, card)
+    counts["zstd path"] = {"decode_flat": df.launches}
+
+    for codec in (btt.Codec.LZ4, btt.Codec.SNAPPY):
+        df.launches, mt.launches = 0, 0
+        matcher_path(btt, corpus, card, codec, compress_matcher="tpu")
+        counts[f"tpu matcher {codec.value} path"] = {"match": mt.launches,
+                                                     "decode_flat": df.launches}
+    df.launches, mt.launches = 0, 0
+    matcher_path(btt, corpus, card, btt.Codec.LZ4, compress_matcher="tpu-sort")
+    counts["tpu-sort matcher path"] = {"decode_flat": df.launches}
+    if mt.launches:
+        raise AssertionError("the tpu-sort path launched the match kernel")
+
+    df.launches, mt.launches, em.launches, md.walk_launches = 0, 0, 0, 0
+    matcher_path(btt, corpus, card, btt.Codec.LZ4, compress_matcher="device",
+                 match_offsets=mt.DEFAULT_OFFSETS)
+    counts["device match_offsets path"] = {"match": mt.launches, "emit": em.launches,
+                                           "decode_flat": df.launches}
+    if md.walk_launches:
+        raise AssertionError("the match_offsets path launched match_walk")
+
+    df.launches = 0
+    batched_path(btt, corpus, df)
+    counts["batched decode"] = {"decode_flat": df.launches}
+
+    df.launches = 0
+    streams_path(btt, corpus)
+    counts["streams path"] = {"decode_flat": df.launches}
+
     for path, c in counts.items():
         log(f"launches on the {path}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
-    for name in ("decode_flat", "match_walk", "match_dyn", "emit"):
+    for name in ("decode_flat", "match_walk", "match_dyn", "emit", "decode_tables", "match"):
         total = sum(c.get(name, 0) for c in counts.values())
         if total <= 0:
             raise AssertionError(f"the main paths launched no {name} kernel")
@@ -551,6 +871,28 @@ def main() -> int:
     kernels["emit"].update(ms=res["kernel"], plain_ms=res["plain"])
     kernels["emit"]["bound"] = emit_bound(lay, ow)
 
+    brows, bnseq, btables, bblock, bcomp, _ = tbatches["bench 4 KiB"]
+    res, ms = turns(timing, lambda: dt.decode_blocks(brows, bnseq, btables, out_rows=bblock // 128),
+                    lambda: dt.decode_tables_reference(brows, bnseq, btables, bblock // 128))
+    report(f"decode_tables bench {brows.shape[0]} x 4 KiB", card, res, ms,
+           brows.shape[0] * bblock)
+    kernels["decode_tables"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["decode_tables"]["bound"] = tables_bound(brows, bnseq, bcomp, bblock)
+    drows, dnseq, dtables, dblock, dcomp, _ = tbatches["text 128 KiB, 8-pass plan budget"]
+    res, ms = turns(timing, lambda: dt.decode_blocks(drows, dnseq, dtables, out_rows=dblock // 128),
+                    lambda: dt.decode_tables_reference(drows, dnseq, dtables, dblock // 128))
+    report(f"decode_tables text {drows.shape[0]} x 128 KiB (deep tables)", card, res, ms,
+           drows.shape[0] * dblock)
+    log(f"decode_tables text bound [{card}]: {tables_bound(drows, dnseq, dcomp, dblock)}")
+
+    res, ms = turns(timing, lambda: mt.find_matches(dplanes.view(-1, nrows, 128), nrows=nrows),
+                    lambda: mt.match_reference(dplanes, mt.DEFAULT_OFFSETS, max_match=64))
+    report(f"match bench {DYN_BLOCKS} x 128 KiB, 26 offsets, max_match 64", card, res, ms,
+           DYN_BLOCKS * BLOCK)
+    kernels["match"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["match"]["bound"] = match_bound(DYN_BLOCKS, len(mt.DEFAULT_OFFSETS))
+    tpu_phases(btt, mt, native, corpus, card)
+
     def pipeline():
         return dc.compress_blocks_device(mplanes, mlens, seg=1024, out_width=2048)
 
@@ -582,6 +924,9 @@ def main() -> int:
         "emit": ("bitar_tpu_torch/csrc/emit.cu",
                  "bitar_tpu/ops/pallas/lz4_emit.py:338 (B8), lz4_emit.py:84 (B9), "
                  "lz4_emit.py:101 (B10), bitar_tpu/ops/device_compress.py:317 (XLA)"),
+        "decode_tables": ("bitar_tpu_torch/csrc/decode_tables.cu",
+                          "bitar_tpu/ops/pallas/lz4_decode.py:37"),
+        "match": ("bitar_tpu_torch/csrc/match.cu", "bitar_tpu/ops/pallas/lz4_match.py:84"),
     }
     line = []
     for name, k in kernels.items():

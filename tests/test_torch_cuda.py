@@ -1,6 +1,8 @@
-"""Tests of the port that need a CUDA device: every kernel (decode, B5 match
-walk, B4 match scoring, emitter) against its plain PyTorch version on the
-card, and the engine's main paths there (host and device compress).
+"""Tests of the port that need a CUDA device: every kernel (flat decode B1,
+table decode B2, static-offset match B3, B5 match walk, B4 match scoring,
+emitter) against its plain PyTorch version on the card, and the engine's
+paths there (host and device compress, tables, Zstd, the tpu matchers,
+batched decode).
 
 They skip without CUDA.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports JAX, so on the card run this file alone:
@@ -19,11 +21,14 @@ import torch
 
 import bitar_tpu_torch as btt
 from bitar_tpu_torch.ops import decode_flat as tflat
+from bitar_tpu_torch.ops import decode_tables as tdt
+from bitar_tpu_torch.ops import match as tmatch
 from bitar_tpu_torch.ops import device_compress as tdc
 from bitar_tpu_torch.ops import emit as temit
 from bitar_tpu_torch.ops import match_dyn as tmd
 from bitar_tpu_torch.ops import registry
 from bitar_tpu_torch.ops.cpu import native
+from bitar_tpu_torch.ops.match_sort import find_matches_sorted
 from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
 
 pytestmark = pytest.mark.cuda
@@ -138,9 +143,9 @@ def test_engine_main_path_on_card(codec, commit, cuda_device):
         assert eng.recycle(unit) == unit.nblocks
 
 
-def test_unit_over_plan_budget_is_not_implemented_on_card(cuda_device):
-    # Every markdown block exceeds an 8-pass budget: the reference decodes
-    # such a unit with its sequence-table kernel, which is not ported.
+def test_unit_over_plan_budget_decodes_through_b2_on_card(cuda_device):
+    # Every markdown block exceeds an 8-pass budget: the unit decodes from
+    # its sequence tables (B2), with no block on the host.
     block = 16 * 1024
     data = (ROOT / "SURVEY.md").read_bytes()[:3 * block]
     cfg = btt.EngineConfig(block_size=block, burst_size=2, max_pool_slots=32,
@@ -148,11 +153,144 @@ def test_unit_over_plan_budget_is_not_implemented_on_card(cuda_device):
     with btt.Engine(cfg, device=cuda_device) as eng:
         eng._PLAN_MAX_PASSES = 8
         unit = eng.compress(data)
-        with pytest.raises(btt.StatusError) as ei:
-            eng.decompress(unit)
-        assert ei.value.status.code == btt.StatusCode.NOT_IMPLEMENTED
+        before = tdt.launches
+        assert eng.decompress(unit).tobytes() == data
+        assert unit.plan_flat is None and tdt.launches == before + 2
         assert eng.stats.host_decode_bursts == 0
         assert eng.recycle(unit) == unit.nblocks
+
+
+def lz4_tables(datas, min_match=4):
+    """Rows, nseq and padded tables of the LZ4 blocks of ``datas``."""
+    comps = [native.lz4_compress(d, min_match=min_match) for d in datas]
+    tables, nseq = tdt.pad_tables([native.parse_sequences(c) for c in comps],
+                                  native.SEQUENCE_KEYS)
+    w = 2 * max(len(d) for d in datas)
+    rows = np.zeros((len(comps), w), np.uint8)
+    for i, c in enumerate(comps):
+        rows[i, :len(c)] = c
+    return rows, tables, nseq
+
+
+def rle_table_batch(block=1024):
+    """Offsets 1..130 across the 128-byte row: d literals, one match of
+    offset d, 5 final literals."""
+    rng = np.random.default_rng(55)
+    n = 130
+    rows = rng.integers(0, 256, (n, 256), np.uint8)
+    tables = {k: np.zeros((n, 128), np.int32) for k in native.SEQUENCE_KEYS}
+    for i in range(n):
+        d = i + 1
+        tables["lit_len"][i, :2] = [d, 5]
+        tables["off"][i, 0] = d
+        tables["mlen"][i, 0] = block - d - 5
+        tables["lit_ptr"][i, 1] = d
+        tables["out_pos"][i, 1] = block - 5
+    return rows, tables, np.full(n, 2, np.int32), block
+
+
+def malformed_table_batch(block=4096):
+    """Random tables: offsets 0 and past the plane start, positions before
+    and past the plane, literals past the row, nseq past the table."""
+    rng = np.random.default_rng(56)
+    n, S = 16, 128
+    rows = rng.integers(0, 256, (n, 512), np.uint8)
+    tables = {"lit_ptr": rng.integers(-600, 800, (n, S)),
+              "lit_len": rng.integers(-5, 700, (n, S)),
+              "off": rng.integers(-2, 5000, (n, S)),
+              "mlen": rng.integers(-5, 3000, (n, S)),
+              "out_pos": rng.integers(-800, block + 800, (n, S))}
+    tables = {k: v.astype(np.int32) for k, v in tables.items()}
+    return rows, tables, rng.integers(-3, 200, n).astype(np.int32), block
+
+
+def corpus_table_batch(block=4096):
+    data = make_corpus(1)[:32 * block]
+    return (*lz4_tables([data[i * block:(i + 1) * block] for i in range(32)]), block)
+
+
+def deep_table_batch(block=128 * 1024):
+    text = make_text_corpus(2)
+    rows, tables, nseq = lz4_tables([text[:block], text[block:]])
+    assert int(nseq.max()) > 2000
+    return rows, tables, nseq, block
+
+
+TABLE_BATCHES = {"corpus 4k": corpus_table_batch, "rle": rle_table_batch,
+                 "malformed": malformed_table_batch, "deep 128k": deep_table_batch}
+
+
+@pytest.mark.parametrize("batch", sorted(TABLE_BATCHES))
+def test_decode_tables_kernel_matches_plain(batch, cuda_device):
+    rows, tables, nseq, block = TABLE_BATCHES[batch]()
+    rows = torch.from_numpy(rows).to(cuda_device)
+    tn, tt = tdt.table_tensors(tables, nseq, cuda_device)
+    before = tdt.launches
+    got = tdt.decode_blocks(rows, tn, tt, out_rows=block // 128)
+    torch.cuda.synchronize()
+    assert tdt.launches == before + 1
+    assert torch.equal(got, tdt.decode_tables_reference(rows, tn, tt, block // 128))
+
+
+TIES = (24, 12, 48, 12, 3, 6, 0, 17000)
+
+
+@pytest.mark.parametrize("offsets,emit_values,max_match", [
+    (tmatch.DEFAULT_OFFSETS, False, 64), (tmatch.DEFAULT_OFFSETS, True, 1024),
+    (TIES, False, 100), (TIES, True, 256)])
+def test_match_kernel_matches_plain(offsets, emit_values, max_match, cuda_device):
+    planes, _ = corpus_planes(cuda_device, 128 * 1024)
+    n = planes.shape[0]
+    kw = dict(offsets=offsets, nrows=1024, max_match=max_match, emit_values=emit_values)
+    before = tmatch.launches
+    mlen, idx = tmatch.find_matches(planes.view(n, -1, 128), **kw)
+    torch.cuda.synchronize()
+    assert tmatch.launches == before + 1
+    want = tmatch.match_reference(planes, offsets, max_match=max_match,
+                                  emit_values=emit_values)
+    assert torch.equal(mlen.view(n, -1), want[0])
+    assert torch.equal(idx.view(n, -1), want[1])
+
+
+def test_sort_matcher_on_card(cuda_device):
+    planes, _ = corpus_planes(cuda_device, 128 * 1024)
+    got = find_matches_sorted(planes, length=128 * 1024)
+    assert torch.equal(got.cpu(), find_matches_sorted(planes.cpu(), length=128 * 1024))
+
+
+@pytest.mark.parametrize("kw", [dict(block_size=4096), dict(codec=btt.Codec.ZSTD),
+                                dict(compress_matcher="tpu"),
+                                dict(compress_matcher="tpu-sort", codec=btt.Codec.SNAPPY),
+                                dict(compress_matcher="device", match_offsets=(1, 47, 64))])
+def test_engine_paths_on_card(kw, cuda_device):
+    data = make_corpus(2)[:2 * 128 * 1024 - 3000]
+    base = dict(block_size=16 * 1024, burst_size=4, max_pool_slots=64, min_match=4)
+    base.update(kw)
+    with btt.Engine(btt.EngineConfig(**base), device=cuda_device) as eng:
+        unit = eng.compress(data)
+        assert eng.decompress(unit).tobytes() == data
+        assert eng.stats.host_decode_bursts == 0
+        assert eng.recycle(unit) == unit.nblocks
+
+
+def test_batched_decode_on_card(cuda_device):
+    items, datas = [], []
+    for codec in ("lz4", "zstd", "snappy"):
+        cfg = btt.EngineConfig(codec=btt.Codec(codec), block_size=16 * 1024, burst_size=16,
+                               max_pool_slots=64)
+        eng = btt.Engine(cfg, device=cuda_device).initialize()
+        d = make_corpus(1)[:5 * 16 * 1024]
+        items.append((eng, eng.compress(d)))
+        datas.append(d)
+    before = tflat.launches
+    launch, slices = btt.prepare_batched_decode(items)
+    out = launch().cpu().numpy()
+    assert tflat.launches == before + 1
+    for (lo, hi), d in zip(slices, datas, strict=True):
+        assert out[lo:hi].reshape(-1).tobytes() == d
+    for eng, unit in items:
+        eng.recycle(unit)
+        eng.release()
 
 
 def test_arena_on_card(cuda_device):

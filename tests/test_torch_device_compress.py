@@ -1,7 +1,9 @@
 """The port's device compress path against the JAX package on the CPU:
 layout and parse stages, ``compress_blocks_device`` end to end, the engine
 with ``compress_matcher="device"``, containers between the packages, and
-the reference's segment-lane fault at non-power-of-two segment counts.
+the reference's segment-lane fault at non-power-of-two segment counts, the
+static-offset matcher (kernel B3) there, and the engine's tpu and tpu-sort
+matchers.
 
 Inputs are made from a numpy seed; the JAX Pallas kernels run in interpret
 mode, the port's wrappers take their plain versions on CPU tensors.
@@ -116,11 +118,21 @@ def test_compress_blocks_device_matches_jax(seg, out_width, fmt, fft):
 
 
 def test_static_offsets_name_kernel_b3():
+    # offsets given: kernel B3 scores the static tuple (values out), and the
+    # parse keeps the worst-case sequence budget; sizes and rows as the JAX's.
     planes, lengths = mixed_planes(4096)
-    with pytest.raises(btt.StatusError) as ei:
-        tdc.compress_blocks_device(t(planes), t(lengths), offsets=(64,))
-    assert ei.value.status.code == btt.StatusCode.NOT_IMPLEMENTED
-    assert "B3" in ei.value.status.message
+    kw = dict(offsets=(64, 1, 517, 25), seg=1024)
+    jout, jsz = jdc.compress_blocks_device(planes, lengths, interpret=True, **kw)
+    tout, tsz = tdc.compress_blocks_device(t(planes), t(lengths), **kw)
+    sz = tsz.numpy()
+    np.testing.assert_array_equal(sz, np.asarray(jsz))
+    kept = np.flatnonzero(sz <= tout.shape[1])
+    np.testing.assert_array_equal(tout.numpy()[kept], np.asarray(jout)[kept])
+    good = np.flatnonzero(sz < lengths)
+    assert good.size >= 3
+    for b in good:
+        dec = np.asarray(native.lz4_decompress(tout.numpy()[b, :sz[b]], int(lengths[b])))
+        assert dec.tobytes() == planes[b, :lengths[b]].tobytes(), f"block {b}"
 
 
 @pytest.mark.parametrize("entry", [tdc.compress_blocks_device, tdc.match_parse_device])
@@ -253,24 +265,34 @@ def test_engine_snappy_device_takes_the_host_matcher():
 
 
 def test_engine_match_offsets_name_kernel_b3():
-    te = btt.Engine(btt.EngineConfig(block_size=16 * 1024, burst_size=2, max_pool_slots=32,
-                                     compress_matcher="device", match_offsets=(64, 128)),
-                    device="cpu").initialize()
-    with pytest.raises(btt.StatusError) as ei:
-        te.compress(engine_data(16 * 1024))
-    assert ei.value.status.code == btt.StatusCode.NOT_IMPLEMENTED
-    assert "B3" in ei.value.status.message
-    assert te.arena.pool.in_use() == 0
+    # The device matcher with match_offsets: B3, the parse and the emitter.
+    block = 16 * 1024
+    data = engine_data(block)
+    je, te = engines("lz4", block, compress_matcher="device", match_offsets=(64, 1, 24))
+    ju, tu = je.compress(data), te.compress(data)
+    np.testing.assert_array_equal(tu.manifest.comp_len, ju.manifest.comp_len)
+    assert tu.to_host().to_bytes() == ju.to_host().to_bytes()
+    assert (tu.manifest.codec_ids == btt.manifest.codec_id(btt.Codec.LZ4)).any()
+    assert te.decompress(tu).tobytes() == data
+    assert te.recycle(tu) == tu.nblocks and te.arena.pool.in_use() == 0
+    je.release()
     te.release()
 
 
 @pytest.mark.parametrize("matcher", ["tpu", "tpu-sort"])
 def test_engine_tpu_matchers_name_what_is_missing(matcher):
-    cfg = btt.EngineConfig(block_size=16 * 1024, compress_matcher=matcher)
-    with pytest.raises(btt.StatusError) as ei:
-        btt.Engine(cfg, device="cpu").initialize()
-    assert ei.value.status.code == btt.StatusCode.NOT_IMPLEMENTED
-    assert "B3" in ei.value.status.message and "lz4_match_sort.py:34" in ei.value.status.message
+    # The tpu (B3 hints) and tpu-sort (sort hints) matchers, LZ4 and Snappy:
+    # the host emitter writes the same containers as the reference's.
+    block = 16 * 1024
+    data = engine_data(block, seed=6)
+    for codec in ("lz4", "snappy"):
+        je, te = engines(codec, block, compress_matcher=matcher, min_match=4)
+        ju, tu = je.compress(data), te.compress(data)
+        assert tu.to_host().to_bytes() == ju.to_host().to_bytes(), codec
+        assert tu.manifest.ratio() > 1.2
+        assert te.decompress(tu).tobytes() == data
+        je.release()
+        te.release()
 
 
 def test_device_compressed_units_cross_packages():

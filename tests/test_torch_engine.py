@@ -1,11 +1,12 @@
 """The port's Engine against the JAX engine, on the CPU.
 
 Both engines get the same config and data (made from a numpy seed).  They
-must produce the same compressed container bytes and the same flat plan,
-key by key; the port must decode bit-exactly and report the same per-block
-status as the reference after a slot is corrupted.  The JAX engine runs its
-Pallas kernel in interpret mode; the port runs its plain PyTorch decode on
-CPU tensors.  Tolerance 0 throughout.
+must produce the same compressed container bytes and the same flat plan or
+sequence tables, key by key; the port must decode bit-exactly and report
+the same per-block status as the reference after a slot is corrupted.  Also
+here: Zstd units, batched decode, streams and the driver.  The JAX engine
+runs its Pallas kernels in interpret mode; the port runs its plain PyTorch
+versions on CPU tensors.  Tolerance 0 throughout.
 """
 
 from pathlib import Path
@@ -17,7 +18,9 @@ import torch
 
 import bitar_tpu as bt
 import bitar_tpu_torch as btt
+from bitar_tpu.engine.device import prepare_batched_decode as jax_batched
 from bitar_tpu_torch.interop import TPU_ONLY_PLAN_KEYS
+from bitar_tpu_torch.ops.cpu.native import SEQUENCE_KEYS
 
 # Test files run in several worker processes at once: a single intra-op
 # thread keeps torch's CPU pool from oversubscribing the cores (the
@@ -78,6 +81,10 @@ def test_engine_parity(codec, commit):
         np.testing.assert_array_equal(tu.plan_flat[k], v, err_msg=k)
     assert (tu.plan_flat["p_used"] > tu.plan_flat["p0"]).any(), "expected out passes"
     assert (tu.plan_flat["dense"] < 0).any(), "expected RAW blocks"
+    # The tables of a planned unit, built on request from its arena slots.
+    jax_eng.ensure_tables(ju)
+    port.ensure_tables(tu)
+    assert_tables_equal(tu, ju)
     assert port.decompress(tu).tobytes() == data
     assert port.stats.device_decode_bursts == 2 and port.stats.host_decode_bursts == 0
     assert port.recycle(tu) == tu.nblocks
@@ -131,25 +138,107 @@ def test_host_block_status_parity(codec):
     port.release()
 
 
+def assert_tables_equal(tu, ju):
+    assert tu.tables.keys() == ju.tables.keys() == set(SEQUENCE_KEYS)
+    for k in SEQUENCE_KEYS:
+        np.testing.assert_array_equal(tu.tables[k], ju.tables[k], err_msg=k)
+    np.testing.assert_array_equal(tu.nseq, ju.nseq)
+
+
 @pytest.mark.parametrize("codec", sorted(CODECS))
 def test_unit_over_plan_budget_is_not_implemented(codec):
     # Markdown blocks under an 8-pass budget: the planner rejects every
-    # block as over budget, and the JAX engine decodes the unit on the
-    # device through its sequence-table path.  The port names that path
-    # (kernel B2) as not ported instead of decoding the unit on the host.
+    # block as over budget, and both engines decode the unit on the device
+    # through the sequence-table path (kernel B2).  Only
+    # prepare_device_decode, which wants a plan, refuses it, in both.
     data = (ROOT / "SURVEY.md").read_bytes()[:3 * BLOCK]
     jax_eng, port = engines(codec, commit="deferred", plan_build="lazy")
     jax_eng._PLAN_MAX_PASSES = port._PLAN_MAX_PASSES = 8
     ju, tu = jax_eng.compress(data), port.compress(data)
     jax_eng.ensure_plans(ju)
-    assert ju.plan_flat is None and ju.tables is not None
-    for call in (port.decompress_status, port.decompress_device, port.prepare_device_decode):
-        with pytest.raises(btt.StatusError) as ei:
-            call(tu)
-        assert ei.value.status.code == btt.StatusCode.NOT_IMPLEMENTED
-        assert "B2" in str(ei.value)
-    assert port.stats.host_decode_bursts == 0
+    port.ensure_plans(tu)
+    assert ju.plan_flat is None and tu.plan_flat is None
+    assert_tables_equal(tu, ju)
+    jout, jst = jax_eng.decompress_status(ju)
+    tout, tst = port.decompress_status(tu)
+    np.testing.assert_array_equal(tst, jst)
+    assert tout.tobytes() == jout.tobytes() == data
+    planes = torch.cat(port.decompress_device(tu)).reshape(tu.nblocks, -1)
+    assert b"".join(planes[i, :int(n)].numpy().tobytes()
+                    for i, n in enumerate(tu.manifest.raw_len)) == data
+    for eng, unit in ((jax_eng, ju), (port, tu)):
+        with pytest.raises((bt.StatusError, btt.StatusError)) as ei:
+            eng.prepare_device_decode(unit)
+        assert ei.value.status.code.value == btt.StatusCode.NOT_IMPLEMENTED.value
+    assert port.stats.host_decode_bursts == 0 and port.stats.device_decode_bursts == 2
     assert port.recycle(tu) == tu.nblocks
+    jax_eng.release()
+    port.release()
+
+
+def table_data(block: int, seed: int) -> bytes:
+    """Markdown, low-entropy, random (stored RAW) and RLE blocks, a tail."""
+    rng = np.random.default_rng(seed)
+    src = (ROOT / "SURVEY.md").read_bytes()
+    return (src[:2 * block] + rng.integers(0, 8, block, np.uint8).tobytes()
+            + rng.integers(0, 256, block, np.uint8).tobytes() + b"\x33" * block
+            + b"tail " * (block // 13))
+
+
+@pytest.mark.parametrize("block", [1024, 4096])
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_table_path_parity(codec, block):
+    # Blocks narrower than 128 rows never plan: both engines decode them on
+    # the device from sequence tables.
+    data = table_data(block, 41)
+    jax_eng, port = engines(codec, block_size=block, commit="deferred")
+    ju, tu = jax_eng.compress(data), port.compress(data)
+    assert tu.to_host().to_bytes() == ju.to_host().to_bytes()
+    jax_eng.ensure_plans(ju)
+    port.ensure_plans(tu)
+    assert tu.plan_flat is None and tu.plan_comp_rows == ju.plan_comp_rows
+    assert_tables_equal(tu, ju)
+    assert (tu.manifest.codec_ids == btt.manifest.codec_id(btt.Codec.RAW)).any()
+    jout, jst = jax_eng.decompress_status(ju)
+    tout, tst = port.decompress_status(tu)
+    np.testing.assert_array_equal(tst, jst)
+    assert tout.tobytes() == jout.tobytes() == data
+    assert port.stats.device_decode_bursts == -(-tu.nblocks // 4)
+    assert port.stats.host_decode_bursts == 0
+    jax_eng.release()
+    port.release()
+
+
+@pytest.mark.parametrize("codec", sorted(CODECS))
+def test_table_status_after_rewriting_a_slot(codec):
+    # The tables exist; then block 1's slot is rewritten with a block that
+    # decodes to another size.  Both engines run the old tables over the new
+    # bytes (the same bytes out) and their framing walks name block 1 only.
+    # A second decompress walks no slot again: the generations are unchanged.
+    block = 1024
+    data = table_data(block, 42)
+    jax_eng, port = engines(codec, block_size=block)
+    ju, tu = jax_eng.compress(data), port.compress(data)
+    jax_eng.ensure_plans(ju)
+    port.ensure_plans(tu)
+    jax_eng.decompress_status(ju)
+    port.decompress_status(tu)
+    other = ju.to_host()
+    short = np.frombuffer(other.packed[:int(other.manifest.comp_len[0])], np.uint8).copy()
+    short[:1] = 0x10                     # one literal, then the old block's bytes
+    row = np.zeros((1, 256), np.uint8)
+    row[0, :short.size] = short[:256]
+    jax_eng.arena.write_burst([ju.refs[1].slot], jnp.asarray(row))
+    port.arena.write_burst([tu.refs[1].slot], row)
+    jout, jst = jax_eng.decompress_status(ju)
+    tout, tst = port.decompress_status(tu)
+    np.testing.assert_array_equal(tst, jst)
+    assert np.flatnonzero(tst < 0).tolist() == [1]
+    np.testing.assert_array_equal(tout, jout)
+    gens = tu._val_gen.copy()
+    _, again = port.decompress_status(tu)
+    np.testing.assert_array_equal(again, tst)
+    np.testing.assert_array_equal(tu._val_gen, gens)
     jax_eng.release()
     port.release()
 
@@ -167,7 +256,8 @@ def test_malformed_unit_with_no_plannable_block_decodes_on_host(codec):
     jout, jst = jax_eng.decompress_status(ju)
     assert ju.plan_flat is None and ju.tables is None
     tout, tst = port.decompress_status(tu)
-    assert tu.plan_flat["host_blocks"].tolist() == [0, 1, 2]
+    assert tu.plan_flat is None and tu.tables is None
+    assert port.stats.host_decode_bursts == 1 and port.stats.device_decode_bursts == 0
     np.testing.assert_array_equal(tst, jst)
     assert (tst < 0).all()
     jax_eng.release()
@@ -213,13 +303,38 @@ def test_host_codec_path(codec):
 
 
 def test_zstd_device_decode_is_not_implemented():
-    cfg = btt.EngineConfig(**cfg_kw(), codec=btt.Codec.ZSTD)
-    with btt.Engine(cfg, device="cpu") as eng:
-        unit = eng.compress(make_data(38))
-        with pytest.raises(btt.StatusError) as ei:
-            eng.decompress(unit)
-        assert ei.value.status.code == btt.StatusCode.NOT_IMPLEMENTED
-        eng.recycle(unit)
+    # Zstd units decode on the device: the planner entropy-decodes each Zstd
+    # block's literals into a plane, and the flat kernel runs its sequences
+    # from there.  The random block is stored RAW: a mixed Zstd/RAW unit.
+    data = make_data(38)
+    jc = bt.EngineConfig(**cfg_kw(), codec=bt.Codec.ZSTD, interpret=True)
+    tc = btt.EngineConfig(**cfg_kw(), codec=btt.Codec.ZSTD)
+    with bt.Engine(jc) as jax_eng, btt.Engine(tc, device="cpu") as port:
+        ju, tu = jax_eng.compress(data), port.compress(data)
+        assert tu.to_host().to_bytes() == ju.to_host().to_bytes()
+        jax_eng.ensure_plans(ju)
+        port.ensure_plans(tu)
+        assert tu.plan_comp_rows == ju.plan_comp_rows
+        want = {k: v for k, v in ju.plan_flat.items()
+                if k not in TPU_ONLY_PLAN_KEYS and k != "lit_planes"}
+        for k, v in want.items():
+            np.testing.assert_array_equal(tu.plan_flat[k], v, err_msg=k)
+        jl, tl = ju.plan_flat["lit_planes"], tu.plan_flat["lit_planes"]
+        assert sorted(tl) == sorted(jl) and len(tl) >= 4
+        for i in jl:
+            np.testing.assert_array_equal(tl[i], jl[i], err_msg=f"literal plane {i}")
+        ids = tu.manifest.codec_ids
+        assert (ids == btt.manifest.codec_id(btt.Codec.RAW)).any()
+        assert (ids == btt.manifest.codec_id(btt.Codec.ZSTD)).any()
+        jout, jst = jax_eng.decompress_status(ju)
+        tout, tst = port.decompress_status(tu)
+        np.testing.assert_array_equal(tst, jst)
+        assert tout.tobytes() == jout.tobytes() == data
+        assert port.stats.host_decode_bursts == 0
+        launch = port.prepare_device_decode(tu)
+        got = launch().reshape(tu.nblocks, -1)
+        assert b"".join(got[i, :int(n)].numpy().tobytes()
+                        for i, n in enumerate(tu.manifest.raw_len)) == data
 
 
 def test_cuda_engine_raises_without_cuda():
@@ -233,10 +348,128 @@ def test_cuda_engine_raises_without_cuda():
 
 @pytest.mark.parametrize("kw", [dict(compress_matcher="tpu"), dict(block_size=4096)])
 def test_unported_paths_are_named(kw):
-    eng = btt.Engine(btt.EngineConfig(**cfg_kw(**kw)), device="cpu")
-    with pytest.raises(btt.StatusError) as ei:
+    # Two configs the port once refused at initialize: both start now and
+    # give the reference's container and bytes.
+    data = make_data(40)[:5 * 4096]
+    jax_eng, port = engines("lz4", **kw)
+    ju, tu = jax_eng.compress(data), port.compress(data)
+    assert tu.to_host().to_bytes() == ju.to_host().to_bytes()
+    assert port.decompress(tu).tobytes() == jax_eng.decompress(ju).tobytes() == data
+    assert port.stats.host_decode_bursts == 0
+    jax_eng.release()
+    port.release()
+
+
+def batched_items(pkg, seed_base: int = 40):
+    """The units of prepare_batched_decode's reference test: LZ4, Zstd and
+    Snappy engines of one package, five 16 KiB blocks each."""
+    items, datas = [], []
+    for s_i, codec in enumerate(["lz4", "zstd", "snappy"]):
+        extra = {"interpret": True} if pkg is bt else {}
+        cfg = pkg.EngineConfig(codec=pkg.Codec(codec), block_size=BLOCK, burst_size=16,
+                               max_pool_slots=64, commit="deferred", **extra)
+        eng = pkg.Engine(cfg, device="cpu") if pkg is btt else pkg.Engine(cfg)
         eng.initialize()
-    assert ei.value.status.code == btt.StatusCode.NOT_IMPLEMENTED
+        rng = np.random.default_rng(seed_base + s_i)
+        parts = []
+        for i in range(5):
+            k = i % 3
+            if k == 0:
+                parts.append(((b"stream %d " % s_i) * (BLOCK // 9 + 1))[:BLOCK])
+            elif k == 1:
+                parts.append(rng.integers(0, 8, BLOCK, np.uint8).tobytes())
+            else:
+                parts.append(rng.integers(0, 256, BLOCK, np.uint8).tobytes())
+        d = b"".join(parts)
+        items.append((eng, eng.compress(d)))
+        datas.append(d)
+    return items, datas
+
+
+def test_batched_decode_parity():
+    nrows = BLOCK // 128
+    port_items, datas = batched_items(btt)
+    jax_items, _ = batched_items(bt)
+    launch, slices = btt.prepare_batched_decode(port_items)
+    jlaunch, jslices = jax_batched(jax_items)
+    assert slices == jslices == [(0, 5), (5, 10), (10, 15)]
+    out = launch()
+    assert out.shape == (15, nrows, 128)
+    jout = np.asarray(jlaunch())[:, :nrows]
+    np.testing.assert_array_equal(out.numpy(), jout)
+    for (lo, hi), d in zip(slices, datas, strict=True):
+        assert out[lo:hi].numpy().reshape(-1).tobytes() == d
+    for items in (port_items, jax_items):
+        for eng, unit in items:
+            eng.recycle(unit)
+            eng.release()
+
+
+def test_batched_decode_refuses_table_units():
+    with btt.Engine(btt.EngineConfig(**cfg_kw(block_size=4096)), device="cpu") as eng:
+        unit = eng.compress(make_data(43)[:3 * 4096])
+        with pytest.raises(btt.StatusError) as ei:
+            btt.prepare_batched_decode([(eng, unit)])
+        assert ei.value.status.code == btt.StatusCode.NOT_IMPLEMENTED
+        with pytest.raises(btt.StatusError):
+            btt.prepare_batched_decode([])
+
+
+def test_streams_round_trip_on_two_engines():
+    drv = btt.Driver.instance()
+    assert drv is btt.Driver.instance()
+    assert drv.describe("cpu")["device_class"] == "cpu-reference"
+    cfg = btt.EngineConfig(**cfg_kw(block_size=4096, max_pool_slots=64))
+    engs = drv.get_engines(cfg, device_ids=[0, 0], device_type="cpu")
+    try:
+        streams = btt.make_streams(engs, 4)
+        assert [s.engine for s in streams] == [engs[0], engs[1], engs[0], engs[1]]
+        data = make_data(44)
+        segs = [data[i * len(data) // 4:(i + 1) * len(data) // 4] for i in range(4)]
+        units, outs = {}, {}
+
+        def keep(store, i):
+            def cb(stream, result):
+                store[i] = result.value()
+                return btt.ASYNC_RETURN_OK + i            # the callback's return is harvested
+            return cb
+
+        for i, s in enumerate(streams):
+            assert s.compress_async(btt.CompressParam(s.engine, segs[i], keep(units, i))).ok()
+        assert btt.wait_all(streams) == [btt.ASYNC_RETURN_OK + i for i in range(4)]
+        for i, s in enumerate(streams):
+            assert s.decompress_async(btt.DecompressParam(s.engine, units[i],
+                                                          result_callback=keep(outs, i))).ok()
+        btt.wait_all(streams)
+        for i in range(4):
+            assert outs[i].tobytes() == segs[i]
+            assert units[i].engine.recycle(units[i]) == units[i].nblocks
+        for s in streams:
+            s.close()
+    finally:
+        for e in engs:
+            e.release()
+
+
+def test_busy_stream_is_invalid_and_errors_reach_the_callback():
+    import threading
+
+    with btt.Engine(btt.EngineConfig(**cfg_kw()), device="cpu") as eng:
+        stream = btt.Stream(engine=eng, stream_id=3)
+        assert stream.wait() == 0 and not stream.busy()
+        gate = threading.Event()
+        st = stream.compress_async(btt.CompressParam(
+            eng, b"a" * 5000, lambda s, r: gate.wait(10) and btt.ASYNC_RETURN_OK))
+        assert st.ok()
+        busy = stream.compress_async(btt.CompressParam(eng, b"b" * 100))
+        assert busy.code == btt.StatusCode.INVALID and "busy" in busy.message
+        gate.set()
+        assert stream.wait() == btt.ASYNC_RETURN_OK
+        gone = eng.compress(b"x" * 100)
+        eng.recycle(gone)
+        assert stream.decompress_async(btt.DecompressParam(eng, gone)).ok()
+        assert stream.wait() == btt.Status.Invalid("").to_int()
+        stream.close()
 
 
 def test_state_machine():

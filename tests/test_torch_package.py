@@ -21,7 +21,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, bitar_tpu_torch, bitar_tpu_torch.interop, "
             "bitar_tpu_torch.utils.timing, bitar_tpu_torch.utils.corpus, "
             "bitar_tpu_torch.ops.device_compress, bitar_tpu_torch.ops.emit, "
-            "bitar_tpu_torch.ops.match_dyn, chip_smoke; "
+            "bitar_tpu_torch.ops.match_dyn, bitar_tpu_torch.ops.decode_tables, "
+            "bitar_tpu_torch.ops.match, bitar_tpu_torch.ops.match_sort, "
+            "bitar_tpu_torch.engine.stream, bitar_tpu_torch.engine.driver, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'bitar_tpu' or m.startswith('bitar_tpu.')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
