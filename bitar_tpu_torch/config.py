@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from .status import Status
 
@@ -279,3 +279,15 @@ class EngineConfig:
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+@dataclass(frozen=True, slots=True)
+class ShardingConfig:
+    """Multi-device / multi-host layout knobs (a copy of
+    ``bitar_tpu.config.ShardingConfig``; no reference analog: the reference
+    is single-process, its only topology being the queue-pair -> lcore
+    round-robin map, ``driver.cc:100-158``)."""
+
+    data_axis: str = "blocks"
+    mesh_shape: tuple[int, ...] = field(default_factory=tuple)  # () -> all devices, 1D
+    skew_bucket_log: int = 2      # blocks binned by ceil(log2(size)) / this for shuffle balance

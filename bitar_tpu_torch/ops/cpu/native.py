@@ -70,6 +70,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.bt_plan_batch_pack.argtypes = [ctypes.c_void_p, c_int, _i64p, _i16p, _i32p]
     lib.bt_plan_batch_abort.restype = None
     lib.bt_plan_batch_abort.argtypes = [ctypes.c_void_p]
+    lib.bt_plan_block.restype = c_int
+    lib.bt_plan_block.argtypes = [c_int, _u8p, c_int, c_int, c_int, c_int] + [_i32p] * 5
     lib.bt_plan_dense_pack.restype = None
     lib.bt_plan_dense_pack.argtypes = [
         c_int, c_int, _i64p, _i16p, _i16p, _i32p, _i32p, c_int, c_int, c_int, _i32p]
@@ -218,6 +220,32 @@ def plan_batch_flat(src: np.ndarray, src_off: np.ndarray, src_len: np.ndarray,
         _i16ptr(se), _i32ptr(shift), _i32ptr(p_used), _i32ptr(p0), _i32ptr(status),
         None, 0, _i32ptr(lit_used), _i16ptr(dq), _i32ptr(row_a), _i32ptr(dense))
     return se, shift, p_used, p0, status, lit_used, dq, row_a, dense
+
+
+_CODEC_INT = {"lz4": 0, "snappy": 1, "zstd": 2, "raw": 3}
+
+
+def plan_block(data, out_len: int, nrows: int, max_passes: int = 32, codec: str = "lz4"):
+    """The scheduled decode plan of one LZ4 or Snappy block (``bt_plan_block``).
+
+    Returns (P, p0, cols) where ``cols`` holds r_dstart/r_dend/r_shift of
+    shape [max_passes, nrows] int32; passes [0, p0) read the comp plane and
+    [p0, P) the output plane.  Returns (None, None, None) when the block
+    exceeds the pass budget.  The same call and results as
+    ``bitar_tpu.ops.cpu.native.plan_block``."""
+    src = _as_u8(data)
+    cols = {k: np.zeros((max_passes, nrows), dtype=np.int32)
+            for k in ("r_dstart", "r_dend", "r_shift")}
+    pass_space = np.zeros(max_passes, dtype=np.int32)
+    p0 = np.zeros(1, dtype=np.int32)
+    rc = load().bt_plan_block(
+        _CODEC_INT[codec], _u8ptr(src), len(src), out_len, nrows, max_passes,
+        _i32ptr(cols["r_dstart"]), _i32ptr(cols["r_dend"]), _i32ptr(cols["r_shift"]),
+        _i32ptr(pass_space), _i32ptr(p0))
+    if rc == -6:  # CAPACITY: pass budget exceeded
+        return None, None, None
+    _check(rc, "plan_block")
+    return rc, int(p0[0]), cols
 
 
 def plan_batch_begin(src: np.ndarray, src_off: np.ndarray, src_len: np.ndarray,

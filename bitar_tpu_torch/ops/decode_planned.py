@@ -1,0 +1,230 @@
+"""Dense-plan block decode (kernel B7): scheduled fragment passes over the
+stacked plane S = [comp | out].
+
+Counterpart of ``bitar_tpu/ops/pallas/lz4_decode_planned.py``, the older
+mesh decoder that ``decode_blocks_flat`` (B1) replaced on every decode path;
+the reference has no caller of it, so ``decode_blocks_planned`` is its own
+entry point.  The host planner (``native.plan_block``) turns a block into P
+passes; :func:`pack_plan` packs them into the wire, and :func:`plan_blocks`
+does both for a batch.  This module holds ``pack_plan`` (a copy of the
+reference's), ``plan_blocks``, ``random_plans`` (malformed plans for the
+kernel-vs-plain checks), ``decode_planned_reference``,
+the plain PyTorch decode, and ``decode_blocks_planned``, the wrapper: on CPU
+tensors it runs the plain version, on CUDA tensors it launches
+``csrc/decode_planned.cu`` or raises.
+
+The function, per block ``i``.  S has ``w_rows = ceil((comp_rows +
+out_rows) / 1024) * 1024`` rows of 128 bytes: comp in rows
+``[0, comp_rows)``, zeros above, the output region from row ``comp_rows``.
+Each pass ``k < min(p_used[i], passes)``, in order, reads S as it stood
+before the pass.  In output row ``r``, with ``start = se >>> 8``, ``end = se
+& 0xFF`` (``se`` and ``shift`` the cell of pass k, row r), lane ``l`` is
+active when ``start <= l < end``; it takes ``q = r*128 + l + shift`` (int32,
+wrapping), ``qrow = q >>> 7`` (logical).  The row's anchor is ``row_a =
+min(min over active lanes of qrow, w_rows - 2)``, and the lane's value is
+``S[row_a][q & 127]`` if ``qrow == row_a``, else ``S[row_a + 1][q & 127]``.
+So a malformed plan reads one of two rows, never ``S[q]`` itself.  Only
+active lanes are written.  The output is the out region after the last pass.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ._build import check_cuda, load_cuda_kernel, require
+from .cpu import native
+
+LANES = 128
+KCHUNK = 1024          # S rows round up to this (the reference's MXU K chunk)
+#: Output rows a block may have: the kernel keeps the out plane in shared
+#: memory (128 KiB), as B1 does.
+MAX_OUT_ROWS = 1024
+
+#: Kernel launches made by ``decode_blocks_planned`` on CUDA tensors (one
+#: per call).  Reset it to 0 before a run whose kernel use is to be shown.
+launches = 0
+
+
+def pack_plan(r_dstart, r_dend, r_shift, p0, total_passes, comp_rows):
+    """Host-side plan packing for one block.
+
+    Takes the planner's [P, nrows] int32 tables (block-absolute dstart/dend,
+    raw shifts, comp-pass count p0) and produces the kernel wire format:
+    (se [total_passes, nrows], shift [total_passes, nrows]) with
+    row-relative ranges and out-space shifts rebased into the stacked plane.
+    """
+    P = r_dstart.shape[0]
+    nrows = r_dstart.shape[1]
+    row_lo = np.arange(nrows, dtype=np.int32)[None, :] * LANES
+    start = np.clip(r_dstart - row_lo, 0, LANES).astype(np.int32)
+    end = np.clip(r_dend - row_lo, 0, LANES).astype(np.int32)
+    # empty cells: dstart == dend == 0 -> start=end=0 -> inactive
+    se = (start << 8) | end
+    shift = r_shift.copy()
+    shift[p0:P] += comp_rows * LANES
+    out_se = np.zeros((total_passes, nrows), np.int32)
+    out_shift = np.zeros((total_passes, nrows), np.int32)
+    out_se[:P] = se
+    out_shift[:P] = shift
+    return out_se, out_shift
+
+
+def plan_blocks(datas: list[bytes], block: int, max_passes: int) -> dict:
+    """The B7 wire of a batch: each block of ``datas`` LZ4-compressed,
+    planned by ``native.plan_block`` within ``max_passes`` passes and packed
+    by :func:`pack_plan`.  Blocks whose plan does not fit are left out.
+
+    Returns {"fit": indices of the planned blocks, "comp" [F, comp_rows,
+    128] uint8, "p_used" [F] int32, "se" and "shift" [F, passes, block /
+    16384, 128] int32, "passes" (the largest plan's), "comp_rows" (the
+    largest comp in rows, rounded up to 32), "stored" (compressed bytes of
+    the planned blocks)}."""
+    nrows = block // LANES
+    comps = [native.lz4_compress(d) for d in datas]
+    plans = [native.plan_block(c, block, nrows, max_passes=max_passes) for c in comps]
+    fit = [i for i, p in enumerate(plans) if p[0] is not None]
+    passes = max((plans[i][0] for i in fit), default=1)
+    comp_rows = -(-max((len(comps[i]) for i in fit), default=1) // LANES)
+    comp_rows = -(-comp_rows // 32) * 32
+    comp = np.zeros((len(fit), comp_rows, LANES), np.uint8)
+    se = np.zeros((len(fit), passes, nrows // LANES, LANES), np.int32)
+    shift = np.zeros_like(se)
+    for j, i in enumerate(fit):
+        P, p0, cols = plans[i]
+        comp[j].reshape(-1)[:len(comps[i])] = comps[i]
+        s, h = pack_plan(cols["r_dstart"][:P], cols["r_dend"][:P], cols["r_shift"][:P], p0,
+                         passes, comp_rows)
+        se[j], shift[j] = s.reshape(se.shape[1:]), h.reshape(se.shape[1:])
+    return {"fit": fit, "comp": comp, "p_used": np.array([plans[i][0] for i in fit], np.int32),
+            "se": se, "shift": shift, "passes": passes, "comp_rows": comp_rows,
+            "stored": sum(len(comps[i]) for i in fit)}
+
+
+def random_plans(seed: int, n: int, passes: int, comp_rows: int, out_rows: int) -> tuple:
+    """A batch of malformed B7 plans, to hold the kernel to its plain
+    version where a plan is not a decode: ranges past the row, start > end
+    and whole int32 ``se`` words; shifts into the comp region, the out
+    region, the zeros above, negative (a huge logical row) and near the
+    int32 limits (``q`` wraps); ``p_used`` past ``passes``, 0 and negative.
+    Returns numpy (comp, p_used, se, shift)."""
+    rng = np.random.default_rng(seed)
+    shape = (n, passes, out_rows // LANES, LANES)
+    comp = rng.integers(0, 256, (n, comp_rows, LANES), dtype=np.uint8)
+    se = ((rng.integers(0, 140, shape) << 8) | rng.integers(0, 256, shape)).astype(np.int32)
+    se[..., ::17] = rng.integers(-2**31, 2**31 - 1, se[..., ::17].shape)
+    kind = rng.integers(0, 5, shape)
+    wide = rng.integers(-2**31, 2**31 - 1, shape, dtype=np.int64)
+    near = rng.integers(0, (comp_rows + out_rows + 300) * LANES, shape)
+    shift = np.select([kind == 0, kind == 1, kind == 2, kind == 3],
+                      [near - 300, near, -near, 2**31 - 1 - near % 4096], wide).astype(np.int32)
+    p_used = np.resize(np.array([passes, passes + 4, 0, -1, 2, 1], np.int32), n)
+    return comp, p_used, se, shift
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 value it wraps to, kept in int64."""
+    return torch.remainder(x + (1 << 31), 1 << 32) - (1 << 31)
+
+
+def decode_planned_reference(comp: torch.Tensor, p_used: torch.Tensor, se: torch.Tensor,
+                             shift: torch.Tensor, *, passes: int, comp_rows: int,
+                             out_rows: int) -> torch.Tensor:
+    """Decode N blocks with plain tensor ops; returns [N, out_rows, 128]
+    uint8 (see the module docstring)."""
+    dev = comp.device
+    n = comp.shape[0]
+    w_rows = -(-(comp_rows + out_rows) // KCHUNK) * KCHUNK
+    olo, olen = comp_rows * LANES, out_rows * LANES
+    S = torch.zeros((n, w_rows * LANES), dtype=torch.int64, device=dev)
+    S[:, :olo] = comp.reshape(n, olo).long()
+    p = torch.arange(olen, device=dev)
+    lane = p & (LANES - 1)
+    npass = p_used.long().clamp(min=0, max=passes)
+    for k in range(int(npass.max()) if n else 0):
+        live = (k < npass)[:, None]
+        sek = se[:, k].reshape(n, out_rows).long() & 0xFFFFFFFF
+        shk = shift[:, k].reshape(n, out_rows).long()
+        start = (sek >> 8).repeat_interleave(LANES, dim=1)
+        end = (sek & 0xFF).repeat_interleave(LANES, dim=1)
+        active = live & (lane >= start) & (lane < end)
+        q = _wrap32(p + shk.repeat_interleave(LANES, dim=1))
+        qrow = (torch.where(active, q, 0) & 0xFFFFFFFF) >> 7
+        masked = torch.where(active, qrow, 1 << 29).reshape(n, out_rows, LANES)
+        row_a = masked.min(dim=2).values.clamp(max=w_rows - 2)
+        row_a = row_a.repeat_interleave(LANES, dim=1)
+        qlane = q & (LANES - 1)
+        src_row = torch.where(qrow == row_a, row_a, row_a + 1)
+        val = S.gather(1, src_row * LANES + qlane)
+        cur = S[:, olo:olo + olen]
+        S[:, olo:olo + olen] = torch.where(active, val, cur)
+    return S[:, olo:olo + olen].to(torch.uint8).reshape(n, out_rows, LANES)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    vp, c_int = ctypes.c_void_p, ctypes.c_int
+    lib.bt_decode_planned_launch.restype = c_int
+    lib.bt_decode_planned_launch.argtypes = [
+        vp, c_int,                        # comp, comp_rows
+        vp, vp, vp, c_int,                # p_used, se, shift, passes
+        vp, c_int, c_int, vp]             # out, n, out_rows, stream
+
+
+def load_kernel() -> ctypes.CDLL:
+    """Build (at first use, for sm_90a) and load ``csrc/decode_planned.cu``."""
+    return load_cuda_kernel("decode_planned", _bind)
+
+
+def _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows) -> torch.Tensor:
+    global launches
+    require(out_rows <= MAX_OUT_ROWS,
+            f"decode_planned kernel holds at most {MAX_OUT_ROWS} rows per block "
+            f"(its out plane lives in shared memory), got {out_rows}")
+    n = comp.shape[0]
+    tiles = out_rows // LANES
+    require(comp.is_contiguous(), "comp: want a contiguous [N, comp_rows, 128] tensor")
+    for name, t, shape in (("p_used", p_used, (n,)),
+                           ("se", se, (n, passes, tiles, LANES)),
+                           ("shift", shift, (n, passes, tiles, LANES))):
+        require(t.device == comp.device and t.dtype == torch.int32 and t.is_contiguous()
+                and tuple(t.shape) == shape,
+                f"{name}: want contiguous int32 {list(shape)} on {comp.device}, "
+                f"got {t.dtype} {list(t.shape)} on {t.device}")
+    out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=comp.device)
+    if n == 0:
+        return out
+    lib = load_kernel()
+    with torch.cuda.device(comp.device):
+        rc = lib.bt_decode_planned_launch(
+            comp.data_ptr(), comp_rows, p_used.data_ptr(), se.data_ptr(), shift.data_ptr(),
+            passes, out.data_ptr(), n, out_rows,
+            torch.cuda.current_stream(comp.device).cuda_stream)
+    check_cuda(rc, "decode_planned launch", lib)
+    launches += 1
+    return out
+
+
+def decode_blocks_planned(comp: torch.Tensor, p_used: torch.Tensor, se: torch.Tensor,
+                          shift: torch.Tensor, *, passes: int, comp_rows: int,
+                          out_rows: int) -> torch.Tensor:
+    """Decode a batch of blocks via their scheduled fragment plans.
+
+    ``comp``: [N, comp_rows, 128] uint8 compressed planes; ``p_used`` [N]
+    int32 pass counts; ``se``, ``shift``: [N, passes, out_rows / 128, 128]
+    int32 (:func:`pack_plan`'s rows; row r at ``[.., r >> 7, r & 127]``).
+    Returns [N, out_rows, 128] uint8.  Raises StatusError unless ``out_rows
+    % 128 == 0`` and ``comp_rows % 32 == 0``, the reference's asserts.  A
+    CPU ``comp`` runs :func:`decode_planned_reference`; a CUDA one launches
+    the kernel or raises."""
+    require(out_rows % LANES == 0, "planned kernel requires out_rows % 128 == 0")
+    require(comp_rows % 32 == 0, "uint8 comp planes need 32-row tiling")
+    require(comp.dtype == torch.uint8 and tuple(comp.shape[1:]) == (comp_rows, LANES),
+            f"comp: want [N, {comp_rows}, 128] uint8, got {list(comp.shape)} {comp.dtype}")
+    if comp.device.type == "cpu":
+        return decode_planned_reference(comp, p_used, se, shift, passes=passes,
+                                        comp_rows=comp_rows, out_rows=out_rows)
+    require(comp.device.type == "cuda",
+            f"decode_blocks_planned: no kernel for device {comp.device}")
+    return _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows)

@@ -9,6 +9,9 @@ Counterpart of ``bitar_tpu/ops/pallas/lz4_match_dyn.py``.
   runs the greedy per-segment parse (kernel B5, ``csrc/match_walk.cu``).
 * ``find_matches_dyn``: the same scoring, returning the per-position best
   run and offset planes (kernel B4, ``csrc/match_dyn.cu``).
+* ``parse_walk_dyn``: B5's greedy walk alone, over precomputed match planes
+  such as B4's (kernel B6, ``csrc/parse_walk.cu``).  B4 then B6 gives B5's
+  records.  The reference has no caller of it; it is its own entry point.
 
 Scoring, per block and per offset ``d`` in ``offs[b, :noff[b]]`` in order:
 ``run[p]`` is the number of consecutive positions ``p' >= p`` with
@@ -43,11 +46,12 @@ DEFAULT_K = 4
 #: sampling stride of the detector (a multiple of 64 dividing the plane)
 DEFAULT_STRIDE = 64
 
-#: Kernel launches made by ``find_matches_parse_dyn`` (B5) and
-#: ``find_matches_dyn`` (B4) on CUDA tensors, one per call.  Reset to 0
-#: before a run whose kernel use is to be shown.
+#: Kernel launches made by ``find_matches_parse_dyn`` (B5),
+#: ``find_matches_dyn`` (B4) and ``parse_walk_dyn`` (B6) on CUDA tensors,
+#: one per call.  Reset to 0 before a run whose kernel use is to be shown.
 walk_launches = 0
 dyn_launches = 0
+parse_walk_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -184,11 +188,18 @@ def match_walk_reference(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Ten
     """Plain version of B5: ``rec [N, 3*wcap + 1, nseg]`` int32, rows [0, W)
     match positions (-1 empty), [W, 2W) truncated lengths, [2W, 3W)
     offsets, row 3W the segment's overflow flag."""
-    n, L = comp.shape
-    G = L // seg
-    dev = comp.device
     run, off = _score_reference(comp, noff, offs, max_match)
-    run3, off3 = run.view(n, G, seg), off.view(n, G, seg)
+    return _walk_records(run, off, lengths, seg=seg, min_match=min_match, wcap=wcap)
+
+
+def _walk_records(run: torch.Tensor, off: torch.Tensor, lengths: torch.Tensor, *,
+                  seg: int, min_match: int, wcap: int) -> torch.Tensor:
+    """The greedy segment walk over per-position match planes ``run``/``off``
+    [N, L]: B5's walk half, and all of B6.  Returns B5's ``rec``."""
+    n, L = run.shape
+    G = L // seg
+    dev = run.device
+    run3, off3 = run.reshape(n, G, seg), off.reshape(n, G, seg)
     brow = torch.arange(seg, device=dev).view(1, 1, seg)
     g = torch.arange(G, device=dev).view(1, G, 1)
     blen = lengths.long().view(n, 1, 1)
@@ -220,6 +231,25 @@ def match_dyn_reference(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Tens
     return _score_reference(comp, noff, offs, max_match)
 
 
+def _split_records(rec: torch.Tensor, wcap: int):
+    """``rec [N, 3*wcap + 1, nseg]`` -> (P, M, O [N, nseg * wcap] in
+    (segment, step) order, overflow [N] bool)."""
+    n, _, nseg = rec.shape
+    P, M, O = (rec[:, i * wcap:(i + 1) * wcap, :].transpose(1, 2).reshape(n, nseg * wcap)
+               for i in range(3))
+    return P, M, O, (rec[:, 3 * wcap, :] != 0).any(dim=1)
+
+
+def parse_walk_reference(mlen: torch.Tensor, moff: torch.Tensor, lengths: torch.Tensor, *,
+                         seg: int, min_match: int, wcap: int):
+    """Plain version of B6: :func:`parse_walk_dyn`'s outputs from plain
+    tensor ops.  ``mlen``/``moff`` values must keep ``brow + mlen`` inside
+    int32 (the kernel adds in int32; this version in int64)."""
+    rec = _walk_records(mlen.long(), moff.long(), lengths, seg=seg, min_match=min_match,
+                        wcap=wcap)
+    return _split_records(rec, wcap)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 
@@ -230,6 +260,10 @@ _WALK_ARGS = [_vp, _vp, _vp, _int, _vp, _vp,   # planes, noff, offs, K, lengths,
               _int, _int, _int, _vp]           # min_match, wcap, max_match, stream
 _DYN_ARGS = [_vp, _vp, _vp, _int, _vp, _vp,    # planes, noff, offs, K, mlen, moff
              _int, _int, _int, _vp]            # n, L, max_match, stream
+_PARSE_WALK_ARGS = [_vp, _vp, _vp,             # mlen, moff, lengths
+                    _vp, _vp, _vp, _vp,        # P, M, O, segment flags
+                    _int, _int, _int,          # n, L, seg
+                    _int, _int, _vp]           # min_match, wcap, stream
 
 
 def _load(stem: str, argtypes: list) -> ctypes.CDLL:
@@ -248,6 +282,14 @@ def load_walk_kernel() -> ctypes.CDLL:
 def load_dyn_kernel() -> ctypes.CDLL:
     """Build (at first use, for sm_90a) and load ``csrc/match_dyn.cu``."""
     return _load("match_dyn", _DYN_ARGS)
+
+
+def load_parse_walk_kernel() -> ctypes.CDLL:
+    """Build (at first use, for sm_90a) and load ``csrc/parse_walk.cu``."""
+    def bind(lib: ctypes.CDLL) -> None:
+        lib.bt_parse_walk_launch.restype = _int
+        lib.bt_parse_walk_launch.argtypes = _PARSE_WALK_ARGS
+    return load_cuda_kernel("parse_walk", bind)
 
 
 def _check_inputs(comp, noff, offs, lengths=None) -> None:
@@ -308,11 +350,51 @@ def find_matches_parse_dyn(comp: torch.Tensor, noff: torch.Tensor, offs: torch.T
                     max_match, torch.cuda.current_stream(x.device).cuda_stream)
             check_cuda(rc, "match_walk launch", lib)
             walk_launches += 1
-    P = rec[:, :wcap, :].transpose(1, 2).reshape(n, nseg * wcap)
-    M = rec[:, wcap:2 * wcap, :].transpose(1, 2).reshape(n, nseg * wcap)
-    O = rec[:, 2 * wcap:3 * wcap, :].transpose(1, 2).reshape(n, nseg * wcap)
-    overflow = (rec[:, 3 * wcap, :] != 0).any(dim=1)
-    return P, M, O, overflow
+    return _split_records(rec, wcap)
+
+
+def parse_walk_dyn(mlen: torch.Tensor, moff: torch.Tensor, lengths: torch.Tensor, *,
+                   seg: int, min_match: int, wcap: int):
+    """Greedy per-segment parse of precomputed match planes (B6).
+
+    ``mlen``/``moff``: [N, L] int32 per-position match length and offset
+    (B4's output, flattened); ``lengths`` [N] int32.  Returns (P, M, O
+    [N, nseg * wcap] int32 in (segment, step) order, P = -1 for an empty
+    slot, M truncated lengths, O offsets; overflow [N] bool).  Raises
+    ValueError unless ``seg`` divides L and ``nseg = L / seg <= 128``, as
+    the reference does.  A CPU tensor runs :func:`parse_walk_reference`; a
+    CUDA one launches ``csrc/parse_walk.cu`` or raises."""
+    global parse_walk_launches
+    n, L = mlen.shape
+    if L % seg:
+        raise ValueError("seg must divide L")
+    nseg = L // seg
+    if nseg > 128:
+        raise ValueError("parse_walk_dyn: nseg must fit one lane tile")
+    if mlen.device.type == "cpu":
+        return parse_walk_reference(mlen, moff, lengths, seg=seg, min_match=min_match,
+                                    wcap=wcap)
+    require(mlen.device.type == "cuda", f"parse_walk_dyn: no kernel for device {mlen.device}")
+    require(wcap >= 0, f"wcap {wcap} must not be negative")
+    for name, t, shape in (("mlen", mlen, (n, L)), ("moff", moff, (n, L)),
+                           ("lengths", lengths, (n,))):
+        require(t.device == mlen.device and t.dtype == torch.int32 and t.is_contiguous()
+                and tuple(t.shape) == shape,
+                f"{name}: want contiguous int32 {list(shape)} on {mlen.device}, "
+                f"got {t.dtype} {list(t.shape)} on {t.device}")
+    P, M, O = (torch.empty((n, nseg * wcap), dtype=torch.int32, device=mlen.device)
+               for _ in range(3))
+    flags = torch.zeros((n, nseg), dtype=torch.int32, device=mlen.device)
+    if n:
+        lib = load_parse_walk_kernel()
+        with torch.cuda.device(mlen.device):
+            rc = lib.bt_parse_walk_launch(
+                mlen.data_ptr(), moff.data_ptr(), lengths.data_ptr(), P.data_ptr(),
+                M.data_ptr(), O.data_ptr(), flags.data_ptr(), n, L, seg, min_match, wcap,
+                torch.cuda.current_stream(mlen.device).cuda_stream)
+        check_cuda(rc, "parse_walk launch", lib)
+        parse_walk_launches += 1
+    return P, M, O, (flags != 0).any(dim=1)
 
 
 def find_matches_dyn(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Tensor, *,

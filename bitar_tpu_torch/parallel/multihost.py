@@ -1,0 +1,95 @@
+"""Multi-process topology.
+
+Counterpart of ``bitar_tpu/parallel/multihost.py``.  The reference is
+strictly single-process (survey §2); the JAX package runs one process per
+host joined by ``jax.distributed``.  The port runs one process per device
+(PyTorch's idiom), joined by ``torch.distributed``: the mesh spans all
+ranks, and block batches are partitioned by process before the shuffle.
+
+A launcher (``torchrun`` or one process per device started by hand) passes
+the coordinator; in tests and single-process runs nothing is joined and the
+topology degrades to one process.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..status import Status, StatusError
+from ..utils.logging import get_logger
+
+logger = get_logger("parallel.multihost")
+
+
+def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
+               process_id: int | None = None, *, backend: str | None = None) -> dict:
+    """Join the multi-process job (idempotent); returns :func:`describe`.
+
+    ``coordinator_address`` is an ``init_method`` URL (``tcp://host:port``,
+    ``file:///path``); without it the environment's ``MASTER_ADDR`` /
+    ``MASTER_PORT`` are used (``env://``), and ``num_processes`` /
+    ``process_id`` default to ``WORLD_SIZE`` / ``RANK``.  A single process
+    given neither a coordinator nor a world size joins nothing, as in the
+    JAX package.  ``backend`` is explicit: "nccl" (CUDA devices, the
+    default when CUDA is present) or "gloo" (the CPU, or CUDA devices when
+    asked for)."""
+    if num_processes is None and "WORLD_SIZE" in os.environ:
+        num_processes = int(os.environ["WORLD_SIZE"])
+    if not dist.is_initialized() and (coordinator_address is not None
+                                      or num_processes not in (None, 1)):
+        if process_id is None:
+            process_id = int(os.environ.get("RANK", "0"))
+        if backend is None:
+            backend = "nccl" if torch.cuda.is_available() else "gloo"
+        if backend not in ("nccl", "gloo"):
+            raise StatusError(Status.Invalid(f"backend {backend!r} not in (nccl, gloo)"))
+        kw = {}
+        if backend == "nccl":
+            local = process_id % max(1, torch.cuda.device_count())
+            torch.cuda.set_device(local)
+            kw["device_id"] = torch.device("cuda", local)
+        dist.init_process_group(backend, init_method=coordinator_address or "env://",
+                                world_size=num_processes or 1, rank=process_id, **kw)
+    topo = describe()
+    logger.info("multihost topology: %s", topo)
+    return topo
+
+
+def describe() -> dict:
+    """This process's place in the job: rank, world size, its local CUDA
+    devices and the global device count.  With one rank per device,
+    ``process_count == global_device_count``."""
+    joined = dist.is_initialized()
+    count = dist.get_world_size() if joined else 1
+    return {
+        "process_index": dist.get_rank() if joined else 0,
+        "process_count": count,
+        "backend": dist.get_backend() if joined else None,
+        "local_device_count": torch.cuda.device_count(),
+        "global_device_count": count,
+    }
+
+
+def partition_blocks(nblocks: int, process_count: int | None = None,
+                     process_index: int | None = None) -> tuple[int, int]:
+    """[start, stop) of the block range this process stages.
+
+    Host-level split preceding the device-level shuffle: each process
+    ingests and compresses its contiguous share, then the mesh-wide
+    all-to-all redistributes compressed blocks."""
+    pc = process_count if process_count is not None else describe()["process_count"]
+    pi = process_index if process_index is not None else describe()["process_index"]
+    if not (0 <= pi < pc):
+        raise StatusError(Status.Invalid(f"process {pi} outside [0, {pc})"))
+    per = -(-nblocks // pc)
+    return min(pi * per, nblocks), min((pi + 1) * per, nblocks)
+
+
+def process_spans(nblocks: int, process_count: int | None = None) -> np.ndarray:
+    """All processes' [start, stop) spans as an [pc, 2] array."""
+    pc = process_count if process_count is not None else describe()["process_count"]
+    return np.array([partition_blocks(nblocks, pc, i) for i in range(pc)], dtype=np.int64)

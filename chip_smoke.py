@@ -6,7 +6,7 @@ that the port still starts on the card.
 Phases (any failure raises, and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the host codec library (g++) and the six CUDA kernels (nvcc,
+2. build the host codec library (g++) and the eight CUDA kernels (nvcc,
    sm_90a, one process per source, all started together), timed;
 3. every kernel against its plain PyTorch version on the card, byte for
    byte, at the shapes its path gives it:
@@ -29,6 +29,13 @@ Phases (any failure raises, and the script exits non-zero):
    - ``match`` (B3) on 64 x 128 KiB of the bench corpus (indices,
      max_match 64; values, max_match 1024) and on hand-set offsets that tie
      (values, max_match 1024);
+   - ``parse_walk`` (B6) on B4's match planes of B5's bench batch (256 x
+     128 KiB, seg 1024, wcap 8; B4 -> B6 must equal B5's records) and on
+     hand-set planes at seg 256 and 512 (moff 0 inside runs, lengths below
+     L, segments past wcap);
+   - ``decode_planned`` (B7) on the ``plan_block`` + ``pack_plan`` plans of
+     256 x 128 KiB LZ4 blocks of the bench corpus (every planned block
+     decodes to its raw bytes) and on random malformed plans;
 4. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    - host compress -> decode, LZ4 then Snappy, at the bench's size:
@@ -52,9 +59,19 @@ Phases (any failure raises, and the script exits non-zero):
      B1 launch);
    - four streams on one engine (``make_streams``/``wait_all``);
    every one bit-exact with no block decoded on the host;
+   - ``find_matches_dyn`` -> ``parse_walk_dyn`` (B4, B6) and
+     ``decode_blocks_planned`` (B7), the two kernels' own entry points;
+   - (a) an NCCL world of 1 in this process (``file://`` rendezvous):
+     ``make_mesh(1)``, ``plan_shuffle``, ``execute_shuffle``, the fused flat
+     step and the ring step over 1024 x 128 KiB (B1), then ``sharded_decode``
+     and the tables-fallback step over 256 x 128 KiB (B2);
+   - (b) four spawned ranks sharing the card, exchange on gloo (the ring's
+     rounds host-staged), fused and ring steps over 256 x 128 KiB, B1 in
+     every rank; every live row of (a) and (b) bit-exact;
 5. times with CUDA events, kernel and plain version in turns (plain, kernel,
    kernel, plain): B1 at the bench shape and on the text corpus; B5, B4,
-   the emitter, B2 and B3 at the shapes of phase 3; the whole
+   the emitter, B2, B3, B6 and B7 at the shapes of phase 3 (the
+   multi-device steps' host-clock times are logged in phase 4); the whole
    ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
    and the host-clock phases of the tpu matcher's compress (plane packing,
    upload, B3, hint readback, host emission) at 1024 x 128 KiB;
@@ -95,6 +112,10 @@ BATCH_UNIT_BLOCKS = 256       # blocks of each unit of the batched decode
 TIES = (94, 47, 141, 47, 3, 6, 0, 140000)
 FFT_TEXT_BLOCKS = 64          # text batch of the B5 / B4 / emitter checks
 SHORT_BLOCKS = 32             # short RLE blocks of the width-128 emitter check
+PLANNED_MAX_PASSES = 64       # B7's plan budget per 128 KiB block
+TABLE_STEP_BLOCKS = 256       # blocks of the multi-device B2 steps
+RANKS = 4                     # gloo ranks sharing the one card (path b)
+WORLD_TIMEOUT = 300.0         # seconds a spawned world may take
 TIMED_REPS = (3, 20)          # (plain, kernel) launches per timed turn
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 INT32_OPS_PER_S = 33.5e12     # 132 SMs x 128 lanes x 1.98 GHz, one op per lane per cycle
@@ -445,6 +466,162 @@ def match_bound(n: int, nk: int) -> tuple[float, str]:
 
 
 # ---------------------------------------------------------------------------
+# B6: parse walk over match planes; B7: dense-plan decode
+
+
+def walk_hand_batch(seg: int):
+    """[8, seg * 128] match planes where the walk's edges matter: moff = 0
+    inside long runs, every segment past wcap, random sparse hits, and
+    lengths below L.  (mlen, moff, lengths) on the card."""
+    rng = np.random.default_rng(seg)
+    n, L = 8, seg * 128
+    mlen = np.zeros((n, L), np.int32)
+    moff = np.zeros((n, L), np.int32)
+    mlen[0], moff[0] = 300, 7
+    for lo in range(0, L, 900):
+        moff[0, lo:lo + 200] = 0                   # moff = 0 inside long runs
+    mlen[1], moff[1] = 7, 1                        # every segment overflows wcap
+    on = rng.random((n - 2, L)) < 0.4
+    mlen[2:] = np.where(on, rng.integers(1, 64, (n - 2, L)), 0)
+    moff[2:] = np.where(on, rng.integers(0, 4, (n - 2, L)), 0)
+    lengths = np.array([L, L, L - 1, L // 2 + 5, L - seg - 3, 13, L, 3 * seg], np.int32)
+    return tuple(torch.from_numpy(a).cuda() for a in (mlen, moff, lengths))
+
+
+def compare_parse_walk(md, mlen, moff, lengths, seg: int, what: str):
+    """B6 against its plain version (wcap 8, min_match 6); returns
+    (max |diff|, P/M/O/overflow)."""
+    got = md.parse_walk_dyn(mlen, moff, lengths, seg=seg, min_match=6, wcap=8)
+    torch.cuda.synchronize()
+    want = md.parse_walk_reference(mlen, moff, lengths, seg=seg, min_match=6, wcap=8)
+    return max(check_equal(f"parse_walk {what} {k}", g, w)
+               for k, g, w in zip("PMOo", got, want)), got
+
+
+def walk_bound(mlen, moff, lengths, P, M, seg: int, wcap: int, min_match: int = 6):
+    """B6's least traffic on this data: 4 bytes of mlen at every position
+    its walk must examine (from each cursor to the match it takes, to the
+    segment end where none is left, and the overflow scan), 4 bytes of moff
+    only where such a position passes the length and position tests (the
+    only places moff decides anything), the lengths, and the records and
+    flags written."""
+    n, L = mlen.shape
+    G = L // seg
+    dev = mlen.device
+    brow = torch.arange(seg, device=dev)
+    gbase = (torch.arange(G, device=dev) * seg).view(1, G, 1)
+    blen = lengths.long().view(n, 1, 1)
+    m_t = torch.minimum(mlen.view(n, G, seg).long(), (blen - 5 - gbase).clamp(max=seg) - brow)
+    tested = (m_t >= min_match) & (gbase + brow < blen - 12)
+    valid = tested & (moff.view(n, G, seg) >= 1)
+    Pg = P.view(n, G, wcap).long() - gbase
+    Mg = M.view(n, G, wcap).long()
+    edges = torch.zeros((n, G, seg + 1), dtype=torch.long, device=dev)
+
+    def examine(lo, hi):                      # mark [lo, hi) of every segment
+        lo = lo.clamp(0, seg)
+        hi = torch.maximum(hi.clamp(0, seg), lo)
+        edges.scatter_add_(2, lo[:, :, None], torch.ones_like(lo)[:, :, None])
+        edges.scatter_add_(2, hi[:, :, None], -torch.ones_like(hi)[:, :, None])
+
+    pos = torch.zeros((n, G), dtype=torch.long, device=dev)
+    for t in range(wcap):
+        took = P.view(n, G, wcap)[:, :, t] >= 0
+        examine(pos, torch.where(took, Pg[:, :, t] + 1, seg))
+        pos = torch.where(took, Pg[:, :, t] + Mg[:, :, t], seg)
+    left = torch.where(valid & (brow >= pos[:, :, None]), brow, seg).min(dim=2).values
+    examine(pos, torch.where(left < seg, left + 1, seg))
+    seen = edges.cumsum(dim=2)[:, :, :seg] > 0
+    return bound_ms(4 * int(seen.sum()) + 4 * int((seen & tested).sum()) + 4 * n
+                    + 3 * 4 * n * G * wcap + n)
+
+
+def planned_bound(p_used, stored: int, passes: int) -> tuple[float, str]:
+    """B7's least traffic: the stored bytes, 8 bytes of plan per pass used
+    and output row, the planes written."""
+    used = int(p_used.clamp(min=0, max=passes).sum())
+    return bound_ms(stored + 8 * used * (BLOCK // 128) + p_used.shape[0] * BLOCK)
+
+
+# ---------------------------------------------------------------------------
+# The multi-device paths
+
+
+def check_steps(result: dict, what: str) -> None:
+    for step, r in result.items():
+        if isinstance(r, dict) and "exact" in r and not r["exact"]:
+            raise AssertionError(f"{what}: {step} rows not bit-exact")
+    if result.get("ring_equals_flat") is False:
+        raise AssertionError(f"{what}: ring != fused step")
+
+
+def log_steps(what: str, result: dict, card: str) -> None:
+    log(f"main path {what}: " + ", ".join(
+        f"{step} {r['live']} live rows bit-exact, {1e3 * r['seconds']:.1f} ms"
+        for step, r in result.items() if isinstance(r, dict) and "exact" in r)
+        + f" (host clock, device synchronized) [{card}]")
+
+
+def nccl_world_of_one(df, dt, card: str, counts: dict) -> None:
+    """Path (a): an NCCL world of 1 in this process, ``file://`` rendezvous:
+    make_mesh(1) -> plan_shuffle -> execute_shuffle, distributed_step_flat,
+    distributed_step_ring_flat over 1024 x 128 KiB of the bench corpus (B1);
+    then sharded_decode and distributed_step_tables_fallback over 256 x
+    128 KiB (B2)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from bitar_tpu_torch.parallel import dryrun, make_mesh, multihost
+
+    with tempfile.TemporaryDirectory(prefix="bitar-rdv-") as tmp:
+        multihost.initialize(f"file://{tmp}/rendezvous", 1, 0, backend="nccl")
+        try:
+            mesh = make_mesh(1)
+            df.launches = 0
+            flat = dryrun.steps_program(mesh, {"corpus": "bench", "nblocks": NBLOCKS,
+                                               "block": BLOCK,
+                                               "steps": ("shuffle", "flat", "ring")})
+            counts["NCCL world of 1: fused and ring steps"] = {"decode_flat": df.launches}
+            dt.launches = 0
+            tab = dryrun.steps_program(mesh, {"corpus": "bench", "nblocks": TABLE_STEP_BLOCKS,
+                                              "block": BLOCK, "steps": ("sharded", "tables")})
+            counts["NCCL world of 1: sharded and tables steps"] = {"decode_tables": dt.launches}
+        finally:
+            dist.destroy_process_group()
+    for what, r in (("NCCL world of 1, 1024 x 128 KiB", flat),
+                    ("NCCL world of 1, 256 x 128 KiB", tab)):
+        check_steps(r, what)
+        log_steps(what, r, card)
+
+
+def gloo_ranks_on_one_card(card: str, counts: dict) -> None:
+    """Path (b): RANKS spawned ranks on the one card, exchange on gloo
+    (all-to-all on CUDA tensors; the ring's point-to-point rounds
+    host-staged through pinned buffers), B1 on cuda:0 in every rank; fused
+    and ring steps over 256 x 128 KiB."""
+    from bitar_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    res = dryrun.run_world(RANKS, dryrun.steps_program,
+                           {"corpus": "bench", "nblocks": MATCH_BLOCKS, "block": BLOCK,
+                            "steps": ("flat", "ring")},
+                           backend="gloo", device_type="cuda", timeout=WORLD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for rank, r in enumerate(res):
+        check_steps(r, f"gloo rank {rank}")
+        if r["launches"]["decode_flat"] <= 0:
+            raise AssertionError(f"gloo rank {rank} launched no decode_flat kernel")
+        log_steps(f"{RANKS} gloo ranks on one card, rank {rank}, {MATCH_BLOCKS} x 128 KiB",
+                  r, card)
+    log(f"{RANKS} gloo ranks: exchange gloo all_to_all on CUDA tensors, ring rounds gloo "
+        f"(host-staged); world wall clock incl. spawn and batch build {wall:.1f} s; "
+        f"decode_flat launches per rank {[r['launches']['decode_flat'] for r in res]}")
+    counts[f"{RANKS} gloo ranks on one card"] = {
+        "decode_flat": sum(r["launches"]["decode_flat"] for r in res)}
+
+
+# ---------------------------------------------------------------------------
 # The main paths added with B2 and B3
 
 
@@ -599,6 +776,7 @@ def main() -> int:
         return 1
     import bitar_tpu_torch as btt
     from bitar_tpu_torch.ops import decode_flat as df
+    from bitar_tpu_torch.ops import decode_planned as dp
     from bitar_tpu_torch.ops import decode_tables as dt
     from bitar_tpu_torch.ops import device_compress as dc
     from bitar_tpu_torch.ops import emit as em
@@ -618,7 +796,8 @@ def main() -> int:
     builds = {"host library (g++)": native.load, "decode_flat.cu": df.load_kernel,
               "match_walk.cu": md.load_walk_kernel, "match_dyn.cu": md.load_dyn_kernel,
               "emit.cu": em.load_kernel, "decode_tables.cu": dt.load_kernel,
-              "match.cu": mt.load_kernel}
+              "match.cu": mt.load_kernel, "parse_walk.cu": md.load_parse_walk_kernel,
+              "decode_planned.cu": dp.load_kernel}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
         futs = {name: ex.submit(lambda f=f: (f(), time.perf_counter())[1])
@@ -626,7 +805,8 @@ def main() -> int:
         done = {name: fut.result() - t0 for name, fut in futs.items()}
     log("build (all started together): " + ", ".join(
         f"{name} {s:.2f} s" for name, s in done.items()))
-    for stem in ("decode_flat", "match_walk", "match_dyn", "emit", "decode_tables", "match"):
+    for stem in ("decode_flat", "match_walk", "match_dyn", "emit", "decode_tables", "match",
+                 "parse_walk", "decode_planned"):
         for report_file in BUILD_DIR.glob(f"lib{stem}-*.so.log"):
             for line in report_file.read_text().splitlines():
                 if "registers" in line or "spill" in line:
@@ -757,6 +937,47 @@ def main() -> int:
             f"not the first: {later}")
     kernels["match"] = {"max_abs_err": err}
 
+    # B6 on B4's planes of the bench batch (the offsets B5 saw); B4 -> B6 == B5.
+    mlen4, moff4 = (t.reshape(MATCH_BLOCKS, BLOCK) for t in md.find_matches_dyn(
+        mplanes.view(-1, nrows, 128), noff, offs, nrows=nrows, max_match=1024))
+    err, got = compare_parse_walk(md, mlen4, moff4, mlens, 1024, "bench B4 planes")
+    b5 = walk_kernel()
+    for k, g, w in zip("PMOo", got, b5):
+        check_equal(f"B4 -> B6 vs B5 {k}", g, w)
+    log(f"parse_walk == plain version (P/M/O/overflow): bench, {MATCH_BLOCKS} x {BLOCK} B, "
+        f"seg 1024, wcap 8, on match_dyn's planes; B4 -> B6 == B5 records; sequences "
+        f"{int((got[0] >= 0).sum())}")
+    for seg in (256, 512):
+        e, got = compare_parse_walk(md, *walk_hand_batch(seg), seg, f"hand-set seg {seg}")
+        err = max(err, e)
+        log(f"parse_walk == plain version: hand-set batch, 8 x {seg * 128} B, seg {seg} "
+            f"(moff 0 inside runs, lengths below L), overflowing blocks {int(got[3].sum())}")
+    kernels["parse_walk"] = {"max_abs_err": err}
+
+    wire = dp.plan_blocks([corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(MATCH_BLOCKS)],
+                          BLOCK, PLANNED_MAX_PASSES)
+    pfit, ppasses, pcomp_rows, pstored = (wire[k] for k in ("fit", "passes", "comp_rows",
+                                                            "stored"))
+    pdatas = [corpus[i * BLOCK:(i + 1) * BLOCK] for i in pfit]
+    pcomp, pused, pse, psh = (torch.from_numpy(wire[k]).cuda()
+                              for k in ("comp", "p_used", "se", "shift"))
+    pkw = dict(passes=ppasses, comp_rows=pcomp_rows, out_rows=nrows)
+    got = dp.decode_blocks_planned(pcomp, pused, pse, psh, **pkw)
+    torch.cuda.synchronize()
+    err = check_equal("decode_planned bench", got,
+                      dp.decode_planned_reference(pcomp, pused, pse, psh, **pkw))
+    log(f"decode_planned == plain version, byte for byte: bench, {len(pfit)} of "
+        f"{MATCH_BLOCKS} x {BLOCK} B planned within {PLANNED_MAX_PASSES} passes, comp_rows "
+        f"{pcomp_rows}, passes {ppasses} (mean {float(pused.float().mean()):.1f})")
+    rplans = [torch.from_numpy(a).cuda() for a in dp.random_plans(14, 16, 6, 1024, 1024)]
+    got = dp.decode_blocks_planned(*rplans, passes=6, comp_rows=1024, out_rows=1024)
+    torch.cuda.synchronize()
+    err = max(err, check_equal("decode_planned random plans", got, dp.decode_planned_reference(
+        *rplans, passes=6, comp_rows=1024, out_rows=1024)))
+    log("decode_planned == plain version, byte for byte: 16 random malformed plans, "
+        "6 passes, comp_rows 1024")
+    kernels["decode_planned"] = {"max_abs_err": err}
+
     # -- phase 4: the main paths, launch counts reset just before each -------
     counts = {}
     df.launches = 0
@@ -817,9 +1038,32 @@ def main() -> int:
     streams_path(btt, corpus)
     counts["streams path"] = {"decode_flat": df.launches}
 
+    md.dyn_launches, md.parse_walk_launches = 0, 0
+    mlen4, moff4 = (t.reshape(MATCH_BLOCKS, BLOCK) for t in md.find_matches_dyn(
+        mplanes.view(-1, nrows, 128), noff, offs, nrows=nrows, max_match=1024))
+    got = md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024, min_match=6, wcap=8)
+    torch.cuda.synchronize()
+    counts["find_matches_dyn -> parse_walk_dyn"] = {"match_dyn": md.dyn_launches,
+                                                    "parse_walk": md.parse_walk_launches}
+    if not all(torch.equal(g, w) for g, w in zip(got, b5)):
+        raise AssertionError("find_matches_dyn -> parse_walk_dyn != find_matches_parse_dyn")
+    log(f"main path find_matches_dyn -> parse_walk_dyn: {MATCH_BLOCKS} x {BLOCK} B, "
+        "records equal find_matches_parse_dyn's")
+
+    dp.launches = 0
+    got = dp.decode_blocks_planned(pcomp, pused, pse, psh, **pkw)
+    host = got.reshape(len(pfit), -1).cpu().numpy()
+    counts["decode_blocks_planned"] = {"decode_planned": dp.launches}
+    if any(host[j].tobytes() != d for j, d in enumerate(pdatas)):
+        raise AssertionError("decode_blocks_planned: blocks differ from their raw bytes")
+    log(f"main path decode_blocks_planned: {len(pfit)} x {BLOCK} B bit-exact")
+
+    nccl_world_of_one(df, dt, card, counts)
+    gloo_ranks_on_one_card(card, counts)
+
     for path, c in counts.items():
         log(f"launches on the {path}: " + ", ".join(f"{k} {v}" for k, v in c.items()))
-    for name in ("decode_flat", "match_walk", "match_dyn", "emit", "decode_tables", "match"):
+    for name in kernels:
         total = sum(c.get(name, 0) for c in counts.values())
         if total <= 0:
             raise AssertionError(f"the main paths launched no {name} kernel")
@@ -891,6 +1135,25 @@ def main() -> int:
            DYN_BLOCKS * BLOCK)
     kernels["match"].update(ms=res["kernel"], plain_ms=res["plain"])
     kernels["match"]["bound"] = match_bound(DYN_BLOCKS, len(mt.DEFAULT_OFFSETS))
+
+    res, ms = turns(timing, lambda: md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024,
+                                                      min_match=6, wcap=8),
+                    lambda: md.parse_walk_reference(mlen4, moff4, mlens, seg=1024,
+                                                    min_match=6, wcap=8))
+    report(f"parse_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024 wcap 8", card, res, ms,
+           MATCH_BLOCKS * BLOCK)
+    kernels["parse_walk"].update(ms=res["kernel"], plain_ms=res["plain"])
+    pw = md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024, min_match=6, wcap=8)
+    kernels["parse_walk"]["bound"] = walk_bound(mlen4, moff4, mlens, pw[0], pw[1], 1024, 8)
+    log(f"parse_walk bound [{card}]: {kernels['parse_walk']['bound']} (positions the walk "
+        f"examines; both planes whole would be {bound_ms(2 * mlen4.numel() * 4)[0]:.4f} ms)")
+
+    res, ms = turns(timing, lambda: dp.decode_blocks_planned(pcomp, pused, pse, psh, **pkw),
+                    lambda: dp.decode_planned_reference(pcomp, pused, pse, psh, **pkw))
+    report(f"decode_planned bench {len(pfit)} x 128 KiB, {ppasses} passes", card, res, ms,
+           len(pfit) * BLOCK)
+    kernels["decode_planned"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["decode_planned"]["bound"] = planned_bound(pused, pstored, ppasses)
     tpu_phases(btt, mt, native, corpus, card)
 
     def pipeline():
@@ -927,6 +1190,10 @@ def main() -> int:
         "decode_tables": ("bitar_tpu_torch/csrc/decode_tables.cu",
                           "bitar_tpu/ops/pallas/lz4_decode.py:37"),
         "match": ("bitar_tpu_torch/csrc/match.cu", "bitar_tpu/ops/pallas/lz4_match.py:84"),
+        "parse_walk": ("bitar_tpu_torch/csrc/parse_walk.cu",
+                       "bitar_tpu/ops/pallas/lz4_match_dyn.py:424"),
+        "decode_planned": ("bitar_tpu_torch/csrc/decode_planned.cu",
+                           "bitar_tpu/ops/pallas/lz4_decode_planned.py:62"),
     }
     line = []
     for name, k in kernels.items():

@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA device: every kernel (flat decode B1,
 table decode B2, static-offset match B3, B5 match walk, B4 match scoring,
-emitter) against its plain PyTorch version on the card, and the engine's
+B6 parse walk, B7 dense-plan decode, emitter) against its plain PyTorch
+version on the card, and the engine's
 paths there (host and device compress, tables, Zstd, the tpu matchers,
-batched decode).
+batched decode) and the multi-device dry run's.
 
 They skip without CUDA.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports JAX, so on the card run this file alone:
@@ -491,3 +492,105 @@ def test_compress_blocks_device_seg_256_on_card(cuda_device):
     torch.cuda.synchronize()
     assert tmd.dyn_launches == before + 1
     assert assert_rows_decode("lz4", out, sizes, planes, lengths) > 0
+
+
+# ---------------------------------------------------------------------------
+# B6 (parse_walk) and B7 (decode_planned)
+
+
+@pytest.mark.parametrize("block,seg", [(128 * 1024, 1024), (32 * 1024, 256), (64 * 1024, 512)])
+def test_parse_walk_kernel_matches_plain_on_b4_planes(block, seg, cuda_device):
+    # B4's planes walked by B6 equal the plain version, and B5's records
+    # where the segment count is a power of two.
+    planes, lengths = corpus_planes(cuda_device, block)
+    n = planes.shape[0]
+    offs, _ = tmd.detect_offsets(planes, k=4, max_off=min(0xFFFF, block - 128))
+    offs = offs.contiguous()
+    noff = (offs > 0).sum(dim=1).int()
+    mlen, moff = tmd.find_matches_dyn(planes.view(n, -1, 128), noff, offs,
+                                      nrows=block // 128, max_match=seg)
+    mlen, moff = mlen.reshape(n, block), moff.reshape(n, block)
+    before = tmd.parse_walk_launches
+    got = tmd.parse_walk_dyn(mlen, moff, lengths, seg=seg, min_match=6, wcap=8)
+    torch.cuda.synchronize()
+    assert tmd.parse_walk_launches == before + 1
+    want = tmd.parse_walk_reference(mlen, moff, lengths, seg=seg, min_match=6, wcap=8)
+    b5 = tmd.find_matches_parse_dyn(planes.view(n, -1, 128), noff, offs, lengths,
+                                    nrows=block // 128, seg=seg, min_match=6, wcap=8,
+                                    max_match=seg)
+    for g, w, f in zip(got, want, b5):
+        assert torch.equal(g, w) and torch.equal(g, f)
+
+
+@pytest.mark.parametrize("seg,min_match", [(256, 6), (512, 0), (1000, -2)])
+def test_parse_walk_kernel_matches_plain_on_random_planes(seg, min_match, cuda_device):
+    rng = np.random.default_rng(seg)
+    n, L = 16, seg * 32
+    on = rng.random((n, L)) < 0.5
+    mlen = np.where(on, rng.integers(-4, 40, (n, L)), 0).astype(np.int32)
+    moff = rng.integers(0, 3, (n, L)).astype(np.int32)
+    moff[:, 100:900] = 0                                  # moff = 0 inside long runs
+    lengths = rng.integers(0, L + 1, n).astype(np.int32)   # blen below L
+    args = [torch.from_numpy(a).to(cuda_device) for a in (mlen, moff, lengths)]
+    got = tmd.parse_walk_dyn(*args, seg=seg, min_match=min_match, wcap=8)
+    torch.cuda.synchronize()
+    want = tmd.parse_walk_reference(*args, seg=seg, min_match=min_match, wcap=8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[3].any()), "some segments overflow wcap"
+
+
+@pytest.mark.parametrize("block", [16 * 1024, 128 * 1024])
+def test_decode_planned_kernel_matches_plain(block, cuda_device):
+    from bitar_tpu_torch.ops import decode_planned as tdp
+
+    corpus = make_corpus(8)
+    datas = [corpus[i * 131072:i * 131072 + block] for i in range(8)]
+    datas.append((b"planned on the card " * (block // 20 + 1))[:block])
+    wire = tdp.plan_blocks(datas, block, 64)
+    fit = wire["fit"]
+    assert len(fit) >= 6
+    args = [torch.from_numpy(wire[k]).to(cuda_device) for k in ("comp", "p_used", "se", "shift")]
+    kw = dict(passes=wire["passes"], comp_rows=wire["comp_rows"], out_rows=block // 128)
+    before = tdp.launches
+    got = tdp.decode_blocks_planned(*args, **kw)
+    torch.cuda.synchronize()
+    assert tdp.launches == before + 1
+    assert torch.equal(got, tdp.decode_planned_reference(*args, **kw))
+    host = got.cpu().numpy()
+    for j, i in enumerate(fit):
+        assert host[j].tobytes() == datas[i], i
+
+
+@pytest.mark.parametrize("comp_rows,out_rows", [(64, 256), (1024, 1024), (2048, 512)])
+def test_decode_planned_kernel_matches_plain_on_random_plans(comp_rows, out_rows, cuda_device):
+    from bitar_tpu_torch.ops import decode_planned as tdp
+
+    passes = 5
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in tdp.random_plans(comp_rows + out_rows, 6, passes, comp_rows, out_rows)]
+    kw = dict(passes=passes, comp_rows=comp_rows, out_rows=out_rows)
+    got = tdp.decode_blocks_planned(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tdp.decode_planned_reference(*args, **kw))
+
+
+def test_decode_planned_rejects_blocks_past_the_shared_plane(cuda_device):
+    from bitar_tpu_torch.ops import decode_planned as tdp
+
+    comp = torch.zeros((1, 32, 128), dtype=torch.uint8, device=cuda_device)
+    z = torch.zeros((1, 1, 9, 128), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(btt.StatusError, match="shared memory"):
+        tdp.decode_blocks_planned(comp, torch.ones(1, dtype=torch.int32, device=cuda_device),
+                                  z, z, passes=1, comp_rows=32, out_rows=1152)
+
+
+def test_dryrun_multichip_decodes_on_the_card(cuda_device):
+    # The default world runs on the card: NCCL with a card per rank, else
+    # gloo ranks sharing the cards; every rank launches B1 (a launch is
+    # counted only on CUDA tensors).
+    from bitar_tpu_torch.parallel import dryrun
+
+    res = dryrun.dryrun_multichip(2, timeout=240.0)
+    assert all(r["launches"]["decode_flat"] > 0 for r in res)
+    assert sum(r["flat"]["live"] for r in res) == 4

@@ -1,0 +1,159 @@
+"""The port's dense-plan decode (kernel B7, ``decode_blocks_planned``)
+against the JAX package's on the CPU.
+
+The host planner is the same C++ in both packages (``plan_block``); plans
+are packed by each package's ``pack_plan`` and decoded by the JAX Pallas
+kernel in interpret mode and by the port's plain version.  Tolerance 0:
+these are bytes.  Random malformed plans pin the anchor-row rule (a lane
+reads row ``row_a`` or ``row_a + 1``, never ``S[q]`` itself).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import bitar_tpu_torch as btt
+from bitar_tpu.ops.cpu import native as jnative
+from bitar_tpu.ops.pallas import lz4_decode_planned as jdp
+from bitar_tpu_torch.ops import decode_planned as tdp
+from bitar_tpu_torch.ops.cpu import native
+
+torch.set_num_threads(1)
+
+BLOCK = 16 * 1024
+NROWS = BLOCK // 128
+
+
+def t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def jax_decode(comp, p_used, se, shift, *, passes, comp_rows, out_rows):
+    return np.asarray(jdp.decode_blocks_planned(
+        jnp.asarray(comp), jnp.asarray(p_used), jnp.asarray(se), jnp.asarray(shift),
+        passes=passes, comp_rows=comp_rows, out_rows=out_rows, interpret=True))
+
+
+def port_decode(comp, p_used, se, shift, *, passes, comp_rows, out_rows):
+    return tdp.decode_blocks_planned(t(comp), t(p_used), t(se), t(shift), passes=passes,
+                                     comp_rows=comp_rows, out_rows=out_rows).numpy()
+
+
+def corpus(rng, n=BLOCK):
+    return [
+        (b"plan me please! " * (n // 14 + 2))[:n],
+        rng.integers(0, 8, n, dtype=np.uint8).tobytes(),
+        b"\x37" * n,
+        (b"abcdefgh" * (n // 8 + 1))[:n],
+        np.repeat(np.arange(n // 16 + 1, dtype=np.uint8), 16).tobytes()[:n],
+        rng.integers(0, 256, n, dtype=np.uint8).tobytes(),
+    ]
+
+
+def planned_batch(datas, block=BLOCK, max_passes=96):
+    """``tdp.plan_blocks`` of ``datas``, every block planned; returns the
+    comp planes, p_used, se, shift, passes and comp_rows."""
+    wire = tdp.plan_blocks(datas, block, max_passes)
+    assert wire["fit"] == list(range(len(datas)))
+    return tuple(wire[k] for k in ("comp", "p_used", "se", "shift", "passes", "comp_rows"))
+
+
+def test_plan_block_matches_jax():
+    rng = np.random.default_rng(2)
+    for d in corpus(rng, 5000):
+        c = native.lz4_compress(d)
+        nr = -(-len(d) // 128)
+        got = native.plan_block(c, len(d), nr, max_passes=96)
+        want = jnative.plan_block(np.asarray(c), len(d), nr, max_passes=96)
+        assert got[:2] == want[:2]
+        for k in ("r_dstart", "r_dend", "r_shift"):
+            np.testing.assert_array_equal(got[2][k], want[2][k])
+    assert native.plan_block(native.lz4_compress(b"x" * 999), 999, 8, max_passes=1)[0] is None
+
+
+def test_pack_plan_matches_jax():
+    rng = np.random.default_rng(4)
+    P, nrows = 7, 256
+    dstart = rng.integers(0, nrows * 128, (P, nrows)).astype(np.int32)
+    dend = dstart + rng.integers(0, 300, (P, nrows)).astype(np.int32)
+    shift = rng.integers(-5000, 5000, (P, nrows)).astype(np.int32)
+    for got, want in zip(tdp.pack_plan(dstart, dend, shift, 3, 10, 96),
+                         jdp.pack_plan(dstart, dend, shift, 3, 10, 96)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_planner_plans_decode_to_raw_bytes():
+    rng = np.random.default_rng(9)
+    datas = corpus(rng)
+    comp, p_used, se, shift, passes, comp_rows = planned_batch(datas)
+    kw = dict(passes=passes, comp_rows=comp_rows, out_rows=NROWS)
+    got = port_decode(comp, p_used, se, shift, **kw)
+    np.testing.assert_array_equal(got, jax_decode(comp, p_used, se, shift, **kw))
+    for i, d in enumerate(datas):
+        assert got[i].tobytes() == d, f"block {i}"
+    assert (p_used > 1).any()
+
+
+def test_plan_blocks_leaves_out_plans_past_the_budget():
+    rng = np.random.default_rng(11)
+    datas = corpus(rng)
+    full = tdp.plan_blocks(datas, BLOCK, 96)
+    budget = int(np.median(full["p_used"]))
+    wire = tdp.plan_blocks(datas, BLOCK, budget)
+    assert wire["fit"] == [i for i, p in enumerate(full["p_used"]) if p <= budget]
+    assert 0 < len(wire["fit"]) < len(datas) and wire["passes"] <= budget
+    assert wire["stored"] == sum(len(native.lz4_compress(datas[i])) for i in wire["fit"])
+    kw = dict(passes=wire["passes"], comp_rows=wire["comp_rows"], out_rows=NROWS)
+    got = port_decode(*(wire[k] for k in ("comp", "p_used", "se", "shift")), **kw)
+    for j, i in enumerate(wire["fit"]):
+        assert got[j].tobytes() == datas[i]
+
+
+def test_p_used_past_passes_and_zero():
+    # p_used above ``passes`` runs ``passes`` passes; 0 and negative run none.
+    rng = np.random.default_rng(10)
+    comp, p_used, se, shift, passes, comp_rows = planned_batch(corpus(rng)[:4])
+    p_used = np.array([passes + 5, 0, -2, max(1, int(p_used[3]) - 1)], np.int32)
+    kw = dict(passes=passes, comp_rows=comp_rows, out_rows=NROWS)
+    got = port_decode(comp, p_used, se, shift, **kw)
+    np.testing.assert_array_equal(got, jax_decode(comp, p_used, se, shift, **kw))
+    assert not got[1].any() and not got[2].any()
+
+
+@pytest.mark.parametrize("seed,comp_rows,out_rows", [(0, 64, 256), (1, 32, 128),
+                                                     (2, 960, 128)])
+def test_random_plans_pin_the_anchor_rule(seed, comp_rows, out_rows):
+    # Malformed plans (tdp.random_plans): ranges past the row and start >
+    # end; shifts into the comp region, the out region, the zeros above,
+    # negative (a huge logical qrow) and near the int32 limits (q wraps);
+    # p_used past passes, 0 and negative.
+    passes = 5
+    comp, p_used, se, shift = tdp.random_plans(seed, 6, passes, comp_rows, out_rows)
+    kw = dict(passes=passes, comp_rows=comp_rows, out_rows=out_rows)
+    got = port_decode(comp, p_used, se, shift, **kw)
+    np.testing.assert_array_equal(got, jax_decode(comp, p_used, se, shift, **kw))
+    assert got[0].any()
+
+
+def test_reference_asserts_are_status_errors():
+    comp = np.zeros((1, 32, 128), np.uint8)
+    z = np.zeros((1, 1, 1, 128), np.int32)
+    one = np.ones(1, np.int32)
+    with pytest.raises(AssertionError):
+        jax_decode(comp, one, z, z, passes=1, comp_rows=32, out_rows=100)
+    with pytest.raises(btt.StatusError):
+        port_decode(comp, one, z, z, passes=1, comp_rows=32, out_rows=100)
+    comp = np.zeros((1, 40, 128), np.uint8)
+    with pytest.raises(AssertionError):
+        jax_decode(comp, one, z, z, passes=1, comp_rows=40, out_rows=128)
+    with pytest.raises(btt.StatusError):
+        port_decode(comp, one, z, z, passes=1, comp_rows=40, out_rows=128)
+
+
+def test_refuses_a_device_without_kernel():
+    comp = torch.zeros((1, 32, 128), dtype=torch.uint8, device="meta")
+    z = torch.zeros((1, 1, 1, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(btt.StatusError):
+        tdp.decode_blocks_planned(comp, torch.ones(1, dtype=torch.int32, device="meta"), z, z,
+                                  passes=1, comp_rows=32, out_rows=128)

@@ -23,7 +23,11 @@ def test_import_leaves_jax_out():
             "bitar_tpu_torch.ops.device_compress, bitar_tpu_torch.ops.emit, "
             "bitar_tpu_torch.ops.match_dyn, bitar_tpu_torch.ops.decode_tables, "
             "bitar_tpu_torch.ops.match, bitar_tpu_torch.ops.match_sort, "
-            "bitar_tpu_torch.engine.stream, bitar_tpu_torch.engine.driver, chip_smoke; "
+            "bitar_tpu_torch.engine.stream, bitar_tpu_torch.engine.driver, "
+            "bitar_tpu_torch.ops.decode_planned, bitar_tpu_torch.parallel, "
+            "bitar_tpu_torch.parallel.sharding, bitar_tpu_torch.parallel.shuffle, "
+            "bitar_tpu_torch.parallel.pipeline, bitar_tpu_torch.parallel.ring, "
+            "bitar_tpu_torch.parallel.multihost, bitar_tpu_torch.parallel.dryrun, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'bitar_tpu' or m.startswith('bitar_tpu.')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
