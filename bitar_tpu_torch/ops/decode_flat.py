@@ -207,6 +207,58 @@ def plan_tensors(plans: dict, device) -> dict[str, torch.Tensor]:
             for k, v in arrays.items()}
 
 
+def block_classes(plans: dict) -> dict[str, torch.Tensor]:
+    """The blocks of a plan wire by what the kernel does with them: "raw"
+    (a copy), "no out pass" (dense and comp passes only, swept straight to
+    device memory) and "out passes" (the shared-memory plane).  Index
+    tensors on the plan's device; together they cover every block once."""
+    dense, p_used, p0 = (plans[k].long() for k in ("dense", "p_used", "p0"))
+    decoded = dense >= 0
+    outs = decoded & (p0 < p_used)
+    return {"raw": torch.nonzero(~decoded).flatten(),
+            "no out pass": torch.nonzero(decoded & ~outs).flatten(),
+            "out passes": torch.nonzero(outs).flatten()}
+
+
+def select_blocks(comp: torch.Tensor, plans: dict, idx: torch.Tensor):
+    """Blocks ``idx`` of a batch as a batch of their own: their comp rows and
+    per-block plan fields; the shared wire (se, shift, dq, row_a) stays."""
+    sub = dict(plans)
+    for k in ("p_used", "p_off", "p0", "dense", "dq_idx"):
+        sub[k] = plans[k][idx].contiguous()
+    return comp[idx], sub
+
+
+def random_wire(seed: int, n: int, out_rows: int, comp_rows: int, dcap: int) -> tuple:
+    """A batch of random plan wires, to hold the kernel to its plain version
+    (and the plain version to the JAX module's oracle) beyond what the
+    planner emits: every dq entry (pass ids 0-63), anchors in and around the
+    comp plane and near the int32 limits, ``dense`` from -1 (RAW) to
+    ``dcap``, comp passes then out passes with random ranges and shifts.
+    Returns numpy (comp [n, comp_rows * 128 + 16] uint8, wire dict)."""
+    rng = np.random.default_rng(seed)
+    tiles = out_rows // LANES
+    m = max(1, n // 2)
+    ra = rng.integers(-3, comp_rows + 3, (m, dcap, LANES, tiles))
+    wide = rng.random(ra.shape) < 0.05
+    ra[wide] = rng.integers(-2**31, 2**31 - 1, int(wide.sum()))
+    p_used = rng.integers(0, 7, n).astype(np.int32)
+    p_off = np.concatenate([[0], np.cumsum(p_used)[:-1]]).astype(np.int32)
+    S = -(-(int(p_used.sum()) + DCHUNK) // _S_QUANTUM) * _S_QUANTUM
+    se = (rng.integers(0, 128, (S, tiles, LANES)) << 8) | rng.integers(0, 129, (S, tiles, LANES))
+    olen = out_rows * LANES
+    plans = {"p_used": p_used, "p_off": p_off,
+             "p0": rng.integers(0, p_used + 1).astype(np.int32),
+             "se": se.astype(np.int16),
+             "shift": rng.integers(-olen - 300, olen + 300, (S, tiles, LANES)).astype(np.int32),
+             "dq": rng.integers(-2**15, 2**15, (m, out_rows, LANES)).astype(np.int16),
+             "row_a": ra.astype(np.int32),
+             "dense": rng.integers(-1, dcap + 1, n).astype(np.int32),
+             "dq_idx": rng.integers(0, m, n).astype(np.int32)}
+    comp = rng.integers(0, 256, (n, comp_rows * LANES + 16), dtype=np.uint8)
+    return comp, plans
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch decode
 
@@ -302,12 +354,27 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp,               # p_used, p_off, p0, dense, dq_idx
         vp, vp, c_ll,                     # se, shift, wire rows
         vp, c_int, vp, c_int,             # dq, dq rows, row_a, dcap
-        vp, c_int, c_int, vp]             # out, n, out_rows, stream
+        vp, c_int, c_int, vp, vp]         # out, n, out_rows, queue, stream
 
 
 def load_kernel() -> ctypes.CDLL:
     """Build (at first use, for sm_90a) and load ``csrc/decode_flat.cu``."""
     return load_cuda_kernel("decode_flat", _bind)
+
+
+#: The kernel's block queue per (device, stream): int32 [next block, CTAs
+#: done], zero at launch.  The launch's last CTA sets both back to zero, so
+#: one buffer serves every launch of a stream (they run in turn) and no
+#: launch pays a memset of its own.
+_queues: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _queue(device: torch.device, stream: int) -> torch.Tensor:
+    q = _queues.get((device.index, stream))
+    if q is None:                 # zeroed on this stream, before any launch on it
+        q = _queues.setdefault((device.index, stream),
+                               torch.zeros(2, dtype=torch.int32, device=device))
+    return q
 
 
 def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
@@ -342,16 +409,20 @@ def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
     out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=comp.device)
     if n == 0:
         return out
+    dq = pt["dq"]
+    if dq.data_ptr() % 8:             # the kernel reads a word's 4 dq entries at once
+        dq = dq.clone()
     lib = load_kernel()
     with torch.cuda.device(comp.device):      # launch on the tensors' device
         stream = torch.cuda.current_stream(comp.device).cuda_stream
+        queue = _queue(comp.device, stream)
         rc = lib.bt_decode_flat_launch(
             comp.data_ptr(), comp.stride(0), comp.shape[1], comp_rows,
             pt["p_used"].data_ptr(), pt["p_off"].data_ptr(), pt["p0"].data_ptr(),
             pt["dense"].data_ptr(), pt["dq_idx"].data_ptr(),
             pt["se"].data_ptr(), pt["shift"].data_ptr(), s_rows,
-            pt["dq"].data_ptr(), dq_rows, ra.data_ptr(), ra.shape[1],
-            out.data_ptr(), n, out_rows, stream)
+            dq.data_ptr(), dq_rows, ra.data_ptr(), ra.shape[1],
+            out.data_ptr(), n, out_rows, queue.data_ptr(), stream)
     check_cuda(rc, "decode_flat launch", lib)
     launches += 1
     return out

@@ -211,12 +211,12 @@ def steps_program(mesh, spec: dict) -> dict:
 
 
 def _rank_main(rank: int, world: int, init: str, backend: str, device_type: str, program,
-               payload, out: mp.Queue) -> None:
+               payload, out: mp.Queue, timeout: float) -> None:
     try:
         torch.set_num_threads(1)
         if device_type == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
-        multihost.initialize(init, world, rank, backend=backend)
+        multihost.initialize(init, world, rank, backend=backend, timeout=timeout)
         mesh = make_mesh(world, device_type=device_type)
         out.put((rank, True, program(mesh, payload)))
     except BaseException:                        # reported to the parent, which fails
@@ -248,8 +248,8 @@ def run_world(n_ranks: int, program, payload, *, backend: str | None = None,
     temporary directory; each runs ``program(mesh, payload)`` (a
     module-level function) on a 1-D mesh of ``device_type`` over the world.
     Returns each rank's result in rank order.  Raises StatusError when a
-    rank fails, dies or the world outlives ``timeout`` seconds; every child
-    is killed before it returns."""
+    rank fails, dies or the world outlives ``timeout`` seconds (also each
+    rank's group timeout); every child is killed before it returns."""
     default = default_backend(n_ranks, device_type)      # refuses "cuda" without CUDA
     backend = default if backend is None else backend
     ctx = mp.get_context("spawn")
@@ -258,7 +258,7 @@ def run_world(n_ranks: int, program, payload, *, backend: str | None = None,
         q = ctx.Queue()
         procs = [ctx.Process(target=_rank_main, daemon=True,
                              args=(r, n_ranks, f"file://{tmp}/rendezvous", backend,
-                                   device_type, program, payload, q))
+                                   device_type, program, payload, q, timeout))
                  for r in range(n_ranks)]
         deadline = time.monotonic() + timeout
         try:

@@ -14,6 +14,7 @@ topology degrades to one process.
 from __future__ import annotations
 
 import os
+from datetime import timedelta
 
 import numpy as np
 import torch
@@ -26,7 +27,8 @@ logger = get_logger("parallel.multihost")
 
 
 def initialize(coordinator_address: str | None = None, num_processes: int | None = None,
-               process_id: int | None = None, *, backend: str | None = None) -> dict:
+               process_id: int | None = None, *, backend: str | None = None,
+               timeout: float | None = None) -> dict:
     """Join the multi-process job (idempotent); returns :func:`describe`.
 
     ``coordinator_address`` is an ``init_method`` URL (``tcp://host:port``,
@@ -36,7 +38,13 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     given neither a coordinator nor a world size joins nothing, as in the
     JAX package.  ``backend`` is explicit: "nccl" (CUDA devices, the
     default when CUDA is present) or "gloo" (the CPU, or CUDA devices when
-    asked for)."""
+    asked for).  ``timeout`` (seconds; torch's default when None) bounds the
+    rendezvous and every later collective of the group.
+
+    Returns only once every rank has joined: a barrier ends the join, so no
+    rank leaves (and closes its connections) while a peer is still
+    connecting to it; without it gloo's ``connectFullMesh`` fails on the
+    slower rank with "Connection closed by peer"."""
     if num_processes is None and "WORLD_SIZE" in os.environ:
         num_processes = int(os.environ["WORLD_SIZE"])
     if not dist.is_initialized() and (coordinator_address is not None
@@ -47,13 +55,14 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
             backend = "nccl" if torch.cuda.is_available() else "gloo"
         if backend not in ("nccl", "gloo"):
             raise StatusError(Status.Invalid(f"backend {backend!r} not in (nccl, gloo)"))
-        kw = {}
+        kw = {} if timeout is None else {"timeout": timedelta(seconds=timeout)}
         if backend == "nccl":
             local = process_id % max(1, torch.cuda.device_count())
             torch.cuda.set_device(local)
             kw["device_id"] = torch.device("cuda", local)
         dist.init_process_group(backend, init_method=coordinator_address or "env://",
                                 world_size=num_processes or 1, rank=process_id, **kw)
+        dist.barrier()
     topo = describe()
     logger.info("multihost topology: %s", topo)
     return topo

@@ -1,0 +1,152 @@
+"""Time this checkout's B1 (``decode_flat``) and B3 (``match``) kernels
+against another checkout's on one card, in turns, on the same inputs.
+
+    python -m bitar_tpu_torch.utils.kernel_ab --old DIR [--out FILE]
+
+``DIR`` is the root of another checkout of the repo (for example a ``git
+archive`` of the parent commit unpacked into a git-ignored directory).  Its
+package is loaded beside this one under another name and builds its kernels
+into its own ``_build/``.  Every shape is run old, new, new, old (CUDA
+events, mean ms per launch) after the two outputs are checked equal; the
+plain versions are not timed here (``chip_smoke.py`` does that).  Prints one
+JSON object per shape and the card's name and power limit.  Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+BLOCK = 128 * 1024
+REPS = 20
+
+
+def load_package(root: Path, name: str):
+    """Import ``root/bitar_tpu_torch`` as the package ``name``."""
+    pkg = root / "bitar_tpu_torch"
+    spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def planned_batch(btt, data: bytes, nblocks: int):
+    """Comp rows, plan tensors and comp_rows of ``data`` compressed (LZ4) and
+    planned by an engine of this checkout."""
+    cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=BLOCK, burst_size=min(nblocks, 1024),
+                           max_pool_slots=nblocks + 32, commit="deferred")
+    eng = btt.Engine(cfg, device="cuda").initialize()
+    unit = eng.compress(data)
+    eng.ensure_plans(unit)
+    rows = eng.arena.gather_burst([r.slot for r in unit.refs])
+    batch = (rows, unit.plan_device_arrays(), unit.plan_comp_rows)
+    eng.recycle(unit)
+    eng.release()
+    return batch
+
+
+def turns(timing, old, new) -> dict:
+    ms = {"old": [], "new": []}
+    for name, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
+        ms[name].append(timing.device_time_ms(fn, REPS))
+    return {k: sum(v) / len(v) for k, v in ms.items()} | {"turns": ms}
+
+
+def same(a, b) -> bool:
+    torch.cuda.synchronize()
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+    return torch.equal(a, b)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--old", required=True, type=Path, help="root of the other checkout")
+    ap.add_argument("--out", type=Path, help="also write the JSON lines here")
+    ap.add_argument("--only", choices=("match", "decode_flat"), help="time one kernel only")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    import bitar_tpu_torch as btt
+    from bitar_tpu_torch.ops import decode_flat as df
+    from bitar_tpu_torch.ops import match as mt
+    from bitar_tpu_torch.utils import timing
+    from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
+
+    old = load_package(args.old.resolve(), "bitar_tpu_torch_old")
+    from bitar_tpu_torch_old.ops import decode_flat as odf
+    from bitar_tpu_torch_old.ops import match as omt
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    lines = []
+
+    def emit(rec):
+        rec["card"] = card
+        lines.append(json.dumps(rec))
+        print(lines[-1], flush=True)
+
+    corpus = make_corpus(1024)
+    nrows = BLOCK // 128
+    planes = torch.from_numpy(np.frombuffer(corpus, np.uint8).reshape(1024, nrows, 128)
+                              .copy()).cuda()
+    for n, mm, values in ((64, 64, False), (64, 1024, True), (1024, 64, False),
+                          (1024, 1024, True)) if args.only != "decode_flat" else ():
+        x = planes[:n]
+        kw = dict(offsets=mt.DEFAULT_OFFSETS, nrows=nrows, max_match=mm, emit_values=values)
+        equal = same(mt.find_matches(x, **kw), omt.find_matches(x, **kw))
+        res = turns(timing, lambda x=x, kw=kw: omt.find_matches(x, **kw),
+                    lambda x=x, kw=kw: mt.find_matches(x, **kw))
+        emit({"kernel": "match", "shape": f"{n} x 128 KiB, 26 offsets, max_match {mm}, "
+              f"{'values' if values else 'indices'}", "equal": equal, **res})
+
+    if args.only == "match":
+        return finish(args, lines)
+    rng = np.random.default_rng(7)
+    raw_heavy = b"".join(
+        rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes() if i % 8 else
+        (b"raw-heavy batch %d " % i) * (BLOCK // 18 + 1) for i in range(256))[:256 * BLOCK]
+    batches = {"bench 1024": planned_batch(btt, corpus, 1024),
+               "text 256": planned_batch(btt, make_text_corpus(256), 256),
+               "raw-heavy 256": planned_batch(btt, raw_heavy, 256)}
+    for whole in ("bench 1024", "text 256"):
+        rows, pt, comp_rows = batches[whole]
+        for cls, idx in df.block_classes(pt).items():
+            if idx.numel():
+                batches[f"{whole.split()[0]}, {cls} ({idx.numel()} blocks)"] = (
+                    *df.select_blocks(rows, pt, idx), comp_rows)
+    for name, (rows, pt, comp_rows) in batches.items():
+        def new(rows=rows, pt=pt, cr=comp_rows):
+            return df.decode_blocks_flat(rows, pt, comp_rows=cr, out_rows=nrows)
+
+        def prev(rows=rows, pt=pt, cr=comp_rows):
+            return odf.decode_blocks_flat(rows, pt, comp_rows=cr, out_rows=nrows)
+
+        equal = same(new(), prev())
+        emit({"kernel": "decode_flat", "shape": f"{name} x 128 KiB", "equal": equal,
+              **turns(timing, prev, new)})
+    return finish(args, lines)
+
+
+def finish(args, lines: list[str]) -> int:
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("\n".join(lines) + "\n")
+    if not all(json.loads(line)["equal"] for line in lines):
+        print("kernel_ab: the two checkouts' kernels disagree", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,7 +11,9 @@ Phases (any failure raises, and the script exits non-zero):
 3. every kernel against its plain PyTorch version on the card, byte for
    byte, at the shapes its path gives it:
    - ``decode_flat`` (B1) on the plans of the bench corpus (1024 x 128 KiB),
-     of the markdown text corpus (256 x 128 KiB) and of a RAW-heavy batch;
+     of the markdown text corpus (256 x 128 KiB) and of a RAW-heavy batch,
+     and on the class-pure batches of the first two (``block_classes``: the
+     RAW blocks, the blocks with no out pass, those with out passes);
    - ``match_walk`` (B5) on 256 x 128 KiB of the bench corpus, seg 1024;
    - ``match_dyn`` (B4) on 64 x 128 KiB of it with the offsets that
      ``compress_blocks_device(seg=256)`` detects;
@@ -26,9 +28,9 @@ Phases (any failure raises, and the script exits non-zero):
      bench corpus (8192 blocks), of the markdown text corpus at 128 KiB
      under an 8-pass plan budget (deep tables) and of RLE blocks with
      offsets 1-130 (both sides of the 128-byte row);
-   - ``match`` (B3) on 64 x 128 KiB of the bench corpus (indices,
-     max_match 64; values, max_match 1024) and on hand-set offsets that tie
-     (values, max_match 1024);
+   - ``match`` (B3) on 64 and on 1024 x 128 KiB (the shape the main paths
+     launch) of the bench corpus (indices, max_match 64; values, max_match
+     1024) and on hand-set offsets that tie (values, max_match 1024);
    - ``parse_walk`` (B6) on B4's match planes of B5's bench batch (256 x
      128 KiB, seg 1024, wcap 8; B4 -> B6 must equal B5's records) and on
      hand-set planes at seg 256 and 512 (moff 0 inside runs, lengths below
@@ -69,8 +71,11 @@ Phases (any failure raises, and the script exits non-zero):
      rounds host-staged), fused and ring steps over 256 x 128 KiB, B1 in
      every rank; every live row of (a) and (b) bit-exact;
 5. times with CUDA events, kernel and plain version in turns (plain, kernel,
-   kernel, plain): B1 at the bench shape and on the text corpus; B5, B4,
-   the emitter, B2, B3, B6 and B7 at the shapes of phase 3 (the
+   kernel, plain): B1 at the bench shape and on the text corpus (and, the
+   kernel alone, on each class-pure batch); B3 at 64 x 128 KiB and at
+   1024 x 128 KiB in both modes (the kernels line takes 1024, indices,
+   max_match 64); B5, B4, the emitter, B2, B6 and B7 at the shapes of
+   phase 3 (the
    multi-device steps' host-clock times are logged in phase 4); the whole
    ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
    and the host-clock phases of the tpu matcher's compress (plane packing,
@@ -103,7 +108,7 @@ NBLOCKS = 1024
 TEXT_BLOCKS = 256
 RAW_BLOCKS = 256
 MATCH_BLOCKS = 256            # B5 / emitter / whole-pipeline batch (the bench's)
-DYN_BLOCKS = 64               # B4 batch (seg 256); also the B3 batch
+DYN_BLOCKS = 64               # B4 batch (seg 256); also B3's small batch
 TABLE_BLOCK = 4096            # block size of the sequence-table path
 TABLE_CHECK_BLOCKS = 8192     # B2 batch of phase 3 (32 MiB of the corpus)
 BATCH_UNIT_BLOCKS = 256       # blocks of each unit of the batched decode
@@ -173,13 +178,13 @@ def planned_batch(btt, data: bytes):
     eng.ensure_plans(unit)
     pf = unit.plan_flat
     rows = eng.arena.gather_burst([r.slot for r in unit.refs])
-    comp_bytes = int(unit.manifest.comp_len.sum())
+    comp_len = unit.manifest.comp_len.astype(np.int64)
     stats = (f"blocks={unit.nblocks} ratio={unit.manifest.ratio():.3f} "
              f"passes={int(pf['p_used'].sum())} "
              f"dense_passes={int(np.maximum(pf['dense'], 0).sum())} "
              f"raw_blocks={int((pf['dense'] < 0).sum())} "
              f"host_blocks={pf['host_blocks'].size}")
-    batch = (rows, unit.plan_device_arrays(), unit.plan_comp_rows, comp_bytes, stats)
+    batch = (rows, unit.plan_device_arrays(), unit.plan_comp_rows, comp_len, stats)
     eng.recycle(unit)
     eng.release()
     return batch
@@ -202,11 +207,15 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
     return err
 
 
-def decode_bound(rows, pt, comp_bytes) -> tuple[float, str]:
-    """The stored bytes of every block read, its plane written, the plan
-    wire read."""
-    wire = sum(t.numel() * t.element_size() for t in pt.values())
-    return bound_ms(comp_bytes + rows.shape[0] * BLOCK + wire)
+def decode_bound(pt, comp_len) -> tuple[float, str]:
+    """Per block: its stored bytes read, its plane written, and the plan
+    wire it uses read: its dq row and the anchor planes of its dense passes,
+    its passes' se/shift rows and its five int32 fields."""
+    nrows = BLOCK // 128
+    dense, p_used = (pt[k].cpu().numpy().astype(np.int64) for k in ("dense", "p_used"))
+    anchors = np.clip(np.minimum(dense, pt["row_a"].shape[1]), 0, None)
+    wire = (dense > 0) * BLOCK * 2 + anchors * nrows * 4 + p_used * nrows * 6 + 20
+    return bound_ms(int(comp_len.sum()) + len(comp_len) * BLOCK + int(wire.sum()))
 
 
 def host_path(btt, codec, data: bytes) -> None:
@@ -393,7 +402,8 @@ def emit_bound(lay, ow: int) -> tuple[float, str]:
 def table_batch(btt, data: bytes, block: int, max_passes: int | None = None):
     """Compress ``data`` through an engine whose units decode from sequence
     tables (blocks of fewer than 128 rows, or a plan budget no block meets);
-    return the unit's gathered rows, table tensors, stored bytes and stats."""
+    return the unit's gathered rows, table tensors, stored bytes per block
+    and stats."""
     n = -(-len(data) // block)
     eng = engine(btt, btt.Codec.LZ4, block=block, nblocks=n, plan_build="lazy")
     if max_passes is not None:
@@ -407,7 +417,7 @@ def table_batch(btt, data: bytes, block: int, max_passes: int | None = None):
     stats = (f"{n} x {block} B, ratio {unit.manifest.ratio():.3f}, sequences "
              f"{int(unit.nseq.sum())} (max {int(unit.nseq.max())} per block, S "
              f"{unit.tables['lit_ptr'].shape[1]})")
-    batch = (rows, nseq, tables, block, int(unit.manifest.comp_len.sum()), stats)
+    batch = (rows, nseq, tables, block, unit.manifest.comp_len.copy(), stats)
     eng.recycle(unit)
     eng.release()
     return batch
@@ -431,7 +441,7 @@ def rle_table_batch(dt, block: int = TABLE_BLOCK):
     nseq, tt = dt.table_tensors(tables, np.full(n, 2, np.int32), "cuda")
     want = np.stack([np.concatenate([np.tile(rows[i, :i + 1], block // (i + 1) + 1)[:block - 5],
                                      rows[i, i + 1:i + 6]]) for i in range(n)])
-    return torch.from_numpy(rows).cuda(), nseq, tt, block, n * 256, want
+    return torch.from_numpy(rows).cuda(), nseq, tt, block, np.full(n, 256), want
 
 
 def compare_tables(dt, rows, nseq, tables, block: int) -> tuple[int, torch.Tensor]:
@@ -441,9 +451,9 @@ def compare_tables(dt, rows, nseq, tables, block: int) -> tuple[int, torch.Tenso
     return check_equal("decode_tables", got, want), got
 
 
-def tables_bound(rows, nseq, comp_bytes: int, block: int) -> tuple[float, str]:
+def tables_bound(rows, nseq, comp_len, block: int) -> tuple[float, str]:
     """Stored bytes read, 20 bytes of table per sequence, the planes written."""
-    return bound_ms(comp_bytes + 20 * int(nseq.sum()) + rows.shape[0] * block)
+    return bound_ms(int(comp_len.sum()) + 20 * int(nseq.sum()) + rows.shape[0] * block)
 
 
 def compare_match(mt, planes, offsets, max_match: int, emit_values: bool, what: str):
@@ -828,6 +838,18 @@ def main() -> int:
     for name, (rows, pt, comp_rows, _, stats) in batches.items():
         err = max(err, compare_decode(df, rows, pt, comp_rows))
         log(f"decode_flat == plain version, byte for byte: {name} ({stats})")
+    # Class-pure batches: each class of block (RAW copy, no out pass, out
+    # passes) of the bench and text batches as a batch of its own.
+    class_batches = {}
+    for whole in ("bench", "text"):
+        rows, pt, comp_rows, comp_len, _ = batches[whole]
+        for cls, idx in df.block_classes(pt).items():
+            if idx.numel():
+                class_batches[f"{whole}, {cls}"] = (*df.select_blocks(rows, pt, idx), comp_rows,
+                                                    comp_len[idx.cpu().numpy()])
+    for name, (rows, pt, comp_rows, _) in class_batches.items():
+        err = max(err, compare_decode(df, rows, pt, comp_rows))
+        log(f"decode_flat == plain version, byte for byte: {name}, {rows.shape[0]} blocks")
     kernels["decode_flat"] = {"max_abs_err": err}
 
     mplanes = planes_of(corpus, MATCH_BLOCKS)
@@ -925,9 +947,14 @@ def main() -> int:
     kernels["decode_tables"] = {"max_abs_err": err}
 
     err = 0
+    lplanes = planes_of(corpus, NBLOCKS)          # the main paths' B3 shape
     for what, (pl, offsets, mm, values) in {
             "bench, indices, max_match 64": (dplanes, mt.DEFAULT_OFFSETS, 64, False),
             "bench, values, max_match 1024": (dplanes, mt.DEFAULT_OFFSETS, 1024, True),
+            "bench, launched shape, indices, max_match 64": (lplanes, mt.DEFAULT_OFFSETS, 64,
+                                                             False),
+            "bench, launched shape, values, max_match 1024": (lplanes, mt.DEFAULT_OFFSETS,
+                                                              1024, True),
             "hand-set batch, offsets that tie, values, max_match 1024": (hplanes, TIES, 1024,
                                                                          True)}.items():
         e, later, share = compare_match(mt, pl, offsets, mm, values, what)
@@ -1074,20 +1101,28 @@ def main() -> int:
                 raise AssertionError(f"the {path} launched no {name} kernel")
 
     # -- phase 5: times ----------------------------------------------------
-    rows, pt, comp_rows, comp_bytes, _ = batches["bench"]
+    rows, pt, comp_rows, comp_len, _ = batches["bench"]
     nblk = rows.shape[0]
     res, ms = turns(timing, lambda: df.decode_blocks_flat(rows, pt, comp_rows=comp_rows,
                                                           out_rows=nrows),
                     lambda: df.decode_flat_reference(rows, pt, comp_rows, nrows))
     report(f"decode_flat bench {nblk} x 128 KiB", card, res, ms, nblk * BLOCK)
     kernels["decode_flat"].update(ms=res["kernel"], plain_ms=res["plain"])
-    kernels["decode_flat"]["bound"] = decode_bound(rows, pt, comp_bytes)
-    trows, tpt, tcomp, _, _ = batches["text"]
+    kernels["decode_flat"]["bound"] = decode_bound(pt, comp_len)
+    trows, tpt, tcomp, tlen, _ = batches["text"]
     res, ms = turns(timing, lambda: df.decode_blocks_flat(trows, tpt, comp_rows=tcomp,
                                                           out_rows=nrows),
                     lambda: df.decode_flat_reference(trows, tpt, tcomp, nrows))
     report(f"decode_flat text {trows.shape[0]} x 128 KiB", card, res, ms,
            trows.shape[0] * BLOCK)
+    log(f"decode_flat text {trows.shape[0]} x 128 KiB: bound {decode_bound(tpt, tlen)}")
+    for name, (crows, cpt, ccomp, clen) in class_batches.items():
+        turns_ms = [timing.device_time_ms(lambda: df.decode_blocks_flat(
+            crows, cpt, comp_rows=ccomp, out_rows=nrows), TIMED_REPS[1]) for _ in range(2)]
+        log(f"decode_flat {name} {crows.shape[0]} x 128 KiB [{card}] kernel: "
+            f"{sum(turns_ms) / 2:.4f} ms/launch (turns {', '.join(f'{x:.4f}' for x in turns_ms)}); "
+            f"stored bytes a block {clen.mean():.1f} (at most {clen.max()}); "
+            f"bound {decode_bound(cpt, clen)}")
 
     steps = math.ceil(math.log2(1024)) + 1
     res, ms = turns(timing, walk_kernel, walk_plain)
@@ -1122,6 +1157,13 @@ def main() -> int:
            brows.shape[0] * bblock)
     kernels["decode_tables"].update(ms=res["kernel"], plain_ms=res["plain"])
     kernels["decode_tables"]["bound"] = tables_bound(brows, bnseq, bcomp, bblock)
+    # One burst of the tables path as the engine launches it: 1024 x 4 KiB.
+    burst = (brows[:1024], bnseq[:1024], {k: v[:1024] for k, v in btables.items()})
+    turns_ms = [timing.device_time_ms(lambda: dt.decode_blocks(*burst, out_rows=bblock // 128),
+                                      TIMED_REPS[1]) for _ in range(2)]
+    log(f"decode_tables bench burst 1024 x 4 KiB [{card}] kernel: {sum(turns_ms) / 2:.4f} "
+        f"ms/launch (turns {', '.join(f'{x:.4f}' for x in turns_ms)}); bound "
+        f"{tables_bound(burst[0], burst[1], bcomp[:1024], bblock)}")
     drows, dnseq, dtables, dblock, dcomp, _ = tbatches["text 128 KiB, 8-pass plan budget"]
     res, ms = turns(timing, lambda: dt.decode_blocks(drows, dnseq, dtables, out_rows=dblock // 128),
                     lambda: dt.decode_tables_reference(drows, dnseq, dtables, dblock // 128))
@@ -1129,12 +1171,20 @@ def main() -> int:
            drows.shape[0] * dblock)
     log(f"decode_tables text bound [{card}]: {tables_bound(drows, dnseq, dcomp, dblock)}")
 
-    res, ms = turns(timing, lambda: mt.find_matches(dplanes.view(-1, nrows, 128), nrows=nrows),
-                    lambda: mt.match_reference(dplanes, mt.DEFAULT_OFFSETS, max_match=64))
-    report(f"match bench {DYN_BLOCKS} x 128 KiB, 26 offsets, max_match 64", card, res, ms,
-           DYN_BLOCKS * BLOCK)
+    # B3 at the phase-3 batch and at the shape the main paths launch: one
+    # whole unit, indices at max_match 64 (the tpu matcher; the kernels
+    # line's row) and values at max_match 1024 (match_offsets).
+    for pl, mm, values in ((dplanes, 64, False), (lplanes, 1024, True), (lplanes, 64, False)):
+        res, ms = turns(
+            timing, lambda pl=pl, mm=mm, v=values: mt.find_matches(
+                pl.view(-1, nrows, 128), nrows=nrows, max_match=mm, emit_values=v),
+            lambda pl=pl, mm=mm, v=values: mt.match_reference(
+                pl, mt.DEFAULT_OFFSETS, max_match=mm, emit_values=v))
+        report(f"match bench {pl.shape[0]} x 128 KiB, 26 offsets, max_match {mm}, "
+               f"{'values' if values else 'indices'}", card, res, ms, pl.shape[0] * BLOCK)
+        log(f"match bound [{card}]: {match_bound(pl.shape[0], len(mt.DEFAULT_OFFSETS))}")
     kernels["match"].update(ms=res["kernel"], plain_ms=res["plain"])
-    kernels["match"]["bound"] = match_bound(DYN_BLOCKS, len(mt.DEFAULT_OFFSETS))
+    kernels["match"]["bound"] = match_bound(NBLOCKS, len(mt.DEFAULT_OFFSETS))
 
     res, ms = turns(timing, lambda: md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024,
                                                       min_match=6, wcap=8),

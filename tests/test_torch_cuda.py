@@ -253,6 +253,157 @@ def test_match_kernel_matches_plain(offsets, emit_values, max_match, cuda_device
     assert torch.equal(idx.view(n, -1), want[1])
 
 
+def edge_offsets(L: int) -> tuple[int, ...]:
+    """41 offsets (K > 32): short ones, offsets at and just past a tile's
+    start, a duplicate, the plane length and past it, 0 last."""
+    t = tmatch.TILE
+    return (*range(1, 25), 47, 94, 1000, 4096, t - 1, t, t + 1, 2 * t, L - 1, L, L + 5,
+            100, 12, 3, 30000, 2 * t + 1, 0)
+
+
+@pytest.mark.parametrize("emit_values", [False, True])
+@pytest.mark.parametrize("max_match", [1, 64, 100, 1024])
+@pytest.mark.parametrize("block", [4 * 1024, 16 * 1024, 48 * 1024, 128 * 1024])
+def test_match_kernel_edges(block, max_match, emit_values, cuda_device):
+    planes, _ = corpus_planes(cuda_device, 128 * 1024)
+    # Periodic rows make offsets at a tile's start match across the tile edge.
+    planes[4] = planes[4, :8193].repeat(17)[:128 * 1024]
+    planes = planes[:, :block].contiguous()
+    n = planes.shape[0]
+    offsets = edge_offsets(block)
+    kw = dict(offsets=offsets, nrows=block // 128, max_match=max_match,
+              emit_values=emit_values)
+    mlen, idx = tmatch.find_matches(planes.view(n, -1, 128), **kw)
+    torch.cuda.synchronize()
+    want = tmatch.match_reference(planes, offsets, max_match=max_match,
+                                  emit_values=emit_values)
+    assert torch.equal(mlen.view(n, -1), want[0])
+    assert torch.equal(idx.view(n, -1), want[1])
+
+
+@pytest.mark.parametrize("emit_values", [False, True])
+def test_match_kernel_whole_plane_window(emit_values, cuda_device):
+    # An offset of 70000 makes every tile's window pass WINDOW_MAX: one CTA
+    # takes the whole plane.
+    planes, _ = corpus_planes(cuda_device, 128 * 1024)
+    planes[2] = planes[2, :70000].repeat(2)[:128 * 1024]
+    offsets = (3, 70000, 1, 64)
+    assert tmatch.tile_plan(128 * 1024, offsets, 64)["tile"] == 128 * 1024
+    n = planes.shape[0]
+    kw = dict(offsets=offsets, nrows=1024, max_match=64, emit_values=emit_values)
+    mlen, idx = tmatch.find_matches(planes.view(n, -1, 128), **kw)
+    torch.cuda.synchronize()
+    want = tmatch.match_reference(planes, offsets, max_match=64, emit_values=emit_values)
+    assert torch.equal(mlen.view(n, -1), want[0])
+    assert torch.equal(idx.view(n, -1), want[1])
+    assert (want[0][2, 70000:] == 64).float().mean() > 0.9
+
+
+def engine_batch(device, block: int, n: int):
+    """n blocks of the bench corpus compressed (LZ4) and planned by an engine:
+    (data, comp rows, plan tensors, comp_rows)."""
+    data = make_corpus(-(-n * block // (128 * 1024)))[:n * block]
+    cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=block, burst_size=n,
+                           max_pool_slots=n + 32, commit="deferred")
+    with btt.Engine(cfg, device=device) as eng:
+        unit = eng.compress(data)
+        eng.ensure_plans(unit)
+        assert unit.plan_flat is not None and unit.plan_flat["host_blocks"].size == 0
+        rows = eng.arena.gather_burst([r.slot for r in unit.refs])
+        return data, rows, unit.plan_device_arrays(), unit.plan_comp_rows
+
+
+@pytest.mark.parametrize("block,n", [(16 * 1024, 5), (16 * 1024, 300), (128 * 1024, 133),
+                                     (128 * 1024, 40)])
+def test_decode_flat_kernel_by_block_class(block, n, cuda_device):
+    data, rows, pt, comp_rows = engine_batch(cuda_device, block, n)
+    nrows = block // 128
+    classes = tflat.block_classes(pt)
+    assert sum(int(i.numel()) for i in classes.values()) == n
+    for cls, idx in {"all": torch.arange(n, device=cuda_device), **classes}.items():
+        if not idx.numel():
+            continue
+        r, p = tflat.select_blocks(rows, pt, idx)
+        got = tflat.decode_blocks_flat(r, p, comp_rows=comp_rows, out_rows=nrows)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tflat.decode_flat_reference(r, p, comp_rows, nrows)), cls
+        host = got.reshape(idx.numel(), -1).cpu().numpy()
+        for j, b in enumerate(idx.tolist()):
+            assert host[j].tobytes() == data[b * block:(b + 1) * block], (cls, b)
+
+
+@pytest.mark.parametrize("cut", [0, 8, 4 * 1024 + 3])
+def test_decode_flat_kernel_on_odd_comp_rows(cut, cuda_device):
+    # comp_width not a multiple of 16 and an odd row stride: RAW copies and
+    # comp gathers take their unaligned paths; bytes past the width read 0.
+    _, rows, pt, comp_rows = engine_batch(cuda_device, 16 * 1024, 24)
+    assert (pt["dense"] < 0).any() and (pt["dense"] >= 0).any()
+    width = rows.shape[1] - cut - 1
+    stride = width + (2 if width % 2 else 1)
+    buf = torch.zeros((rows.shape[0], stride), dtype=torch.uint8, device=cuda_device)
+    buf[:, :width] = rows[:, :width]
+    comp = buf[:, :width]
+    assert comp.stride(0) % 2 == 1 and width % 16
+    got = tflat.decode_blocks_flat(comp, pt, comp_rows=comp_rows, out_rows=128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tflat.decode_flat_reference(comp, pt, comp_rows, 128))
+
+
+def test_decode_flat_kernel_queue_per_stream(cuda_device):
+    # The block queue is reset by each launch's last CTA and kept per
+    # stream: launches in turn on one stream, and on two streams at once,
+    # all decode every block.
+    _, rows, pt, comp_rows = engine_batch(cuda_device, 16 * 1024, 300)
+    want = tflat.decode_flat_reference(rows, pt, comp_rows, 128)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    outs = []
+    for _ in range(3):
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream(cuda_device))
+            with torch.cuda.stream(s):
+                outs.append(tflat.decode_blocks_flat(rows, pt, comp_rows=comp_rows,
+                                                     out_rows=128))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    assert all(int(q.abs().sum()) == 0 for q in tflat._queues.values())
+
+
+def test_decode_flat_kernel_all_raw(cuda_device):
+    rng = np.random.default_rng(57)
+    n, block = 150, 128 * 1024
+    rows = torch.from_numpy(rng.integers(0, 256, (n, block + 16), np.uint8)).to(cuda_device)
+    z = np.zeros(n, np.int32)
+    pt = tflat.plan_tensors({"p_used": z, "p_off": z, "p0": z, "dense": z - 1,
+                             "dq": np.zeros((1, 1024, 128), np.int16),
+                             "row_a": np.zeros((1, 1, 128, 8), np.int32),
+                             "se": np.zeros((4, 8, 128), np.int16),
+                             "shift": np.zeros((4, 8, 128), np.int32)}, cuda_device)
+    got = tflat.decode_blocks_flat(rows, pt, comp_rows=1024, out_rows=1024)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(n, -1), rows[:, :block])
+
+
+@pytest.mark.parametrize("out_rows,dcap,n,unaligned", [
+    (128, 4, 150, False), (1024, 64, 140, False), (1024, 8, 7, False), (1024, 64, 20, True)])
+def test_decode_flat_kernel_on_random_wires(out_rows, dcap, n, unaligned, cuda_device):
+    # Every pass id, anchors off the plane and near the int32 limits, more
+    # than 32 dense passes (a second anchor per lane), random pass ranges;
+    # dq and row_a one element off 8- and 16-byte alignment (the wrapper
+    # copies dq; anchors are then loaded one at a time).
+    comp, plans = tflat.random_wire(58, n, out_rows, 256, dcap)
+    rows = torch.from_numpy(comp).to(cuda_device)
+    pt = tflat.plan_tensors(plans, cuda_device)
+    if unaligned:
+        for k in ("dq", "row_a"):
+            buf = torch.empty(pt[k].numel() + 1, dtype=pt[k].dtype, device=cuda_device)
+            buf[1:] = pt[k].flatten()
+            pt[k] = buf[1:].view(pt[k].shape)
+        assert pt["dq"].data_ptr() % 8 and pt["row_a"].data_ptr() % 16
+    got = tflat.decode_blocks_flat(rows, pt, comp_rows=256, out_rows=out_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tflat.decode_flat_reference(rows, pt, 256, out_rows))
+
+
 def test_sort_matcher_on_card(cuda_device):
     planes, _ = corpus_planes(cuda_device, 128 * 1024)
     got = find_matches_sorted(planes, length=128 * 1024)

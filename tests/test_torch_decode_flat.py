@@ -237,3 +237,48 @@ def test_device_without_kernel_raises_not_falls_back():
     with pytest.raises(StatusError):
         tflat.decode_blocks_flat(rows, tflat.plan_tensors(plans, "meta"),
                                  comp_rows=comp_rows, out_rows=nrows)
+
+
+@pytest.mark.parametrize("corpus", sorted(CORPORA))
+def test_block_classes_cover_the_batch_once(corpus):
+    _, _, plans, _, _ = CORPORA[corpus](np.random.default_rng(16))
+    pt = tflat.plan_tensors(plans, "cpu")
+    classes = tflat.block_classes(pt)
+    n = pt["dense"].shape[0]
+    every = torch.sort(torch.cat(list(classes.values()))).values
+    assert torch.equal(every, torch.arange(n)), classes
+    dense, p0, pu = (pt[k].numpy() for k in ("dense", "p0", "p_used"))
+    assert classes["raw"].tolist() == np.flatnonzero(dense < 0).tolist()
+    assert classes["out passes"].tolist() == np.flatnonzero((dense >= 0) & (p0 < pu)).tolist()
+    assert classes["no out pass"].tolist() == np.flatnonzero((dense >= 0) & (p0 >= pu)).tolist()
+
+
+@pytest.mark.parametrize("corpus", sorted(CORPORA))
+def test_selected_blocks_decode_as_in_the_whole_batch(corpus):
+    # A class's blocks as a batch of their own (their comp rows and plan
+    # fields, the shared wire kept) decode to the whole batch's planes.
+    datas, comps, plans, comp_rows, nrows = CORPORA[corpus](np.random.default_rng(17))
+    rows = torch.from_numpy(_comp_rows_u8(comps, comp_rows * 128))
+    pt = tflat.plan_tensors(plans, "cpu")
+    whole = tflat.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nrows)
+    for cls, idx in tflat.block_classes(pt).items():
+        sub_rows, sub_pt = tflat.select_blocks(rows, pt, idx)
+        got = tflat.decode_blocks_flat(sub_rows, sub_pt, comp_rows=comp_rows, out_rows=nrows)
+        assert torch.equal(got, whole[idx]), cls
+        for j, b in enumerate(idx.tolist()):
+            assert got[j].reshape(-1)[:len(datas[b])].numpy().tobytes() == datas[b], (cls, b)
+
+
+@pytest.mark.parametrize("out_rows,dcap", [(128, 4), (256, 64)])
+def test_reference_matches_numpy_oracle_on_random_wires(out_rows, dcap):
+    # Wires the planner does not emit (every pass id, anchors off the plane
+    # and near the int32 limits, random pass ranges and shifts): the plain
+    # version clips as the JAX module's oracle does.
+    comp_rows = 256
+    comp, plans = tflat.random_wire(18, 6, out_rows, comp_rows, dcap)
+    assert (plans["dense"] > 32).any() or dcap <= 32
+    oracle = jflat.decode_flat_numpy([c[:comp_rows * 128] for c in comp], plans,
+                                     comp_rows, out_rows)
+    got = tflat.decode_flat_reference(torch.from_numpy(comp), tflat.plan_tensors(plans, "cpu"),
+                                      comp_rows, out_rows)
+    np.testing.assert_array_equal(got.numpy(), oracle)

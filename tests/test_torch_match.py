@@ -73,3 +73,85 @@ def test_sort_matcher_matches_jax(seed):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want > 0).mean() > 0.3
+
+
+def tiled_scores(x: np.ndarray, offsets, max_match: int) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's tiling in numpy: each tile of ``tile_plan`` scores its
+    positions from the bytes of its ``tile_windows`` window alone (runs read
+    nothing outside it), keeping the first slot of the strictly longest run
+    (capped at the doubling cap; offset 0 matches everywhere)."""
+    n, L = x.shape
+    tp = tmatch.tile_plan(L, offsets, max_match)
+    cap = tp["cap"]
+    mlen = np.zeros((n, L), np.int32)
+    slot = np.zeros((n, L), np.int32)
+    for t0, t1, lo, hi in tmatch.tile_windows(L, tp["tile"], tp["maxoff"], cap):
+        assert hi - lo <= tp["window"]
+        win = x[:, lo:hi].astype(np.int32)
+        p = np.arange(lo, hi)
+        best = np.zeros((n, t1 - t0), np.int32)
+        kbest = np.zeros((n, t1 - t0), np.int32)
+        for k, d in enumerate(offsets):
+            if d == 0:
+                run = np.full((n, hi - lo), cap, np.int32)
+            else:
+                eq = np.zeros((n, hi - lo), bool)
+                ok = p - d >= lo              # a byte before the window is never read
+                eq[:, ok] = win[:, ok] == win[:, (p - d - lo)[ok]]
+                # The run at i ends at the first mismatch at or after i.
+                i = np.arange(hi - lo)
+                stop = np.minimum.accumulate(np.where(eq, hi - lo, i)[:, ::-1], axis=1)[:, ::-1]
+                run = np.minimum(stop - i, cap).astype(np.int32)
+            r = run[:, t0 - lo:t1 - lo]
+            better = r > best
+            best = np.where(better, r, best)
+            kbest = np.where(better, k, kbest)
+        mlen[:, t0:t1] = np.minimum(best, max_match)
+        slot[:, t0:t1] = kbest
+    return mlen, slot
+
+
+@pytest.mark.parametrize("case", [
+    ("default, 32 KiB", 32 * 1024, None, 64),
+    ("default, max_match 1024", 32 * 1024, None, 1024),
+    ("offsets at and past a tile's start", 32 * 1024,
+     (1, 8191, 8192, 8193, 16384, 3, 32768, 40000, 12), 100),
+    ("K > 32, a duplicate, 0 last", 16 * 1024, tuple(range(1, 40)) + (7, 0), 1),
+    ("a far offset, 38 KiB windows", 32 * 1024, (3, 30000, 1, 64), 64),
+    ("whole-plane window", 128 * 1024, (3, 70000, 1, 64), 64),
+])
+def test_tile_windows_hold_every_byte_a_tile_reads(case):
+    _, L, offsets, max_match = case
+    offsets = offsets or tmatch.DEFAULT_OFFSETS
+    rng = np.random.default_rng(L + max_match)
+    x = np.concatenate([planes(73).reshape(3, -1)] * (L // (16 * 1024)), axis=1)
+    # Period 8192 from byte 8000: runs at offsets 8192 that cross tile edges.
+    span = x[1, 8000:24000]
+    span[:] = np.resize(rng.integers(0, 256, 8192, np.uint8), span.size)
+    got = tiled_scores(x, offsets, max_match)
+    want = tmatch.match_reference(torch.from_numpy(x), offsets, max_match=max_match)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+
+
+@pytest.mark.parametrize("L,offsets,max_match,want", [
+    (128 * 1024, None, 64, dict(tile=8192, maxoff=8192, cap=64, warps=8)),
+    (128 * 1024, None, 1024, dict(tile=8192, maxoff=8192, cap=1024, warps=8)),
+    (128 * 1024, (3, 70000, 1, 64), 64, dict(tile=128 * 1024, maxoff=70000, warps=16)),
+    (16 * 1024, (3, 16384, 20000, 1), 100, dict(tile=8192, maxoff=3, cap=128, warps=8)),
+    (4 * 1024, None, 64, dict(tile=4096, maxoff=2048, warps=4)),
+    (8 * 1024, (0,), 1, dict(tile=8192, maxoff=0, cap=1, warps=8)),
+])
+def test_tile_plan(L, offsets, max_match, want):
+    offsets = offsets or tmatch.DEFAULT_OFFSETS
+    tp = tmatch.tile_plan(L, offsets, max_match)
+    assert {k: tp[k] for k in want} == want
+    wins = tmatch.tile_windows(L, tp["tile"], tp["maxoff"], tp["cap"])
+    assert tp["window"] == max(hi - lo for _, _, lo, hi in wins)
+    assert tp["window"] <= max(L, tmatch.WINDOW_MAX)
+    # The tiles cover the plane in order; every window is 16-aligned and
+    # holds the bytes from maxoff before its tile to cap past it.
+    assert [w[0] for w in wins] == list(range(0, L, tp["tile"])) and wins[-1][1] == L
+    for t0, t1, lo, hi in wins:
+        assert lo % 16 == 0 and (hi % 16 == 0 or hi == L)
+        assert lo <= max(0, t0 - tp["maxoff"]) and hi >= min(L, t1 + tp["cap"])
