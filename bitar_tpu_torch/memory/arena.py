@@ -133,17 +133,22 @@ class SlotPool:
 class DeviceArena:
     """The device-resident compressed-block pool for one engine.
 
-    Holds one ``[max_slots, slot_size]`` uint8 tensor on ``device``.
-    ``write_burst`` stores a burst of compressed rows into taken slots and
-    bumps their write generation; ``gather_burst`` pulls slot rows back out
-    for decode or host readout.
+    Holds one ``[max_slots, slot_size]`` uint8 tensor on ``device``
+    (default: CUDA, as ``Engine``; StatusError without it, so CPU callers
+    pass ``device="cpu"``).  ``write_burst`` stores a burst of compressed
+    rows into taken slots and bumps their write generation;
+    ``gather_burst`` pulls slot rows back out for decode or host readout.
     """
 
     def __init__(self, slot_size: int, preallocated: int, max_slots: int,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.slot_size = int(slot_size)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise StatusError(Status.Invalid(
+                f"DeviceArena(device={self.device}): torch.cuda.is_available() is "
+                f"false; pass device='cpu' for a CPU arena"))
         self.pool = SlotPool(preallocated, max_slots, slot_size)
-        self.device = torch.device(device)
         # The whole ceiling at once: allocation stays off the critical path
         # (the reference preallocates its memzone budget, app_common.cc:92-100).
         self._buf = torch.zeros((max_slots, self.slot_size), dtype=torch.uint8,

@@ -15,7 +15,7 @@ build:
 
 The kernels' Python wrappers share the rest of their plumbing here: loading
 a kernel library once per process, checking their inputs and the CUDA error
-code a launch returns.
+code a launch returns, and the block queue of the persistent kernels.
 """
 
 from __future__ import annotations
@@ -28,6 +28,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 from ..status import Status, StatusError
 
@@ -111,6 +113,21 @@ def load_cuda_kernel(stem: str, bind, headers: tuple[str, ...] = ()) -> ctypes.C
                 bind(lib)
                 _kernels[stem] = lib
     return lib
+
+
+#: The block queue of the persistent kernels (B1, B7) per (device, stream):
+#: int32 [next block, CTAs done], zero at launch.  A launch's last CTA sets
+#: both back to zero, so one buffer serves every launch of a stream (they
+#: run in turn) and no launch pays a memset of its own.
+block_queues: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def block_queue(device: torch.device, stream: int) -> torch.Tensor:
+    q = block_queues.get((device.index, stream))
+    if q is None:                 # zeroed on this stream, before any launch on it
+        q = block_queues.setdefault((device.index, stream),
+                                    torch.zeros(2, dtype=torch.int32, device=device))
+    return q
 
 
 def require(cond: bool, msg: str) -> None:

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..config import DECODE_FLAT_MAX_ROWS
-from ._build import check_cuda, load_cuda_kernel, require
+from ._build import block_queue, check_cuda, load_cuda_kernel, require
 
 LANES = 128
 CB = 4                # passes per planner batch (plans pad to CB multiples)
@@ -362,21 +362,6 @@ def load_kernel() -> ctypes.CDLL:
     return load_cuda_kernel("decode_flat", _bind)
 
 
-#: The kernel's block queue per (device, stream): int32 [next block, CTAs
-#: done], zero at launch.  The launch's last CTA sets both back to zero, so
-#: one buffer serves every launch of a stream (they run in turn) and no
-#: launch pays a memset of its own.
-_queues: dict[tuple[int, int], torch.Tensor] = {}
-
-
-def _queue(device: torch.device, stream: int) -> torch.Tensor:
-    q = _queues.get((device.index, stream))
-    if q is None:                 # zeroed on this stream, before any launch on it
-        q = _queues.setdefault((device.index, stream),
-                               torch.zeros(2, dtype=torch.int32, device=device))
-    return q
-
-
 def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
                    out_rows: int) -> torch.Tensor:
     global launches
@@ -415,7 +400,7 @@ def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
     lib = load_kernel()
     with torch.cuda.device(comp.device):      # launch on the tensors' device
         stream = torch.cuda.current_stream(comp.device).cuda_stream
-        queue = _queue(comp.device, stream)
+        queue = block_queue(comp.device, stream)
         rc = lib.bt_decode_flat_launch(
             comp.data_ptr(), comp.stride(0), comp.shape[1], comp_rows,
             pt["p_used"].data_ptr(), pt["p_off"].data_ptr(), pt["p0"].data_ptr(),

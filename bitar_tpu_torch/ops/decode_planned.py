@@ -8,7 +8,8 @@ entry point.  The host planner (``native.plan_block``) turns a block into P
 passes; :func:`pack_plan` packs them into the wire, and :func:`plan_blocks`
 does both for a batch.  This module holds ``pack_plan`` (a copy of the
 reference's), ``plan_blocks``, ``random_plans`` (malformed plans for the
-kernel-vs-plain checks), ``decode_planned_reference``,
+kernel-vs-plain checks), ``class_plans`` and ``pass_reads_plane`` (the
+kernel's two pass classes), ``decode_planned_reference``,
 the plain PyTorch decode, and ``decode_blocks_planned``, the wrapper: on CPU
 tensors it runs the plain version, on CUDA tensors it launches
 ``csrc/decode_planned.cu`` or raises.
@@ -34,7 +35,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import check_cuda, load_cuda_kernel, require
+from ._build import block_queue, check_cuda, load_cuda_kernel, require
 from .cpu import native
 
 LANES = 128
@@ -78,10 +79,11 @@ def plan_blocks(datas: list[bytes], block: int, max_passes: int) -> dict:
     by :func:`pack_plan`.  Blocks whose plan does not fit are left out.
 
     Returns {"fit": indices of the planned blocks, "comp" [F, comp_rows,
-    128] uint8, "p_used" [F] int32, "se" and "shift" [F, passes, block /
-    16384, 128] int32, "passes" (the largest plan's), "comp_rows" (the
-    largest comp in rows, rounded up to 32), "stored" (compressed bytes of
-    the planned blocks)}."""
+    128] uint8, "p_used" and "p0" (the planner's comp-pass count) [F]
+    int32, "se" and "shift" [F, passes, block / 16384, 128] int32,
+    "passes" (the largest plan's), "comp_rows" (the largest comp in rows,
+    rounded up to 32), "stored" (compressed bytes of the planned
+    blocks)}."""
     nrows = block // LANES
     comps = [native.lz4_compress(d) for d in datas]
     plans = [native.plan_block(c, block, nrows, max_passes=max_passes) for c in comps]
@@ -99,6 +101,7 @@ def plan_blocks(datas: list[bytes], block: int, max_passes: int) -> dict:
                          passes, comp_rows)
         se[j], shift[j] = s.reshape(se.shape[1:]), h.reshape(se.shape[1:])
     return {"fit": fit, "comp": comp, "p_used": np.array([plans[i][0] for i in fit], np.int32),
+            "p0": np.array([plans[i][1] for i in fit], np.int32),
             "se": se, "shift": shift, "passes": passes, "comp_rows": comp_rows,
             "stored": sum(len(comps[i]) for i in fit)}
 
@@ -122,6 +125,55 @@ def random_plans(seed: int, n: int, passes: int, comp_rows: int, out_rows: int) 
                       [near - 300, near, -near, 2**31 - 1 - near % 4096], wide).astype(np.int32)
     p_used = np.resize(np.array([passes, passes + 4, 0, -1, 2, 1], np.int32), n)
     return comp, p_used, se, shift
+
+
+def class_plans(seed: int, n: int, reads: list[bool], comp_rows: int, out_rows: int) -> tuple:
+    """Random well-aimed plans whose pass ``k`` reads out rows when
+    ``reads[k]`` (every active lane's source in the out region) and only
+    comp rows or the zeros above otherwise, to hold the kernel's two pass
+    classes and the seams between them to the plain version.  ``p_used``
+    spreads over 0..passes, with values past ``passes`` and negative ones.
+    Returns numpy (comp, p_used, se, shift)."""
+    rng = np.random.default_rng(seed)
+    passes, rows = len(reads), out_rows
+    comp = rng.integers(0, 256, (n, comp_rows, LANES), dtype=np.uint8)
+    start = rng.integers(0, 128, (n, passes, rows))
+    end = np.minimum(start + rng.integers(0, 40, (n, passes, rows)), 128)
+    end[rng.random((n, passes, rows)) < 0.3] = 0                   # idle rows
+    r = np.arange(rows)[None, None, :]
+    in_comp = rng.integers(0, max(1, (comp_rows - 2) * LANES), (n, passes, rows))
+    in_zeros = ((comp_rows + out_rows) * LANES + rng.integers(0, 100 * LANES, (n, passes, rows)))
+    target = np.where(rng.random((n, passes, rows)) < 0.9, in_comp, in_zeros)
+    plane = comp_rows * LANES + rng.integers(0, (out_rows - 2) * LANES, (n, passes, rows))
+    target = np.where(np.asarray(reads, bool)[None, :, None], plane, target)
+    shift = (target - r * LANES).astype(np.int32)
+    se = ((start << 8) | end).astype(np.int32)
+    shape = (n, passes, rows // LANES, LANES)
+    p_used = np.resize(np.array([passes, passes + 3, 0, -2, 1, max(1, passes // 2), passes - 1],
+                                np.int32), n)
+    return comp, p_used, se.reshape(shape), shift.reshape(shape)
+
+
+def pass_reads_plane(se: torch.Tensor, shift: torch.Tensor, *, comp_rows: int,
+                     out_rows: int) -> torch.Tensor:
+    """[N, passes] bool: whether pass k of block i reads an out row under
+    the anchor rule (some active lane's source row lies in ``[comp_rows,
+    comp_rows + out_rows)``); the pass classes the kernel finds."""
+    n, passes = se.shape[:2]
+    w_rows = -(-(comp_rows + out_rows) // KCHUNK) * KCHUNK
+    lane = torch.arange(LANES, device=se.device)
+    r = torch.arange(out_rows, device=se.device)[:, None]
+    res = torch.zeros((n, passes), dtype=torch.bool, device=se.device)
+    for i in range(n):
+        sek = se[i].reshape(passes, out_rows, 1).long() & 0xFFFFFFFF
+        active = (lane >= (sek >> 8)) & (lane < (sek & 0xFF))
+        q = _wrap32(r * LANES + lane + shift[i].reshape(passes, out_rows, 1).long())
+        qrow = (q & 0xFFFFFFFF) >> 7
+        row_a = torch.where(active, qrow, 1 << 29).min(dim=2, keepdim=True).values
+        row_a = row_a.clamp(max=w_rows - 2)
+        src = torch.where(qrow == row_a, row_a, row_a + 1)
+        res[i] = (active & (src >= comp_rows) & (src < comp_rows + out_rows)).flatten(1).any(1)
+    return res
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -169,7 +221,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.bt_decode_planned_launch.argtypes = [
         vp, c_int,                        # comp, comp_rows
         vp, vp, vp, c_int,                # p_used, se, shift, passes
-        vp, c_int, c_int, vp]             # out, n, out_rows, stream
+        vp, vp, c_int, c_int,             # order, out, n, out_rows
+        vp, c_int, vp]                    # queue, device, stream
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -195,12 +248,13 @@ def _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows) -> torc
     out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=comp.device)
     if n == 0:
         return out
+    order = torch.empty(n, dtype=torch.int32, device=comp.device)
     lib = load_kernel()
-    with torch.cuda.device(comp.device):
-        rc = lib.bt_decode_planned_launch(
-            comp.data_ptr(), comp_rows, p_used.data_ptr(), se.data_ptr(), shift.data_ptr(),
-            passes, out.data_ptr(), n, out_rows,
-            torch.cuda.current_stream(comp.device).cuda_stream)
+    stream = torch.cuda.current_stream(comp.device).cuda_stream
+    rc = lib.bt_decode_planned_launch(
+        comp.data_ptr(), comp_rows, p_used.data_ptr(), se.data_ptr(), shift.data_ptr(),
+        passes, order.data_ptr(), out.data_ptr(), n, out_rows,
+        block_queue(comp.device, stream).data_ptr(), comp.device.index, stream)
     check_cuda(rc, "decode_planned launch", lib)
     launches += 1
     return out

@@ -9,6 +9,10 @@ literal run.  This module holds
 * ``pad_tables`` (a copy of ``bitar_tpu/ops/pallas/layout.py``'s) and
   ``table_tensors``, which pad per-block tables to one width and put them on
   a device;
+* ``well_formed``: the kernel's classifier (the tables the parser emits
+  take its parallel paths, any other table its serial walk), and the
+  tables that hold the kernel to its plain version: ``parser_tables`` (the
+  host codec's, as the engine stores them) and ``random_tables``;
 * ``decode_tables_reference``: the plain PyTorch decode;
 * ``decode_blocks``: the wrapper.  On CPU tensors it runs the plain version;
   on CUDA tensors it launches ``csrc/decode_tables.cu`` or raises.
@@ -37,7 +41,10 @@ import ctypes
 import numpy as np
 import torch
 
+from ..config import Codec
+from ..manifest import codec_id
 from ._build import check_cuda, load_cuda_kernel, require
+from .cpu import native
 from .cpu.native import SEQUENCE_KEYS
 
 LANES = 128
@@ -72,6 +79,132 @@ def table_tensors(tables: dict[str, np.ndarray], nseq: np.ndarray, device
     cols = {k: torch.from_numpy(np.ascontiguousarray(tables[k], np.int32)).to(device)
             for k in SEQUENCE_KEYS}
     return torch.from_numpy(np.ascontiguousarray(nseq, np.int32)).to(device), cols
+
+
+def parser_tables(datas: list[bytes], codec: str = "lz4", min_match: int = 6):
+    """The parser's tables of ``datas`` compressed one block each by the
+    host codec (LZ4 or Snappy) as the engine stores them: a block that does
+    not shrink is stored RAW, its table one literal run.  Returns numpy
+    (rows [N, W] uint8, padded tables, nseq, stored bytes per block); W is
+    the longest stored block rounded up to 128 bytes."""
+    lens = np.array([len(d) for d in datas], np.int32)
+    cap = lens.astype(np.int64) + lens // 6 + 64
+    src_off = np.concatenate([[0], np.cumsum(lens[:-1], dtype=np.int64)])
+    dst_off = np.concatenate([[0], np.cumsum(cap[:-1])])
+    dst = np.empty(int(cap.sum()), np.uint8)
+    clen, st = native.batch_run(True, np.frombuffer(b"".join(datas), np.uint8), src_off, lens,
+                                dst, dst_off, cap.astype(np.int32),
+                                np.full(len(datas), codec_id(Codec(codec)), np.int32),
+                                min_match=min_match)
+    comps, per_block = [], []
+    for i, d in enumerate(datas):
+        if st[i] != 0 or clen[i] >= len(d):
+            comps.append(np.frombuffer(d, np.uint8))
+            per_block.append({k: np.array([len(d) if k == "lit_len" else 0], np.int32)
+                              for k in SEQUENCE_KEYS})
+        else:
+            comps.append(dst[dst_off[i]:dst_off[i] + clen[i]])
+            per_block.append(native.parse_sequences(comps[-1], codec))
+    rows = np.zeros((len(comps), -(-max(len(c) for c in comps) // LANES) * LANES), np.uint8)
+    for i, c in enumerate(comps):
+        rows[i, :len(c)] = c
+    return (rows, *pad_tables(per_block, SEQUENCE_KEYS),
+            np.array([len(c) for c in comps], np.int64))
+
+
+def well_formed(nseq: torch.Tensor, tables: dict[str, torch.Tensor]) -> torch.Tensor:
+    """[N] bool: the kernel's classifier.  A block is well-formed when its
+    ``ns`` sequences start at 0, have no negative length and each starts
+    where the one before it ends (64-bit sums): the tables the parser
+    emits.  Then no two sequences write one byte and every match byte's
+    source lies before it, so each byte's value follows from the table and
+    the comp row alone (the kernel decodes such blocks in parallel, others
+    by the serial walk)."""
+    ll, ml, op = (tables[k].long() for k in ("lit_len", "mlen", "out_pos"))
+    S = ll.shape[1]
+    live = torch.arange(S, device=ll.device)[None, :] < nseq.long().clamp(0, S)[:, None]
+    lengths = ((ll >= 0) & (ml >= 0)) | ~live
+    chained = (op[:, 1:] == (op + ll + ml)[:, :-1]) | ~live[:, 1:]
+    return lengths.all(1) & chained.all(1) & ((op[:, 0] == 0) | ~live[:, 0])
+
+
+def random_tables(seed: int, n: int, S: int, block: int, *, well_formed: bool = True):
+    """Random tables to hold the kernel to its plain version; numpy (rows
+    [n, block // 2] uint8, padded tables [n, S], nseq [n]).
+
+    Well-formed tables (:func:`well_formed`) come in four kinds, block by
+    block: mixed sequences with edge values (``lit_ptr`` before and past
+    the row, ``off`` 0 and past ``dst``, ``mlen`` 0 mid-table), chains
+    (every match copies the one before it, so a byte's sources form a chain
+    as long as the table), offsets 1-130 (both sides of a 128-byte row and
+    of a window's edge), and an extent past the plane; ``nseq`` is below
+    ``S`` in every third block.  Malformed tables: every other block fully
+    random (``off`` <= 0, positions outside the plane, overlapping and
+    out-of-order writes, ``nseq`` past ``S``), the rest well-formed but for
+    one broken field."""
+    rng = np.random.default_rng(seed)
+    width = max(LANES, block // 2)
+    rows = rng.integers(0, 256, (n, width), np.uint8)
+    cols = {k: np.zeros((n, S), np.int64) for k in SEQUENCE_KEYS}
+    nseq = np.zeros(n, np.int64)
+    for i in range(n):
+        ns = S if i % 3 else int(rng.integers(1, S))
+        kind = i % 4
+        if not well_formed and i % 2 == 0:
+            ns = int(rng.integers(1, S + 50))
+            m = min(ns, S)
+            cols["lit_ptr"][i, :m] = rng.integers(-width, 2 * width, m)
+            cols["lit_len"][i, :m] = rng.integers(-5, block // 4, m)
+            cols["off"][i, :m] = rng.integers(-2, 2 * block, m)
+            cols["mlen"][i, :m] = rng.integers(-5, block // 2, m)
+            cols["out_pos"][i, :m] = rng.integers(-block // 4, block + block // 4, m)
+            cols["out_pos"][i, 0] = rng.integers(1, block)
+            nseq[i] = ns
+            continue
+        if kind == 1:                  # chains: each match repeats the one before it
+            period = max(1, block // ns)
+            ll = np.zeros(ns, np.int64)
+            ml = np.full(ns, period, np.int64)
+            ll[0], ml[0] = period, 0
+            off = np.full(ns, period, np.int64)
+            lp = np.zeros(ns, np.int64)
+        else:
+            target = block * (1.5 if kind == 3 else 0.95)
+            mean = max(2.0, target / ns)
+            ll = rng.integers(0, max(2, int(mean / 3)), ns)
+            ml = rng.integers(1, max(2, int(1.4 * mean)), ns)
+            ml[rng.random(ns) < 0.1] = 0
+            lp = rng.integers(0, width, ns)
+            edge = rng.random(ns)
+            lp[edge < 0.04] = width - ll[edge < 0.04] // 2          # runs past the row
+            lp[(edge >= 0.04) & (edge < 0.06)] = -3
+            off = rng.integers(1, 131, ns) if kind == 2 else None
+        op = np.concatenate([[0], np.cumsum(ll + ml)[:-1]])
+        if off is None:
+            dst = op + ll
+            off = 1 + (rng.random(ns) * np.maximum(dst, 1)).astype(np.int64)
+            pick = rng.random(ns)
+            off[pick < 0.05] = 0
+            off[(pick >= 0.05) & (pick < 0.1)] = dst[(pick >= 0.05) & (pick < 0.1)] + 7
+            off[(pick >= 0.1) & (pick < 0.4)] = rng.integers(1, 131, int(((pick >= 0.1)
+                                                                           & (pick < 0.4)).sum()))
+        for k, v in zip(SEQUENCE_KEYS, (lp, ll, off, ml, op)):
+            cols[k][i, :ns] = v
+        nseq[i] = ns
+        if not well_formed:            # break one field of a well-formed table
+            s = int(rng.integers(0, ns))
+            broken = (i // 2) % 4
+            if broken == 0 and ns > 1:
+                s = max(1, s)
+                cols["out_pos"][i, s] -= int(rng.integers(1, 9))     # overlaps the one before
+            elif broken <= 1:
+                cols["lit_len"][i, s] = -int(rng.integers(1, 9))
+            elif broken == 2:
+                cols["mlen"][i, s] = -int(rng.integers(1, 9))
+            else:
+                cols["out_pos"][i, 0] = int(rng.integers(1, 9))
+    tables = {k: v.astype(np.int32) for k, v in cols.items()}
+    return rows, tables, nseq.astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +274,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.bt_decode_tables_launch.argtypes = [
         vp, c_ll, c_int,                  # comp, row stride, width
         vp, vp, vp, vp, vp, vp, c_int,    # nseq, lit_ptr, lit_len, off, mlen, out_pos, S
-        vp, c_int, c_int, vp]             # out, n, out_rows, stream
+        vp, c_int, c_int, vp,             # out, n, out_rows, paths
+        c_int, vp]                        # device, stream
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -149,47 +283,63 @@ def load_kernel() -> ctypes.CDLL:
     return load_cuda_kernel("decode_tables", _bind)
 
 
+_launch_fn = None     # the library's bound launch function, once loaded
+
+
 def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
-                   out_rows: int) -> torch.Tensor:
-    global launches
+                   out_rows: int, path_counts: torch.Tensor | None) -> torch.Tensor:
+    global launches, _launch_fn
     n = comp.shape[0]
-    S = tables["lit_ptr"].shape[1]
-    require(nseq.device == comp.device and nseq.dtype == torch.int32
-            and nseq.is_contiguous() and nseq.shape == (n,),
-            f"nseq: want contiguous int32 [{n}] on {comp.device}")
-    for k in SEQUENCE_KEYS:
-        t = tables[k]
-        require(t.device == comp.device and t.dtype == torch.int32 and t.is_contiguous()
-                and t.shape == (n, S),
-                f"table {k}: want contiguous int32 [{n}, {S}] on {comp.device}")
-    out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=comp.device)
+    dev = comp.device
+    cols = [tables[k] for k in SEQUENCE_KEYS]
+    S = cols[0].shape[1]
+    # What the kernel reads: int32, contiguous, on comp's device, [n] and [n, S].
+    for t in (nseq, *cols):
+        require(t.device == dev and t.dtype == torch.int32 and t.is_contiguous(),
+                f"nseq and tables: want contiguous int32 tensors on {dev}")
+    require(nseq.shape == (n,) and all(t.shape == (n, S) for t in cols),
+            f"nseq and tables: want [{n}] and [{n}, {S}]")
+    paths = 0
+    if path_counts is not None:
+        require(path_counts.device == dev and path_counts.dtype == torch.int32
+                and path_counts.shape == (2,) and path_counts.is_contiguous(),
+                f"path_counts: want a contiguous int32 [2] on {dev}")
+        paths = path_counts.data_ptr()
+    out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=dev)
     if n == 0:
         return out
-    lib = load_kernel()
-    with torch.cuda.device(comp.device):
-        stream = torch.cuda.current_stream(comp.device).cuda_stream
-        rc = lib.bt_decode_tables_launch(
-            comp.data_ptr(), comp.stride(0), comp.shape[1], nseq.data_ptr(),
-            *(tables[k].data_ptr() for k in SEQUENCE_KEYS), S,
-            out.data_ptr(), n, out_rows, stream)
-    check_cuda(rc, "decode_tables launch", lib)
+    if _launch_fn is None:
+        _launch_fn = load_kernel().bt_decode_tables_launch
+    # The device's current stream as torch.cuda.current_stream(dev).cuda_stream
+    # gives it, without building a Stream object (0.14 us a call against 5.4
+    # on an H100 host).
+    rc = _launch_fn(comp.data_ptr(), comp.stride(0), comp.shape[1], nseq.data_ptr(),
+                    *(t.data_ptr() for t in cols), S, out.data_ptr(), n, out_rows, paths,
+                    dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    check_cuda(rc, "decode_tables launch", load_kernel())
     launches += 1
     return out
 
 
 def decode_blocks(comp: torch.Tensor, nseq: torch.Tensor, tables: dict[str, torch.Tensor],
-                  *, out_rows: int) -> torch.Tensor:
+                  *, out_rows: int, path_counts: torch.Tensor | None = None) -> torch.Tensor:
     """Decode a batch of blocks from their sequence tables.
 
     ``comp``: [N, W] uint8 compressed rows (arena slots; the row stride may
     exceed W).  ``nseq`` [N] and ``tables`` {key: [N, S]} int32 on
     ``comp``'s device (:func:`table_tensors`).  Returns [N, out_rows, 128]
-    uint8.  A CPU ``comp`` runs :func:`decode_tables_reference`; a CUDA one
-    launches the kernel or raises StatusError."""
+    uint8.  ``path_counts``, an int32 [2] tensor on the same device, gets
+    the call's blocks added: [0] those decoded in parallel
+    (:func:`well_formed` tables), [1] those walked serially.  A CPU ``comp``
+    runs :func:`decode_tables_reference`; a CUDA one launches the kernel or
+    raises StatusError."""
     require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
             f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
     require(out_rows >= 1, f"out_rows {out_rows} must be positive")
     if comp.device.type == "cpu":
+        if path_counts is not None:
+            wf = well_formed(nseq, tables)
+            path_counts += torch.stack([wf.sum(), (~wf).sum()]).to(path_counts.dtype)
         return decode_tables_reference(comp, nseq, tables, out_rows)
     require(comp.device.type == "cuda", f"decode_blocks: no kernel for device {comp.device}")
-    return _launch_kernel(comp, nseq, tables, out_rows)
+    return _launch_kernel(comp, nseq, tables, out_rows, path_counts)

@@ -39,11 +39,11 @@ def make_mesh(num_devices: int | None = None, axis: str | None = None, config=No
     ``config`` (a :class:`~bitar_tpu_torch.config.ShardingConfig`) supplies
     the axis name and an optional ``mesh_shape`` whose product selects the
     device count; explicit arguments win.  ``device_type`` defaults to
-    "cuda" whenever CUDA is available, whatever the backend (a gloo group
-    over CUDA devices decodes on the card), and "cpu" otherwise.  Every
-    rank of the world calls it.  Raises StatusError(Invalid) when more
-    devices are asked for than there are ranks, or when no process group is
-    initialized."""
+    "cuda", whatever the backend (a gloo group over CUDA devices decodes on
+    the card); CPU callers pass "cpu".  Every rank of the world calls it.
+    Raises StatusError(Invalid) when more devices are asked for than there
+    are ranks, when no process group is initialized, or when the mesh is
+    "cuda" and CUDA is not available."""
     if config is not None:
         if axis is None:
             axis = config.data_axis
@@ -61,7 +61,11 @@ def make_mesh(num_devices: int | None = None, axis: str | None = None, config=No
         raise StatusError(Status.Invalid(
             f"requested {num_devices} devices, only {world} ranks joined"))
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        device_type = "cuda"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise StatusError(Status.Invalid(
+            "make_mesh(device_type='cuda'): torch.cuda.is_available() is false; "
+            "pass device_type='cpu' for a CPU mesh"))
     return DeviceMesh(device_type, torch.arange(num_devices), mesh_dim_names=(axis,))
 
 

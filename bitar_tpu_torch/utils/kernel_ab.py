@@ -1,15 +1,19 @@
-"""Time this checkout's B1 (``decode_flat``) and B3 (``match``) kernels
-against another checkout's on one card, in turns, on the same inputs.
+"""Time this checkout's B1 (``decode_flat``), B2 (``decode_tables``), B3
+(``match``) and B7 (``decode_planned``) kernels against another checkout's
+on one card, in turns, on the same inputs.
 
     python -m bitar_tpu_torch.utils.kernel_ab --old DIR [--out FILE]
+        [--only match|decode_flat|decode_tables|decode_planned]
 
 ``DIR`` is the root of another checkout of the repo (for example a ``git
 archive`` of the parent commit unpacked into a git-ignored directory).  Its
 package is loaded beside this one under another name and builds its kernels
 into its own ``_build/``.  Every shape is run old, new, new, old (CUDA
-events, mean ms per launch) after the two outputs are checked equal; the
-plain versions are not timed here (``chip_smoke.py`` does that).  Prints one
-JSON object per shape and the card's name and power limit.  Needs CUDA.
+events, mean ms per launch) after the two outputs are checked equal; B2 and
+B7 are also timed kernel-only (``timing.kernel_time_ms``) and by the host
+clock per call (``timing.host_us_per_call``), in the same turns.  The plain
+versions are not timed here (``chip_smoke.py`` does that).  Prints one JSON
+object per shape and the card's name and power limit.  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -54,11 +58,21 @@ def planned_batch(btt, data: bytes, nblocks: int):
     return batch
 
 
-def turns(timing, old, new) -> dict:
-    ms = {"old": [], "new": []}
-    for name, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
-        ms[name].append(timing.device_time_ms(fn, REPS))
-    return {k: sum(v) / len(v) for k, v in ms.items()} | {"turns": ms}
+def turns(timing, old, new, kernel: str | None = None, calls: int = 0) -> dict:
+    """Old, new, new, old: mean CUDA-event ms per call of each; with
+    ``kernel``, also the kernel-only ms of the kernels so named, and with
+    ``calls``, the host microseconds per call over that many calls."""
+    res = {}
+    for key, timer in (("", lambda fn: timing.device_time_ms(fn, REPS)),
+                       ("kernel_", lambda fn: timing.kernel_time_ms(fn, REPS, kernel)),
+                       ("host_us_", lambda fn: timing.host_us_per_call(fn, calls))):
+        if (key == "kernel_" and not kernel) or (key == "host_us_" and not calls):
+            continue
+        ms = {"old": [], "new": []}
+        for name, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
+            ms[name].append(timer(fn))
+        res |= {key + k: sum(v) / len(v) for k, v in ms.items()} | {key + "turns": ms}
+    return res
 
 
 def same(a, b) -> bool:
@@ -72,7 +86,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, type=Path, help="root of the other checkout")
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--only", choices=("match", "decode_flat"), help="time one kernel only")
+    ap.add_argument("--only", choices=("match", "decode_flat", "decode_tables", "decode_planned"),
+                    help="time one kernel only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -97,6 +112,12 @@ def main() -> int:
         print(lines[-1], flush=True)
 
     corpus = make_corpus(1024)
+    if args.only in (None, "decode_tables"):
+        ab_tables(emit, timing, corpus, make_text_corpus(256))
+    if args.only in (None, "decode_planned"):
+        ab_planned(emit, timing, corpus)
+    if args.only in ("decode_tables", "decode_planned"):
+        return finish(args, lines)
     nrows = BLOCK // 128
     planes = torch.from_numpy(np.frombuffer(corpus, np.uint8).reshape(1024, nrows, 128)
                               .copy()).cuda()
@@ -136,6 +157,63 @@ def main() -> int:
         emit({"kernel": "decode_flat", "shape": f"{name} x 128 KiB", "equal": equal,
               **turns(timing, prev, new)})
     return finish(args, lines)
+
+
+def table_shapes(corpus: bytes, text: bytes) -> dict:
+    """B2's shapes: the engine's 4 KiB burst and 8192 blocks of the bench
+    corpus, 256 x 128 KiB of it (the parallel tables step's) and 256 x 128
+    KiB of markdown (deep tables); numpy (rows, tables, nseq, block)."""
+    from bitar_tpu_torch.ops import decode_tables as dt
+
+    small = 4096
+    b4 = dt.parser_tables([corpus[i * small:(i + 1) * small] for i in range(8192)])[:3]
+    return {"burst 1024 x 4 KiB": (b4[0][:1024], {k: v[:1024] for k, v in b4[1].items()},
+                                   b4[2][:1024], small),
+            "bench 8192 x 4 KiB": (*b4, small),
+            "bench 256 x 128 KiB": (*dt.parser_tables(
+                [corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(256)])[:3], BLOCK),
+            "deep text 256 x 128 KiB": (*dt.parser_tables(
+                [text[i * BLOCK:(i + 1) * BLOCK] for i in range(256)])[:3], BLOCK)}
+
+
+def ab_tables(emit, timing, corpus: bytes, text: bytes) -> None:
+    from bitar_tpu_torch.ops import decode_tables as dt
+    from bitar_tpu_torch_old.ops import decode_tables as odt
+
+    for name, (rows, tables, nseq, block) in table_shapes(corpus, text).items():
+        r = torch.from_numpy(rows).cuda()
+        tn, tt = dt.table_tensors(tables, nseq, "cuda")
+        kw = dict(out_rows=block // 128)
+
+        def new(r=r, tn=tn, tt=tt, kw=kw):
+            return dt.decode_blocks(r, tn, tt, **kw)
+
+        def prev(r=r, tn=tn, tt=tt, kw=kw):
+            return odt.decode_blocks(r, tn, tt, **kw)
+
+        equal = same(new(), prev())
+        emit({"kernel": "decode_tables", "shape": name, "sequences": int(nseq.sum()),
+              "max_per_block": int(nseq.max()), "equal": equal,
+              **turns(timing, prev, new, "decode_tables_kernel",
+                      1000 if block <= 4096 else 100)})
+
+
+def ab_planned(emit, timing, corpus: bytes) -> None:
+    from bitar_tpu_torch.ops import decode_planned as dp
+    from bitar_tpu_torch_old.ops import decode_planned as odp
+
+    wire = dp.plan_blocks([corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(256)], BLOCK, 64)
+    args = [torch.from_numpy(wire[k]).cuda() for k in ("comp", "p_used", "se", "shift")]
+    kw = dict(passes=wire["passes"], comp_rows=wire["comp_rows"], out_rows=BLOCK // 128)
+    for order, a in (("as planned", args),
+                     ("sorted by descending p_used", [t[torch.argsort(args[1], descending=True)]
+                                                      for t in args])):
+        equal = same(dp.decode_blocks_planned(*a, **kw), odp.decode_blocks_planned(*a, **kw))
+        emit({"kernel": "decode_planned", "shape": f"bench {len(wire['fit'])} x 128 KiB, "
+              f"{wire['passes']} passes, {order}", "equal": equal,
+              **turns(timing, lambda a=a: odp.decode_blocks_planned(*a, **kw),
+                      lambda a=a: dp.decode_blocks_planned(*a, **kw),
+                      "decode_planned_kernel", 100)})
 
 
 def finish(args, lines: list[str]) -> int:

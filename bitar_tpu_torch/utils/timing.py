@@ -1,23 +1,35 @@
-"""Device timing with CUDA events.
+"""Device timing with CUDA events, with the profiler, and the host's cost of
+a call.
 
 PyTorch returns before the device finishes, so a host clock around CUDA
 work measures the enqueue; ``device_time_ms`` times a run of launches with
-CUDA events on the current stream instead.
+CUDA events on the current stream instead.  When a wrapper spends more host
+time per call than its kernel takes, back-to-back launches leave the device
+idle between them and the events time the host: ``kernel_time_ms`` reads
+the kernel's own duration from ``torch.profiler`` (CUPTI), and
+``host_us_per_call`` the host's time per call.  All three raise without
+CUDA: a device time is never taken on the CPU.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
 from ..status import Status, StatusError
 
 
+def _need_cuda(what: str) -> None:
+    if not torch.cuda.is_available():
+        raise StatusError(Status.Invalid(f"{what} needs a CUDA device"))
+
+
 def device_time_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean device milliseconds per call of ``fn`` over ``reps`` back-to-back
     calls, from CUDA events on the current stream (after ``warmup`` calls).
     Raises without CUDA: a device time is never taken on the CPU."""
-    if not torch.cuda.is_available():
-        raise StatusError(Status.Invalid("device_time_ms needs a CUDA device"))
+    _need_cuda("device_time_ms")
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -28,3 +40,46 @@ def device_time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_time_ms(fn, reps: int, name: str, warmup: int = 1) -> float:
+    """Mean device milliseconds per launch of the kernels whose name
+    contains ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler``
+    (CUDA activity only): the kernel's own duration, without the gaps that
+    the host leaves between launches.  Raises without CUDA, and when no
+    such kernel ran."""
+    _need_cuda("kernel_time_ms")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        if name in e.key:
+            t = getattr(e, "device_time_total", None)    # cuda_time_total before torch 2.4
+            total_us += float(t if t is not None else e.cuda_time_total)
+            count += e.count
+    if count == 0:
+        raise StatusError(Status.IOError(
+            f"kernel_time_ms: no kernel named like {name!r} ran under the profiler"))
+    return total_us / count / 1e3
+
+
+def host_us_per_call(fn, calls: int, warmup: int = 1) -> float:
+    """Host microseconds per call of ``fn``: a host clock over ``calls``
+    back-to-back calls with no synchronize, divided by the count (the
+    device is synchronized before the clock starts and after it stops).
+    Raises without CUDA."""
+    _need_cuda("host_us_per_call")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls

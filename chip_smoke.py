@@ -26,8 +26,13 @@ Phases (any failure raises, and the script exits non-zero):
      blocks that fit 128 bytes, and Snappy at 8192;
    - ``decode_tables`` (B2) on the sequence tables of 4 KiB blocks of the
      bench corpus (8192 blocks), of the markdown text corpus at 128 KiB
-     under an 8-pass plan budget (deep tables) and of RLE blocks with
-     offsets 1-130 (both sides of the 128-byte row);
+     under an 8-pass plan budget (deep tables), of 256 x 128 KiB of the
+     bench corpus (the parallel tables step's shape), of RLE blocks with
+     offsets 1-130 (both sides of the 128-byte row) and on random
+     well-formed, malformed and mixed tables at 4 and 128 KiB
+     (``random_tables``); each batch logs its blocks by path (parallel,
+     serial walk), which must be the classifier's
+     (``well_formed``): 0 serial blocks on every parser batch;
    - ``match`` (B3) on 64 and on 1024 x 128 KiB (the shape the main paths
      launch) of the bench corpus (indices, max_match 64; values, max_match
      1024) and on hand-set offsets that tie (values, max_match 1024);
@@ -37,7 +42,9 @@ Phases (any failure raises, and the script exits non-zero):
      L, segments past wcap);
    - ``decode_planned`` (B7) on the ``plan_block`` + ``pack_plan`` plans of
      256 x 128 KiB LZ4 blocks of the bench corpus (every planned block
-     decodes to its raw bytes) and on random malformed plans;
+     decodes to its raw bytes), on random malformed plans (as made and
+     sorted by descending ``p_used``) and on plans whose passes read comp
+     rows only, the out plane first, or both in turn (``class_plans``);
 4. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    - host compress -> decode, LZ4 then Snappy, at the bench's size:
@@ -71,11 +78,15 @@ Phases (any failure raises, and the script exits non-zero):
      rounds host-staged), fused and ring steps over 256 x 128 KiB, B1 in
      every rank; every live row of (a) and (b) bit-exact;
 5. times with CUDA events, kernel and plain version in turns (plain, kernel,
-   kernel, plain): B1 at the bench shape and on the text corpus (and, the
-   kernel alone, on each class-pure batch); B3 at 64 x 128 KiB and at
-   1024 x 128 KiB in both modes (the kernels line takes 1024, indices,
-   max_match 64); B5, B4, the emitter, B2, B6 and B7 at the shapes of
-   phase 3 (the
+   kernel, plain), and for every kernel its kernel-only time
+   (``timing.kernel_time_ms``, ``torch.profiler``) and its wrapper's host
+   time per call (``timing.host_us_per_call``): B1 at the bench shape and
+   on the text corpus (and, the kernel alone, on each class-pure batch);
+   B3 at 64 x 128 KiB and at 1024 x 128 KiB in both modes (the kernels
+   line takes 1024, indices, max_match 64); B2 at 8192 x 4 KiB (the
+   kernels line), its 1024 x 4 KiB burst, 256 x 128 KiB of the bench
+   corpus and the deep text tables; B5, B4, the emitter, B6 and B7 at the
+   shapes of phase 3 (the
    multi-device steps' host-clock times are logged in phase 4); the whole
    ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
    and the host-clock phases of the tpu matcher's compress (plane packing,
@@ -85,8 +96,8 @@ Phases (any failure raises, and the script exits non-zero):
    phases and the ``torch.profiler`` rows with the most device time.
 
 The line before the last is one JSON object describing each kernel (its
-times, launches on the main paths and the least time the card could take
-for its work); the last line is ``{"ok": true, "device": {...}}``.  Without
+event and kernel-only times, launches on the main paths and the least time
+the card could take for its work); the last line is ``{"ok": true, "device": {...}}``.  Without
 CUDA the script prints no result and exits 1.  It imports nothing of JAX.
 """
 
@@ -122,6 +133,7 @@ TABLE_STEP_BLOCKS = 256       # blocks of the multi-device B2 steps
 RANKS = 4                     # gloo ranks sharing the one card (path b)
 WORLD_TIMEOUT = 300.0         # seconds a spawned world may take
 TIMED_REPS = (3, 20)          # (plain, kernel) launches per timed turn
+HOST_CALLS = 200              # calls per host-clock reading of a wrapper
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 INT32_OPS_PER_S = 33.5e12     # 132 SMs x 128 lanes x 1.98 GHz, one op per lane per cycle
 
@@ -157,6 +169,17 @@ def turns(timing, kernel, plain):
                            ("kernel", kernel, kernel_reps), ("plain", plain, plain_reps)):
         ms[name].append(timing.device_time_ms(fn, reps))
     return {k: sum(v) / len(v) for k, v in ms.items()}, ms
+
+
+def wrapper_times(timing, label: str, card: str, stem: str, fn) -> float:
+    """The kernel-only time of ``stem``'s kernel (``torch.profiler``) and
+    the host time per call of its wrapper ``fn``; logs both and returns the
+    kernel-only ms per launch."""
+    k = timing.kernel_time_ms(fn, TIMED_REPS[1], f"{stem}_kernel")
+    h = timing.host_us_per_call(fn, HOST_CALLS)
+    log(f"{label} [{card}] kernel-only: {k:.4f} ms/launch (torch.profiler, {TIMED_REPS[1]} "
+        f"launches); wrapper host: {h:.1f} us/call ({HOST_CALLS} calls, no synchronize)")
+    return k
 
 
 def report(label, card, res, ms, raw_bytes):
@@ -444,11 +467,19 @@ def rle_table_batch(dt, block: int = TABLE_BLOCK):
     return torch.from_numpy(rows).cuda(), nseq, tt, block, np.full(n, 256), want
 
 
-def compare_tables(dt, rows, nseq, tables, block: int) -> tuple[int, torch.Tensor]:
-    got = dt.decode_blocks(rows, nseq, tables, out_rows=block // 128)
+def compare_tables(dt, rows, nseq, tables, block: int) -> tuple[int, torch.Tensor, list]:
+    """B2 against its plain version; also the blocks the kernel decoded in
+    parallel and serially, which must be the classifier's counts."""
+    paths = torch.zeros(2, dtype=torch.int32, device=rows.device)
+    got = dt.decode_blocks(rows, nseq, tables, out_rows=block // 128, path_counts=paths)
     torch.cuda.synchronize()
     want = dt.decode_tables_reference(rows, nseq, tables, block // 128)
-    return check_equal("decode_tables", got, want), got
+    wf = int(dt.well_formed(nseq, tables).sum())
+    paths = paths.tolist()
+    if paths != [wf, rows.shape[0] - wf]:
+        raise AssertionError(f"decode_tables: blocks by path {paths}, classifier {wf} well-formed "
+                             f"of {rows.shape[0]}")
+    return check_equal("decode_tables", got, want), got, paths
 
 
 def tables_bound(rows, nseq, comp_len, block: int) -> tuple[float, str]:
@@ -932,18 +963,41 @@ def main() -> int:
     tbatches = {"bench 4 KiB": table_batch(btt, corpus[:TABLE_CHECK_BLOCKS * TABLE_BLOCK],
                                            TABLE_BLOCK),
                 "text 128 KiB, 8-pass plan budget": table_batch(btt, text, BLOCK, max_passes=8)}
+    brows, btabs, bnseq, blens = dt.parser_tables([corpus[i * BLOCK:(i + 1) * BLOCK]
+                                                   for i in range(TABLE_STEP_BLOCKS)])
+    tbatches["bench 128 KiB, the parallel tables step's shape"] = (
+        torch.from_numpy(brows).cuda(), *dt.table_tensors(btabs, bnseq, "cuda"), BLOCK, blens,
+        f"{TABLE_STEP_BLOCKS} x {BLOCK} B, sequences {int(bnseq.sum())} "
+        f"(max {int(bnseq.max())} per block)")
     err = 0
     for name, (rows, nseq, tables, block, _, stats) in tbatches.items():
-        e, _ = compare_tables(dt, rows, nseq, tables, block)
+        e, _, paths = compare_tables(dt, rows, nseq, tables, block)
         err = max(err, e)
-        log(f"decode_tables == plain version, byte for byte: {name} ({stats})")
+        if paths[1]:
+            raise AssertionError(f"decode_tables {name}: {paths[1]} parser blocks walked serially")
+        log(f"decode_tables == plain version, byte for byte: {name} ({stats}); blocks by "
+            f"path: parallel {paths[0]}, serial {paths[1]}")
     rrows, rnseq, rtables, rblock, _, rwant = rle_table_batch(dt)
-    e, got = compare_tables(dt, rrows, rnseq, rtables, rblock)
+    e, got, paths = compare_tables(dt, rrows, rnseq, rtables, rblock)
     if got.reshape(rwant.shape[0], -1).cpu().numpy().tobytes() != rwant.tobytes():
         raise AssertionError("decode_tables: RLE offsets 1-130 decode wrong")
     err = max(err, e)
     log("decode_tables == plain version, byte for byte: RLE offsets 1-130, 4 KiB blocks, "
-        "each the expected period")
+        f"each the expected period; blocks by path: parallel {paths[0]}, serial {paths[1]}")
+    for what, (seed, n, S, block) in {"4 KiB": (21, 64, 640, TABLE_BLOCK),
+                                      "128 KiB": (22, 16, 2048, BLOCK)}.items():
+        rand = {wf: dt.random_tables(seed, n, S, block, well_formed=wf) for wf in (True, False)}
+        rand["mixed"] = tuple(
+            {k: np.concatenate([a[k][: n // 2], b[k][n // 2:]]) for k in a}
+            if isinstance(a, dict) else np.concatenate([a[: n // 2], b[n // 2:]])
+            for a, b in zip(rand[True], rand[False]))
+        for kind, (r, tabs, ns) in rand.items():
+            tn, tt = dt.table_tensors(tabs, ns, "cuda")
+            e, _, paths = compare_tables(dt, torch.from_numpy(r).cuda(), tn, tt, block)
+            err = max(err, e)
+            log(f"decode_tables == plain version, byte for byte: random tables, "
+                f"{'well-formed' if kind is True else 'malformed' if kind is False else kind}, "
+                f"{n} x {block} B, S {S}; blocks by path: parallel {paths[0]}, serial {paths[1]}")
     kernels["decode_tables"] = {"max_abs_err": err}
 
     err = 0
@@ -997,12 +1051,26 @@ def main() -> int:
         f"{MATCH_BLOCKS} x {BLOCK} B planned within {PLANNED_MAX_PASSES} passes, comp_rows "
         f"{pcomp_rows}, passes {ppasses} (mean {float(pused.float().mean()):.1f})")
     rplans = [torch.from_numpy(a).cuda() for a in dp.random_plans(14, 16, 6, 1024, 1024)]
-    got = dp.decode_blocks_planned(*rplans, passes=6, comp_rows=1024, out_rows=1024)
-    torch.cuda.synchronize()
-    err = max(err, check_equal("decode_planned random plans", got, dp.decode_planned_reference(
-        *rplans, passes=6, comp_rows=1024, out_rows=1024)))
-    log("decode_planned == plain version, byte for byte: 16 random malformed plans, "
-        "6 passes, comp_rows 1024")
+    order = torch.argsort(rplans[1], descending=True)
+    for what, plans in {"": rplans,
+                        ", sorted by descending p_used": [t[order] for t in rplans]}.items():
+        got = dp.decode_blocks_planned(*plans, passes=6, comp_rows=1024, out_rows=1024)
+        torch.cuda.synchronize()
+        err = max(err, check_equal(f"decode_planned random plans{what}", got,
+                                   dp.decode_planned_reference(*plans, passes=6, comp_rows=1024,
+                                                               out_rows=1024)))
+        log(f"decode_planned == plain version, byte for byte: 16 random malformed plans{what}, "
+            f"6 passes, comp_rows 1024, p_used {plans[1].tolist()}")
+    for reads in ([False] * 8, [True] + [False] * 7, [False, True, False, False, True, True]):
+        plans = [torch.from_numpy(a).cuda() for a in dp.class_plans(15, 12, reads, 512, 1024)]
+        kw = dict(passes=len(reads), comp_rows=512, out_rows=1024)
+        got = dp.decode_blocks_planned(*plans, **kw)
+        torch.cuda.synchronize()
+        err = max(err, check_equal("decode_planned class plans", got,
+                                   dp.decode_planned_reference(*plans, **kw)))
+        log("decode_planned == plain version, byte for byte: 12 plans whose passes read the "
+            f"out plane: {''.join('P' if x else 'c' for x in reads)} (P: reads out rows, c: "
+            "comp rows only), comp_rows 512")
     kernels["decode_planned"] = {"max_abs_err": err}
 
     # -- phase 4: the main paths, launch counts reset just before each -------
@@ -1107,7 +1175,9 @@ def main() -> int:
                                                           out_rows=nrows),
                     lambda: df.decode_flat_reference(rows, pt, comp_rows, nrows))
     report(f"decode_flat bench {nblk} x 128 KiB", card, res, ms, nblk * BLOCK)
-    kernels["decode_flat"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["decode_flat"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+        timing, f"decode_flat bench {nblk} x 128 KiB", card, "decode_flat",
+        lambda: df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nrows)))
     kernels["decode_flat"]["bound"] = decode_bound(pt, comp_len)
     trows, tpt, tcomp, tlen, _ = batches["text"]
     res, ms = turns(timing, lambda: df.decode_blocks_flat(trows, tpt, comp_rows=tcomp,
@@ -1128,7 +1198,9 @@ def main() -> int:
     res, ms = turns(timing, walk_kernel, walk_plain)
     report(f"match_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024", card, res, ms,
            MATCH_BLOCKS * BLOCK)
-    kernels["match_walk"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["match_walk"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+        timing, f"match_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024", card, "match_walk",
+        walk_kernel))
     # A block with noff = 0 needs no plane byte: its output is all empty.
     rec_bytes = MATCH_BLOCKS * 25 * (BLOCK // 1024) * 4
     kernels["match_walk"]["bound"] = bound_ms(
@@ -1137,7 +1209,9 @@ def main() -> int:
     res, ms = turns(timing, dyn_kernel, dyn_plain)
     report(f"match_dyn bench {DYN_BLOCKS} x 128 KiB max_match 256", card, res, ms,
            DYN_BLOCKS * BLOCK)
-    kernels["match_dyn"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["match_dyn"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+        timing, f"match_dyn bench {DYN_BLOCKS} x 128 KiB max_match 256", card, "match_dyn",
+        dyn_kernel))
     kernels["match_dyn"]["bound"] = bound_ms(
         int((dnoff > 0).sum()) * BLOCK + DYN_BLOCKS * BLOCK * 8,
         float(dnoff.sum()) * BLOCK * (math.ceil(math.log2(256)) + 1))
@@ -1147,7 +1221,9 @@ def main() -> int:
                     lambda: em.emit_reference(pl, lay, out_width=ow))
     report(f"emit bench lz4 {MATCH_BLOCKS} x 128 KiB out_width {ow}", card, res, ms,
            MATCH_BLOCKS * BLOCK)
-    kernels["emit"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["emit"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+        timing, f"emit bench lz4 {MATCH_BLOCKS} x 128 KiB out_width {ow}", card, "emit",
+        lambda: em.emit_blocks(pl, lay, out_width=ow)))
     kernels["emit"]["bound"] = emit_bound(lay, ow)
 
     brows, bnseq, btables, bblock, bcomp, _ = tbatches["bench 4 KiB"]
@@ -1155,21 +1231,36 @@ def main() -> int:
                     lambda: dt.decode_tables_reference(brows, bnseq, btables, bblock // 128))
     report(f"decode_tables bench {brows.shape[0]} x 4 KiB", card, res, ms,
            brows.shape[0] * bblock)
-    kernels["decode_tables"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["decode_tables"].update(
+        ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+        timing, f"decode_tables bench {brows.shape[0]} x 4 KiB", card, "decode_tables",
+        lambda: dt.decode_blocks(brows, bnseq, btables, out_rows=bblock // 128)))
     kernels["decode_tables"]["bound"] = tables_bound(brows, bnseq, bcomp, bblock)
-    # One burst of the tables path as the engine launches it: 1024 x 4 KiB.
-    burst = (brows[:1024], bnseq[:1024], {k: v[:1024] for k, v in btables.items()})
-    turns_ms = [timing.device_time_ms(lambda: dt.decode_blocks(*burst, out_rows=bblock // 128),
-                                      TIMED_REPS[1]) for _ in range(2)]
-    log(f"decode_tables bench burst 1024 x 4 KiB [{card}] kernel: {sum(turns_ms) / 2:.4f} "
-        f"ms/launch (turns {', '.join(f'{x:.4f}' for x in turns_ms)}); bound "
-        f"{tables_bound(burst[0], burst[1], bcomp[:1024], bblock)}")
+    # One burst of the tables path as the engine launches it (1024 x 4 KiB),
+    # and 256 x 128 KiB of the bench corpus, the parallel tables step's shape.
+    for what, (trows, tnseq, ttables, tblock, tcomp) in {
+            "bench burst 1024 x 4 KiB": (brows[:1024], bnseq[:1024],
+                                         {k: v[:1024] for k, v in btables.items()}, bblock,
+                                         bcomp[:1024]),
+            f"bench {TABLE_STEP_BLOCKS} x 128 KiB": tbatches[
+                "bench 128 KiB, the parallel tables step's shape"][:5]}.items():
+        def call(r=trows, n=tnseq, t=ttables, b=tblock):
+            return dt.decode_blocks(r, n, t, out_rows=b // 128)
+
+        turns_ms = [timing.device_time_ms(call, TIMED_REPS[1]) for _ in range(2)]
+        log(f"decode_tables {what} [{card}] kernel: {sum(turns_ms) / 2:.4f} ms/launch (turns "
+            f"{', '.join(f'{x:.4f}' for x in turns_ms)}); bound "
+            f"{tables_bound(trows, tnseq, tcomp, tblock)}")
+        wrapper_times(timing, f"decode_tables {what}", card, "decode_tables", call)
     drows, dnseq, dtables, dblock, dcomp, _ = tbatches["text 128 KiB, 8-pass plan budget"]
     res, ms = turns(timing, lambda: dt.decode_blocks(drows, dnseq, dtables, out_rows=dblock // 128),
                     lambda: dt.decode_tables_reference(drows, dnseq, dtables, dblock // 128))
     report(f"decode_tables text {drows.shape[0]} x 128 KiB (deep tables)", card, res, ms,
            drows.shape[0] * dblock)
     log(f"decode_tables text bound [{card}]: {tables_bound(drows, dnseq, dcomp, dblock)}")
+    wrapper_times(timing, f"decode_tables text {drows.shape[0]} x 128 KiB (deep tables)", card,
+                  "decode_tables",
+                  lambda: dt.decode_blocks(drows, dnseq, dtables, out_rows=dblock // 128))
 
     # B3 at the phase-3 batch and at the shape the main paths launch: one
     # whole unit, indices at max_match 64 (the tpu matcher; the kernels
@@ -1180,10 +1271,13 @@ def main() -> int:
                 pl.view(-1, nrows, 128), nrows=nrows, max_match=mm, emit_values=v),
             lambda pl=pl, mm=mm, v=values: mt.match_reference(
                 pl, mt.DEFAULT_OFFSETS, max_match=mm, emit_values=v))
-        report(f"match bench {pl.shape[0]} x 128 KiB, 26 offsets, max_match {mm}, "
-               f"{'values' if values else 'indices'}", card, res, ms, pl.shape[0] * BLOCK)
+        what = (f"match bench {pl.shape[0]} x 128 KiB, 26 offsets, max_match {mm}, "
+                f"{'values' if values else 'indices'}")
+        report(what, card, res, ms, pl.shape[0] * BLOCK)
         log(f"match bound [{card}]: {match_bound(pl.shape[0], len(mt.DEFAULT_OFFSETS))}")
-    kernels["match"].update(ms=res["kernel"], plain_ms=res["plain"])
+        kernel_ms = wrapper_times(timing, what, card, "match", lambda pl=pl, mm=mm, v=values: (
+            mt.find_matches(pl.view(-1, nrows, 128), nrows=nrows, max_match=mm, emit_values=v)))
+    kernels["match"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=kernel_ms)
     kernels["match"]["bound"] = match_bound(NBLOCKS, len(mt.DEFAULT_OFFSETS))
 
     res, ms = turns(timing, lambda: md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024,
@@ -1192,7 +1286,9 @@ def main() -> int:
                                                     min_match=6, wcap=8))
     report(f"parse_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024 wcap 8", card, res, ms,
            MATCH_BLOCKS * BLOCK)
-    kernels["parse_walk"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["parse_walk"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+        timing, f"parse_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024 wcap 8", card, "parse_walk",
+        lambda: md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024, min_match=6, wcap=8)))
     pw = md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024, min_match=6, wcap=8)
     kernels["parse_walk"]["bound"] = walk_bound(mlen4, moff4, mlens, pw[0], pw[1], 1024, 8)
     log(f"parse_walk bound [{card}]: {kernels['parse_walk']['bound']} (positions the walk "
@@ -1202,7 +1298,10 @@ def main() -> int:
                     lambda: dp.decode_planned_reference(pcomp, pused, pse, psh, **pkw))
     report(f"decode_planned bench {len(pfit)} x 128 KiB, {ppasses} passes", card, res, ms,
            len(pfit) * BLOCK)
-    kernels["decode_planned"].update(ms=res["kernel"], plain_ms=res["plain"])
+    kernels["decode_planned"].update(
+        ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+        timing, f"decode_planned bench {len(pfit)} x 128 KiB, {ppasses} passes", card,
+        "decode_planned", lambda: dp.decode_blocks_planned(pcomp, pused, pse, psh, **pkw)))
     kernels["decode_planned"]["bound"] = planned_bound(pused, pstored, ppasses)
     tpu_phases(btt, mt, native, corpus, card)
 
@@ -1250,7 +1349,7 @@ def main() -> int:
         b_ms, b_by = k["bound"]
         line.append({"name": name, "route": "cuda", "source": sources[name][0],
                      "replaces": sources[name][1], "launches": k["launches"],
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None})
     log(json.dumps({"kernels": line}))

@@ -58,7 +58,7 @@ def test_slot_pool_double_put_rejected():
 
 def test_device_arena_write_gather_roundtrip():
     rng = np.random.default_rng(21)
-    arena = DeviceArena(slot_size=256, preallocated=20, max_slots=32)
+    arena = DeviceArena(slot_size=256, preallocated=20, max_slots=32, device="cpu")
     rows = rng.integers(0, 256, (4, 256), dtype=np.uint8)
     slots = arena.pool.take(4)
     arena.write_burst(slots, torch.from_numpy(rows))
@@ -67,8 +67,18 @@ def test_device_arena_write_gather_roundtrip():
     arena.pool.put(slots)
 
 
+def test_device_arena_defaults_to_the_card(monkeypatch):
+    # Like Engine: no device means CUDA, and without CUDA that is an error,
+    # not a quiet CPU arena.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(StatusError, match="device='cpu'"):
+        DeviceArena(slot_size=128, preallocated=20, max_slots=32)
+    assert DeviceArena(slot_size=128, preallocated=20, max_slots=32,
+                       device="cpu").device.type == "cpu"
+
+
 def test_device_arena_refs_and_recycle():
-    arena = DeviceArena(slot_size=128, preallocated=20, max_slots=32)
+    arena = DeviceArena(slot_size=128, preallocated=20, max_slots=32, device="cpu")
     refs = arena.take_refs([100, 50, 128])
     assert arena.pool.in_use() == 3
     assert arena.recycle(refs) == 3
@@ -79,7 +89,7 @@ def test_device_arena_refs_and_recycle():
 
 def test_device_arena_read_host_respects_length():
     rng = np.random.default_rng(22)
-    arena = DeviceArena(slot_size=128, preallocated=20, max_slots=32)
+    arena = DeviceArena(slot_size=128, preallocated=20, max_slots=32, device="cpu")
     data = rng.integers(0, 256, (1, 128), dtype=np.uint8)
     (ref,) = arena.take_refs([77])
     arena.write_burst([ref.slot], data)
@@ -92,7 +102,7 @@ def test_prefix_write_zero_fills_tail_like_jax_arena():
     # A used-prefix write zeroes the slot's tail, over a dirty slot: the
     # port and the JAX arena hold the same bytes after the same writes.
     rng = np.random.default_rng(23)
-    port = DeviceArena(slot_size=512, preallocated=20, max_slots=24)
+    port = DeviceArena(slot_size=512, preallocated=20, max_slots=24, device="cpu")
     ref = JaxArena(slot_size=512, preallocated=20, max_slots=24)
     full = rng.integers(0, 256, (3, 512), dtype=np.uint8)
     prefix = rng.integers(0, 256, (2, 128), dtype=np.uint8)
@@ -110,7 +120,7 @@ def test_prefix_write_zero_fills_tail_like_jax_arena():
     (np.zeros((3, 64), np.uint8), [0, 1]),      # row/slot count mismatch
 ])
 def test_write_burst_rejects_bad_rows(rows, slots):
-    arena = DeviceArena(slot_size=512, preallocated=20, max_slots=24)
+    arena = DeviceArena(slot_size=512, preallocated=20, max_slots=24, device="cpu")
     with pytest.raises(StatusError):
         arena.write_burst(slots, rows)
 

@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA device: every kernel (flat decode B1,
-table decode B2, static-offset match B3, B5 match walk, B4 match scoring,
-B6 parse walk, B7 dense-plan decode, emitter) against its plain PyTorch
-version on the card, and the engine's
+table decode B2 on parser, random well-formed and malformed tables,
+static-offset match B3, B5 match walk, B4 match scoring, B6 parse walk, B7
+dense-plan decode on planner, random and pass-class plans, emitter) against
+its plain PyTorch version on the card, and the engine's
 paths there (host and device compress, tables, Zstd, the tpu matchers,
 batched decode) and the multi-device dry run's.
 
@@ -22,6 +23,7 @@ import torch
 
 import bitar_tpu_torch as btt
 from bitar_tpu_torch.ops import decode_flat as tflat
+from bitar_tpu_torch.ops._build import block_queues
 from bitar_tpu_torch.ops import decode_tables as tdt
 from bitar_tpu_torch.ops import match as tmatch
 from bitar_tpu_torch.ops import device_compress as tdc
@@ -233,6 +235,67 @@ def test_decode_tables_kernel_matches_plain(batch, cuda_device):
     assert torch.equal(got, tdt.decode_tables_reference(rows, tn, tt, block // 128))
 
 
+@pytest.mark.parametrize("kind", ["well-formed", "malformed", "mixed"])
+@pytest.mark.parametrize("S,block", [(640, 4096), (6, 4096), (2048, 128 * 1024), (48, 128 * 1024)])
+def test_decode_tables_kernel_on_random_tables(S, block, kind, cuda_device):
+    # Well-formed tables take the parallel paths (chains longer than a
+    # window, offsets 1-130 across window edges, extents past the plane),
+    # malformed ones the serial walk, both kinds in one launch for "mixed";
+    # the kernel's per-path counts are the classifier's.
+    n = 16
+    good = tdt.random_tables(S + block, n, S, block)
+    bad = tdt.random_tables(S + block + 1, n, S, block, well_formed=False)
+    if kind == "mixed":
+        keep = np.arange(n) % 3 == 0
+        rows = np.where(keep[:, None], good[0], bad[0])
+        tables = {k: np.where(keep[:, None], good[1][k], bad[1][k]) for k in good[1]}
+        nseq = np.where(keep, good[2], bad[2])
+    else:
+        rows, tables, nseq = good if kind == "well-formed" else bad
+    rows = torch.from_numpy(rows).to(cuda_device)
+    tn, tt = tdt.table_tensors(tables, nseq, cuda_device)
+    paths = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    got = tdt.decode_blocks(rows, tn, tt, out_rows=block // 128, path_counts=paths)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tdt.decode_tables_reference(rows, tn, tt, block // 128))
+    wf = int(tdt.well_formed(tn, tt).sum())
+    assert paths.tolist() == [wf, n - wf]
+    assert wf == {"well-formed": n, "malformed": 0, "mixed": int(keep.sum())
+                  if kind == "mixed" else None}[kind]
+
+
+def test_decode_tables_kernel_on_single_literal_blocks(cuda_device):
+    # One literal run and no match (a RAW block) is copied straight to
+    # device memory: aligned and unaligned lit_ptr, runs past the row and
+    # past the plane, a negative lit_ptr, an empty run.
+    rng = np.random.default_rng(58)
+    block, n = 4096, 8
+    rows = rng.integers(0, 256, (n, 3 * block), np.uint8)
+    tables = {k: np.zeros((n, 128), np.int32) for k in native.SEQUENCE_KEYS}
+    tables["lit_ptr"][:, 0] = [0, 3, 16, 3 * block - 100, -5, 0, 17, 2 * block]
+    tables["lit_len"][:, 0] = [block, block, block - 9, block, 300, 0, 2 * block, block]
+    # The second batch's odd row stride breaks 16-byte alignment.
+    for r in (rows, np.ascontiguousarray(rows[:, :3 * block - 1])):
+        r = torch.from_numpy(r).to(cuda_device)
+        tn, tt = tdt.table_tensors(tables, np.ones(n, np.int32), cuda_device)
+        got = tdt.decode_blocks(r, tn, tt, out_rows=block // 128)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tdt.decode_tables_reference(r, tn, tt, block // 128))
+
+
+def test_decode_tables_kernel_decodes_parser_tables_in_parallel(cuda_device):
+    datas = [make_text_corpus(1)[:128 * 1024], make_corpus(1)[:64 * 1024]]
+    blocks = [datas[0]] + [datas[1][i * 4096:(i + 1) * 4096] for i in range(16)]
+    for group, block in ((blocks[:1], 128 * 1024), (blocks[1:], 4096)):
+        rows, tables, nseq, _ = tdt.parser_tables(group)
+        tn, tt = tdt.table_tensors(tables, nseq, cuda_device)
+        paths = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+        got = tdt.decode_blocks(torch.from_numpy(rows).to(cuda_device), tn, tt,
+                                out_rows=block // 128, path_counts=paths)
+        assert paths.tolist() == [len(group), 0]
+        assert [g.tobytes() for g in got.reshape(len(group), -1).cpu().numpy()] == group
+
+
 TIES = (24, 12, 48, 12, 3, 6, 0, 17000)
 
 
@@ -365,7 +428,7 @@ def test_decode_flat_kernel_queue_per_stream(cuda_device):
                                                      out_rows=128))
     torch.cuda.synchronize()
     assert all(torch.equal(o, want) for o in outs)
-    assert all(int(q.abs().sum()) == 0 for q in tflat._queues.values())
+    assert all(int(q.abs().sum()) == 0 for q in block_queues.values())
 
 
 def test_decode_flat_kernel_all_raw(cuda_device):
@@ -724,6 +787,41 @@ def test_decode_planned_kernel_matches_plain_on_random_plans(comp_rows, out_rows
     got = tdp.decode_blocks_planned(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, tdp.decode_planned_reference(*args, **kw))
+
+
+@pytest.mark.parametrize("reads", ["cccccccc", "Pccccc", "cPccPPcP"])
+@pytest.mark.parametrize("comp_rows,out_rows", [(32, 128), (2048, 512), (64, 1024), (512, 1024)])
+def test_decode_planned_kernel_on_pass_classes(reads, comp_rows, out_rows, cuda_device):
+    # Passes that read only comp rows (run without barriers), passes that
+    # read the out plane, and the seams between them; p_used spread over
+    # 0..passes, negative and past passes (the queue's order).
+    from bitar_tpu_torch.ops import decode_planned as tdp
+
+    flags = [c == "P" for c in reads]
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in tdp.class_plans(comp_rows + out_rows, 14, flags, comp_rows, out_rows)]
+    kw = dict(passes=len(flags), comp_rows=comp_rows, out_rows=out_rows)
+    got = tdp.decode_blocks_planned(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tdp.decode_planned_reference(*args, **kw))
+
+
+def test_decode_planned_kernel_in_any_block_order(cuda_device):
+    # The kernel takes the blocks by descending p_used; each
+    # block's output stays in its own row whatever order they come in, and
+    # the shared block queue is back at zero after every launch.
+    from bitar_tpu_torch.ops import decode_planned as tdp
+
+    args = [torch.from_numpy(a).to(cuda_device) for a in tdp.random_plans(31, 40, 6, 256, 512)]
+    kw = dict(passes=6, comp_rows=256, out_rows=512)
+    want = tdp.decode_planned_reference(*args, **kw)
+    for perm in (torch.arange(40), torch.argsort(args[1], descending=True),
+                 torch.randperm(40, generator=torch.Generator().manual_seed(3))):
+        perm = perm.to(cuda_device)
+        got = tdp.decode_blocks_planned(*(a[perm] for a in args), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want[perm])
+    assert all(int(q.abs().sum()) == 0 for q in block_queues.values())
 
 
 def test_decode_planned_rejects_blocks_past_the_shared_plane(cuda_device):

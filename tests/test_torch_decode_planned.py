@@ -5,7 +5,9 @@ The host planner is the same C++ in both packages (``plan_block``); plans
 are packed by each package's ``pack_plan`` and decoded by the JAX Pallas
 kernel in interpret mode and by the port's plain version.  Tolerance 0:
 these are bytes.  Random malformed plans pin the anchor-row rule (a lane
-reads row ``row_a`` or ``row_a + 1``, never ``S[q]`` itself).
+reads row ``row_a`` or ``row_a + 1``, never ``S[q]`` itself).  The pass
+classes the kernel relies on (a comp-only pass reads no out row) are
+checked on planner plans and on ``class_plans``.
 """
 
 import jax.numpy as jnp
@@ -18,6 +20,7 @@ from bitar_tpu.ops.cpu import native as jnative
 from bitar_tpu.ops.pallas import lz4_decode_planned as jdp
 from bitar_tpu_torch.ops import decode_planned as tdp
 from bitar_tpu_torch.ops.cpu import native
+from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
 
 torch.set_num_threads(1)
 
@@ -157,3 +160,34 @@ def test_refuses_a_device_without_kernel():
     with pytest.raises(btt.StatusError):
         tdp.decode_blocks_planned(comp, torch.ones(1, dtype=torch.int32, device="meta"), z, z,
                                   passes=1, comp_rows=32, out_rows=128)
+
+
+@pytest.mark.parametrize("block", [16 * 1024, 128 * 1024])
+@pytest.mark.parametrize("corpus", ["bench", "text"])
+def test_planner_comp_passes_read_no_out_row(corpus, block):
+    # pack_plan rebases only passes >= p0 into the out region, so under the
+    # anchor rule the first p0 passes of every block read comp rows only:
+    # the kernel runs them without barriers.
+    src = (make_corpus if corpus == "bench" else make_text_corpus)(4)
+    datas = [src[i * block:(i + 1) * block] for i in range(min(8, len(src) // block))]
+    wire = tdp.plan_blocks(datas, block, 160)
+    reads = tdp.pass_reads_plane(t(wire["se"]), t(wire["shift"]), comp_rows=wire["comp_rows"],
+                                 out_rows=block // 128)
+    for j, (p0, pu) in enumerate(zip(wire["p0"], wire["p_used"])):
+        assert not reads[j, :p0].any(), f"block {j}: a comp pass reads the out plane"
+    assert (wire["p0"] > 0).all() and any(reads[j, p0:pu].any()
+                                          for j, (p0, pu) in enumerate(zip(wire["p0"],
+                                                                           wire["p_used"])))
+
+
+@pytest.mark.parametrize("reads", ["cccccc", "Pccccc", "cPccPPc"])
+def test_class_plans_have_the_classes_asked_for(reads):
+    flags = [c == "P" for c in reads]
+    for comp_rows, out_rows in ((32, 128), (2048, 512), (64, 1024)):
+        comp, p_used, se, shift = tdp.class_plans(3, 7, flags, comp_rows, out_rows)
+        got = tdp.pass_reads_plane(t(se), t(shift), comp_rows=comp_rows, out_rows=out_rows)
+        assert got.tolist() == [flags] * 7
+        assert {int(p) for p in p_used} >= {-2, 0, 1, len(flags), len(flags) + 3}
+        kw = dict(passes=len(flags), comp_rows=comp_rows, out_rows=out_rows)
+        np.testing.assert_array_equal(port_decode(comp, p_used, se, shift, **kw),
+                                      jax_decode(comp, p_used, se, shift, **kw))

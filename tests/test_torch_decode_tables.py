@@ -7,7 +7,9 @@ by both packages' bindings of the one host library and padded by both
 interpret mode, the port's wrapper its plain PyTorch version on CPU tensors.
 Tolerance 0.  The reference leaves the bytes past a block's decoded extent
 undefined, so parity compares ``[:raw_len]``; the port's bytes past it are
-zero.
+zero.  The kernel's classifier (``well_formed``) is checked on the parser's
+tables and on the random generators' (``random_tables``), and the plain
+version against a byte-serial numpy oracle of the module docstring's rules.
 """
 
 from pathlib import Path
@@ -23,6 +25,7 @@ from bitar_tpu.ops.pallas.lz4_decode import decode_blocks as jax_decode_blocks
 from bitar_tpu_torch.ops import decode_tables as dt
 from bitar_tpu_torch.ops.cpu import native
 from bitar_tpu_torch.ops.cpu.native import SEQUENCE_KEYS
+from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
 
 torch.set_num_threads(1)
 
@@ -160,3 +163,81 @@ def test_malformed_tables_stay_in_the_plane():
     assert flat[:6].tolist() == [254, 255, 0, 0, 0, 0]        # comp bytes past 255 read 0
     assert not flat[6:15].any()                               # off 0: zeros
     assert not out[1].any()
+
+
+def serial_oracle(rows: np.ndarray, tables, nseq, block: int) -> np.ndarray:
+    """The module docstring's rules, byte by byte: literals in sequence
+    order, then matches in sequence order; writes outside the plane
+    dropped, comp bytes outside the row and sources before the plane (or
+    off < 1) read 0."""
+    n, w = rows.shape
+    S = tables["lit_ptr"].shape[1]
+    out = np.zeros((n, block), np.uint8)
+    for b in range(n):
+        ns = min(max(int(nseq[b]), 0), S)
+        lp, ll, off, ml, op = (tables[k][b, :ns].astype(np.int64) for k in SEQUENCE_KEYS)
+        for s in range(ns):
+            for j in range(max(0, -op[s]), min(ll[s], block - op[s])):
+                q = lp[s] + j
+                out[b, op[s] + j] = rows[b, q] if 0 <= q < w else 0
+        for s in range(ns):
+            d = op[s] + ll[s]
+            for j in range(max(0, -d), min(ml[s], block - d)):
+                src = d - off[s] + j % off[s] if off[s] >= 1 else -1
+                out[b, d + j] = out[b, src] if src >= 0 else 0
+    return out
+
+
+def as_tensors(rows, tables, nseq):
+    tn, tt = dt.table_tensors(tables, nseq, "cpu")
+    return torch.from_numpy(rows), tn, tt
+
+
+CORPORA = {"bench": make_corpus, "text": make_text_corpus}
+
+
+@pytest.mark.parametrize("corpus", sorted(CORPORA))
+@pytest.mark.parametrize("block", [1024, 4096, 16384, 131072])
+@pytest.mark.parametrize("codec", ["lz4", "snappy"])
+def test_parser_tables_are_well_formed(codec, block, corpus):
+    # Every table the parser emits, RAW blocks' included, takes the
+    # kernel's parallel path.
+    src = CORPORA[corpus](2)
+    datas = [src[i * block:(i + 1) * block] for i in range(min(32, len(src) // block))]
+    datas.append(np.random.default_rng(block).integers(0, 256, block, np.uint8).tobytes())
+    rows, tables, nseq, stored = dt.parser_tables(datas, codec)
+    assert stored[-1] == block and int(nseq[-1]) == 1, "the random block is stored RAW"
+    assert bool(dt.well_formed(*as_tensors(rows, tables, nseq)[1:]).all())
+    if block <= 4096:
+        got = dt.decode_blocks(*as_tensors(rows, tables, nseq), out_rows=block // 128)
+        assert [g.tobytes() for g in got.reshape(len(datas), -1).numpy()] == datas
+
+
+@pytest.mark.parametrize("S,block", [(640, 4096), (300, 1024), (2048, 16384)])
+def test_random_tables_classify_as_asked(S, block):
+    for wf in (True, False):
+        rows, tables, nseq = dt.random_tables(S + block, 12, S, block, well_formed=wf)
+        got = dt.well_formed(*as_tensors(rows, tables, nseq)[1:])
+        assert got.tolist() == [wf] * 12
+
+
+@pytest.mark.parametrize("well_formed", [True, False])
+@pytest.mark.parametrize("S,block", [(640, 4096), (300, 1024)])
+def test_plain_version_equals_byte_serial_oracle(S, block, well_formed):
+    # The chains run through every sequence of a table, longer than any of
+    # the kernel's windows; offsets 1-130 cross rows and window edges.
+    rows, tables, nseq = dt.random_tables(7 * S, 8, S, block, well_formed=well_formed)
+    got = dt.decode_blocks(*as_tensors(rows, tables, nseq), out_rows=block // 128)
+    np.testing.assert_array_equal(got.reshape(8, -1).numpy(),
+                                  serial_oracle(rows, tables, nseq, block))
+
+
+def test_path_counts_on_the_cpu_follow_the_classifier():
+    r1, t1, n1 = dt.random_tables(5, 6, 256, 1024)
+    r2, t2, n2 = dt.random_tables(6, 4, 256, 1024, well_formed=False)
+    rows = np.concatenate([r1, r2])
+    tables = {k: np.concatenate([t1[k], t2[k]]) for k in t1}
+    paths = torch.zeros(2, dtype=torch.int32)
+    dt.decode_blocks(*as_tensors(rows, tables, np.concatenate([n1, n2])), out_rows=8,
+                     path_counts=paths)
+    assert paths.tolist() == [6, 4]

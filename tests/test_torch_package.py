@@ -96,3 +96,19 @@ def test_device_timer_refuses_cpu():
         pytest.skip("CUDA is present: the timer runs")
     with pytest.raises(btt.StatusError):
         device_time_ms(lambda: None, reps=1)
+
+
+@pytest.mark.parametrize("timer", ["kernel_time_ms", "host_us_per_call"])
+def test_kernel_and_host_timers_refuse_cpu(timer, monkeypatch):
+    # Like device_time_ms: without CUDA they raise before calling anything.
+    import torch
+
+    from bitar_tpu_torch.utils import timing
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    fn = {"kernel_time_ms": lambda: timing.kernel_time_ms(lambda: calls.append(1), 3, "k"),
+          "host_us_per_call": lambda: timing.host_us_per_call(lambda: calls.append(1), 3)}[timer]
+    with pytest.raises(btt.StatusError, match="needs a CUDA device"):
+        fn()
+    assert calls == []

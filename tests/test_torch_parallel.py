@@ -186,15 +186,29 @@ def test_make_mesh_checks_the_world(tmp_path, monkeypatch):
         tpar.make_mesh(1)                       # no process group yet
     multihost.initialize(f"file://{tmp_path}/rendezvous", 1, 0, backend="gloo")
     try:
-        mesh = tpar.make_mesh(config=tconfig.ShardingConfig(mesh_shape=(1,)))
+        mesh = tpar.make_mesh(config=tconfig.ShardingConfig(mesh_shape=(1,)), device_type="cpu")
         assert mesh.size() == 1 and mesh.mesh_dim_names == ("blocks",)
         with pytest.raises(btt.StatusError):
-            tpar.make_mesh(2)
+            tpar.make_mesh(2, device_type="cpu")
         assert multihost.initialize(f"file://{tmp_path}/other", 1, 0)["process_count"] == 1
         (rows,) = tpar.shard_blocks(mesh, np.arange(6, dtype=np.int32).reshape(3, 2))
         assert rows.device.type == "cpu" and rows.shape == (3, 2)
         with pytest.raises(btt.StatusError, match="CPU mesh"):
             tpar.shard_blocks(mesh, torch.empty(3, 2, device="meta"))   # never moved off a device
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_make_mesh_defaults_to_the_card(tmp_path, monkeypatch):
+    # No device_type means CUDA; without CUDA make_mesh raises rather than
+    # quietly building a CPU mesh.
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    multihost.initialize(f"file://{tmp_path}/rendezvous", 1, 0, backend="gloo")
+    try:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(btt.StatusError, match="device_type='cpu'"):
+            tpar.make_mesh(1)
+        assert tpar.make_mesh(1, device_type="cpu").device_type == "cpu"
     finally:
         torch.distributed.destroy_process_group()
 
