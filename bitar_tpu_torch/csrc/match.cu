@@ -32,7 +32,8 @@
 //
 // Each warp scores 1024-position spans.  Lane w owns the 32 positions
 // p0 + 32 w + j (j < 32): it keeps their bytes in registers, and per offset
-// builds their match bits itself, four bytes to a compare (`match_word`).
+// builds their match bits itself, four bytes to a compare (`match_word`,
+// match_tile.cuh, which B4 and B5 share).
 // The run entering its word from the next is found warp-wide: a ballot of
 // the all-ones words, one shuffle of the first word that is not, and past
 // the span's end ballots that stop at the first word that is not all ones
@@ -45,16 +46,16 @@
 // slot itself, and a value is read from the tuple by it.  Stores are 16-byte
 // vectors, each lane writing its 32 positions' run and index.
 
-#include <cstdint>
-
-#include "cuda_util.cuh"
+#include "match_tile.cuh"
 
 namespace {
 
-constexpr int kWords = 32;               // 32-bit match words per span
-constexpr int kSpan = 32 * kWords;       // positions a warp scores at once
-constexpr int kSlotBits = 21;            // slot field of a packed best entry
-constexpr uint32_t kSlotMax = (1u << kSlotBits) - 1;
+using bt::kSlotBits;
+using bt::kSlotMax;
+using bt::kSpan;
+using bt::kWords;
+using bt::match_word;
+using bt::ones_from;
 
 struct Args {
   const uint8_t* planes;        // [n, L]
@@ -65,48 +66,9 @@ struct Args {
   int L, tile, tiles, maxoff, cap, max_match, emit_values;
 };
 
-// Ones running on from bit 0 of m (32 when m is all ones).
-__device__ __forceinline__ uint32_t ones_from(uint32_t m) { return __clz(__brev(~m)); }
-
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-// Match bits of the 32 positions [P, P + 32), P % 32 == 0 and P >= d: bit j
-// is x[P + j] == x[P + j - d].  xv holds x[P, P + 32).  The source bytes
-// x[P - d, P - d + 32) come from three aligned 16-byte loads (their start
-// is 16-aligned below P - d, so they end before P + 32) shifted into place;
-// each word's four byte compares fold into a nibble (the zero bytes of
-// their XOR, read off exactly, then gathered by one multiply).
-__device__ __forceinline__ uint32_t match_word(const uint8_t* x, int P, int d,
-                                               const uint32_t (&xv)[8]) {
-  const int s = P - d;
-  const uint4* src4 = reinterpret_cast<const uint4*>(x + (s & ~15));
-  const uint4 b0 = src4[0], b1 = src4[1], b2 = src4[2];
-  const uint32_t w[12] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w,
-                          b2.x, b2.y, b2.z, b2.w};
-  const uint32_t sh = 8u * static_cast<uint32_t>(s & 3);
-  uint32_t src[8];
-  switch ((s & 15) >> 2) {        // the same in every lane: P % 16 == 0
-#define BT_SRC(o)                                                  \
-  _Pragma("unroll") for (int i = 0; i < 8; ++i)                    \
-      src[i] = __funnelshift_r(w[i + (o)], w[i + (o) + 1], sh);    \
-  break;
-    case 0: BT_SRC(0)
-    case 1: BT_SRC(1)
-    case 2: BT_SRC(2)
-    default: BT_SRC(3)
-#undef BT_SRC
-  }
-  uint32_t m = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t v = xv[i] ^ src[i];
-    const uint32_t eq = ~(((v & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | v) & 0x80808080u;
-    m |= ((eq * 0x00204081u) >> 28) << (4 * i);
-  }
-  return m;
 }
 
 // The window of tile [t0, t1): bytes [lo, hi) of the plane, 16-aligned

@@ -116,7 +116,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def load_kernel() -> ctypes.CDLL:
     """Build (at first use, for sm_90a) and load ``csrc/match.cu``."""
-    return load_cuda_kernel("match", _bind)
+    return load_cuda_kernel("match", _bind, ("match_tile.cuh",))
 
 
 #: Offset tuples already on a device, so a launch copies nothing from the

@@ -12,6 +12,8 @@ Counterpart of ``bitar_tpu/ops/pallas/lz4_match_dyn.py``.
 * ``parse_walk_dyn``: B5's greedy walk alone, over precomputed match planes
   such as B4's (kernel B6, ``csrc/parse_walk.cu``).  B4 then B6 gives B5's
   records.  The reference has no caller of it; it is its own entry point.
+* ``edge_batch``: blocks where B5's and B4's edges matter, for the smoke
+  run and the tests.
 
 Scoring, per block and per offset ``d`` in ``offs[b, :noff[b]]`` in order:
 ``run[p]`` is the number of consecutive positions ``p' >= p`` with
@@ -36,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ._build import check_cuda, load_cuda_kernel, require
@@ -231,6 +234,72 @@ def match_dyn_reference(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Tens
     return _score_reference(comp, noff, offs, max_match)
 
 
+#: Offset slots of :func:`edge_batch`'s blocks (as ``detect_fft=True,
+#: fft_k=6`` gives them).
+EDGE_K = 10
+
+
+def edge_batch(L: int, n: int = 37, seed: int = 0):
+    """Blocks where a tiled scorer's and walk's edges matter, as numpy
+    (planes [n, L] uint8, noff [n], offs [n, EDGE_K], lengths [n] int32),
+    kinds in turn:
+
+    0. ``noff = 0`` with offsets in its slots, beside live blocks;
+    1. two offsets (slots 0 and 1: 1536, 3536) whose runs start 20 bytes
+       before L/2 (a segment end at seg 512-2048 and a tile end) and both
+       pass it, slot 1's further (100 and 300 positions): the uncut
+       look-ahead, not the truncated length, decides the offset;
+    2. the same with runs of 1500 and 1900 positions;
+    3. ten offsets with a 0 in slot 4, one above half the plane and one of
+       L - 128 (the plane's last 128 bytes copy its first);
+    4. those offsets with the 0 past ``noff = 7`` and a duplicate, so the
+       large offsets win where they match;
+    5. a period-47 text through every tile, length L - 37;
+    6. RLE, whose runs reach the plane end, length L // 3 + 5.
+
+    ``L`` must be a multiple of 128 and at least 8192."""
+    if L % 128 or L < 8192:
+        raise ValueError("edge_batch: L must be a multiple of 128 and >= 8192")
+    rng = np.random.default_rng(seed)
+    planes = rng.integers(0, 256, (n, L), np.uint8)
+    offs = np.zeros((n, EDGE_K), np.int32)
+    noff = np.zeros(n, np.int32)
+    lengths = np.full(n, L, np.int32)
+    half = L // 2 + 64
+    wide = [7, L - 128, half, 3, 0, 9, 11, 13, 17, 19]
+    text = np.frombuffer((b"The quick brown fox jumps over the lazy dog 7. "
+                          * (L // 47 + 1))[:L], np.uint8)
+    for b in range(n):
+        x = planes[b]
+        kind = b % 7
+        if kind == 0:
+            x[:] = rng.integers(0, 4, L, np.uint8)
+            offs[b] = [1, 2, 3, 4, 5, 6, 7, 8, 9, 10]
+        elif kind in (1, 2):
+            d1, d2 = 1536, 3536
+            r1, r2 = (100, 300) if kind == 1 else (1500, 1900)
+            p0 = L // 2 - 20
+            x[p0 - d1:p0 - d1 + r1] = x[p0 - d2:p0 - d2 + r1]   # d1's source = d2's
+            x[p0:p0 + r2] = x[p0 - d2:p0 - d2 + r2]
+            x[p0 - d1 + r1] = x[p0 + r1 - d2] ^ 0x5A            # d1's run ends at p0 + r1
+            x[p0 + r2] = x[p0 + r2 - d2] ^ 0x5A                 # d2's at p0 + r2
+            offs[b, :2], noff[b] = (d1, d2), 2
+        elif kind in (3, 4):
+            x[L - 128:] = x[:128]
+            x[half + 1000:half + 1600] = x[1000:1600]
+            offs[b], noff[b] = wide, EDGE_K
+            if kind == 4:
+                offs[b, 4], offs[b, 7], noff[b] = 3, 0, 7
+        elif kind == 5:
+            x[:] = text
+            offs[b, :2], noff[b], lengths[b] = (47, 94), 2, L - 37
+        else:
+            x[:] = 7
+            offs[b, :3], noff[b], lengths[b] = (1, 2, 3), 3, L // 3 + 5
+        x[lengths[b]:] = 0
+    return planes, noff, offs, lengths
+
+
 def _split_records(rec: torch.Tensor, wcap: int):
     """``rec [N, 3*wcap + 1, nseg]`` -> (P, M, O [N, nseg * wcap] in
     (segment, step) order, overflow [N] bool)."""
@@ -255,11 +324,12 @@ def parse_walk_reference(mlen: torch.Tensor, moff: torch.Tensor, lengths: torch.
 
 
 _vp, _int = ctypes.c_void_p, ctypes.c_int
-_WALK_ARGS = [_vp, _vp, _vp, _int, _vp, _vp,   # planes, noff, offs, K, lengths, rec
+_WALK_ARGS = [_vp, _vp, _vp, _int, _vp,        # planes, noff, offs, K, lengths
+              _vp, _vp, _vp, _vp,              # P, M, O, segment flags
               _int, _int, _int,                # n, L, seg
-              _int, _int, _int, _vp]           # min_match, wcap, max_match, stream
+              _int, _int, _int, _int, _vp]     # min_match, wcap, max_match, device, stream
 _DYN_ARGS = [_vp, _vp, _vp, _int, _vp, _vp,    # planes, noff, offs, K, mlen, moff
-             _int, _int, _int, _vp]            # n, L, max_match, stream
+             _int, _int, _int, _int, _vp]      # n, L, max_match, device, stream
 _PARSE_WALK_ARGS = [_vp, _vp, _vp,             # mlen, moff, lengths
                     _vp, _vp, _vp, _vp,        # P, M, O, segment flags
                     _int, _int, _int,          # n, L, seg
@@ -271,7 +341,7 @@ def _load(stem: str, argtypes: list) -> ctypes.CDLL:
         fn = getattr(lib, f"bt_{stem}_launch")
         fn.restype = _int
         fn.argtypes = argtypes
-    return load_cuda_kernel(stem, bind, ("match_score.cuh",))
+    return load_cuda_kernel(stem, bind, ("match_tile.cuh",))
 
 
 def load_walk_kernel() -> ctypes.CDLL:
@@ -292,18 +362,27 @@ def load_parse_walk_kernel() -> ctypes.CDLL:
     return load_cuda_kernel("parse_walk", bind)
 
 
-def _check_inputs(comp, noff, offs, lengths=None) -> None:
-    n = comp.shape[0]
-    require(comp.dtype == torch.uint8 and comp.is_contiguous(),
-            f"planes: want contiguous uint8, got {comp.dtype}")
+_walk_fn = None     # the libraries' bound launch functions, once loaded
+_dyn_fn = None
+
+
+def _kernel_inputs(x, noff, offs, lengths=None) -> torch.Tensor:
+    """Checks what the kernels read (contiguous uint8 planes; int32 noff,
+    offs and lengths on their device), building a message only on failure;
+    returns the planes 16-byte aligned (the kernels load them 16 bytes at a
+    time)."""
+    n = x.shape[0]
+    if not (x.dtype == torch.uint8 and x.is_contiguous()):
+        require(False, f"planes: want contiguous uint8, got {x.dtype}")
     named = [("noff", noff, (n,)), ("offs", offs, (n, offs.shape[-1]))]
     if lengths is not None:
         named.append(("lengths", lengths, (n,)))
     for name, t, shape in named:
-        require(t.device == comp.device and t.dtype == torch.int32
-                and t.is_contiguous() and tuple(t.shape) == shape,
-                f"{name}: want contiguous int32 {list(shape)} on {comp.device}, "
-                f"got {t.dtype} {list(t.shape)} on {t.device}")
+        if not (t.device == x.device and t.dtype == torch.int32 and t.is_contiguous()
+                and t.shape == shape):
+            require(False, f"{name}: want contiguous int32 {list(shape)} on {x.device}, "
+                           f"got {t.dtype} {list(t.shape)} on {t.device}")
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _as_planes(comp: torch.Tensor, nrows: int) -> torch.Tensor:
@@ -321,8 +400,10 @@ def find_matches_parse_dyn(comp: torch.Tensor, noff: torch.Tensor, offs: torch.T
     ``comp``: [N, nrows, 128] uint8 raw planes; ``noff`` [N], ``offs``
     [N, K] and ``lengths`` [N] int32.  Returns (P, M, O [N, nseg * wcap]
     int32 in position order, P = -1 for an empty slot; overflow [N] bool).
-    Requires seg % 128 == 0, nseg <= 128 and max_match <= seg."""
-    global walk_launches
+    Requires seg % 128 == 0, nseg <= 128 and max_match <= seg.  A CPU
+    tensor runs :func:`match_walk_reference`; a CUDA one launches
+    ``csrc/match_walk.cu`` (max_match up to 2047) or raises StatusError."""
+    global walk_launches, _walk_fn
     L = nrows * LANES
     if seg % LANES or L % seg:
         raise ValueError("seg must be lane-aligned and divide the plane")
@@ -336,21 +417,25 @@ def find_matches_parse_dyn(comp: torch.Tensor, noff: torch.Tensor, offs: torch.T
     if x.device.type == "cpu":
         rec = match_walk_reference(x, noff, offs, lengths, seg=seg, min_match=min_match,
                                    wcap=wcap, max_match=max_match)
-    else:
-        require(x.device.type == "cuda",
-                f"find_matches_parse_dyn: no kernel for device {x.device}")
-        _check_inputs(x, noff, offs, lengths)
-        rec = torch.empty((n, 3 * wcap + 1, nseg), dtype=torch.int32, device=x.device)
-        if n:
-            lib = load_walk_kernel()
-            with torch.cuda.device(x.device):
-                rc = lib.bt_match_walk_launch(
-                    x.data_ptr(), noff.data_ptr(), offs.data_ptr(), offs.shape[1],
-                    lengths.data_ptr(), rec.data_ptr(), n, L, seg, min_match, wcap,
-                    max_match, torch.cuda.current_stream(x.device).cuda_stream)
-            check_cuda(rc, "match_walk launch", lib)
-            walk_launches += 1
-    return _split_records(rec, wcap)
+        return _split_records(rec, wcap)
+    require(x.device.type == "cuda", f"find_matches_parse_dyn: no kernel for device {x.device}")
+    require(wcap >= 0, f"wcap {wcap} must not be negative")
+    x = _kernel_inputs(x, noff, offs, lengths)
+    dev = x.device
+    P, M, O = torch.empty((3, n, nseg * wcap), dtype=torch.int32, device=dev)
+    flags = torch.empty((n, nseg), dtype=torch.int32, device=dev)
+    if n:
+        if _walk_fn is None:
+            _walk_fn = load_walk_kernel().bt_match_walk_launch
+        # The device's current stream as torch.cuda.current_stream(dev)
+        # gives it, without building a Stream object or entering the device.
+        rc = _walk_fn(x.data_ptr(), noff.data_ptr(), offs.data_ptr(), offs.shape[1],
+                      lengths.data_ptr(), P.data_ptr(), M.data_ptr(), O.data_ptr(),
+                      flags.data_ptr(), n, L, seg, min_match, wcap, max_match, dev.index,
+                      torch._C._cuda_getCurrentRawStream(dev.index))
+        check_cuda(rc, "match_walk launch", load_walk_kernel())
+        walk_launches += 1
+    return P, M, O, flags.any(dim=1)
 
 
 def parse_walk_dyn(mlen: torch.Tensor, moff: torch.Tensor, lengths: torch.Tensor, *,
@@ -404,24 +489,23 @@ def find_matches_dyn(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Tensor,
     Returns (mlen, moff), each [N, nrows, 128] int32: the best run at each
     position capped at ``max_match`` (every prefix byte-true) and its
     offset."""
-    global dyn_launches
+    global dyn_launches, _dyn_fn
     x = _as_planes(comp, nrows)
     n, L = x.shape
     if x.device.type == "cpu":
         mlen, moff = match_dyn_reference(x, noff, offs, max_match=max_match)
-    else:
-        require(x.device.type == "cuda", f"find_matches_dyn: no kernel for device {x.device}")
-        require(1 <= max_match <= 2047, f"max_match {max_match} outside [1, 2047]")
-        _check_inputs(x, noff, offs)
-        mlen = torch.empty((n, L), dtype=torch.int32, device=x.device)
-        moff = torch.empty_like(mlen)
-        if n:
-            lib = load_dyn_kernel()
-            with torch.cuda.device(x.device):
-                rc = lib.bt_match_dyn_launch(
-                    x.data_ptr(), noff.data_ptr(), offs.data_ptr(), offs.shape[1],
-                    mlen.data_ptr(), moff.data_ptr(), n, L, max_match,
-                    torch.cuda.current_stream(x.device).cuda_stream)
-            check_cuda(rc, "match_dyn launch", lib)
-            dyn_launches += 1
+        return mlen.reshape(n, nrows, LANES), moff.reshape(n, nrows, LANES)
+    require(x.device.type == "cuda", f"find_matches_dyn: no kernel for device {x.device}")
+    require(1 <= max_match <= 2047, f"max_match {max_match} outside [1, 2047]")
+    x = _kernel_inputs(x, noff, offs)
+    dev = x.device
+    mlen, moff = torch.empty((2, n, L), dtype=torch.int32, device=dev)
+    if n:
+        if _dyn_fn is None:
+            _dyn_fn = load_dyn_kernel().bt_match_dyn_launch
+        rc = _dyn_fn(x.data_ptr(), noff.data_ptr(), offs.data_ptr(), offs.shape[1],
+                     mlen.data_ptr(), moff.data_ptr(), n, L, max_match, dev.index,
+                     torch._C._cuda_getCurrentRawStream(dev.index))
+        check_cuda(rc, "match_dyn launch", load_dyn_kernel())
+        dyn_launches += 1
     return mlen.reshape(n, nrows, LANES), moff.reshape(n, nrows, LANES)

@@ -1,17 +1,22 @@
 """Time this checkout's B1 (``decode_flat``), B2 (``decode_tables``), B3
-(``match``) and B7 (``decode_planned``) kernels against another checkout's
-on one card, in turns, on the same inputs.
+(``match``), B4 (``match_dyn``), B5 (``match_walk``) and B7
+(``decode_planned``) kernels against another checkout's on one card, in
+turns, on the same inputs.
 
     python -m bitar_tpu_torch.utils.kernel_ab --old DIR [--out FILE]
-        [--only match|decode_flat|decode_tables|decode_planned]
+        [--only match|match_walk|match_dyn|decode_flat|decode_tables|decode_planned]
 
 ``DIR`` is the root of another checkout of the repo (for example a ``git
 archive`` of the parent commit unpacked into a git-ignored directory).  Its
 package is loaded beside this one under another name and builds its kernels
 into its own ``_build/``.  Every shape is run old, new, new, old (CUDA
-events, mean ms per launch) after the two outputs are checked equal; B2 and
-B7 are also timed kernel-only (``timing.kernel_time_ms``) and by the host
-clock per call (``timing.host_us_per_call``), in the same turns.  The plain
+events, mean ms per launch) after the two outputs are checked equal; B2,
+B3, B4, B5 and B7 are also timed kernel-only (``timing.kernel_time_ms``) and by
+the host clock per call (``timing.host_us_per_call``), in the same turns.
+B5 runs on 256 x 128 KiB of the bench corpus (seg 1024, max_match 1024)
+and B4 on 64 x 128 KiB of it (max_match 256), each with the offsets the
+device matcher detects, and both on 64 x 128 KiB of the text corpus with
+those of ``detect_fft=True, fft_k=6`` (up to 10 a block).  The plain
 versions are not timed here (``chip_smoke.py`` does that).  Prints one JSON
 object per shape and the card's name and power limit.  Needs CUDA.
 """
@@ -30,6 +35,9 @@ import torch
 
 BLOCK = 128 * 1024
 REPS = 20
+WALK_BLOCKS = 256             # B5's bench batch (the device matcher's)
+DYN_BLOCKS = 64               # B4's bench batch (seg 256)
+DYN_TEXT_BLOCKS = 64          # B5's and B4's text batch
 
 
 def load_package(root: Path, name: str):
@@ -86,7 +94,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, type=Path, help="root of the other checkout")
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--only", choices=("match", "decode_flat", "decode_tables", "decode_planned"),
+    ap.add_argument("--only", choices=("match", "match_walk", "match_dyn", "decode_flat",
+                                       "decode_tables", "decode_planned"),
                     help="time one kernel only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -116,7 +125,9 @@ def main() -> int:
         ab_tables(emit, timing, corpus, make_text_corpus(256))
     if args.only in (None, "decode_planned"):
         ab_planned(emit, timing, corpus)
-    if args.only in ("decode_tables", "decode_planned"):
+    if args.only in (None, "match_walk", "match_dyn"):
+        ab_match_dyn(emit, timing, corpus, make_text_corpus(DYN_TEXT_BLOCKS), args.only)
+    if args.only in ("decode_tables", "decode_planned", "match_walk", "match_dyn"):
         return finish(args, lines)
     nrows = BLOCK // 128
     planes = torch.from_numpy(np.frombuffer(corpus, np.uint8).reshape(1024, nrows, 128)
@@ -127,7 +138,7 @@ def main() -> int:
         kw = dict(offsets=mt.DEFAULT_OFFSETS, nrows=nrows, max_match=mm, emit_values=values)
         equal = same(mt.find_matches(x, **kw), omt.find_matches(x, **kw))
         res = turns(timing, lambda x=x, kw=kw: omt.find_matches(x, **kw),
-                    lambda x=x, kw=kw: mt.find_matches(x, **kw))
+                    lambda x=x, kw=kw: mt.find_matches(x, **kw), "match_kernel", 100)
         emit({"kernel": "match", "shape": f"{n} x 128 KiB, 26 offsets, max_match {mm}, "
               f"{'values' if values else 'indices'}", "equal": equal, **res})
 
@@ -214,6 +225,51 @@ def ab_planned(emit, timing, corpus: bytes) -> None:
               **turns(timing, lambda a=a: odp.decode_blocks_planned(*a, **kw),
                       lambda a=a: dp.decode_blocks_planned(*a, **kw),
                       "decode_planned_kernel", 100)})
+
+
+def ab_match_dyn(emit, timing, corpus: bytes, text: bytes, only: str | None) -> None:
+    from bitar_tpu_torch.ops import device_compress as dc
+    from bitar_tpu_torch.ops import match_dyn as md
+    from bitar_tpu_torch_old.ops import match_dyn as omd
+
+    nrows = BLOCK // 128
+
+    def batch(data: bytes, n: int, fft: bool):
+        planes = torch.from_numpy(np.frombuffer(data[:n * BLOCK], np.uint8)
+                                  .reshape(n, BLOCK).copy()).cuda()
+        noff, offs = dc.candidate_offsets(planes, detect_fft=fft, fft_k=6)
+        lengths = torch.full((n,), BLOCK, dtype=torch.int32, device=planes.device)
+        return planes.view(n, nrows, 128), noff, offs, lengths
+
+    walk_kw = dict(nrows=nrows, seg=1024, min_match=6, max_match=1024)
+    for name, (x, noff, offs, lengths) in (
+            ("bench", batch(corpus, WALK_BLOCKS, False)),
+            ("text detect_fft", batch(text, DYN_TEXT_BLOCKS, True))):
+        shape = (f"{name} {x.shape[0]} x 128 KiB, offsets a block {noff.float().mean():.2f} "
+                 f"(K {offs.shape[1]})")
+        if only in (None, "match_walk"):
+            def new(a=(x, noff, offs, lengths)):
+                return md.find_matches_parse_dyn(*a, **walk_kw)
+
+            def prev(a=(x, noff, offs, lengths)):
+                return omd.find_matches_parse_dyn(*a, **walk_kw)
+
+            equal = same(new(), prev())
+            emit({"kernel": "match_walk", "shape": f"{shape}, seg 1024, max_match 1024",
+                  "equal": equal, **turns(timing, prev, new, "match_walk_kernel", 100)})
+        if only in (None, "match_dyn"):
+            xd = x[:DYN_BLOCKS] if name == "bench" else x
+
+            def new(a=(xd, noff[:xd.shape[0]], offs[:xd.shape[0]])):
+                return md.find_matches_dyn(*a, nrows=nrows, max_match=256)
+
+            def prev(a=(xd, noff[:xd.shape[0]], offs[:xd.shape[0]])):
+                return omd.find_matches_dyn(*a, nrows=nrows, max_match=256)
+
+            equal = same(new(), prev())
+            emit({"kernel": "match_dyn", "shape": f"{name} {xd.shape[0]} x 128 KiB, "
+                  f"max_match 256", "equal": equal,
+                  **turns(timing, prev, new, "match_dyn_kernel", 100)})
 
 
 def finish(args, lines: list[str]) -> int:

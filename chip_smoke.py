@@ -19,8 +19,14 @@ Phases (any failure raises, and the script exits non-zero):
      ``compress_blocks_device(seg=256)`` detects;
    - both on inputs where the choice between offsets matters: 64 x 128 KiB
      of the text corpus with the offsets of ``detect_fft=True, fft_k=6``,
-     and a batch with hand-set offsets (ties, duplicates, a 0 inside the
-     first ``noff``, ``noff = 0``, runs that reach the plane end);
+     a batch with hand-set offsets (ties, duplicates, a 0 inside the
+     first ``noff``, ``noff = 0``, runs that reach the plane end), and the
+     edge batches of ``match_dyn.edge_batch`` (37 blocks at 16, 48 and 128
+     KiB: ``noff = 0`` beside live blocks and out of range, two offsets
+     running through a segment and tile end where the later runs further,
+     ten offsets with a 0, offsets up to L - 128, runs through every tile),
+     B5 at seg 512, 1024 and 2048, max_match 1 to 2047, B4 at max_match 1,
+     64, 256 and 2047;
    - ``emit`` at widths 128, 2048 and the adaptive one: LZ4 on the bench
      corpus, on the text corpus with ``detect_fft=True`` and on short RLE
      blocks that fit 128 bytes, and Snappy at 8192;
@@ -85,7 +91,8 @@ Phases (any failure raises, and the script exits non-zero):
    B3 at 64 x 128 KiB and at 1024 x 128 KiB in both modes (the kernels
    line takes 1024, indices, max_match 64); B2 at 8192 x 4 KiB (the
    kernels line), its 1024 x 4 KiB burst, 256 x 128 KiB of the bench
-   corpus and the deep text tables; B5, B4, the emitter, B6 and B7 at the
+   corpus and the deep text tables; B5 and B4 on their bench batches and on
+   the text ``detect_fft`` batch; the emitter, B6 and B7 at the
    shapes of phase 3 (the
    multi-device steps' host-clock times are logged in phase 4); the whole
    ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
@@ -106,7 +113,6 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import json
-import math
 import subprocess
 import sys
 import time
@@ -127,6 +133,11 @@ BATCH_UNIT_BLOCKS = 256       # blocks of each unit of the batched decode
 #: everywhere, one past the block.
 TIES = (94, 47, 141, 47, 3, 6, 0, 140000)
 FFT_TEXT_BLOCKS = 64          # text batch of the B5 / B4 / emitter checks
+EDGE_BLOCKS = 37              # blocks of the B5 / B4 edge batches (below 132, no multiple)
+#: (block, seg, max_match) of B5's edge batches, and (block, max_match) of B4's
+WALK_EDGES = ((BLOCK, 1024, 1024), (BLOCK, 2048, 2047), (48 * 1024, 1024, 64),
+              (16 * 1024, 512, 1))
+DYN_EDGES = ((BLOCK, 1), (BLOCK, 256), (BLOCK, 2047), (48 * 1024, 64))
 SHORT_BLOCKS = 32             # short RLE blocks of the width-128 emitter check
 PLANNED_MAX_PASSES = 64       # B7's plan budget per 128 KiB block
 TABLE_STEP_BLOCKS = 256       # blocks of the multi-device B2 steps
@@ -380,14 +391,15 @@ def short_batch():
     return torch.from_numpy(planes).cuda(), torch.from_numpy(lengths).cuda()
 
 
-def compare_walk(md, planes, noff, offs, lens, what: str):
-    """B5 against its plain version, seg 1024; returns (max |diff|, P/M/O/overflow)."""
-    n = planes.shape[0]
+def compare_walk(md, planes, noff, offs, lens, what: str, seg: int = 1024,
+                 max_match: int = 1024):
+    """B5 against its plain version; returns (max |diff|, P/M/O/overflow)."""
+    n, L = planes.shape
     got = md.find_matches_parse_dyn(planes.view(n, -1, 128), noff, offs, lens,
-                                    nrows=BLOCK // 128, seg=1024, min_match=6, max_match=1024)
+                                    nrows=L // 128, seg=seg, min_match=6, max_match=max_match)
     torch.cuda.synchronize()
-    want = split_rec(md.match_walk_reference(planes, noff, offs, lens, seg=1024, min_match=6,
-                                             wcap=8, max_match=1024))
+    want = split_rec(md.match_walk_reference(planes, noff, offs, lens, seg=seg, min_match=6,
+                                             wcap=8, max_match=max_match))
     return max(check_equal(f"match_walk {what} {k}", g, w)
                for k, g, w in zip("PMOo", got, want)), got
 
@@ -395,14 +407,32 @@ def compare_walk(md, planes, noff, offs, lens, what: str):
 def compare_dyn(md, planes, noff, offs, what: str, max_match: int = 256):
     """B4 against its plain version; returns (max |diff|, the positions whose
     best offset is not the block's first)."""
-    n = planes.shape[0]
-    got = md.find_matches_dyn(planes.view(n, -1, 128), noff, offs, nrows=BLOCK // 128,
+    n, L = planes.shape
+    got = md.find_matches_dyn(planes.view(n, -1, 128), noff, offs, nrows=L // 128,
                               max_match=max_match)
     torch.cuda.synchronize()
     want = md.match_dyn_reference(planes, noff, offs, max_match=max_match)
     err = max(check_equal(f"match_dyn {what} mlen", got[0].view(n, -1), want[0]),
               check_equal(f"match_dyn {what} moff", got[1].view(n, -1), want[1]))
     return err, int(((want[1] > 0) & (want[1] != offs[:, :1])).sum())
+
+
+def edge_batch(md, block: int, n: int = EDGE_BLOCKS):
+    """``match_dyn.edge_batch`` on the card, with the noff of two blocks out
+    of range (clamped to [0, K] by the kernels): (planes, noff, offs, lengths)."""
+    planes, noff, offs, lengths = md.edge_batch(block, n)
+    noff[7], noff[8] = offs.shape[1] + 3, -1
+    return tuple(torch.from_numpy(a).cuda() for a in (planes, noff, offs, lengths))
+
+
+def score_bound(planes, noff, out_bytes: int) -> tuple[float, str]:
+    """B5's or B4's least time: the plane of each block with an offset and
+    its noff, offsets and lengths read, ``out_bytes`` written; two int32
+    operations per position and offset (the equality, the comparison with
+    the best), as ``match_bound`` counts B3's."""
+    n, L = planes.shape
+    live = noff.clamp(min=0)
+    return bound_ms(int((live > 0).sum()) * L + 12 * n + out_bytes, 2.0 * float(live.sum()) * L)
 
 
 def emit_bound(lay, ow: int) -> tuple[float, str]:
@@ -895,39 +925,35 @@ def main() -> int:
         return md.find_matches_parse_dyn(mplanes.view(-1, nrows, 128), noff, offs, mlens,
                                          nrows=nrows, seg=1024, min_match=6, max_match=1024)
 
-    def walk_plain():
-        return md.match_walk_reference(mplanes, noff, offs, mlens, seg=1024, min_match=6,
-                                       wcap=8, max_match=1024)
-
     err = 0
-    for what, (pl, nf, of, ln) in {"bench": (mplanes, noff, offs, mlens),
-                                   "text detect_fft": (tplanes, tnoff, toffs, tlens),
-                                   "hand-set offsets": (hplanes, hnoff, hoffs, hlens)}.items():
-        e, got = compare_walk(md, pl, nf, of, ln, what)
+    walk_batches = {"bench": (mplanes, noff, offs, mlens, 1024, 1024),
+                    "text detect_fft": (tplanes, tnoff, toffs, tlens, 1024, 1024),
+                    "hand-set offsets": (hplanes, hnoff, hoffs, hlens, 1024, 1024)}
+    for block, seg, mm in WALK_EDGES:
+        walk_batches[f"edge {block // 1024} KiB"] = (*edge_batch(md, block), seg, mm)
+    for what, (pl, nf, of, ln, seg, mm) in walk_batches.items():
+        e, got = compare_walk(md, pl, nf, of, ln, what, seg, mm)
         err = max(err, e)
-        log(f"match_walk == plain version (P/M/O/overflow): {what}, {pl.shape[0]} x {BLOCK} "
-            f"B, seg 1024, offsets per block {nf.float().mean():.2f} (K {of.shape[1]}), "
+        log(f"match_walk == plain version (P/M/O/overflow): {what}, {pl.shape[0]} x "
+            f"{pl.shape[1]} B, seg {seg}, max_match {mm}, offsets per block "
+            f"{nf.clamp(0, of.shape[1]).float().mean():.2f} (K {of.shape[1]}), "
             f"sequences {int((got[0] >= 0).sum())}, overflowing blocks {int(got[3].sum())}")
     kernels["match_walk"] = {"max_abs_err": err}
 
     dplanes = planes_of(corpus, DYN_BLOCKS)
     dnoff, doffs, _ = detected(md, dplanes)
 
-    def dyn_kernel():
-        return md.find_matches_dyn(dplanes.view(-1, nrows, 128), dnoff, doffs,
-                                   nrows=nrows, max_match=256)
-
-    def dyn_plain():
-        return md.match_dyn_reference(dplanes, dnoff, doffs, max_match=256)
-
     err = 0
-    for what, (pl, nf, of) in {"bench": (dplanes, dnoff, doffs),
-                               "text detect_fft": (tplanes, tnoff, toffs),
-                               "hand-set offsets": (hplanes, hnoff, hoffs)}.items():
-        e, later = compare_dyn(md, pl, nf, of, what)
+    dyn_batches = {"bench": (dplanes, dnoff, doffs, 256),
+                   "text detect_fft": (tplanes, tnoff, toffs, 256),
+                   "hand-set offsets": (hplanes, hnoff, hoffs, 256)}
+    for block, mm in DYN_EDGES:
+        dyn_batches[f"edge {block // 1024} KiB"] = (*edge_batch(md, block)[:3], mm)
+    for what, (pl, nf, of, mm) in dyn_batches.items():
+        e, later = compare_dyn(md, pl, nf, of, what, mm)
         err = max(err, e)
-        log(f"match_dyn == plain version (mlen/moff): {what}, {pl.shape[0]} x {BLOCK} B, "
-            f"max_match 256, positions whose best offset is not the first: {later}")
+        log(f"match_dyn == plain version (mlen/moff): {what}, {pl.shape[0]} x {pl.shape[1]} B, "
+            f"max_match {mm}, positions whose best offset is not the first: {later}")
     kernels["match_dyn"] = {"max_abs_err": err}
 
     splanes, slens = short_batch()
@@ -1194,27 +1220,47 @@ def main() -> int:
             f"stored bytes a block {clen.mean():.1f} (at most {clen.max()}); "
             f"bound {decode_bound(cpt, clen)}")
 
-    steps = math.ceil(math.log2(1024)) + 1
-    res, ms = turns(timing, walk_kernel, walk_plain)
-    report(f"match_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024", card, res, ms,
-           MATCH_BLOCKS * BLOCK)
-    kernels["match_walk"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
-        timing, f"match_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024", card, "match_walk",
-        walk_kernel))
-    # A block with noff = 0 needs no plane byte: its output is all empty.
-    rec_bytes = MATCH_BLOCKS * 25 * (BLOCK // 1024) * 4
-    kernels["match_walk"]["bound"] = bound_ms(
-        int((noff > 0).sum()) * BLOCK + rec_bytes, float(noff.sum()) * BLOCK * steps)
+    # B5 and B4 on the bench batches (the kernels line) and on the text
+    # batch with detect_fft's offsets.  A block with noff = 0 needs no plane
+    # byte: its output is all empty.
+    for what, (pl, nf, of, ln) in {"bench": (mplanes, noff, offs, mlens),
+                                   "text detect_fft": (tplanes, tnoff, toffs, tlens)}.items():
+        def kernel(pl=pl, nf=nf, of=of, ln=ln):
+            return md.find_matches_parse_dyn(pl.view(-1, nrows, 128), nf, of, ln, nrows=nrows,
+                                             seg=1024, min_match=6, max_match=1024)
 
-    res, ms = turns(timing, dyn_kernel, dyn_plain)
-    report(f"match_dyn bench {DYN_BLOCKS} x 128 KiB max_match 256", card, res, ms,
-           DYN_BLOCKS * BLOCK)
-    kernels["match_dyn"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
-        timing, f"match_dyn bench {DYN_BLOCKS} x 128 KiB max_match 256", card, "match_dyn",
-        dyn_kernel))
-    kernels["match_dyn"]["bound"] = bound_ms(
-        int((dnoff > 0).sum()) * BLOCK + DYN_BLOCKS * BLOCK * 8,
-        float(dnoff.sum()) * BLOCK * (math.ceil(math.log2(256)) + 1))
+        def plain(pl=pl, nf=nf, of=of, ln=ln):
+            return md.match_walk_reference(pl, nf, of, ln, seg=1024, min_match=6, wcap=8,
+                                           max_match=1024)
+
+        label = f"match_walk {what} {pl.shape[0]} x 128 KiB seg 1024"
+        res, ms = turns(timing, kernel, plain)
+        report(label, card, res, ms, pl.shape[0] * BLOCK)
+        k_ms = wrapper_times(timing, label, card, "match_walk", kernel)
+        bound = score_bound(pl, nf, pl.shape[0] * (BLOCK // 1024) * 25 * 4)
+        log(f"{label}: bound {bound}")
+        if what == "bench":
+            kernels["match_walk"].update(ms=res["kernel"], plain_ms=res["plain"],
+                                         kernel_ms=k_ms, bound=bound)
+
+    for what, (pl, nf, of) in {"bench": (dplanes, dnoff, doffs),
+                               "text detect_fft": (tplanes, tnoff, toffs)}.items():
+        def kernel(pl=pl, nf=nf, of=of):
+            return md.find_matches_dyn(pl.view(-1, nrows, 128), nf, of, nrows=nrows,
+                                       max_match=256)
+
+        def plain(pl=pl, nf=nf, of=of):
+            return md.match_dyn_reference(pl, nf, of, max_match=256)
+
+        label = f"match_dyn {what} {pl.shape[0]} x 128 KiB max_match 256"
+        res, ms = turns(timing, kernel, plain)
+        report(label, card, res, ms, pl.shape[0] * BLOCK)
+        k_ms = wrapper_times(timing, label, card, "match_dyn", kernel)
+        bound = score_bound(pl, nf, pl.shape[0] * BLOCK * 8)
+        log(f"{label}: bound {bound}")
+        if what == "bench":
+            kernels["match_dyn"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=k_ms,
+                                        bound=bound)
 
     pl, lay, ow = emit_main
     res, ms = turns(timing, lambda: em.emit_blocks(pl, lay, out_width=ow),

@@ -660,6 +660,91 @@ def test_match_dyn_kernel_matches_plain(max_match, cuda_device):
     assert torch.equal(moff.view(n, -1), want[1])
 
 
+def edge_tensors(device, block, n=37, seed=0):
+    """``match_dyn.edge_batch`` on the card (n below 132 and no multiple of
+    it), with the ``noff`` of two blocks out of range (clamped to [0, K])."""
+    planes, noff, offs, lengths = tmd.edge_batch(block, n, seed=seed)
+    noff[7], noff[8] = offs.shape[1] + 3, -1
+    return tuple(torch.from_numpy(a).to(device) for a in (planes, noff, offs, lengths))
+
+
+def walk_equals_plain(planes, noff, offs, lengths, seg, max_match, wcap=8):
+    n, L = planes.shape
+    got = tmd.find_matches_parse_dyn(planes.view(n, -1, 128), noff, offs, lengths,
+                                     nrows=L // 128, seg=seg, min_match=6, wcap=wcap,
+                                     max_match=max_match)
+    rec = tmd.match_walk_reference(planes, noff, offs, lengths, seg=seg, min_match=6,
+                                   wcap=wcap, max_match=max_match)
+    want = tmd._split_records(rec, wcap)
+    for name, g, w in zip(("P", "M", "O", "overflow"), got, want):
+        assert torch.equal(g, w), name
+    return got
+
+
+def dyn_equals_plain(planes, noff, offs, max_match):
+    n, L = planes.shape
+    mlen, moff = tmd.find_matches_dyn(planes.view(n, -1, 128), noff, offs, nrows=L // 128,
+                                      max_match=max_match)
+    want = tmd.match_dyn_reference(planes, noff, offs, max_match=max_match)
+    assert torch.equal(mlen.view(n, -1), want[0])
+    assert torch.equal(moff.view(n, -1), want[1])
+    return moff.view(n, -1)
+
+
+@pytest.mark.parametrize("block,seg,max_match", [
+    (16 * 1024, 512, 1), (16 * 1024, 1024, 64), (16 * 1024, 2048, 2047),
+    (48 * 1024, 512, 64), (48 * 1024, 1024, 1024), (48 * 1024, 2048, 2047),
+    (128 * 1024, 1024, 1024), (128 * 1024, 1024, 1), (128 * 1024, 2048, 2047)])
+def test_match_walk_kernel_on_edge_batches(block, seg, max_match, cuda_device):
+    # Runs through tile and segment ends, noff = 0 beside live blocks, K =
+    # 10 with d = 0, offsets up to L - 128, 37 blocks.
+    batch = edge_tensors(cuda_device, block)
+    before = tmd.walk_launches
+    P, _, O, _ = walk_equals_plain(*batch, seg, max_match)
+    assert tmd.walk_launches == before + 1
+    assert (P[0] == -1).all()
+    if max_match >= 1024:
+        # The runs of 100 and 300 pass the end at L/2; slot 1's is longer.
+        at = P[1] == block // 2 - 20
+        assert at.sum() == 1 and int(O[1][at][0]) == 3536
+
+
+@pytest.mark.parametrize("block", [16 * 1024, 48 * 1024, 128 * 1024])
+@pytest.mark.parametrize("max_match", [1, 64, 1024, 2047])
+def test_match_dyn_kernel_on_edge_batches(block, max_match, cuda_device):
+    planes, noff, offs, _ = edge_tensors(cuda_device, block)
+    before = tmd.dyn_launches
+    moff = dyn_equals_plain(planes, noff, offs, max_match)
+    assert tmd.dyn_launches == before + 1
+    assert (moff[0] == 0).all()
+    assert (moff[4] == block - 128).any() and (moff[4] == block // 2 + 64).any()
+
+
+def test_match_kernels_on_two_streams(cuda_device):
+    # B5 and B4 launched on two streams at once, on different batches.
+    a = edge_tensors(cuda_device, 128 * 1024, seed=1)
+    b = edge_tensors(cuda_device, 128 * 1024, seed=2)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(s1):
+        walk = tmd.find_matches_parse_dyn(a[0].view(37, -1, 128), *a[1:], nrows=1024,
+                                          seg=1024, min_match=6)
+        dyn_a = tmd.find_matches_dyn(a[0].view(37, -1, 128), a[1], a[2], nrows=1024,
+                                     max_match=256)
+    with torch.cuda.stream(s2):
+        dyn_b = tmd.find_matches_dyn(b[0].view(37, -1, 128), b[1], b[2], nrows=1024,
+                                     max_match=256)
+        walk_b = tmd.find_matches_parse_dyn(b[0].view(37, -1, 128), *b[1:], nrows=1024,
+                                            seg=1024, min_match=6)
+    torch.cuda.synchronize()
+    for (pl, nf, of, ln), w, d in ((a, walk, dyn_a), (b, walk_b, dyn_b)):
+        want = tmd._split_records(tmd.match_walk_reference(
+            pl, nf, of, ln, seg=1024, min_match=6, wcap=8, max_match=1024), 8)
+        assert all(torch.equal(g, x) for g, x in zip(w, want))
+        want = tmd.match_dyn_reference(pl, nf, of, max_match=256)
+        assert torch.equal(d[0].view(37, -1), want[0]) and torch.equal(d[1].view(37, -1), want[1])
+
+
 @pytest.mark.parametrize("fmt,ow,fft", [("lz4", 128, False), ("lz4", 2048, False),
                                         ("lz4", 131712, False), ("lz4", 65536, True),
                                         ("snappy", 8192, False)])

@@ -147,38 +147,78 @@ def test_cyclic_doubling_equals_linear_runs():
         np.testing.assert_array_equal(off.numpy(), want_off)
 
 
-@pytest.mark.parametrize("L,seg,wcap,mm", [(16384, 1024, 8, 1024), (4096, 1024, 2, 16),
-                                           (8192, 512, 8, 512)])
-def test_walk_plain_matches_jax(L, seg, wcap, mm):
+def hand_batch(L: int):
+    """(planes, noff, offs, lengths) of :func:`blocks` with :func:`hand_offsets`."""
     planes = blocks(L)
     noff, offs = hand_offsets(planes)
-    lens = np.array([L, L, L, L - 1000, L - 37, L], np.int32)
+    return planes, noff, offs, np.array([L, L, L, L - 1000, L - 37, L], np.int32)
+
+
+def edge_batch(L: int):
+    """One block of each kind of ``edge_batch``: ``noff = 0`` among live
+    blocks, two offsets running through a segment end where the later one
+    runs further (short and long runs), ten offsets with a 0 and offsets
+    above half the plane up to L - 128, text through every tile, RLE."""
+    return tmd.edge_batch(L, 7, seed=L)
+
+
+BATCHES = {"hand": hand_batch, "edge": edge_batch}
+
+
+def walk_case(L, seg, wcap, mm, batch):
+    case = (L, seg, wcap, mm, batch)
+    return pytest.param(*case, id="-".join(map(str, case if batch == "edge" else case[:4])))
+
+
+@pytest.mark.parametrize("L,seg,wcap,mm,batch", [
+    walk_case(16384, 1024, 8, 1024, "hand"), walk_case(4096, 1024, 2, 16, "hand"),
+    walk_case(8192, 512, 8, 512, "hand"), walk_case(16384, 1024, 8, 1024, "edge"),
+    walk_case(16384, 2048, 8, 64, "edge"), walk_case(8192, 512, 2, 512, "edge")])
+def test_walk_plain_matches_jax(L, seg, wcap, mm, batch):
+    planes, noff, offs, lens = BATCHES[batch](L)
+    n = planes.shape[0]
     kw = dict(nrows=L // 128, seg=seg, min_match=6, wcap=wcap, max_match=mm)
-    want = jmd.find_matches_parse_dyn(jnp.asarray(planes.reshape(6, -1, 128)),
+    want = jmd.find_matches_parse_dyn(jnp.asarray(planes.reshape(n, -1, 128)),
                                       jnp.asarray(noff), jnp.asarray(offs),
                                       jnp.asarray(lens), interpret=True, **kw)
-    got = tmd.find_matches_parse_dyn(t(planes.reshape(6, -1, 128)), t(noff), t(offs),
+    got = tmd.find_matches_parse_dyn(t(planes.reshape(n, -1, 128)), t(noff), t(offs),
                                      t(lens), **kw)
     for name, g, w in zip("PMO", got[:3], want[:3]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
     assert (got[0].numpy() >= 0).any()
-    if wcap == 2:
+    if wcap == 2 and batch == "hand":
         assert got[3].numpy().any(), "a two-slot cap must overflow somewhere"
+    if batch == "edge":
+        P, O = got[0].numpy(), got[2].numpy()
+        assert (P[0] == -1).all(), "a block with noff = 0 records nothing"
+        if mm > 300:
+            # Both runs pass the segment end at L/2, truncated to the same
+            # length there; the later slot's longer run decides the offset.
+            at = P[1] == L // 2 - 20
+            assert at.sum() == 1 and O[1][at][0] == 3536
 
 
-@pytest.mark.parametrize("max_match", [64, 256])
-def test_dyn_plain_matches_jax(max_match):
+@pytest.mark.parametrize("max_match,batch", [
+    pytest.param(64, "hand", id="64"), pytest.param(256, "hand", id="256"),
+    pytest.param(256, "edge", id="edge-256"), pytest.param(2047, "edge", id="edge-2047")])
+def test_dyn_plain_matches_jax(max_match, batch):
     L = 8192
-    planes = blocks(L)
-    noff, offs = hand_offsets(planes)
-    want = jmd.find_matches_dyn(jnp.asarray(planes.reshape(6, -1, 128)), jnp.asarray(noff),
+    planes, noff, offs, _ = BATCHES[batch](L)
+    n = planes.shape[0]
+    want = jmd.find_matches_dyn(jnp.asarray(planes.reshape(n, -1, 128)), jnp.asarray(noff),
                                 jnp.asarray(offs), nrows=L // 128, max_match=max_match,
                                 interpret=True)
-    got = tmd.find_matches_dyn(t(planes.reshape(6, -1, 128)), t(noff), t(offs),
+    got = tmd.find_matches_dyn(t(planes.reshape(n, -1, 128)), t(noff), t(offs),
                                nrows=L // 128, max_match=max_match)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    if batch == "edge":
+        moff = got[1].numpy().reshape(n, L)
+        assert (moff[0] == 0).all(), "a block with noff = 0 scores nothing"
+        assert (moff[4] == L - 128).sum() == 128, "the offset L - 128 wins at the plane's end"
+        assert (moff[4] == L // 2 + 64).any(), "an offset above half the plane wins"
+        assert moff[1, L // 2 - 20] == 3536, "the longer run past the tile end decides"
 
 
 def test_wrappers_refuse_a_device_without_kernel():
