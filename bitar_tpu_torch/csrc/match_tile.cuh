@@ -196,12 +196,4 @@ __device__ __forceinline__ int score_span(const uint8_t* x, int L, int p0, int n
   return -1;
 }
 
-// Makes `device` current for a launch; returns the CUDA error code and sets
-// `previous` to restore afterwards.
-inline cudaError_t enter_device(int device, int* previous) {
-  cudaError_t err = cudaGetDevice(previous);
-  if (err == cudaSuccess && *previous != device) err = cudaSetDevice(device);
-  return err;
-}
-
 }  // namespace bt

@@ -63,7 +63,7 @@ from ..ops.cpu import native
 from ..ops.cpu.native import SEQUENCE_KEYS
 from ..ops.decode_flat import CB, DCHUNK, KBAND, LANES, _S_QUANTUM, decode_blocks_flat, plan_tensors
 from ..ops.decode_tables import decode_blocks, pad_tables, table_tensors
-from ..ops.device_compress import _emit, lz4_bound, match_parse_device
+from ..ops.device_compress import _emit, engine_width, match_parse_device
 from ..ops.match import DEFAULT_OFFSETS, find_matches
 from ..ops.match_sort import find_matches_sorted
 from ..status import Status, StatusError
@@ -420,13 +420,7 @@ class Engine:
             good = np.flatnonzero(~fallback)
             bad = np.flatnonzero(fallback)
             if good.size:
-                # Emission width: the largest compressible block's size to a
-                # power of two (3/4 steps above 16 KiB), at most the LZ4 bound.
-                wmax = int(szs[good].max(initial=128))
-                width = 128 << max(0, (-(-wmax // 128) - 1).bit_length())
-                if width > 16384 and wmax <= (width // 4) * 3:
-                    width = (width // 4) * 3
-                width = min(width, -(-lz4_bound(L) // 128) * 128)
+                width = engine_width(szs, raw_len, L)
                 out = _emit(dplanes, layout, out_width=width, lengths=dlen)
                 self._write_rows(refs, good, out)
             if bad.size:

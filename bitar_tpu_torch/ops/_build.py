@@ -130,11 +130,13 @@ def block_queue(device: torch.device, stream: int) -> torch.Tensor:
     return q
 
 
-def require(cond: bool, msg: str) -> None:
+def require(cond: bool, msg) -> None:
     """Raise StatusError(Invalid(msg)) unless ``cond``: a wrapper's check of
-    what its kernel takes."""
+    what its kernel takes.  ``msg`` is the message, or a function that
+    builds it, called only on failure (so a passing check formats
+    nothing)."""
     if not cond:
-        raise StatusError(Status.Invalid(msg))
+        raise StatusError(Status.Invalid(msg() if callable(msg) else msg))
 
 
 def check_cuda(rc: int, what: str, lib: ctypes.CDLL) -> None:

@@ -366,31 +366,31 @@ def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
                    out_rows: int) -> torch.Tensor:
     global launches
     require(out_rows <= DECODE_FLAT_MAX_ROWS,
-            f"decode_flat kernel holds at most {DECODE_FLAT_MAX_ROWS} rows "
-            f"per block, got {out_rows}")
+            lambda: f"decode_flat kernel holds at most {DECODE_FLAT_MAX_ROWS} rows "
+                    f"per block, got {out_rows}")
     n = comp.shape[0]
     for k in ("p_used", "p_off", "p0", "dense", "dq_idx"):
         t = pt[k]
         require(t.device == comp.device and t.dtype == torch.int32
                 and t.is_contiguous() and t.shape == (n,),
-                f"plan {k}: want contiguous int32 [{n}] on {comp.device}")
+                lambda: f"plan {k}: want contiguous int32 [{n}] on {comp.device}")
     for k, dt in (("se", torch.int16), ("shift", torch.int32),
                   ("dq", torch.int16), ("row_a", torch.int32)):
         t = pt[k]
         require(t.device == comp.device and t.dtype == dt and t.is_contiguous(),
-                f"plan {k}: want contiguous {dt} on {comp.device}")
+                lambda: f"plan {k}: want contiguous {dt} on {comp.device}")
     tiles = out_rows // LANES
     s_rows = pt["se"].numel() // out_rows
     require(pt["se"].shape[1:] == (tiles, LANES)
             and pt["shift"].shape == pt["se"].shape,
-            f"se/shift: want [S, {tiles}, 128], got {tuple(pt['se'].shape)}")
+            lambda: f"se/shift: want [S, {tiles}, 128], got {tuple(pt['se'].shape)}")
     dq_rows = pt["dq"].shape[0]
     require(pt["dq"].shape == (dq_rows, out_rows, LANES),
-            f"dq: want [m, {out_rows}, 128], got {tuple(pt['dq'].shape)}")
+            lambda: f"dq: want [m, {out_rows}, 128], got {tuple(pt['dq'].shape)}")
     ra = pt["row_a"]
     require(ra.ndim == 4 and ra.shape[0] == dq_rows
             and ra.shape[2:] == (LANES, tiles),
-            f"row_a: want [{dq_rows}, dcap, 128, {tiles}], got {tuple(ra.shape)}")
+            lambda: f"row_a: want [{dq_rows}, dcap, 128, {tiles}], got {tuple(ra.shape)}")
     out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=comp.device)
     if n == 0:
         return out
@@ -423,11 +423,11 @@ def decode_blocks_flat(comp: torch.Tensor, plans: dict, *, comp_rows: int,
     ``comp`` runs :func:`decode_flat_reference`; a CUDA one launches the
     kernel or raises StatusError."""
     require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
-            f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
+            lambda: f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
     require(out_rows % LANES == 0 and comp_rows % LANES == 0,
             "comp_rows and out_rows must be multiples of 128")
     if comp.device.type == "cpu":
         return decode_flat_reference(comp, plans, comp_rows, out_rows)
     require(comp.device.type == "cuda",
-            f"decode_blocks_flat: no kernel for device {comp.device}")
+            lambda: f"decode_blocks_flat: no kernel for device {comp.device}")
     return _launch_kernel(comp, plans, comp_rows, out_rows)

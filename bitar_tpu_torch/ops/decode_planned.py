@@ -233,8 +233,8 @@ def load_kernel() -> ctypes.CDLL:
 def _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows) -> torch.Tensor:
     global launches
     require(out_rows <= MAX_OUT_ROWS,
-            f"decode_planned kernel holds at most {MAX_OUT_ROWS} rows per block "
-            f"(its out plane lives in shared memory), got {out_rows}")
+            lambda: f"decode_planned kernel holds at most {MAX_OUT_ROWS} rows per block "
+                    f"(its out plane lives in shared memory), got {out_rows}")
     n = comp.shape[0]
     tiles = out_rows // LANES
     require(comp.is_contiguous(), "comp: want a contiguous [N, comp_rows, 128] tensor")
@@ -243,8 +243,8 @@ def _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows) -> torc
                            ("shift", shift, (n, passes, tiles, LANES))):
         require(t.device == comp.device and t.dtype == torch.int32 and t.is_contiguous()
                 and tuple(t.shape) == shape,
-                f"{name}: want contiguous int32 {list(shape)} on {comp.device}, "
-                f"got {t.dtype} {list(t.shape)} on {t.device}")
+                lambda: f"{name}: want contiguous int32 {list(shape)} on {comp.device}, "
+                        f"got {t.dtype} {list(t.shape)} on {t.device}")
     out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=comp.device)
     if n == 0:
         return out
@@ -275,10 +275,10 @@ def decode_blocks_planned(comp: torch.Tensor, p_used: torch.Tensor, se: torch.Te
     require(out_rows % LANES == 0, "planned kernel requires out_rows % 128 == 0")
     require(comp_rows % 32 == 0, "uint8 comp planes need 32-row tiling")
     require(comp.dtype == torch.uint8 and tuple(comp.shape[1:]) == (comp_rows, LANES),
-            f"comp: want [N, {comp_rows}, 128] uint8, got {list(comp.shape)} {comp.dtype}")
+            lambda: f"comp: want [N, {comp_rows}, 128] uint8, got {list(comp.shape)} {comp.dtype}")
     if comp.device.type == "cpu":
         return decode_planned_reference(comp, p_used, se, shift, passes=passes,
                                         comp_rows=comp_rows, out_rows=out_rows)
     require(comp.device.type == "cuda",
-            f"decode_blocks_planned: no kernel for device {comp.device}")
+            lambda: f"decode_blocks_planned: no kernel for device {comp.device}")
     return _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows)

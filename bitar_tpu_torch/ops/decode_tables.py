@@ -296,14 +296,14 @@ def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
     # What the kernel reads: int32, contiguous, on comp's device, [n] and [n, S].
     for t in (nseq, *cols):
         require(t.device == dev and t.dtype == torch.int32 and t.is_contiguous(),
-                f"nseq and tables: want contiguous int32 tensors on {dev}")
+                lambda: f"nseq and tables: want contiguous int32 tensors on {dev}")
     require(nseq.shape == (n,) and all(t.shape == (n, S) for t in cols),
-            f"nseq and tables: want [{n}] and [{n}, {S}]")
+            lambda: f"nseq and tables: want [{n}] and [{n}, {S}]")
     paths = 0
     if path_counts is not None:
         require(path_counts.device == dev and path_counts.dtype == torch.int32
                 and path_counts.shape == (2,) and path_counts.is_contiguous(),
-                f"path_counts: want a contiguous int32 [2] on {dev}")
+                lambda: f"path_counts: want a contiguous int32 [2] on {dev}")
         paths = path_counts.data_ptr()
     out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=dev)
     if n == 0:
@@ -334,12 +334,13 @@ def decode_blocks(comp: torch.Tensor, nseq: torch.Tensor, tables: dict[str, torc
     runs :func:`decode_tables_reference`; a CUDA one launches the kernel or
     raises StatusError."""
     require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
-            f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
-    require(out_rows >= 1, f"out_rows {out_rows} must be positive")
+            lambda: f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
+    require(out_rows >= 1, lambda: f"out_rows {out_rows} must be positive")
     if comp.device.type == "cpu":
         if path_counts is not None:
             wf = well_formed(nseq, tables)
             path_counts += torch.stack([wf.sum(), (~wf).sum()]).to(path_counts.dtype)
         return decode_tables_reference(comp, nseq, tables, out_rows)
-    require(comp.device.type == "cuda", f"decode_blocks: no kernel for device {comp.device}")
+    require(comp.device.type == "cuda",
+            lambda: f"decode_blocks: no kernel for device {comp.device}")
     return _launch_kernel(comp, nseq, tables, out_rows, path_counts)

@@ -289,6 +289,17 @@ def adaptive_width(sizes: np.ndarray, lens: np.ndarray, L: int, mm: int) -> int:
     return min(width, -(-lz4_bound(L) // 128) * 128)
 
 
+def engine_width(sizes: np.ndarray, lens: np.ndarray, L: int) -> int:
+    """The engine's emission width: the largest compressible block's size
+    (``sizes < lens``) to a power of two (3/4 steps above 16 KiB), at most
+    the LZ4 bound of ``L``."""
+    wmax = int(sizes[sizes < lens].max(initial=128))
+    width = 128 << max(0, (-(-wmax // 128) - 1).bit_length())
+    if width > 16384 and wmax <= (width // 4) * 3:
+        width = (width // 4) * 3
+    return min(width, -(-lz4_bound(L) // 128) * 128)
+
+
 def compress_blocks_device(planes, lengths, *, seg: int = 1024, min_match: int = 6,
                            offsets: tuple[int, ...] | None = None,
                            max_match: int | None = None, out_width: int | None = None,

@@ -143,15 +143,15 @@ def find_matches(comp: torch.Tensor, *, offsets: tuple[int, ...] = DEFAULT_OFFSE
     n = comp.shape[0]
     L = nrows * LANES
     require(comp.dtype == torch.uint8 and comp.numel() == n * L,
-            f"planes: want [N, {nrows}, 128] uint8, got {list(comp.shape)} {comp.dtype}")
-    require(all(d >= 0 for d in offsets), f"offsets {offsets} must be >= 0")
+            lambda: f"planes: want [N, {nrows}, 128] uint8, got {list(comp.shape)} {comp.dtype}")
+    require(all(d >= 0 for d in offsets), lambda: f"offsets {offsets} must be >= 0")
     x = comp.reshape(n, L)
     if x.device.type == "cpu":
         mlen, idx = match_reference(x, offsets, max_match=max_match, emit_values=emit_values)
         return mlen.reshape(n, nrows, LANES), idx.reshape(n, nrows, LANES)
-    require(x.device.type == "cuda", f"find_matches: no kernel for device {x.device}")
+    require(x.device.type == "cuda", lambda: f"find_matches: no kernel for device {x.device}")
     require(1 <= max_match <= KERNEL_MAX_MATCH,
-            f"max_match {max_match} outside the kernel's [1, {KERNEL_MAX_MATCH}]")
+            lambda: f"max_match {max_match} outside the kernel's [1, {KERNEL_MAX_MATCH}]")
     require(len(offsets) >= 1 and max(offsets) < (1 << 20),
             "the kernel takes 1 or more offsets below 2^20")
     x = x.contiguous()

@@ -12,8 +12,9 @@ Counterpart of ``bitar_tpu/ops/pallas/lz4_match_dyn.py``.
 * ``parse_walk_dyn``: B5's greedy walk alone, over precomputed match planes
   such as B4's (kernel B6, ``csrc/parse_walk.cu``).  B4 then B6 gives B5's
   records.  The reference has no caller of it; it is its own entry point.
-* ``edge_batch``: blocks where B5's and B4's edges matter, for the smoke
-  run and the tests.
+* ``edge_batch``: blocks where B5's and B4's edges matter, and
+  ``walk_edge_batch``: match planes where B6's do, for the smoke run and
+  the tests.
 
 Scoring, per block and per offset ``d`` in ``offs[b, :noff[b]]`` in order:
 ``run[p]`` is the number of consecutive positions ``p' >= p`` with
@@ -300,6 +301,52 @@ def edge_batch(L: int, n: int = 37, seed: int = 0):
     return planes, noff, offs, lengths
 
 
+def walk_edge_batch(seg: int, nseg: int = 8, seed: int = 0):
+    """Match planes where a chunked walk's edges matter, as numpy (mlen,
+    moff [8, nseg * seg] int32, lengths [8] int32), for min_match 6; rows:
+
+    0. matches that land the cursor on a 32- and a 128-position boundary
+       and on the segment end, in every segment;
+    1. positions 0 and 32 of every 128 mlen-valid with moff 0 (the first
+       such position of a chunk, aligned to the segment or to the cursor's
+       first chunk), a valid match 5 positions later;
+    2. a block of 2.5 segments and 3 bytes: the later segments lie wholly
+       past it, and segment 2 has valid lengths only from its scan end
+       (blen - 12, not a multiple of 4) on;
+    3. a block of 10 bytes: every segment lies past it;
+    4. every position valid with length 7 (every segment overflows any wcap);
+    5. sparse random hits (5%), some with moff 0, a block of 3 segments and 7 bytes;
+    6. long runs (300) with moff 0 inside spans;
+    7. nothing valid."""
+    rng = np.random.default_rng(seed)
+    n, L = 8, nseg * seg
+    mlen = np.zeros((n, L), np.int32)
+    moff = np.zeros((n, L), np.int32)
+    lengths = np.full(n, L, np.int32)
+    for g in range(nseg):
+        base = g * seg
+        for p, m in ((10, 22), (40, 88), (130, 126), (seg - 100, 100)):
+            if 0 <= p and p + m <= seg:
+                mlen[0, base + p], moff[0, base + p] = m, 3
+    brow = np.arange(L) % seg
+    for r in (0, 32):
+        at = np.flatnonzero((brow % 128 == r) & (brow + 5 < seg))
+        mlen[1, at], moff[1, at] = 20, 0
+        mlen[1, at + 5], moff[1, at + 5] = 8, 2
+    mlen[2], moff[2], lengths[2] = 9, 1, 2 * seg + seg // 2 + 3
+    mlen[2, 2 * seg:2 * seg + seg // 2 - 9] = 0    # segment 2: valid only past the scan end
+    mlen[3], moff[3], lengths[3] = 9, 1, 10
+    mlen[4], moff[4] = 7, 1
+    on = rng.random(L) < 0.05
+    mlen[5] = np.where(on, rng.integers(1, 40, L), 0)
+    moff[5] = np.where(on, rng.integers(0, 3, L), 0)
+    lengths[5] = 3 * seg + 7
+    mlen[6], moff[6] = 300, 5
+    for lo in range(0, L, 700):
+        moff[6, lo:lo + 150] = 0
+    return mlen, moff, lengths
+
+
 def _split_records(rec: torch.Tensor, wcap: int):
     """``rec [N, 3*wcap + 1, nseg]`` -> (P, M, O [N, nseg * wcap] in
     (segment, step) order, overflow [N] bool)."""
@@ -319,6 +366,46 @@ def parse_walk_reference(mlen: torch.Tensor, moff: torch.Tensor, lengths: torch.
     return _split_records(rec, wcap)
 
 
+def walk_bound_bytes(mlen: torch.Tensor, moff: torch.Tensor, lengths: torch.Tensor,
+                     P: torch.Tensor, M: torch.Tensor, *, seg: int, wcap: int,
+                     min_match: int) -> int:
+    """B6's least traffic on this data, in bytes: 4 bytes of mlen at every
+    position its walk must examine (from each cursor to the match it takes,
+    to the segment end where none is left, and the overflow scan), 4 bytes
+    of moff only where such a position passes the length and position tests
+    (the only places moff decides anything), the lengths, and the records
+    and flags written.  ``P``/``M`` are the walk's own records."""
+    n, L = mlen.shape
+    G = L // seg
+    dev = mlen.device
+    brow = torch.arange(seg, device=dev)
+    gbase = (torch.arange(G, device=dev) * seg).view(1, G, 1)
+    blen = lengths.long().view(n, 1, 1)
+    m_t = torch.minimum(mlen.view(n, G, seg).long(), (blen - 5 - gbase).clamp(max=seg) - brow)
+    tested = (m_t >= min_match) & (gbase + brow < blen - 12)
+    valid = tested & (moff.view(n, G, seg) >= 1)
+    Pg = P.view(n, G, wcap).long() - gbase
+    Mg = M.view(n, G, wcap).long()
+    edges = torch.zeros((n, G, seg + 1), dtype=torch.long, device=dev)
+
+    def examine(lo, hi):                      # mark [lo, hi) of every segment
+        lo = lo.clamp(0, seg)
+        hi = torch.maximum(hi.clamp(0, seg), lo)
+        edges.scatter_add_(2, lo[:, :, None], torch.ones_like(lo)[:, :, None])
+        edges.scatter_add_(2, hi[:, :, None], -torch.ones_like(hi)[:, :, None])
+
+    pos = torch.zeros((n, G), dtype=torch.long, device=dev)
+    for t in range(wcap):
+        took = P.view(n, G, wcap)[:, :, t] >= 0
+        examine(pos, torch.where(took, Pg[:, :, t] + 1, seg))
+        pos = torch.where(took, Pg[:, :, t] + Mg[:, :, t], seg)
+    left = torch.where(valid & (brow >= pos[:, :, None]), brow, seg).min(dim=2).values
+    examine(pos, torch.where(left < seg, left + 1, seg))
+    seen = edges.cumsum(dim=2)[:, :, :seg] > 0
+    return (4 * int(seen.sum()) + 4 * int((seen & tested).sum()) + 4 * n
+            + 3 * 4 * n * G * wcap + n)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA kernels
 
@@ -333,7 +420,7 @@ _DYN_ARGS = [_vp, _vp, _vp, _int, _vp, _vp,    # planes, noff, offs, K, mlen, mo
 _PARSE_WALK_ARGS = [_vp, _vp, _vp,             # mlen, moff, lengths
                     _vp, _vp, _vp, _vp,        # P, M, O, segment flags
                     _int, _int, _int,          # n, L, seg
-                    _int, _int, _vp]           # min_match, wcap, stream
+                    _int, _int, _int, _vp]     # min_match, wcap, device, stream
 
 
 def _load(stem: str, argtypes: list) -> ctypes.CDLL:
@@ -364,6 +451,7 @@ def load_parse_walk_kernel() -> ctypes.CDLL:
 
 _walk_fn = None     # the libraries' bound launch functions, once loaded
 _dyn_fn = None
+_parse_walk_fn = None
 
 
 def _kernel_inputs(x, noff, offs, lengths=None) -> torch.Tensor:
@@ -372,23 +460,23 @@ def _kernel_inputs(x, noff, offs, lengths=None) -> torch.Tensor:
     returns the planes 16-byte aligned (the kernels load them 16 bytes at a
     time)."""
     n = x.shape[0]
-    if not (x.dtype == torch.uint8 and x.is_contiguous()):
-        require(False, f"planes: want contiguous uint8, got {x.dtype}")
+    require(x.dtype == torch.uint8 and x.is_contiguous(),
+            lambda: f"planes: want contiguous uint8, got {x.dtype}")
     named = [("noff", noff, (n,)), ("offs", offs, (n, offs.shape[-1]))]
     if lengths is not None:
         named.append(("lengths", lengths, (n,)))
     for name, t, shape in named:
-        if not (t.device == x.device and t.dtype == torch.int32 and t.is_contiguous()
-                and t.shape == shape):
-            require(False, f"{name}: want contiguous int32 {list(shape)} on {x.device}, "
-                           f"got {t.dtype} {list(t.shape)} on {t.device}")
+        require(t.device == x.device and t.dtype == torch.int32 and t.is_contiguous()
+                and t.shape == shape,
+                lambda: f"{name}: want contiguous int32 {list(shape)} on {x.device}, "
+                        f"got {t.dtype} {list(t.shape)} on {t.device}")
     return x.clone() if x.data_ptr() % 16 else x
 
 
 def _as_planes(comp: torch.Tensor, nrows: int) -> torch.Tensor:
     n = comp.shape[0]
     require(comp.numel() == n * nrows * LANES,
-            f"planes: want [N, {nrows}, 128] bytes, got {list(comp.shape)}")
+            lambda: f"planes: want [N, {nrows}, 128] bytes, got {list(comp.shape)}")
     return comp.reshape(n, nrows * LANES)
 
 
@@ -418,8 +506,9 @@ def find_matches_parse_dyn(comp: torch.Tensor, noff: torch.Tensor, offs: torch.T
         rec = match_walk_reference(x, noff, offs, lengths, seg=seg, min_match=min_match,
                                    wcap=wcap, max_match=max_match)
         return _split_records(rec, wcap)
-    require(x.device.type == "cuda", f"find_matches_parse_dyn: no kernel for device {x.device}")
-    require(wcap >= 0, f"wcap {wcap} must not be negative")
+    require(x.device.type == "cuda",
+            lambda: f"find_matches_parse_dyn: no kernel for device {x.device}")
+    require(wcap >= 0, lambda: f"wcap {wcap} must not be negative")
     x = _kernel_inputs(x, noff, offs, lengths)
     dev = x.device
     P, M, O = torch.empty((3, n, nseg * wcap), dtype=torch.int32, device=dev)
@@ -449,7 +538,7 @@ def parse_walk_dyn(mlen: torch.Tensor, moff: torch.Tensor, lengths: torch.Tensor
     ValueError unless ``seg`` divides L and ``nseg = L / seg <= 128``, as
     the reference does.  A CPU tensor runs :func:`parse_walk_reference`; a
     CUDA one launches ``csrc/parse_walk.cu`` or raises."""
-    global parse_walk_launches
+    global parse_walk_launches, _parse_walk_fn
     n, L = mlen.shape
     if L % seg:
         raise ValueError("seg must divide L")
@@ -459,27 +548,27 @@ def parse_walk_dyn(mlen: torch.Tensor, moff: torch.Tensor, lengths: torch.Tensor
     if mlen.device.type == "cpu":
         return parse_walk_reference(mlen, moff, lengths, seg=seg, min_match=min_match,
                                     wcap=wcap)
-    require(mlen.device.type == "cuda", f"parse_walk_dyn: no kernel for device {mlen.device}")
-    require(wcap >= 0, f"wcap {wcap} must not be negative")
+    require(mlen.device.type == "cuda",
+            lambda: f"parse_walk_dyn: no kernel for device {mlen.device}")
+    require(wcap >= 0, lambda: f"wcap {wcap} must not be negative")
+    dev = mlen.device
     for name, t, shape in (("mlen", mlen, (n, L)), ("moff", moff, (n, L)),
                            ("lengths", lengths, (n,))):
-        require(t.device == mlen.device and t.dtype == torch.int32 and t.is_contiguous()
+        require(t.device == dev and t.dtype == torch.int32 and t.is_contiguous()
                 and tuple(t.shape) == shape,
-                f"{name}: want contiguous int32 {list(shape)} on {mlen.device}, "
-                f"got {t.dtype} {list(t.shape)} on {t.device}")
-    P, M, O = (torch.empty((n, nseg * wcap), dtype=torch.int32, device=mlen.device)
-               for _ in range(3))
-    flags = torch.zeros((n, nseg), dtype=torch.int32, device=mlen.device)
+                lambda: f"{name}: want contiguous int32 {list(shape)} on {dev}, "
+                        f"got {t.dtype} {list(t.shape)} on {t.device}")
+    P, M, O = torch.empty((3, n, nseg * wcap), dtype=torch.int32, device=dev)
+    flags = torch.empty((n, nseg), dtype=torch.int32, device=dev)   # the kernel writes each
     if n:
-        lib = load_parse_walk_kernel()
-        with torch.cuda.device(mlen.device):
-            rc = lib.bt_parse_walk_launch(
-                mlen.data_ptr(), moff.data_ptr(), lengths.data_ptr(), P.data_ptr(),
-                M.data_ptr(), O.data_ptr(), flags.data_ptr(), n, L, seg, min_match, wcap,
-                torch.cuda.current_stream(mlen.device).cuda_stream)
-        check_cuda(rc, "parse_walk launch", lib)
+        if _parse_walk_fn is None:
+            _parse_walk_fn = load_parse_walk_kernel().bt_parse_walk_launch
+        rc = _parse_walk_fn(mlen.data_ptr(), moff.data_ptr(), lengths.data_ptr(), P.data_ptr(),
+                            M.data_ptr(), O.data_ptr(), flags.data_ptr(), n, L, seg, min_match,
+                            wcap, dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+        check_cuda(rc, "parse_walk launch", load_parse_walk_kernel())
         parse_walk_launches += 1
-    return P, M, O, (flags != 0).any(dim=1)
+    return P, M, O, flags.any(dim=1)
 
 
 def find_matches_dyn(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Tensor, *,
@@ -495,8 +584,8 @@ def find_matches_dyn(comp: torch.Tensor, noff: torch.Tensor, offs: torch.Tensor,
     if x.device.type == "cpu":
         mlen, moff = match_dyn_reference(x, noff, offs, max_match=max_match)
         return mlen.reshape(n, nrows, LANES), moff.reshape(n, nrows, LANES)
-    require(x.device.type == "cuda", f"find_matches_dyn: no kernel for device {x.device}")
-    require(1 <= max_match <= 2047, f"max_match {max_match} outside [1, 2047]")
+    require(x.device.type == "cuda", lambda: f"find_matches_dyn: no kernel for device {x.device}")
+    require(1 <= max_match <= 2047, lambda: f"max_match {max_match} outside [1, 2047]")
     x = _kernel_inputs(x, noff, offs)
     dev = x.device
     mlen, moff = torch.empty((2, n, L), dtype=torch.int32, device=dev)

@@ -1,10 +1,11 @@
 """Time this checkout's B1 (``decode_flat``), B2 (``decode_tables``), B3
-(``match``), B4 (``match_dyn``), B5 (``match_walk``) and B7
-(``decode_planned``) kernels against another checkout's on one card, in
-turns, on the same inputs.
+(``match``), B4 (``match_dyn``), B5 (``match_walk``), B6 (``parse_walk``),
+B7 (``decode_planned``) and emitter (``emit``) kernels against another
+checkout's on one card, in turns, on the same inputs.
 
     python -m bitar_tpu_torch.utils.kernel_ab --old DIR [--out FILE]
-        [--only match|match_walk|match_dyn|decode_flat|decode_tables|decode_planned]
+        [--only match|match_walk|match_dyn|parse_walk|emit|decode_flat|decode_tables|
+                decode_planned]
 
 ``DIR`` is the root of another checkout of the repo (for example a ``git
 archive`` of the parent commit unpacked into a git-ignored directory).  Its
@@ -16,7 +17,11 @@ the host clock per call (``timing.host_us_per_call``), in the same turns.
 B5 runs on 256 x 128 KiB of the bench corpus (seg 1024, max_match 1024)
 and B4 on 64 x 128 KiB of it (max_match 256), each with the offsets the
 device matcher detects, and both on 64 x 128 KiB of the text corpus with
-those of ``detect_fft=True, fft_k=6`` (up to 10 a block).  The plain
+those of ``detect_fft=True, fft_k=6`` (up to 10 a block).  B6 walks B4's
+planes of those two batches (seg 1024, wcap 8), and the emitter runs at
+every shape a main path launches it (:func:`emit_shapes`).  Each B6 and
+emitter line carries its bound (``bound_ms``, device memory at 3.35 TB/s).
+The plain
 versions are not timed here (``chip_smoke.py`` does that).  Prints one JSON
 object per shape and the card's name and power limit.  Needs CUDA.
 """
@@ -94,8 +99,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", required=True, type=Path, help="root of the other checkout")
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
-    ap.add_argument("--only", choices=("match", "match_walk", "match_dyn", "decode_flat",
-                                       "decode_tables", "decode_planned"),
+    ap.add_argument("--only", choices=("match", "match_walk", "match_dyn", "parse_walk", "emit",
+                                       "decode_flat", "decode_tables", "decode_planned"),
                     help="time one kernel only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -127,7 +132,12 @@ def main() -> int:
         ab_planned(emit, timing, corpus)
     if args.only in (None, "match_walk", "match_dyn"):
         ab_match_dyn(emit, timing, corpus, make_text_corpus(DYN_TEXT_BLOCKS), args.only)
-    if args.only in ("decode_tables", "decode_planned", "match_walk", "match_dyn"):
+    if args.only in (None, "parse_walk"):
+        ab_parse_walk(emit, timing, corpus, make_text_corpus(DYN_TEXT_BLOCKS))
+    if args.only in (None, "emit"):
+        ab_emit(emit, timing, corpus, make_text_corpus(DYN_TEXT_BLOCKS))
+    if args.only in ("decode_tables", "decode_planned", "match_walk", "match_dyn",
+                     "parse_walk", "emit"):
         return finish(args, lines)
     nrows = BLOCK // 128
     planes = torch.from_numpy(np.frombuffer(corpus, np.uint8).reshape(1024, nrows, 128)
@@ -270,6 +280,101 @@ def ab_match_dyn(emit, timing, corpus: bytes, text: bytes, only: str | None) -> 
             emit({"kernel": "match_dyn", "shape": f"{name} {xd.shape[0]} x 128 KiB, "
                   f"max_match 256", "equal": equal,
                   **turns(timing, prev, new, "match_dyn_kernel", 100)})
+
+
+def emit_shapes(corpus: bytes, text: bytes) -> dict:
+    """The emitter's launches on the main paths, on the card: name ->
+    (planes, layout, out_width, lengths or None).  ``corpus`` holds 1024
+    blocks of the bench corpus, ``text`` 64 of the text corpus.
+
+    - bench 256 x 128 KiB at width 2048 (the row the smoke timed first; no
+      lengths, as the smoke always timed it);
+    - the engine's device path: 1024 x 128 KiB through ``match_parse_device``
+      (seg 1024, S 1025) at the engine's own width (``engine_width``);
+    - ``match_offsets``: the same corpus through B3 with the worst-case
+      sequence budget (S 21,889), at the same width rule;
+    - text with ``detect_fft=True, fft_k=6``, 64 x 128 KiB at width 65536;
+    - ``compress_blocks_device(seg=256)``: 64 x 128 KiB, S 4097, at
+      ``adaptive_width``."""
+    from bitar_tpu_torch.ops import device_compress as dc
+    from bitar_tpu_torch.ops.match import DEFAULT_OFFSETS
+
+    def planes_of(data: bytes, n: int):
+        pl = torch.from_numpy(np.frombuffer(data[:n * BLOCK], np.uint8).reshape(n, BLOCK)
+                              .copy()).cuda()
+        return pl, torch.full((n,), BLOCK, dtype=torch.int32, device=pl.device)
+
+    def widths(lay, ln, rule):
+        return rule(lay["total"].cpu().numpy(), ln.cpu().numpy(), BLOCK)
+
+    big, blen = planes_of(corpus, 1024)
+    shapes = {}
+    lay = dc.match_parse_device(big[:WALK_BLOCKS], blen[:WALK_BLOCKS])
+    shapes[f"bench {WALK_BLOCKS} x 128 KiB, width 2048"] = (big[:WALK_BLOCKS], lay, 2048, None)
+    for name, kw in (("engine device path", {}),
+                     ("match_offsets", {"offsets": DEFAULT_OFFSETS})):
+        lay = dc.match_parse_device(big, blen, **kw)
+        ow = widths(lay, blen, dc.engine_width)
+        shapes[f"{name} 1024 x 128 KiB, width {ow}"] = (big, lay, ow, blen)
+    tpl, tlen = planes_of(text, DYN_TEXT_BLOCKS)
+    lay = dc.match_parse_device(tpl, tlen, detect_fft=True, fft_k=6)
+    shapes[f"text detect_fft {DYN_TEXT_BLOCKS} x 128 KiB, width 65536"] = (tpl, lay, 65536, tlen)
+    spl, slen = big[:DYN_BLOCKS], blen[:DYN_BLOCKS]
+    lay = dc.match_parse_device(spl, slen, seg=256)
+    ow = widths(lay, slen, lambda s, ln, L: dc.adaptive_width(s, ln, L, 256))
+    shapes[f"seg 256 {DYN_BLOCKS} x 128 KiB, width {ow}"] = (spl, lay, ow, slen)
+    return shapes
+
+
+def ab_emit(emit, timing, corpus: bytes, text: bytes) -> None:
+    from bitar_tpu_torch.ops import emit as em
+    from bitar_tpu_torch_old.ops import emit as oem
+
+    for name, (pl, lay, ow, ln) in emit_shapes(corpus, text).items():
+        def new(pl=pl, lay=lay, ow=ow, ln=ln):
+            return em.emit_blocks(pl, lay, out_width=ow, lengths=ln)
+
+        def prev(pl=pl, lay=lay, ow=ow, ln=ln):
+            return oem.emit_blocks(pl, lay, out_width=ow, lengths=ln)
+
+        equal = same(new(), prev())
+        rec = {"kernel": "emit", "shape": name, "slots": lay["starts"].shape[1],
+               "out_mib": pl.shape[0] * ow / 2**20,
+               "bound_ms": timing.bound_ms(em.bound_bytes(lay, ow))[0], "equal": equal}
+        rec["floor_kernel_ms"] = em.floor_kernel_ms(pl.shape[0], lay["starts"].shape[1], ow,
+                                                    timing, REPS)
+        emit(rec | turns(timing, prev, new, "emit_kernel", 200))
+
+
+def ab_parse_walk(emit, timing, corpus: bytes, text: bytes) -> None:
+    from bitar_tpu_torch.ops import device_compress as dc
+    from bitar_tpu_torch.ops import match_dyn as md
+    from bitar_tpu_torch_old.ops import match_dyn as omd
+
+    nrows = BLOCK // 128
+    for name, data, n, fft in (("bench B4 planes", corpus, WALK_BLOCKS, False),
+                               ("text detect_fft B4 planes", text, DYN_TEXT_BLOCKS, True)):
+        planes = torch.from_numpy(np.frombuffer(data[:n * BLOCK], np.uint8)
+                                  .reshape(n, BLOCK).copy()).cuda()
+        noff, offs = dc.candidate_offsets(planes, detect_fft=fft, fft_k=6)
+        lengths = torch.full((n,), BLOCK, dtype=torch.int32, device=planes.device)
+        mlen, moff = (t.reshape(n, BLOCK) for t in md.find_matches_dyn(
+            planes.view(n, nrows, 128), noff, offs, nrows=nrows, max_match=1024))
+        kw = dict(seg=1024, min_match=6, wcap=8)
+
+        def new(a=(mlen, moff, lengths)):
+            return md.parse_walk_dyn(*a, **kw)
+
+        def prev(a=(mlen, moff, lengths)):
+            return omd.parse_walk_dyn(*a, **kw)
+
+        got = new()
+        equal = same(got, prev())
+        bound = md.walk_bound_bytes(mlen, moff, lengths, got[0], got[1], **kw)
+        emit({"kernel": "parse_walk", "shape": f"{name}, {n} x 128 KiB, seg 1024, wcap 8",
+              "sequences": int((got[0] >= 0).sum()),
+              "bound_ms": timing.bound_ms(bound)[0], "equal": equal,
+              **turns(timing, prev, new, "parse_walk_kernel", 200)})
 
 
 def finish(args, lines: list[str]) -> int:

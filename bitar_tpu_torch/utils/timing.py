@@ -8,7 +8,9 @@ time per call than its kernel takes, back-to-back launches leave the device
 idle between them and the events time the host: ``kernel_time_ms`` reads
 the kernel's own duration from ``torch.profiler`` (CUPTI), and
 ``host_us_per_call`` the host's time per call.  All three raise without
-CUDA: a device time is never taken on the CPU.
+CUDA: a device time is never taken on the CPU.  ``bound_ms`` is the least
+time the card could take for a given work, the bound every timing is held
+against.
 """
 
 from __future__ import annotations
@@ -18,6 +20,19 @@ import time
 import torch
 
 from ..status import Status, StatusError
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
+INT32_OPS_PER_S = 33.5e12     # 132 SMs x 128 lanes x 1.98 GHz, one op per lane per cycle
+PROFILE_PAD_S = 0.02          # idle host seconds at each end of a profiled window
+PROFILE_TRIES = 3             # profiled windows before kernel_time_ms gives up
+
+
+def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+    """Least ms on an H100 SXM for ``nbytes`` of device traffic and ``ops``
+    int32 operations, and which of the two sets it (``"bytes"`` or
+    ``"operations"``)."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
 
 
 def _need_cuda(what: str) -> None:
@@ -46,26 +61,36 @@ def kernel_time_ms(fn, reps: int, name: str, warmup: int = 1) -> float:
     """Mean device milliseconds per launch of the kernels whose name
     contains ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler``
     (CUDA activity only): the kernel's own duration, without the gaps that
-    the host leaves between launches.  Raises without CUDA, and when no
-    such kernel ran."""
+    the host leaves between launches.
+
+    The profiler keeps only device records that fall inside its window on
+    the host's clock, and CUPTI's clock is converted to that one; so the
+    window is padded with ``PROFILE_PAD_S`` of idle host time at each end,
+    and a window that recorded none of the kernels is profiled again, up to
+    ``PROFILE_TRIES`` windows.  Raises without CUDA, and when no window saw
+    such a kernel."""
     _need_cuda("kernel_time_ms")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if name in e.key:
-            t = getattr(e, "device_time_total", None)    # cuda_time_total before torch 2.4
-            total_us += float(t if t is not None else e.cuda_time_total)
-            count += e.count
-    if count == 0:
-        raise StatusError(Status.IOError(
-            f"kernel_time_ms: no kernel named like {name!r} ran under the profiler"))
-    return total_us / count / 1e3
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            if name in e.key:
+                t = getattr(e, "device_time_total", None)    # cuda_time_total before torch 2.4
+                total_us += float(t if t is not None else e.cuda_time_total)
+                count += e.count
+        if count:
+            return total_us / count / 1e3
+    raise StatusError(Status.IOError(
+        f"kernel_time_ms: no kernel named like {name!r} ran under the profiler "
+        f"in {PROFILE_TRIES} windows"))
 
 
 def host_us_per_call(fn, calls: int, warmup: int = 1) -> float:

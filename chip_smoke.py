@@ -29,7 +29,15 @@ Phases (any failure raises, and the script exits non-zero):
      64, 256 and 2047;
    - ``emit`` at widths 128, 2048 and the adaptive one: LZ4 on the bench
      corpus, on the text corpus with ``detect_fft=True`` and on short RLE
-     blocks that fit 128 bytes, and Snappy at 8192;
+     blocks that fit 128 bytes, and Snappy at 8192 (every row decoded on
+     the host); at every shape a main path launches it
+     (``kernel_ab.emit_shapes``: the engine's device path and
+     ``match_offsets`` at 1024 x 128 KiB and the engine's width, text
+     ``detect_fft`` at 65536, ``seg=256``, and the bench row at 2048); and
+     on ``emit.edge_layouts`` (LZ4 and Snappy, wcap 8 and the worst-case
+     budget) at widths that cut rows, are not a multiple of 16, hold
+     every row, or take 512-byte tiles (the literal path); whole rows,
+     garbage rows included;
    - ``decode_tables`` (B2) on the sequence tables of 4 KiB blocks of the
      bench corpus (8192 blocks), of the markdown text corpus at 128 KiB
      under an 8-pass plan budget (deep tables), of 256 x 128 KiB of the
@@ -45,7 +53,8 @@ Phases (any failure raises, and the script exits non-zero):
    - ``parse_walk`` (B6) on B4's match planes of B5's bench batch (256 x
      128 KiB, seg 1024, wcap 8; B4 -> B6 must equal B5's records) and on
      hand-set planes at seg 256 and 512 (moff 0 inside runs, lengths below
-     L, segments past wcap);
+     L, segments past wcap) and on ``match_dyn.walk_edge_batch`` at seg
+     128, 1024, 2048 and 42, wcap 0, 1 and 8;
    - ``decode_planned`` (B7) on the ``plan_block`` + ``pack_plan`` plans of
      256 x 128 KiB LZ4 blocks of the bench corpus (every planned block
      decodes to its raw bytes), on random malformed plans (as made and
@@ -92,8 +101,11 @@ Phases (any failure raises, and the script exits non-zero):
    line takes 1024, indices, max_match 64); B2 at 8192 x 4 KiB (the
    kernels line), its 1024 x 4 KiB burst, 256 x 128 KiB of the bench
    corpus and the deep text tables; B5 and B4 on their bench batches and on
-   the text ``detect_fft`` batch; the emitter, B6 and B7 at the
-   shapes of phase 3 (the
+   the text ``detect_fft`` batch; the emitter at every main-path shape of
+   phase 3 (with its bound and an empty kernel's time on the same grid;
+   the kernels line takes the shape with the most kernel-only time over
+   its bound and names it); B6 on the bench and text B4 planes; B7 at the
+   shape of phase 3 (the
    multi-device steps' host-clock times are logged in phase 4); the whole
    ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
    and the host-clock phases of the tpu matcher's compress (plane packing,
@@ -120,6 +132,8 @@ import time
 import numpy as np
 import torch
 
+from bitar_tpu_torch.utils.timing import bound_ms
+
 BLOCK = 128 * 1024
 NBLOCKS = 1024
 TEXT_BLOCKS = 256
@@ -145,8 +159,6 @@ RANKS = 4                     # gloo ranks sharing the one card (path b)
 WORLD_TIMEOUT = 300.0         # seconds a spawned world may take
 TIMED_REPS = (3, 20)          # (plain, kernel) launches per timed turn
 HOST_CALLS = 200              # calls per host-clock reading of a wrapper
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-INT32_OPS_PER_S = 33.5e12     # 132 SMs x 128 lanes x 1.98 GHz, one op per lane per cycle
 
 
 def log(msg: str) -> None:
@@ -164,12 +176,6 @@ def engine(btt, codec, block=BLOCK, nblocks=NBLOCKS, **kw):
     cfg = btt.EngineConfig(codec=codec, block_size=block, burst_size=min(nblocks, 1024),
                            max_pool_slots=nblocks + 32, **kw)
     return btt.Engine(cfg, device="cuda").initialize()
-
-
-def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
-    """Least time for ``nbytes`` of device traffic and ``ops`` int32 ops."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return 1e3 * max(tb, to), "bytes" if tb >= to else "operations"
 
 
 def turns(timing, kernel, plain):
@@ -435,17 +441,9 @@ def score_bound(planes, noff, out_bytes: int) -> tuple[float, str]:
     return bound_ms(int((live > 0).sum()) * L + 12 * n + out_bytes, 2.0 * float(live.sum()) * L)
 
 
-def emit_bound(lay, ow: int) -> tuple[float, str]:
-    """Bytes an LZ4 emission at width ``ow`` must move: the literal bytes of
-    each row's first min(total, ow) output bytes and the five fields of the
-    slots that start there read, [N, ow] written."""
-    lim = lay["total"].long().clamp(max=ow)[:, None]
-    starts, ll = lay["starts"].long(), lay["lit_len"].long()
-    lo = starts + 1 + torch.where(ll >= 15, (ll - 15) // 255 + 1, 0)
-    lit = (torch.minimum(lo + ll, lim) - lo).clamp(min=0)
-    slots = (starts < lim) & lay["taken"]
-    n = starts.shape[0]
-    return bound_ms(int(lit.sum()) + 20 * int(slots.sum()) + 4 * n + n * ow)
+def emit_bound(em, lay, ow: int) -> tuple[float, str]:
+    """The emitter's least time at width ``ow`` (``emit.bound_bytes``)."""
+    return bound_ms(em.bound_bytes(lay, ow))
 
 
 # ---------------------------------------------------------------------------
@@ -569,42 +567,10 @@ def compare_parse_walk(md, mlen, moff, lengths, seg: int, what: str):
                for k, g, w in zip("PMOo", got, want)), got
 
 
-def walk_bound(mlen, moff, lengths, P, M, seg: int, wcap: int, min_match: int = 6):
-    """B6's least traffic on this data: 4 bytes of mlen at every position
-    its walk must examine (from each cursor to the match it takes, to the
-    segment end where none is left, and the overflow scan), 4 bytes of moff
-    only where such a position passes the length and position tests (the
-    only places moff decides anything), the lengths, and the records and
-    flags written."""
-    n, L = mlen.shape
-    G = L // seg
-    dev = mlen.device
-    brow = torch.arange(seg, device=dev)
-    gbase = (torch.arange(G, device=dev) * seg).view(1, G, 1)
-    blen = lengths.long().view(n, 1, 1)
-    m_t = torch.minimum(mlen.view(n, G, seg).long(), (blen - 5 - gbase).clamp(max=seg) - brow)
-    tested = (m_t >= min_match) & (gbase + brow < blen - 12)
-    valid = tested & (moff.view(n, G, seg) >= 1)
-    Pg = P.view(n, G, wcap).long() - gbase
-    Mg = M.view(n, G, wcap).long()
-    edges = torch.zeros((n, G, seg + 1), dtype=torch.long, device=dev)
-
-    def examine(lo, hi):                      # mark [lo, hi) of every segment
-        lo = lo.clamp(0, seg)
-        hi = torch.maximum(hi.clamp(0, seg), lo)
-        edges.scatter_add_(2, lo[:, :, None], torch.ones_like(lo)[:, :, None])
-        edges.scatter_add_(2, hi[:, :, None], -torch.ones_like(hi)[:, :, None])
-
-    pos = torch.zeros((n, G), dtype=torch.long, device=dev)
-    for t in range(wcap):
-        took = P.view(n, G, wcap)[:, :, t] >= 0
-        examine(pos, torch.where(took, Pg[:, :, t] + 1, seg))
-        pos = torch.where(took, Pg[:, :, t] + Mg[:, :, t], seg)
-    left = torch.where(valid & (brow >= pos[:, :, None]), brow, seg).min(dim=2).values
-    examine(pos, torch.where(left < seg, left + 1, seg))
-    seen = edges.cumsum(dim=2)[:, :, :seg] > 0
-    return bound_ms(4 * int(seen.sum()) + 4 * int((seen & tested).sum()) + 4 * n
-                    + 3 * 4 * n * G * wcap + n)
+def walk_bound(md, mlen, moff, lengths, P, M, seg: int, wcap: int, min_match: int = 6):
+    """B6's least time on this data (``match_dyn.walk_bound_bytes``)."""
+    return bound_ms(md.walk_bound_bytes(mlen, moff, lengths, P, M, seg=seg, wcap=wcap,
+                                        min_match=min_match))
 
 
 def planned_bound(p_used, stored: int, passes: int) -> tuple[float, str]:
@@ -858,6 +824,7 @@ def main() -> int:
     from bitar_tpu_torch.ops.cpu import native
     from bitar_tpu_torch.utils import timing
     from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
+    from bitar_tpu_torch.utils.kernel_ab import emit_shapes
 
     card = card_line()
     log(card)
@@ -965,7 +932,6 @@ def main() -> int:
         "bench snappy": (mplanes, mlens, dc.match_parse_device(mplanes, mlens, fmt="snappy")),
     }
     err = 0
-    emit_main = None
     for name, (pl, ln, lay) in layouts.items():
         fmt = "snappy" if "snappy" in name else "lz4"
         n = pl.shape[0]
@@ -982,8 +948,32 @@ def main() -> int:
                 raise AssertionError(f"emit {name} ow {ow}: no row fits the width")
             log(f"emit == plain version: {name}, {n} x {BLOCK} B, out_width {ow}; "
                 f"{rows} compressed rows decode bit-exact on the host")
-            if name == "bench lz4" and ow == 2048:
-                emit_main = (pl, lay, ow)
+    # The shapes the main paths launch the emitter at (kernel_ab.emit_shapes),
+    # whole rows against the plain version, a block of rows at a time.
+    emit_at = emit_shapes(corpus, text)
+    for name, (pl, lay, ow, ln) in emit_at.items():
+        got = em.emit_blocks(pl, lay, out_width=ow, lengths=ln)
+        torch.cuda.synchronize()
+        for r in range(0, pl.shape[0], 256):
+            rows = {k: v[r:r + 256] for k, v in lay.items()}
+            err = max(err, check_equal(f"emit {name} rows {r}+", got[r:r + 256], em.emit_reference(
+                pl[r:r + 256], rows, out_width=ow, lengths=None if ln is None else ln[r:r + 256])))
+        log(f"emit == plain version, whole rows: {name}, slots a row {lay['starts'].shape[1]}")
+    for fmt, wcap, L in (("lz4", 8, BLOCK), ("lz4", 64, BLOCK), ("lz4", None, BLOCK),
+                         ("snappy", 8, 16384), ("snappy", None, BLOCK)):
+        epl, eln, elay = (em.edge_layouts(L, fmt=fmt, wcap=wcap))
+        epl, eln = torch.from_numpy(epl).cuda(), torch.from_numpy(eln).cuda()
+        elay = {k: torch.from_numpy(v).cuda() for k, v in elay.items()}
+        widths = ((256, 8192, 65408, 98304) if fmt == "snappy"
+                  else (128, 1000, 2051, 65536, 98304, dc.lz4_bound(L)))
+        for ow in widths:
+            got = em.emit_blocks(epl, elay, out_width=ow, fmt=fmt, lengths=eln)
+            torch.cuda.synchronize()
+            err = max(err, check_equal(f"emit edge {fmt} wcap {wcap} ow {ow}", got,
+                                       em.emit_reference(epl, elay, out_width=ow, fmt=fmt,
+                                                         lengths=eln)))
+        log(f"emit == plain version, whole rows: edge layouts {fmt}, wcap {wcap}, "
+            f"{epl.shape[0]} x {L} B, slots a row {elay['starts'].shape[1]}, widths {widths}")
     kernels["emit"] = {"max_abs_err": err}
 
     tbatches = {"bench 4 KiB": table_batch(btt, corpus[:TABLE_CHECK_BLOCKS * TABLE_BLOCK],
@@ -1059,6 +1049,16 @@ def main() -> int:
         err = max(err, e)
         log(f"parse_walk == plain version: hand-set batch, 8 x {seg * 128} B, seg {seg} "
             f"(moff 0 inside runs, lengths below L), overflowing blocks {int(got[3].sum())}")
+    for seg in (128, 1024, 2048, 42):
+        for wcap in (0, 1, 8):
+            wm, wo, wl = (torch.from_numpy(a).cuda() for a in md.walk_edge_batch(seg))
+            got = md.parse_walk_dyn(wm, wo, wl, seg=seg, min_match=6, wcap=wcap)
+            torch.cuda.synchronize()
+            want = md.parse_walk_reference(wm, wo, wl, seg=seg, min_match=6, wcap=wcap)
+            err = max(err, max(check_equal(f"parse_walk edge seg {seg} wcap {wcap} {k}", g, w)
+                               for k, g, w in zip("PMOo", got, want)))
+    log("parse_walk == plain version (P/M/O/overflow): walk_edge_batch at seg 128, 1024, "
+        "2048 and 42 (4-byte loads), wcap 0, 1 and 8")
     kernels["parse_walk"] = {"max_abs_err": err}
 
     wire = dp.plan_blocks([corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(MATCH_BLOCKS)],
@@ -1262,15 +1262,28 @@ def main() -> int:
             kernels["match_dyn"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=k_ms,
                                         bound=bound)
 
-    pl, lay, ow = emit_main
-    res, ms = turns(timing, lambda: em.emit_blocks(pl, lay, out_width=ow),
-                    lambda: em.emit_reference(pl, lay, out_width=ow))
-    report(f"emit bench lz4 {MATCH_BLOCKS} x 128 KiB out_width {ow}", card, res, ms,
-           MATCH_BLOCKS * BLOCK)
-    kernels["emit"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
-        timing, f"emit bench lz4 {MATCH_BLOCKS} x 128 KiB out_width {ow}", card, "emit",
-        lambda: em.emit_blocks(pl, lay, out_width=ow)))
-    kernels["emit"]["bound"] = emit_bound(lay, ow)
+    # The emitter at every shape a main path launches it; the kernels line
+    # takes the main-path shape with the most kernel-only time over its bound.
+    worst = None
+    for name, (pl, lay, ow, ln) in emit_at.items():
+        def kernel(pl=pl, lay=lay, ow=ow, ln=ln):
+            return em.emit_blocks(pl, lay, out_width=ow, lengths=ln)
+
+        def plain(pl=pl, lay=lay, ow=ow, ln=ln):
+            return em.emit_reference(pl, lay, out_width=ow, lengths=ln)
+
+        label = f"emit {name}"
+        res, ms = turns(timing, kernel, plain)
+        report(label, card, res, ms, pl.shape[0] * BLOCK)
+        k_ms = wrapper_times(timing, label, card, "emit", kernel)
+        bound = emit_bound(em, lay, ow)
+        floor = em.floor_kernel_ms(pl.shape[0], lay["starts"].shape[1], ow, timing, TIMED_REPS[1])
+        log(f"{label}: bound {bound}; empty kernel on the same grid {floor:.4f} ms kernel-only "
+            f"[{card}]")
+        if not name.startswith("bench") and (worst is None or k_ms - bound[0] > worst[0]):
+            worst = (k_ms - bound[0], name, dict(ms=res["kernel"], plain_ms=res["plain"],
+                                                 kernel_ms=k_ms, bound=bound))
+    kernels["emit"].update(worst[2], shape=worst[1])
 
     brows, bnseq, btables, bblock, bcomp, _ = tbatches["bench 4 KiB"]
     res, ms = turns(timing, lambda: dt.decode_blocks(brows, bnseq, btables, out_rows=bblock // 128),
@@ -1336,9 +1349,17 @@ def main() -> int:
         timing, f"parse_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024 wcap 8", card, "parse_walk",
         lambda: md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024, min_match=6, wcap=8)))
     pw = md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024, min_match=6, wcap=8)
-    kernels["parse_walk"]["bound"] = walk_bound(mlen4, moff4, mlens, pw[0], pw[1], 1024, 8)
+    kernels["parse_walk"]["bound"] = walk_bound(md, mlen4, moff4, mlens, pw[0], pw[1], 1024, 8)
     log(f"parse_walk bound [{card}]: {kernels['parse_walk']['bound']} (positions the walk "
         f"examines; both planes whole would be {bound_ms(2 * mlen4.numel() * 4)[0]:.4f} ms)")
+    # B6 on the text batch's B4 planes (detect_fft's offsets), the kernel alone.
+    tm4, to4 = (t.reshape(FFT_TEXT_BLOCKS, BLOCK) for t in md.find_matches_dyn(
+        tplanes.view(-1, nrows, 128), tnoff, toffs, nrows=nrows, max_match=1024))
+    label = f"parse_walk text detect_fft {FFT_TEXT_BLOCKS} x 128 KiB seg 1024 wcap 8"
+    wrapper_times(timing, label, card, "parse_walk", lambda: md.parse_walk_dyn(
+        tm4, to4, tlens, seg=1024, min_match=6, wcap=8))
+    pw = md.parse_walk_dyn(tm4, to4, tlens, seg=1024, min_match=6, wcap=8)
+    log(f"{label}: bound {walk_bound(md, tm4, to4, tlens, pw[0], pw[1], 1024, 8)}")
 
     res, ms = turns(timing, lambda: dp.decode_blocks_planned(pcomp, pused, pse, psh, **pkw),
                     lambda: dp.decode_planned_reference(pcomp, pused, pse, psh, **pkw))
@@ -1397,7 +1418,7 @@ def main() -> int:
                      "replaces": sources[name][1], "launches": k["launches"],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None})
+                     "library_ms": None} | ({"shape": k["shape"]} if "shape" in k else {}))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

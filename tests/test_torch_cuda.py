@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA device: every kernel (flat decode B1,
 table decode B2 on parser, random well-formed and malformed tables,
-static-offset match B3, B5 match walk, B4 match scoring, B6 parse walk, B7
-dense-plan decode on planner, random and pass-class plans, emitter) against
+static-offset match B3, B5 match walk, B4 match scoring, B6 parse walk on
+B4's planes and ``walk_edge_batch``, B7 dense-plan decode on planner,
+random and pass-class plans, the emitter on parser layouts and
+``edge_layouts``) against
 its plain PyTorch version on the card, and the engine's
 paths there (host and device compress, tables, Zstd, the tpu matchers,
 batched decode) and the multi-device dry run's.
@@ -768,6 +770,34 @@ def test_emit_kernel_matches_plain(fmt, ow, fft, cuda_device):
     assert assert_rows_decode(fmt, got, layout["total"], planes, lengths) > 0
 
 
+@pytest.mark.parametrize("fmt,wcap,L", [("lz4", 8, 16384), ("lz4", None, 16384),
+                                        ("lz4", 64, 32768), ("lz4", 8, 128 * 1024),
+                                        ("lz4", None, 128 * 1024), ("snappy", 8, 16384),
+                                        ("snappy", None, 128 * 1024)])
+def test_emit_kernel_on_edge_layouts(fmt, wcap, L, cuda_device):
+    # Whole rows equal the plain version's, garbage rows (total > width)
+    # included, at widths that cut rows, that are not a multiple of 16, that
+    # hold every row, and one wide enough for 512-byte tiles on a card of up
+    # to 192 SMs (the kernel's literal path); and with no lengths (every raw
+    # length L).
+    planes, lengths, lay = (temit.edge_layouts(L, fmt=fmt, wcap=wcap))
+    planes, lengths = (torch.from_numpy(a).to(cuda_device) for a in (planes, lengths))
+    layout = {k: torch.from_numpy(v).to(cuda_device) for k, v in lay.items()}
+    bound = tdc.lz4_bound(L)
+    widths = ((256, 8192, 65408, 98304) if fmt == "snappy"
+              else (128, 1000, 2051, 4096, bound, 98304))
+    for ow in widths:
+        for ln in (lengths, None):
+            before = temit.launches
+            got = temit.emit_blocks(planes, layout, out_width=ow, fmt=fmt, lengths=ln)
+            torch.cuda.synchronize()
+            assert temit.launches == before + 1
+            want = temit.emit_reference(planes, layout, out_width=ow, fmt=fmt, lengths=ln)
+            assert torch.equal(got, want), f"width {ow}, lengths {'given' if ln is not None else 'L'}"
+    got = temit.emit_blocks(planes, layout, out_width=bound, fmt=fmt, lengths=lengths)
+    assert assert_rows_decode(fmt, got, layout["total"], planes, lengths) > 0
+
+
 @pytest.mark.parametrize("block", [128 * 1024, 48 * 1024])
 def test_device_compress_engine_on_card(block, cuda_device):
     data = make_corpus(8)[:8 * block - 5000]
@@ -837,6 +867,100 @@ def test_parse_walk_kernel_matches_plain_on_random_planes(seg, min_match, cuda_d
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert bool(got[3].any()), "some segments overflow wcap"
+
+
+@pytest.mark.parametrize("wcap", [0, 1, 8, 40])
+@pytest.mark.parametrize("seg", [128, 1024, 2048, 1000, 42])
+def test_parse_walk_kernel_on_edge_batch(seg, wcap, cuda_device):
+    # seg 42 takes four 4-byte loads a lane and chunk (seg % 4 != 0), the
+    # others one 16-byte load.
+    args = [torch.from_numpy(a).to(cuda_device) for a in tmd.walk_edge_batch(seg, 8)]
+    before = tmd.parse_walk_launches
+    got = tmd.parse_walk_dyn(*args, seg=seg, min_match=6, wcap=wcap)
+    torch.cuda.synchronize()
+    assert tmd.parse_walk_launches == before + 1
+    want = tmd.parse_walk_reference(*args, seg=seg, min_match=6, wcap=wcap)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seg", [128, 1024])
+def test_parse_walk_kernel_on_unaligned_planes(seg, cuda_device):
+    # Planes 4 bytes past a 16-byte boundary take four 4-byte loads a lane
+    # and chunk at a seg that otherwise takes one 16-byte load.
+    mlen, moff, lengths = (torch.from_numpy(a).to(cuda_device)
+                           for a in tmd.walk_edge_batch(seg, 8))
+    shifted = []
+    for t in (mlen, moff):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        flat[1:] = t.reshape(-1)
+        shifted.append(flat[1:].view(t.shape))
+    assert shifted[0].data_ptr() % 16
+    got = tmd.parse_walk_dyn(*shifted, lengths, seg=seg, min_match=6, wcap=8)
+    want = tmd.parse_walk_reference(mlen, moff, lengths, seg=seg, min_match=6, wcap=8)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _emit_and_walk_batches(device):
+    planes, lengths, lay = temit.edge_layouts(16384, wcap=8)
+    emit_in = (torch.from_numpy(planes).to(device),
+               {k: torch.from_numpy(v).to(device) for k, v in lay.items()},
+               torch.from_numpy(lengths).to(device))
+    return emit_in, [torch.from_numpy(a).to(device) for a in tmd.walk_edge_batch(1024, 8)]
+
+
+def test_emit_and_parse_walk_on_a_device_not_current():
+    # The wrappers enter no device context: the launch functions enter the
+    # tensors' device, so a launch from another current device runs there,
+    # on that device's stream, and leaves the current device as it was.
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    (planes, layout, lengths), walk = _emit_and_walk_batches(dev)
+    with torch.cuda.device(0):
+        got_e = temit.emit_blocks(planes, layout, out_width=4096, lengths=lengths)
+        got_w = tmd.parse_walk_dyn(*walk, seg=1024, min_match=6, wcap=8)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)
+    assert got_e.device == dev and got_w[0].device == dev
+    want_e = temit.emit_reference(planes.cpu(), {k: v.cpu() for k, v in layout.items()},
+                                  out_width=4096, lengths=lengths.cpu())
+    assert torch.equal(got_e.cpu(), want_e)
+    want_w = tmd.parse_walk_reference(*(t.cpu() for t in walk), seg=1024, min_match=6, wcap=8)
+    for g, w in zip(got_w, want_w):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_emit_and_parse_walk_launchers_enter_the_given_device(cuda_device):
+    # Each launch function launches on the device it is given, not the
+    # current one: a device that does not exist fails the launch ("invalid
+    # device ordinal") and leaves the current device as it was.
+    (planes, layout, lengths), (mlen, moff, wlen) = _emit_and_walk_batches(cuda_device)
+    current = torch.cuda.current_device()
+    missing = torch.cuda.device_count()
+    stream = torch._C._cuda_getCurrentRawStream(current)
+    n, L = planes.shape
+    S = layout["starts"].shape[1]
+    out = torch.empty((n, 4096), dtype=torch.uint8, device=cuda_device)
+    lib = temit.load_kernel()
+    fields = [layout[k].data_ptr() for k in ("starts", "lit_len", "lit_start", "mv", "off")]
+    for device, want in ((missing, "invalid device ordinal"), (current, "no error")):
+        rc = lib.bt_emit_launch(planes.data_ptr(), L, *fields, S, layout["total"].data_ptr(),
+                                lengths.data_ptr(), out.data_ptr(), n, 4096, 0, device, stream)
+        assert lib.bt_error(rc).decode() == want
+        assert torch.cuda.current_device() == current
+    P, M, O = torch.empty((3, mlen.shape[0], 8 * 8), dtype=torch.int32, device=cuda_device)
+    flags = torch.empty((mlen.shape[0], 8), dtype=torch.int32, device=cuda_device)
+    wlib = tmd.load_parse_walk_kernel()
+    for device, want in ((missing, "invalid device ordinal"), (current, "no error")):
+        rc = wlib.bt_parse_walk_launch(mlen.data_ptr(), moff.data_ptr(), wlen.data_ptr(),
+                                       P.data_ptr(), M.data_ptr(), O.data_ptr(),
+                                       flags.data_ptr(), mlen.shape[0], mlen.shape[1], 1024, 6,
+                                       8, device, stream)
+        assert wlib.bt_error(rc).decode() == want
+        assert torch.cuda.current_device() == current
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("block", [16 * 1024, 128 * 1024])

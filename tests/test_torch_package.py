@@ -112,3 +112,62 @@ def test_kernel_and_host_timers_refuse_cpu(timer, monkeypatch):
     with pytest.raises(btt.StatusError, match="needs a CUDA device"):
         fn()
     assert calls == []
+
+
+@pytest.mark.parametrize("empty_windows", [1, 3])
+def test_kernel_time_ms_profiles_again_after_a_window_without_the_kernel(
+        empty_windows, monkeypatch):
+    # A profiled window whose device records were all dropped is profiled
+    # again; after PROFILE_TRIES such windows the timer raises.
+    import torch
+
+    from bitar_tpu_torch.utils import timing
+
+    class Average:
+        key, device_time_total, count = "void walk_kernel(Args)", 30.0, 3
+
+    windows = []
+
+    class Profile:
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            windows.append(1)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [] if len(windows) <= empty_windows else [Average()]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(timing, "PROFILE_PAD_S", 0.0)
+    if empty_windows < timing.PROFILE_TRIES:
+        assert timing.kernel_time_ms(lambda: None, 3, "walk_kernel") == pytest.approx(0.01)
+        assert len(windows) == empty_windows + 1
+    else:
+        with pytest.raises(btt.StatusError, match="no kernel named like 'walk_kernel'"):
+            timing.kernel_time_ms(lambda: None, 3, "walk_kernel")
+        assert len(windows) == timing.PROFILE_TRIES
+
+
+def test_require_builds_its_message_only_on_failure():
+    from bitar_tpu_torch.ops._build import require
+
+    built = []
+
+    def message():
+        built.append(1)
+        return "built on failure"
+
+    require(True, message)
+    assert built == []
+    with pytest.raises(btt.StatusError, match="built on failure"):
+        require(False, message)
+    assert built == [1]
+    with pytest.raises(btt.StatusError, match="a plain message"):
+        require(False, "a plain message")

@@ -14,6 +14,7 @@ import torch
 
 from bitar_tpu.ops.pallas import lz4_match_dyn as jmd
 from bitar_tpu_torch.ops import match_dyn as tmd
+from bitar_tpu_torch.status import StatusError
 
 torch.set_num_threads(1)
 
@@ -134,3 +135,25 @@ def test_refuses_a_device_without_kernel():
     with pytest.raises(btt.StatusError):
         tmd.parse_walk_dyn(z, z, torch.zeros(1, dtype=torch.int32, device="meta"), seg=128,
                            min_match=6, wcap=2)
+
+
+@pytest.mark.parametrize("wcap", [0, 1, 8])
+@pytest.mark.parametrize("seg", [128, 1024, 2048])
+def test_walk_edge_batch_matches_jax(seg, wcap):
+    # ``match_dyn.walk_edge_batch``: cursors landing on 32- and 128-position
+    # boundaries and on seg, moff 0 at the first mlen-valid position of a
+    # chunk, segments wholly past the block, a scan end inside a 16-byte load.
+    mlen, moff, lengths = tmd.walk_edge_batch(seg)
+    P, _, _, overflow = check_same(mlen, moff, lengths, seg=seg, min_match=6, wcap=wcap)
+    if wcap:
+        assert (P.numpy()[0] >= 0).sum() >= 8, "row 0's matches are taken"
+    assert bool(overflow[4]) and not bool(overflow[3]) and not bool(overflow[7])
+
+
+@pytest.mark.parametrize("wcap", [-1, 2])
+def test_parse_walk_dyn_has_no_kernel_for_other_devices(wcap):
+    # The device check comes first and builds its message only on failure.
+    z = torch.zeros((2, 256), dtype=torch.int32, device="meta")
+    lengths = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(StatusError, match="parse_walk_dyn: no kernel for device meta"):
+        tmd.parse_walk_dyn(z, z, lengths, seg=128, min_match=6, wcap=wcap)
