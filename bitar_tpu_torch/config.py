@@ -83,15 +83,19 @@ class DeviceCapabilities:
     max_inflight_bursts: int
     shared_mem_bytes: int        # per-block shared memory (opt-in maximum)
     hbm_budget_bytes: int        # arena ceiling
-    #: why ``max_block_size`` is what it is (named in the rejection)
-    block_size_reason: str = ""
+    #: the largest block the device matchers ("tpu", "device") take
+    matcher_max_block_size: int = 1 << 20
 
 
 _ALL_CODECS = (Codec.LZ4, Codec.SNAPPY, Codec.ZSTD, Codec.RAW)
 
-#: Rows of 128 bytes one decode_flat CTA can hold: 1024 threads x 32
-#: register words x 4 bytes (csrc/decode_flat.cu kThreads * kMaxWords).
+#: Rows of 128 bytes of the largest plane decode_flat's shared-memory route
+#: holds: 1024 threads x 32 register words x 4 bytes (csrc/decode_flat.cu
+#: kThreads * kMaxWords).  Taller planes take its device-memory route.
 DECODE_FLAT_MAX_ROWS = 1024
+#: Blocks the match kernels (B3, B5, B4) and the emitter are held to their
+#: plain versions at on a CUDA device; the device matchers take no larger.
+CUDA_MATCHER_MAX_BLOCK = 128 * 1024
 
 CPU_REFERENCE = DeviceCapabilities(
     name="cpu-reference",
@@ -109,26 +113,21 @@ def cuda_capabilities(name: str, total_memory: int,
                       shared_mem_per_block_optin: int) -> DeviceCapabilities:
     """Capability record of one CUDA device from its properties.
 
-    The decode kernel keeps a whole out plane in shared memory and one
-    plane's worth of pending bytes in registers, so a block may be at most
-    ``min(shared memory per block, 1024 rows) * 128`` bytes; past that the
-    engine rejects the config instead of decoding on another path.  The
-    arena may take three quarters of device memory: the rest holds plans,
+    Blocks go up to 1 MiB, as on the TPU: the decode kernels keep planes of
+    up to 128 KiB in shared memory and taller ones in device memory.  The
+    device matchers take blocks up to ``CUDA_MATCHER_MAX_BLOCK``.  The arena
+    may take three quarters of device memory: the rest holds plans,
     gathered bursts and decoded planes."""
-    plane_rows = min(shared_mem_per_block_optin // 128, DECODE_FLAT_MAX_ROWS)
     return DeviceCapabilities(
         name=name,
         codecs=_ALL_CODECS,
         min_block_size=1 << 10,
-        max_block_size=plane_rows * 128,
+        max_block_size=1 << 20,
         max_burst_size=2048,
         max_inflight_bursts=512,
         shared_mem_bytes=shared_mem_per_block_optin,
         hbm_budget_bytes=total_memory * 3 // 4,
-        block_size_reason=(
-            "decode_flat holds a block's out plane in shared memory "
-            f"({shared_mem_per_block_optin} B per block) and registers "
-            f"({DECODE_FLAT_MAX_ROWS} rows)"),
+        matcher_max_block_size=CUDA_MATCHER_MAX_BLOCK,
     )
 
 
@@ -206,10 +205,9 @@ class EngineConfig:
             return Status.Invalid(
                 f"codec {self.codec.value} unsupported by device class {caps.name}")
         if not (caps.min_block_size <= self.block_size <= caps.max_block_size):
-            why = f": {caps.block_size_reason}" if caps.block_size_reason else ""
             return Status.Invalid(
                 f"block_size {self.block_size} outside device range "
-                f"[{caps.min_block_size}, {caps.max_block_size}]{why}")
+                f"[{caps.min_block_size}, {caps.max_block_size}]")
         if not (1 <= self.burst_size <= caps.max_burst_size):
             return Status.Invalid(
                 f"burst_size {self.burst_size} outside [1, {caps.max_burst_size}]")
@@ -265,6 +263,13 @@ class EngineConfig:
                     f"device matcher layout needs {slots} sequence slots "
                     f">= 2^15 (block_size {self.block_size} / min_match "
                     f"{self.min_match}); raise min_match or shrink blocks")
+        if (self.compress_matcher in ("tpu", "device")
+                and self.block_size > caps.matcher_max_block_size):
+            return Status.Invalid(
+                f"compress_matcher {self.compress_matcher!r} takes blocks up to "
+                f"{caps.matcher_max_block_size} B on {caps.name}: the match kernels "
+                f"(csrc/match.cu, match_walk.cu, match_dyn.cu) and the emitter "
+                f"(csrc/emit.cu) are held to their plain versions only up to there")
         if self.commit not in ("eager", "deferred"):
             return Status.Invalid(
                 f"commit {self.commit!r} not in (eager, deferred)")

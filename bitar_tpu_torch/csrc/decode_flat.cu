@@ -53,6 +53,20 @@
 // The comp plane is read through L1/L2 (not staged): the kernel knows only
 // the unit's widest plane, so staging would copy comp_rows * 128 bytes a
 // block where the bench's decoded blocks store ~550 (they stay in L1).
+//
+// Planes taller than 1024 rows (blocks of 256 KiB to 1 MiB: 8192 rows, 256
+// words a thread) take the device-memory route, a second instantiation of
+// the same kernel (kGlobal).  RAW blocks and blocks with no out pass are
+// what they are on the shared route; the sweep walks the plane's tiles
+// eight at a time.  A block with out passes is swept into its own output
+// row, and each out pass gathers the new value of every word it writes into
+// the CTA's scratch row in device memory, __syncthreads(), writes them to
+// the output row, __syncthreads(): every read sees the plane as it stood
+// before the pass (a CTA's global writes are visible to its threads after
+// the barrier).  A pass moves ~3x the bytes it writes (read source, write
+// and read scratch, write plane) through L2 instead of shared memory; no
+// bulk store.  Holding the plane in a cluster's distributed shared memory is
+// the Hopper design for a later version.
 
 #include <cstdint>
 
@@ -61,10 +75,11 @@
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr int kMaxWords = 32;     // words per thread: 1024 rows * 32 / 1024
+constexpr int kMaxWords = 32;     // words per thread of the shared route: 1024 rows * 32 / 1024
 constexpr int kGroup = 4;         // tiles whose words a thread sweeps at once
 constexpr int kRawBatch = 4;      // 16-byte chunks a thread loads at once in a RAW copy
 constexpr int kLanes = 128;
+constexpr int kMaxRows = 65536;   // 8 MiB planes: every index inside a plane fits an int
 
 struct Args {
   const uint8_t* comp;            // [n] rows of comp_stride bytes
@@ -87,6 +102,7 @@ struct Args {
   int out_rows;
   int n;
   int* queue;                     // [next block to take, CTAs done]: 0 at launch
+  uint32_t* scratch;              // device-memory route: [grid, out_rows * 32] words
 };
 
 // One block's plan, the same in every thread.
@@ -177,15 +193,19 @@ __device__ void copy_raw(const uint8_t* cp, uint8_t* out, int out_len, const Arg
 // holds the row's anchor of dense pass l + 1 in every tile (row_a keeps a
 // row's tiles together, so that is one 32-byte sector, loaded once), and
 // each byte takes its pass's anchor by a shuffle.
-__device__ void sweep(const Block& k, uint32_t* dst, const Args& a) {
+//
+// Tiles [t0, t0 + nt) of the plane, nt <= 8 (the shared route sweeps its
+// 1-8 tiles in one call, the device-memory route in octets).
+__device__ __forceinline__ void sweep_tiles(const Block& k, uint32_t* dst, const Args& a,
+                                            int t0, int nt) {
   const int out_len = a.out_rows * kLanes;
-  const int tiles = a.out_rows / kLanes;            // 1 to 8
+  const int tiles = a.out_rows / kLanes;
   const uint2* dqr = reinterpret_cast<const uint2*>(a.dq + static_cast<long long>(k.di) * out_len);
   // Anchor plane j of wire row di is [128, tiles]: row r of tile c at [r, c].
-  const int32_t* ra = a.row_a + static_cast<long long>(k.di) * a.dcap * a.out_rows;
+  const int32_t* ra = a.row_a + static_cast<long long>(k.di) * a.dcap * a.out_rows + t0;
   const int lane = threadIdx.x & 31;
   const uint32_t np = k.dense_on ? static_cast<uint32_t>(min(min(k.dn, a.dcap), 63)) : 0u;
-  const bool vec = tiles == 8 && (reinterpret_cast<uintptr_t>(ra) & 15) == 0;
+  const bool vec = nt == 8 && tiles % 4 == 0 && (reinterpret_cast<uintptr_t>(ra) & 15) == 0;
 #pragma unroll 1
   for (int g = 0; g < 4; ++g) {
     const int r = (threadIdx.x >> 5) + 32 * g;
@@ -198,11 +218,11 @@ __device__ void sweep(const Block& k, uint32_t* dst, const Args& a) {
       anc[4] = hi.x, anc[5] = hi.y, anc[6] = hi.z, anc[7] = hi.w;
     } else {
 #pragma unroll
-      for (int t = 0; t < 8; ++t) anc[t] = lane < np && t < tiles ? __ldg(rr + t) : 0;
+      for (int t = 0; t < 8; ++t) anc[t] = lane < np && t < nt ? __ldg(rr + t) : 0;
     }
 #pragma unroll
     for (int c0 = 0; c0 < 8; c0 += kGroup) {
-      if (c0 >= tiles) break;
+      if (c0 >= nt) break;
       uint32_t v[kGroup];
 #pragma unroll
       for (int cc = 0; cc < kGroup; ++cc) v[cc] = 0;
@@ -210,13 +230,13 @@ __device__ void sweep(const Block& k, uint32_t* dst, const Args& a) {
         uint2 d4[kGroup];
 #pragma unroll
         for (int cc = 0; cc < kGroup; ++cc)
-          d4[cc] = c0 + cc < tiles ? __ldg(dqr + threadIdx.x + (4 * (c0 + cc) + g) * kThreads)
-                                   : make_uint2(0, 0);
+          d4[cc] = c0 + cc < nt ? __ldg(dqr + threadIdx.x + (4 * (t0 + c0 + cc) + g) * kThreads)
+                                : make_uint2(0, 0);
 #pragma unroll
         for (int cc = 0; cc < kGroup; ++cc) {
           // Passes 33 and on (a unit with more than 32 dense passes): one
           // load a word.
-          const int32_t a1 = np > 32 && lane + 32 < np && c0 + cc < tiles
+          const int32_t a1 = np > 32 && lane + 32 < np && c0 + cc < nt
               ? __ldg(rr + 32LL * a.out_rows + c0 + cc) : 0;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -237,13 +257,13 @@ __device__ void sweep(const Block& k, uint32_t* dst, const Args& a) {
         int32_t sh[kGroup];
 #pragma unroll
         for (int cc = 0; cc < kGroup; ++cc) {
-          const long long cell = (k.base + kk) * a.out_rows + 128 * (c0 + cc) + r;
-          s[cc] = c0 + cc < tiles ? static_cast<uint16_t>(__ldg(a.se + cell)) : 0u;
-          sh[cc] = c0 + cc < tiles ? __ldg(a.shift + cell) : 0;
+          const long long cell = (k.base + kk) * a.out_rows + 128 * (t0 + c0 + cc) + r;
+          s[cc] = c0 + cc < nt ? static_cast<uint16_t>(__ldg(a.se + cell)) : 0u;
+          sh[cc] = c0 + cc < nt ? __ldg(a.shift + cell) : 0;
         }
 #pragma unroll
         for (int cc = 0; cc < kGroup; ++cc) {
-          const int w = threadIdx.x + (4 * (c0 + cc) + g) * kThreads;
+          const int w = threadIdx.x + (4 * (t0 + c0 + cc) + g) * kThreads;
           const int lane0 = lane * 4;
           const int start = (s[cc] >> 8) & 0x7F, end = s[cc] & 0xFF;
 #pragma unroll
@@ -257,8 +277,19 @@ __device__ void sweep(const Block& k, uint32_t* dst, const Args& a) {
       }
 #pragma unroll
       for (int cc = 0; cc < kGroup; ++cc)
-        if (c0 + cc < tiles) dst[threadIdx.x + (4 * (c0 + cc) + g) * kThreads] = v[cc];
+        if (c0 + cc < nt) dst[threadIdx.x + (4 * (t0 + c0 + cc) + g) * kThreads] = v[cc];
     }
+  }
+}
+
+template <bool kGlobal>
+__device__ void sweep(const Block& k, uint32_t* dst, const Args& a) {
+  const int tiles = a.out_rows / kLanes;           // 1 to 8 on the shared route
+  if constexpr (kGlobal) {
+#pragma unroll 1
+    for (int t0 = 0; t0 < tiles; t0 += 8) sweep_tiles(k, dst, a, t0, min(8, tiles - t0));
+  } else {
+    sweep_tiles(k, dst, a, 0, tiles);
   }
 }
 
@@ -324,6 +355,50 @@ __device__ void out_passes(const Block& k, uint32_t* plane, const Cells& c, cons
   }
 }
 
+// Out passes on the block's output row in device memory (the device-memory
+// route): per pass, the new value of every word the pass writes goes to the
+// CTA's scratch row, barrier, the scratch words go to the plane, barrier.
+// A thread reads back only the scratch words it wrote itself; the plane is
+// read with plain loads (it is written during the kernel, so never __ldg).
+__device__ void out_passes_global(const Block& k, uint32_t* plane, uint32_t* scratch,
+                                  const Args& a) {
+  const int out_words = a.out_rows * (kLanes / 4);
+  const int out_len = a.out_rows * kLanes;
+  const uint8_t* pb = reinterpret_cast<const uint8_t*>(plane);
+  for (int kk = k.ncomp; kk < k.npass; ++kk) {
+    const long long wire = (k.base + kk) * a.out_rows;
+#pragma unroll 4
+    for (int w = threadIdx.x; w < out_words; w += kThreads) {
+      const int row = w >> 5;
+      const int lane0 = (w & 31) * 4;
+      const uint32_t s = static_cast<uint16_t>(__ldg(a.se + wire + row));
+      const int start = (s >> 8) & 0x7F, end = s & 0xFF;
+      if (start < lane0 + 4 && end > lane0 && start < end) {
+        const long long sh = __ldg(a.shift + wire + row);
+        uint32_t v = plane[w];
+        for (int j = 0; j < 4; ++j) {
+          const int lane = lane0 + j;
+          if (lane >= start && lane < end) {
+            long long q = w * 4LL + j + sh;
+            q = q < 0 ? 0 : (q >= out_len ? out_len - 1 : q);
+            v = set_byte(v, j, pb[q]);
+          }
+        }
+        scratch[w] = v;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int w = threadIdx.x; w < out_words; w += kThreads) {
+      const int lane0 = (w & 31) * 4;
+      const uint32_t s = static_cast<uint16_t>(__ldg(a.se + wire + (w >> 5)));
+      const int start = (s >> 8) & 0x7F, end = s & 0xFF;
+      if (start < lane0 + 4 && end > lane0 && start < end) plane[w] = scratch[w];
+    }
+    __syncthreads();
+  }
+}
+
 __device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc, int bytes) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(ssrc));
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
@@ -332,6 +407,7 @@ __device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc, int byt
 }
 
 // Block b, by class (the CTA's threads all take the same branch).
+template <bool kGlobal>
 __device__ void decode_block(int b, uint32_t* plane, const Cells& cells, const Args& a) {
   const int out_len = a.out_rows * kLanes;
   Block k;
@@ -354,26 +430,36 @@ __device__ void decode_block(int b, uint32_t* plane, const Cells& cells, const A
   k.di = __ldg(a.dq_idx + b);
   k.dense_on = k.dn > 0 && k.di >= 0 && k.di < a.dq_rows;
   if (k.ncomp == k.npass) {     // no out pass: straight to device memory
-    sweep(k, reinterpret_cast<uint32_t*>(out), a);
+    sweep<kGlobal>(k, reinterpret_cast<uint32_t*>(out), a);
     return;
   }
-  // The plane may still be read by the previous block's bulk store.
-  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  __syncthreads();
-  sweep(k, plane, a);
-  stage_cells(k, k.ncomp, 0, cells, a);
-  __syncthreads();
-  out_passes(k, plane, cells, a);
-  // The plane's generic-proxy writes, made visible to the bulk store.
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
-  if (threadIdx.x == 0) bulk_store(out, plane, out_len);
+  if constexpr (kGlobal) {      // out passes on the output row itself
+    uint32_t* row = reinterpret_cast<uint32_t*>(out);
+    sweep<true>(k, row, a);
+    __syncthreads();
+    out_passes_global(k, row, a.scratch + static_cast<long long>(blockIdx.x) * out_len / 4, a);
+  } else {
+    // The plane may still be read by the previous block's bulk store.
+    if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    __syncthreads();
+    sweep<false>(k, plane, a);
+    stage_cells(k, k.ncomp, 0, cells, a);
+    __syncthreads();
+    out_passes(k, plane, cells, a);
+    // The plane's generic-proxy writes, made visible to the bulk store.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) bulk_store(out, plane, out_len);
+  }
 }
 
+// kGlobal: the device-memory route (planes taller than kMaxWords allows);
+// its shared memory holds only the queue's two slots.
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 1) decode_flat_kernel(Args a) {
   // Shared memory: the plane, the queue's two slots (16 bytes), the cells.
   extern __shared__ __align__(16) uint32_t plane[];
-  const int out_len = a.out_rows * kLanes;
+  const int out_len = kGlobal ? 0 : a.out_rows * kLanes;
   int* next = reinterpret_cast<int*>(plane + out_len / 4);
   const Cells cells = {next + 4, reinterpret_cast<uint16_t*>(next + 4 + 2 * a.out_rows)};
   // The first block is the CTA's own index; each later one is taken from
@@ -383,7 +469,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_flat_kernel(Args a) {
   // decodes then end up to 1.5x slower.)
   int b = blockIdx.x;
   for (int it = 0; b < a.n; ++it) {
-    decode_block(b, plane, cells, a);
+    decode_block<kGlobal>(b, plane, cells, a);
     if (threadIdx.x == 0) next[it & 1] = static_cast<int>(gridDim.x) + atomicAdd(a.queue, 1);
     __syncthreads();
     b = next[it & 1];
@@ -402,32 +488,45 @@ __global__ void __launch_bounds__(kThreads, 1) decode_flat_kernel(Args a) {
 
 }  // namespace
 
+// Rows of the largest plane the shared-memory route holds; taller planes
+// take the device-memory route.
+extern "C" int bt_decode_flat_shared_rows() { return kThreads * kMaxWords / (kLanes / 4); }
+
 // Launches the persistent CTAs on `stream` (as many as fit on the device,
-// at most n); returns the CUDA error code (0 on success).  Pointers are
-// device pointers; the caller allocates `out` and the two ints of `queue`,
-// which must be 0 and are 0 again when the launch ends (so launches that
-// share a queue must run in turn, as on one stream).
+// at most n; on the device-memory route also at most scratch_ctas); returns
+// the CUDA error code (0 on success).  Pointers are device pointers; the
+// caller allocates `out`, the two ints of `queue`, which must be 0 and are
+// 0 again when the launch ends (so launches that share a queue must run in
+// turn, as on one stream), and for planes taller than
+// bt_decode_flat_shared_rows() rows `scratch`, scratch_ctas rows of
+// out_rows * 128 bytes.
 extern "C" int bt_decode_flat_launch(
     const void* comp, long long comp_stride, int comp_width, int comp_rows,
     const void* p_used, const void* p_off, const void* p0, const void* dense,
     const void* dq_idx, const void* se, const void* shift, long long s_rows,
     const void* dq, int dq_rows, const void* row_a, int dcap, void* out, int n,
-    int out_rows, void* queue, void* stream) {
-  if (out_rows <= 0 || out_rows % kLanes != 0 ||
-      out_rows * (kLanes / 4) > kThreads * kMaxWords || comp_rows <= 0 ||
-      dcap <= 0 || n < 0 || (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(dq) & 7) != 0)
+    int out_rows, void* queue, void* scratch, int scratch_ctas, void* stream) {
+  const bool global = out_rows > bt_decode_flat_shared_rows();
+  if (out_rows <= 0 || out_rows % kLanes != 0 || out_rows > kMaxRows ||
+      comp_rows <= 0 || comp_rows > (1 << 24) || dcap <= 0 || n < 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(dq) & 7) != 0 ||
+      (global && (scratch == nullptr || scratch_ctas < 1 ||
+                  (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  // The plane, the queue slots, two passes' cells (int32 shift, int16 se).
-  const int smem = out_rows * kLanes + 16 + 2 * out_rows * 6;
-  cudaError_t err = bt::smem_opt_in(decode_flat_kernel, bt::kSmemMax);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  // The plane, the queue slots, two passes' cells (int32 shift, int16 se);
+  // the device-memory route only the queue slots, so it needs no opt-in.
+  const int smem = global ? 16 : out_rows * kLanes + 16 + 2 * out_rows * 6;
+  cudaError_t err = cudaSuccess;
+  if (!global && (err = bt::smem_opt_in(decode_flat_kernel<false>, bt::kSmemMax)) != cudaSuccess)
+    return static_cast<int>(err);
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_flat_kernel,
-                                                           kThreads, smem)) != cudaSuccess)
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, global ? decode_flat_kernel<true> : decode_flat_kernel<false>, kThreads,
+           smem)) != cudaSuccess)
     return static_cast<int>(err);
   Args a;
   a.comp = static_cast<const uint8_t*>(comp);
@@ -450,7 +549,13 @@ extern "C" int bt_decode_flat_launch(
   a.out_rows = out_rows;
   a.n = n;
   a.queue = static_cast<int*>(queue);
-  const int grid = per_sm < 1 ? 1 : (n < per_sm * sms ? n : per_sm * sms);
-  decode_flat_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  a.scratch = static_cast<uint32_t*>(scratch);
+  int grid = per_sm < 1 ? 1 : (n < per_sm * sms ? n : per_sm * sms);
+  if (global) {
+    if (grid > scratch_ctas) grid = scratch_ctas;
+    decode_flat_kernel<true><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  } else {
+    decode_flat_kernel<false><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }

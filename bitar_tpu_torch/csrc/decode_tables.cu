@@ -55,6 +55,15 @@
 // The plane leaves in 16-byte words; a well-formed block's bytes past its
 // extent are stored as zeros, never zeroed in shared memory first.
 //
+// Planes that do not fit in shared memory beside the windows and the map
+// (blocks of 256 KiB to 1 MiB) take the device-memory route, a second
+// instantiation of the same kernel (kGlobal): the plane is the block's
+// output row, every path reads earlier output bytes from device memory and
+// synchronizes where the shared route does (__syncwarp in the serial walk,
+// __syncthreads at the windows' barriers; a CTA's global writes are visible
+// to its threads after them), and a well-formed block's bytes past its
+// extent are zeroed in place instead of being copied out.
+//
 // A launch optionally adds its blocks to paths[0] (well-formed, decoded in
 // parallel) and paths[1] (serial walk), so a caller can show which path its
 // tables took.
@@ -412,12 +421,16 @@ __device__ void decode_serial(const Args& a, const uint8_t* cp, long long row, i
   __syncthreads();
 }
 
+// kGlobal: the plane is the output row (the device-memory route).
+template <bool kGlobal>
 __global__ void __launch_bounds__(kMaxThreads) decode_tables_kernel(Args a) {
-  // Shared memory: the plane, two windows of entries, the window's map
-  // (the entry of each byte).
+  // Shared memory: the plane (shared route only), two windows of entries,
+  // the window's map (the entry of each byte).
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* plane = smem;
   const int b = blockIdx.x;
+  uint8_t* out = a.out + static_cast<long long>(b) * a.out_len;
+  uint8_t* plane = kGlobal ? out : smem;
+  uint8_t* windows = kGlobal ? smem : smem + a.out_len;
   const uint8_t* cp = a.comp + static_cast<long long>(b) * a.comp_stride;
   const long long row = static_cast<long long>(b) * a.S;
   int ns = a.nseq[b];
@@ -434,7 +447,6 @@ __global__ void __launch_bounds__(kMaxThreads) decode_tables_kernel(Args a) {
   const bool well = __syncthreads_and(ok);
   if (a.paths != nullptr && threadIdx.x == 0) atomicAdd(a.paths + (well ? 0 : 1), 1);
 
-  uint8_t* out = a.out + static_cast<long long>(b) * a.out_len;
   if (well && ns == 1 && __ldg(a.mlen + row) == 0) {
     const long long ll = __ldg(a.lit_len + row);
     copy_literal_block(a, cp, __ldg(a.lit_ptr + row), ll < a.out_len ? ll : a.out_len, out);
@@ -453,12 +465,21 @@ __global__ void __launch_bounds__(kMaxThreads) decode_tables_kernel(Args a) {
     if (ns <= kSweepMax)
       decode_sweep(a, cp, row, ns, plane);
     else
-      decode_windows(a, cp, row, ns, plane, smem + a.out_len,
-                     smem + a.out_len + 2 * a.window * kEntryBytes);
+      decode_windows(a, cp, row, ns, plane, windows, windows + 2 * a.window * kEntryBytes);
   } else {
     decode_serial(a, cp, row, ns, plane);
   }
 
+  if constexpr (kGlobal) {          // zeros past the decoded extent, in place
+    const long long head = min(static_cast<long long>(a.out_len), (lim + 15) & ~15LL);
+    for (long long p = lim + threadIdx.x; p < head; p += blockDim.x)
+      out[p] = 0;
+    uint4* ov = reinterpret_cast<uint4*>(out);
+    for (int i = static_cast<int>((lim + 15) >> 4) + threadIdx.x; i < a.out_len / 16;
+         i += blockDim.x)
+      ov[i] = make_uint4(0, 0, 0, 0);
+    return;
+  }
   uint4* ov = reinterpret_cast<uint4*>(out);
   const uint4* pv = reinterpret_cast<const uint4*>(plane);
   for (int i = threadIdx.x; i < a.out_len / 16; i += blockDim.x) {
@@ -475,14 +496,22 @@ __global__ void __launch_bounds__(kMaxThreads) decode_tables_kernel(Args a) {
   }
 }
 
-// Devices whose shared-memory opt-in is done (bit d for device d < 64).
-std::atomic<unsigned long long> g_opted{0};
+// Devices whose shared-memory opt-in is done (bit d for device d < 64),
+// per route.
+std::atomic<unsigned long long> g_opted[2] = {0, 0};
 
 }  // namespace
 
-// Launches one CTA per block on `stream` of `device`; returns the CUDA
-// error code (0 on success).  Pointers are device pointers; the caller
-// allocates `out` (16-byte aligned) and, if not null, `paths` (two ints).
+// Rows of the largest plane the shared-memory route holds.
+extern "C" int bt_decode_tables_shared_rows() {
+  return (bt::kSmemMax - 2 * kMaxWindow * kEntryBytes - kMaxMap) / 128;
+}
+
+// Launches one CTA per block on `stream` of `device`, on the shared-memory
+// route when the plane fits beside the windows and the map, else on the
+// device-memory route; returns the CUDA error code (0 on success).
+// Pointers are device pointers; the caller allocates `out` (16-byte
+// aligned) and, if not null, `paths` (two ints).
 extern "C" int bt_decode_tables_launch(
     const void* comp, long long comp_stride, int comp_width, const void* nseq,
     const void* lit_ptr, const void* lit_len, const void* off, const void* mlen,
@@ -493,8 +522,12 @@ extern "C" int bt_decode_tables_launch(
                                                            std::max<long long>(128, out_len / 32)));
   const int window = std::min(threads, kMaxWindow);
   const int map_len = static_cast<int>(std::min<long long>(out_len, kMaxMap));
-  const long long smem = out_len + 2LL * window * kEntryBytes + map_len;
-  if (n < 0 || S < 1 || out_rows < 1 || comp_width < 0 || smem > bt::kSmemMax ||
+  // The shared route holds the plane beside the windows and the map; a
+  // plane that does not fit takes the device-memory route.
+  const long long tables_smem = 2LL * window * kEntryBytes + map_len;
+  const bool global = out_len + tables_smem > bt::kSmemMax;
+  const long long smem = global ? tables_smem : out_len + tables_smem;
+  if (n < 0 || S < 1 || out_rows < 1 || out_rows > (1 << 16) || comp_width < 0 ||
       (reinterpret_cast<uintptr_t>(out) & 15) != 0 || device < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
@@ -504,9 +537,10 @@ extern "C" int bt_decode_tables_launch(
   if (err != cudaSuccess) return static_cast<int>(err);
   // The whole opt-in range, once per device: a launch with a larger plane
   // from another thread then never meets a smaller limit set for this one.
-  if (device >= 64 || !(g_opted.load() & (1ULL << device))) {
-    err = bt::smem_opt_in(decode_tables_kernel, bt::kSmemMax);
-    if (err == cudaSuccess && device < 64) g_opted.fetch_or(1ULL << device);
+  auto* kernel = global ? decode_tables_kernel<true> : decode_tables_kernel<false>;
+  if (device >= 64 || !(g_opted[global].load() & (1ULL << device))) {
+    err = bt::smem_opt_in(kernel, bt::kSmemMax);
+    if (err == cudaSuccess && device < 64) g_opted[global].fetch_or(1ULL << device);
   }
   if (err == cudaSuccess) {
     Args a;
@@ -526,8 +560,7 @@ extern "C" int bt_decode_tables_launch(
     a.window = window;
     a.map_len = map_len;
     a.paths = static_cast<int*>(paths);
-    decode_tables_kernel<<<n, threads, static_cast<int>(smem),
-                           static_cast<cudaStream_t>(stream)>>>(a);
+    kernel<<<n, threads, static_cast<int>(smem), static_cast<cudaStream_t>(stream)>>>(a);
     err = cudaGetLastError();
   }
   if (current != device) cudaSetDevice(current);

@@ -789,17 +789,19 @@ class Engine:
         """Accumulated per-block error counters."""
         return self.stats.enqueue_err_blocks + self.stats.dequeue_err_blocks
 
-    def decompress_device(self, unit: CompressedUnit) -> list[torch.Tensor]:
+    def decompress_device(self, unit: CompressedUnit, on_burst=None) -> list[torch.Tensor]:
         """Decompress on the device: per-burst ``[burst, nrows, 128]`` uint8
         tensors in block order, with no host readout (host-decoded blocks
-        are zero planes here)."""
+        are zero planes here).  ``on_burst(k)``, when given, is called right
+        after burst k's launch is queued (to record a CUDA event behind
+        it)."""
         self._entry_guard()
         unit._check_live()
         self.ensure_plans(unit)
         if unit.plan_flat is not None:
-            results = [r for _, _, r in self._planned_bursts(unit)]
+            results = [r for _, _, r in self._planned_bursts(unit, on_burst)]
         elif unit.tables is not None:
-            results = [r for _, _, r in self._decode_bursts(unit)]
+            results = [r for _, _, r in self._decode_bursts(unit, on_burst)]
         else:
             raise StatusError(Status.NotImplemented(
                 "device-resident decompress requires a device-decodable unit "
@@ -807,7 +809,7 @@ class Engine:
         self.stats.device_decode_bursts += len(results)
         return results
 
-    def _decode_bursts(self, unit: CompressedUnit):
+    def _decode_bursts(self, unit: CompressedUnit, on_burst=None):
         """Launch the sequence-table decode kernel burst by burst.
 
         Returns [(start, stop, device result [stop - start, nrows, 128])],
@@ -825,6 +827,8 @@ class Engine:
                                    out_rows=nrows)
             launches.append((start, stop, result))
             self.stats.enqueued_blocks += stop - start
+            if on_burst is not None:
+                on_burst(len(launches) - 1)
         return launches
 
     def _unit_rows(self, unit: CompressedUnit, idx: list[int]) -> torch.Tensor:
@@ -838,7 +842,7 @@ class Engine:
             rows[torch.tensor(js, device=rows.device)] = lit_dev[ks]
         return rows
 
-    def _planned_bursts(self, unit: CompressedUnit):
+    def _planned_bursts(self, unit: CompressedUnit, on_burst=None):
         """Launch the flat decode kernel burst by burst.
 
         Returns [(start, stop, device result [stop - start, nrows, 128])],
@@ -859,6 +863,8 @@ class Engine:
                                         out_rows=nrows)
             launches.append((start, stop, result))
             self.stats.enqueued_blocks += stop - start
+            if on_burst is not None:
+                on_burst(len(launches) - 1)
         return launches
 
     def prepare_device_decode(self, unit: CompressedUnit):

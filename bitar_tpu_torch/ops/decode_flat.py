@@ -10,7 +10,10 @@ planner (``plan.cc``) turns every compressed block into a schedule over its
   of the JAX module's numpy oracle ``decode_flat_numpy``,
 * ``decode_blocks_flat``: the wrapper.  On CPU tensors it runs the plain
   version; on CUDA tensors it launches the hand-written kernel
-  ``csrc/decode_flat.cu`` or raises.  It never falls back.
+  ``csrc/decode_flat.cu`` or raises.  It never falls back.  Planes of up to
+  ``DECODE_FLAT_MAX_ROWS`` rows take the kernel's shared-memory route,
+  taller ones (blocks of 256 KiB to 1 MiB) its device-memory route, with a
+  scratch row per CTA that the wrapper allocates.
 
 Plan wire, per block ``i`` (see ``decode_flat_reference`` for the order):
 
@@ -48,6 +51,9 @@ KBAND = 256           # row quantum of comp planes taller than 128 rows
 #: call).  Read it to show that a run went through the kernel; reset it to
 #: 0 before such a run.
 launches = 0
+#: Those of them that took the device-memory route (planes taller than
+#: ``DECODE_FLAT_MAX_ROWS`` rows).
+gmem_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +360,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp,               # p_used, p_off, p0, dense, dq_idx
         vp, vp, c_ll,                     # se, shift, wire rows
         vp, c_int, vp, c_int,             # dq, dq rows, row_a, dcap
-        vp, c_int, c_int, vp, vp]         # out, n, out_rows, queue, stream
+        vp, c_int, c_int, vp,             # out, n, out_rows, queue
+        vp, c_int, vp]                    # scratch, its CTA rows, stream
+    lib.bt_decode_flat_shared_rows.restype = c_int
+    lib.bt_decode_flat_shared_rows.argtypes = []
+    require(lib.bt_decode_flat_shared_rows() == DECODE_FLAT_MAX_ROWS,
+            lambda: f"decode_flat.cu's shared route holds {lib.bt_decode_flat_shared_rows()} "
+                    f"rows, config.DECODE_FLAT_MAX_ROWS says {DECODE_FLAT_MAX_ROWS}")
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -362,12 +374,22 @@ def load_kernel() -> ctypes.CDLL:
     return load_cuda_kernel("decode_flat", _bind)
 
 
+_sm_counts: dict[int, int] = {}     # streaming multiprocessors per device index
+
+
+def _scratch_ctas(device: torch.device, n: int) -> int:
+    """CTAs of a device-memory-route launch: one per SM (a 1024-thread CTA
+    of this kernel takes a whole SM's registers), at most one per block."""
+    sms = _sm_counts.get(device.index)
+    if sms is None:
+        sms = _sm_counts.setdefault(
+            device.index, torch.cuda.get_device_properties(device).multi_processor_count)
+    return max(1, min(n, sms))
+
+
 def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
                    out_rows: int) -> torch.Tensor:
-    global launches
-    require(out_rows <= DECODE_FLAT_MAX_ROWS,
-            lambda: f"decode_flat kernel holds at most {DECODE_FLAT_MAX_ROWS} rows "
-                    f"per block, got {out_rows}")
+    global launches, gmem_launches
     n = comp.shape[0]
     for k in ("p_used", "p_off", "p0", "dense", "dq_idx"):
         t = pt[k]
@@ -398,18 +420,26 @@ def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
     if dq.data_ptr() % 8:             # the kernel reads a word's 4 dq entries at once
         dq = dq.clone()
     lib = load_kernel()
+    gmem = out_rows > DECODE_FLAT_MAX_ROWS
     with torch.cuda.device(comp.device):      # launch on the tensors' device
         stream = torch.cuda.current_stream(comp.device).cuda_stream
         queue = block_queue(comp.device, stream)
+        scratch, ctas = None, 0
+        if gmem:                              # a scratch plane per CTA
+            ctas = _scratch_ctas(comp.device, n)
+            scratch = torch.empty((ctas, out_rows * LANES), dtype=torch.uint8,
+                                  device=comp.device)
         rc = lib.bt_decode_flat_launch(
             comp.data_ptr(), comp.stride(0), comp.shape[1], comp_rows,
             pt["p_used"].data_ptr(), pt["p_off"].data_ptr(), pt["p0"].data_ptr(),
             pt["dense"].data_ptr(), pt["dq_idx"].data_ptr(),
             pt["se"].data_ptr(), pt["shift"].data_ptr(), s_rows,
             dq.data_ptr(), dq_rows, ra.data_ptr(), ra.shape[1],
-            out.data_ptr(), n, out_rows, queue.data_ptr(), stream)
+            out.data_ptr(), n, out_rows, queue.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), ctas, stream)
     check_cuda(rc, "decode_flat launch", lib)
     launches += 1
+    gmem_launches += gmem
     return out
 
 

@@ -15,7 +15,9 @@ literal run.  This module holds
   host codec's, as the engine stores them) and ``random_tables``;
 * ``decode_tables_reference``: the plain PyTorch decode;
 * ``decode_blocks``: the wrapper.  On CPU tensors it runs the plain version;
-  on CUDA tensors it launches ``csrc/decode_tables.cu`` or raises.
+  on CUDA tensors it launches ``csrc/decode_tables.cu`` or raises.  The
+  kernel keeps a plane in shared memory where it fits beside its windows
+  (up to ~150 KiB), else in the block's output row in device memory.
 
 The function, per block ``b`` with ``ns = clamp(nseq[b], 0, S)`` sequences:
 
@@ -51,6 +53,9 @@ LANES = 128
 
 #: Kernel launches made by ``decode_blocks`` on CUDA tensors (one per call).
 launches = 0
+#: Those of them that took the device-memory route (planes too tall to sit
+#: in shared memory beside the windows: blocks of 256 KiB to 1 MiB).
+gmem_launches = 0
 
 
 def pad_tables(tables: list[dict[str, np.ndarray]], keys: tuple[str, ...],
@@ -276,6 +281,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp, vp, c_int,    # nseq, lit_ptr, lit_len, off, mlen, out_pos, S
         vp, c_int, c_int, vp,             # out, n, out_rows, paths
         c_int, vp]                        # device, stream
+    lib.bt_decode_tables_shared_rows.restype = c_int
+    lib.bt_decode_tables_shared_rows.argtypes = []
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -284,11 +291,12 @@ def load_kernel() -> ctypes.CDLL:
 
 
 _launch_fn = None     # the library's bound launch function, once loaded
+_shared_rows = 0      # rows of the largest plane the kernel's shared route holds
 
 
 def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
                    out_rows: int, path_counts: torch.Tensor | None) -> torch.Tensor:
-    global launches, _launch_fn
+    global launches, gmem_launches, _launch_fn, _shared_rows
     n = comp.shape[0]
     dev = comp.device
     cols = [tables[k] for k in SEQUENCE_KEYS]
@@ -309,6 +317,7 @@ def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
     if n == 0:
         return out
     if _launch_fn is None:
+        _shared_rows = load_kernel().bt_decode_tables_shared_rows()
         _launch_fn = load_kernel().bt_decode_tables_launch
     # The device's current stream as torch.cuda.current_stream(dev).cuda_stream
     # gives it, without building a Stream object (0.14 us a call against 5.4
@@ -318,6 +327,7 @@ def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
                     dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
     check_cuda(rc, "decode_tables launch", load_kernel())
     launches += 1
+    gmem_launches += out_rows > _shared_rows
     return out
 
 

@@ -120,31 +120,40 @@ def make_batch(nblocks: int, block: int, seed: int = 42, data: bytes | None = No
             "plan": (se, sh, pu, p0, dq, ra, dn), "tables": tables}
 
 
-def _timed(device: torch.device, fn):
-    """(fn(), host-clock seconds) with the device synchronized on both ends."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    out = fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return out, time.perf_counter() - t0
+def _timed(device: torch.device, fn, reps: int = 1):
+    """(fn(), best host-clock seconds of ``reps`` runs) with the device
+    synchronized on both ends of each run."""
+    best = float("inf")
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        best = min(best, time.perf_counter() - t0)
+    return out, best
 
 
 def steps_program(mesh, spec: dict) -> dict:
     """Run ``spec["steps"]`` (of :data:`ALL_STEPS`) on this rank.
 
     ``spec``: ``nblocks``, ``block``, ``seed`` for :func:`make_batch` (or
-    ``corpus``: "bench" for ``utils.corpus.make_corpus``), optional
-    ``return_rows``.  Every live row is checked against its raw (or, for
-    "shuffle", stored) bytes.  Returns {step: {"live", "exact", "seconds",
-    "rows" (if asked)}, "ring_equals_flat", "launches": {kernel: count}}."""
+    ``corpus``: "bench" for ``utils.corpus.make_corpus``, or a module-level
+    function of ``nblocks`` that returns the bytes to cut), optional
+    ``return_rows`` and ``reps`` (runs of the flat and ring steps; their
+    "seconds" is the best).  Every live row is checked against its raw (or,
+    for "shuffle", stored) bytes.  Returns {step: {"live", "exact",
+    "seconds", "rows" (if asked)}, "ring_equals_flat", "launches": {kernel:
+    count}}."""
     d, me = mesh.size(), mesh_rank(mesh)
     device = mesh_device(mesh)
     data = None
     if spec.get("corpus") == "bench":
         from ..utils.corpus import make_corpus
         data = make_corpus(spec["nblocks"])
+    elif callable(spec.get("corpus")):
+        data = spec["corpus"](spec["nblocks"])
     batch = make_batch(spec["nblocks"], spec["block"], spec.get("seed", 42), data)
     block, comp_rows, rows = batch["block"], batch["comp_rows"], batch["rows"]
     nrows = block // LANES
@@ -177,13 +186,15 @@ def steps_program(mesh, spec: dict) -> dict:
         wires = local_wires(prepare_flat_wires_for_recv(splan, *batch["plan"], nrows), me,
                             device)
         out, s = _timed(device, lambda: distributed_step_flat(
-            local_rows, send_idx, valid, *(wires[k] for k in WIRE_KEYS), **kw))
+            local_rows, send_idx, valid, *(wires[k] for k in WIRE_KEYS), **kw),
+            spec.get("reps", 1))
         flat = record("flat", out, s, recv_ids, lambda b: raw[b])
     if "ring" in steps:
         wires = local_wires(prepare_ring_flat_wires_for_recv(splan, *batch["plan"], nrows), me,
                             device)
         out, s = _timed(device, lambda: distributed_step_ring_flat(
-            local_rows, send_idx, valid, *(wires[k] for k in WIRE_KEYS), **kw))
+            local_rows, send_idx, valid, *(wires[k] for k in WIRE_KEYS), **kw),
+            spec.get("reps", 1))
         ring = record("ring", out, s, recv_ids, lambda b: raw[b])
     if flat is not None and ring is not None:
         live = recv_ids >= 0

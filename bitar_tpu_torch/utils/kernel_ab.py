@@ -11,9 +11,10 @@ checkout's on one card, in turns, on the same inputs.
 archive`` of the parent commit unpacked into a git-ignored directory).  Its
 package is loaded beside this one under another name and builds its kernels
 into its own ``_build/``.  Every shape is run old, new, new, old (CUDA
-events, mean ms per launch) after the two outputs are checked equal; B2,
-B3, B4, B5 and B7 are also timed kernel-only (``timing.kernel_time_ms``) and by
-the host clock per call (``timing.host_us_per_call``), in the same turns.
+events, mean ms per launch) after the two outputs are checked equal; B1,
+B2, B3, B4, B5 and B7 are also timed kernel-only (``timing.kernel_time_ms``)
+and by the host clock per call (``timing.host_us_per_call``), in the same
+turns.
 B5 runs on 256 x 128 KiB of the bench corpus (seg 1024, max_match 1024)
 and B4 on 64 x 128 KiB of it (max_match 256), each with the offsets the
 device matcher detects, and both on 64 x 128 KiB of the text corpus with
@@ -176,7 +177,7 @@ def main() -> int:
 
         equal = same(new(), prev())
         emit({"kernel": "decode_flat", "shape": f"{name} x 128 KiB", "equal": equal,
-              **turns(timing, prev, new)})
+              **turns(timing, prev, new, "decode_flat_kernel", 100)})
     return finish(args, lines)
 
 

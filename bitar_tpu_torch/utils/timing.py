@@ -1,5 +1,11 @@
-"""Device timing with CUDA events, with the profiler, and the host's cost of
-a call.
+"""Benchmark phase timing, device timing with CUDA events, with the profiler,
+and the host's cost of a call.
+
+``PhaseTiming`` and ``time_phase`` are the CLI's per-phase reporting (the
+counterparts of ``bitar_tpu/utils/timing.py``): a host clock around each
+run, ended by a synchronize of the device of the CUDA tensors a run
+returns, as the reference ends its window at the callback
+(``demo_app.cc:376``).
 
 PyTorch returns before the device finishes, so a host clock around CUDA
 work measures the enqueue; ``device_time_ms`` times a run of launches with
@@ -16,15 +22,65 @@ against.
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass, field
 
 import torch
 
 from ..status import Status, StatusError
 
+NUM_BENCH_RUNS = 3  # reference kNumTests (demo_app.h:45)
+
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 INT32_OPS_PER_S = 33.5e12     # 132 SMs x 128 lanes x 1.98 GHz, one op per lane per cycle
 PROFILE_PAD_S = 0.02          # idle host seconds at each end of a profiled window
 PROFILE_TRIES = 3             # profiled windows before kernel_time_ms gives up
+
+
+@dataclass
+class PhaseTiming:
+    name: str
+    bytes_processed: int
+    seconds: list[float] = field(default_factory=list)
+
+    @property
+    def best(self) -> float:
+        return min(self.seconds) if self.seconds else float("inf")
+
+    @property
+    def mean(self) -> float:
+        return sum(self.seconds) / len(self.seconds) if self.seconds else float("inf")
+
+    def gbps(self, which: str = "best") -> float:
+        """Throughput in gigabytes/second (decimal GB, like the reference's
+        Gbps print normalized to bytes)."""
+        secs = self.best if which == "best" else self.mean
+        if secs <= 0:
+            return 0.0
+        return self.bytes_processed / secs / 1e9
+
+    def report(self) -> str:
+        us = [f"{s * 1e6:,.0f}" for s in self.seconds]
+        return (f"{self.name}: runs(us)=[{', '.join(us)}] best={self.best * 1e6:,.0f}us "
+                f"throughput={self.gbps():.3f} GB/s over {self.bytes_processed:,} bytes")
+
+
+def time_phase(name: str, bytes_processed: int, fn, runs: int = NUM_BENCH_RUNS,
+               sync: bool = True) -> PhaseTiming:
+    """Run ``fn`` ``runs`` times, timing each on the host clock (the first
+    run may include kernel builds).  With ``sync``, each run's clock stops
+    after ``torch.cuda.synchronize`` of the device of every CUDA tensor
+    ``fn`` returned (a tensor, or a list or tuple of them); CPU outputs need
+    none."""
+    timing = PhaseTiming(name=name, bytes_processed=bytes_processed)
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        if sync and out is not None:
+            for t in out if isinstance(out, (list, tuple)) else (out,):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    torch.cuda.synchronize(t.device)
+        timing.seconds.append(time.perf_counter() - t0)
+    return timing
 
 
 def bound_ms(nbytes: float, ops: float = 0.0) -> tuple[float, str]:

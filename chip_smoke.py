@@ -13,7 +13,10 @@ Phases (any failure raises, and the script exits non-zero):
    - ``decode_flat`` (B1) on the plans of the bench corpus (1024 x 128 KiB),
      of the markdown text corpus (256 x 128 KiB) and of a RAW-heavy batch,
      and on the class-pure batches of the first two (``block_classes``: the
-     RAW blocks, the blocks with no out pass, those with out passes);
+     RAW blocks, the blocks with no out pass, those with out passes); its
+     device-memory route (planes of 2048 and 8192 rows) on the bench corpus
+     in 256 KiB and 1 MiB blocks (128 of each), the text corpus in 256 KiB
+     (64) and 1 MiB (32) blocks, and their class-pure batches;
    - ``match_walk`` (B5) on 256 x 128 KiB of the bench corpus, seg 1024;
    - ``match_dyn`` (B4) on 64 x 128 KiB of it with the offsets that
      ``compress_blocks_device(seg=256)`` detects;
@@ -44,7 +47,10 @@ Phases (any failure raises, and the script exits non-zero):
      bench corpus (the parallel tables step's shape), of RLE blocks with
      offsets 1-130 (both sides of the 128-byte row) and on random
      well-formed, malformed and mixed tables at 4 and 128 KiB
-     (``random_tables``); each batch logs its blocks by path (parallel,
+     (``random_tables``), and on its device-memory route at 1 MiB: the bench
+     corpus under a 4-pass plan budget and random well-formed and malformed
+     tables; each batch logs its
+     blocks by path (parallel,
      serial walk), which must be the classifier's
      (``well_formed``): 0 serial blocks on every parser batch;
    - ``match`` (B3) on 64 and on 1024 x 128 KiB (the shape the main paths
@@ -82,6 +88,11 @@ Phases (any failure raises, and the script exits non-zero):
    - ``prepare_batched_decode`` over an LZ4, a Zstd and a Snappy unit (one
      B1 launch);
    - four streams on one engine (``make_streams``/``wait_all``);
+   - 128 x 1 MiB of the bench corpus through the same host path (B1's
+     device-memory route);
+   - the CLI: ``cli.demo.main(["--mode", "skewed", "--block-size",
+     "1048576", "--blocks", "256"])`` (BASELINE config 4, LZ4; its stats
+     line logged) and its sync suite on 32 MiB of the corpus at 128 KiB;
    every one bit-exact with no block decoded on the host;
    - ``find_matches_dyn`` -> ``parse_walk_dyn`` (B4, B6) and
      ``decode_blocks_planned`` (B7), the two kernels' own entry points;
@@ -104,7 +115,10 @@ Phases (any failure raises, and the script exits non-zero):
    the text ``detect_fft`` batch; the emitter at every main-path shape of
    phase 3 (with its bound and an empty kernel's time on the same grid;
    the kernels line takes the shape with the most kernel-only time over
-   its bound and names it); B6 on the bench and text B4 planes; B7 at the
+   its bound and names it); B6 on the bench and text B4 planes; the
+   device-memory routes at 1 MiB: B1 on the bench (128 blocks) and text
+   (32) batches, B2 on the bench tables (with their bounds; the kernels
+   line carries them under ``device_memory_route``); B7 at the
    shape of phase 3 (the
    multi-device steps' host-clock times are logged in phase 4); the whole
    ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
@@ -143,6 +157,10 @@ DYN_BLOCKS = 64               # B4 batch (seg 256); also B3's small batch
 TABLE_BLOCK = 4096            # block size of the sequence-table path
 TABLE_CHECK_BLOCKS = 8192     # B2 batch of phase 3 (32 MiB of the corpus)
 BATCH_UNIT_BLOCKS = 256       # blocks of each unit of the batched decode
+LARGE_BLOCK = 1 << 20         # blocks of B1's and B2's device-memory routes
+MID_BLOCK = 256 * 1024
+SKEWED_BLOCKS = 256           # the CLI's skewed suite (its default)
+CLI_SYNC_BYTES = 32 << 20     # the CLI's sync suite input
 #: Offsets that tie: multiples of one period, duplicates, a 0 that matches
 #: everywhere, one past the block.
 TIES = (94, 47, 141, 47, 3, 6, 0, 140000)
@@ -210,10 +228,10 @@ def report(label, card, res, ms, raw_bytes):
 # B1: flat-plan decode
 
 
-def planned_batch(btt, data: bytes):
+def planned_batch(btt, data: bytes, block: int = BLOCK):
     """Compress ``data`` through a fresh engine; return the unit's gathered
     comp rows, plan tensors and comp_rows (the kernel's real inputs)."""
-    eng = engine(btt, btt.Codec.LZ4)
+    eng = engine(btt, btt.Codec.LZ4, block=block, nblocks=len(data) // block)
     unit = eng.compress(data)
     eng.ensure_plans(unit)
     pf = unit.plan_flat
@@ -230,11 +248,11 @@ def planned_batch(btt, data: bytes):
     return batch
 
 
-def compare_decode(df, rows, pt, comp_rows) -> int:
+def compare_decode(df, rows, pt, comp_rows, block: int = BLOCK) -> int:
     """Kernel vs plain version on the same inputs; returns max |diff|."""
-    got = df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=BLOCK // 128)
+    got = df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=block // 128)
     torch.cuda.synchronize()
-    want = df.decode_flat_reference(rows, pt, comp_rows, BLOCK // 128)
+    want = df.decode_flat_reference(rows, pt, comp_rows, block // 128)
     return check_equal("decode_flat", got, want)
 
 
@@ -247,19 +265,19 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
     return err
 
 
-def decode_bound(pt, comp_len) -> tuple[float, str]:
+def decode_bound(pt, comp_len, block: int = BLOCK) -> tuple[float, str]:
     """Per block: its stored bytes read, its plane written, and the plan
     wire it uses read: its dq row and the anchor planes of its dense passes,
     its passes' se/shift rows and its five int32 fields."""
-    nrows = BLOCK // 128
+    nrows = block // 128
     dense, p_used = (pt[k].cpu().numpy().astype(np.int64) for k in ("dense", "p_used"))
     anchors = np.clip(np.minimum(dense, pt["row_a"].shape[1]), 0, None)
-    wire = (dense > 0) * BLOCK * 2 + anchors * nrows * 4 + p_used * nrows * 6 + 20
-    return bound_ms(int(comp_len.sum()) + len(comp_len) * BLOCK + int(wire.sum()))
+    wire = (dense > 0) * block * 2 + anchors * nrows * 4 + p_used * nrows * 6 + 20
+    return bound_ms(int(comp_len.sum()) + len(comp_len) * block + int(wire.sum()))
 
 
-def host_path(btt, codec, data: bytes) -> None:
-    eng = engine(btt, codec)
+def host_path(btt, codec, data: bytes, block: int = BLOCK) -> None:
+    eng = engine(btt, codec, block=block, nblocks=len(data) // block)
     t0 = time.perf_counter()
     unit = eng.compress(data)
     t1 = time.perf_counter()
@@ -273,14 +291,14 @@ def host_path(btt, codec, data: bytes) -> None:
     if host.size:
         raise AssertionError(f"{codec.value}: {host.size} blocks decoded on the host")
     planes = eng.prepare_device_decode(unit)()
-    got = planes.reshape(unit.nblocks, -1)[:, :BLOCK].cpu().numpy().tobytes()
+    got = planes.reshape(unit.nblocks, -1)[:, :block].cpu().numpy().tobytes()
     if got != data:
         raise AssertionError(f"{codec.value}: prepare_device_decode bytes differ")
     n = eng.recycle(unit)
     eng.release()
     if n != unit.nblocks:
         raise AssertionError(f"{codec.value}: recycled {n} of {unit.nblocks} slots")
-    log(f"main path host compress {codec.value}: {unit.nblocks} x {BLOCK} B bit-exact, "
+    log(f"main path host compress {codec.value}: {unit.nblocks} x {block} B bit-exact, "
         f"ratio {unit.manifest.ratio():.3f}, host-decoded blocks 0; "
         f"host clock: compress {1e3 * (t1 - t0):.1f} ms, plan join "
         f"{1e3 * (t2 - t1):.1f} ms, decompress incl. readback "
@@ -780,6 +798,59 @@ def streams_path(btt, data: bytes) -> None:
     log(f"main path streams: 4 streams on one engine, {len(data)} B, bit-exact")
 
 
+def large_tables_path(btt, data: bytes, card: str) -> None:
+    """A unit of 1 MiB blocks the planner takes no block of (a 2-pass plan
+    budget on the text corpus): decoded by B2's device-memory route."""
+    eng = engine(btt, btt.Codec.LZ4, block=LARGE_BLOCK, nblocks=len(data) // LARGE_BLOCK)
+    eng._PLAN_MAX_PASSES = 2
+    unit, phases = roundtrip(eng, data, "1 MiB tables")
+    if unit.tables is None or unit.plan_flat is not None:
+        raise AssertionError("1 MiB tables path: the unit did not decode from its tables")
+    log_path("sequence tables lz4, 1 MiB blocks", unit, card, phases,
+             f", sequences {int(unit.nseq.sum())}")
+    eng.recycle(unit)
+    eng.release()
+
+
+def cli_skewed(card: str) -> dict:
+    """BASELINE config 4 through the CLI as a user runs it: the skewed
+    suite at 1 MiB blocks on the card (LZ4).  Returns its stats."""
+    import tempfile
+
+    from bitar_tpu_torch.cli import demo
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/skewed.json"
+        rc = demo.main(["--mode", "skewed", "--block-size", str(LARGE_BLOCK),
+                        "--blocks", str(SKEWED_BLOCKS), "--output", out])
+        with open(out) as f:
+            stats = json.load(f)
+    if rc != 0 or stats["blocks"] != SKEWED_BLOCKS:
+        raise AssertionError(f"CLI skewed suite: rc {rc}, stats {stats}")
+    if stats["host_decode_bursts"]:
+        raise AssertionError("CLI skewed suite: blocks decoded on the host")
+    log(f"main path CLI skewed suite [{card}]: " + json.dumps(
+        {k: v for k, v in stats.items() if k != "burst_lat_ms"}))
+    return stats
+
+
+def cli_sync(data: bytes, card: str) -> None:
+    """The CLI's sync suite on a file of the corpus at its default 128 KiB
+    blocks (bit-exact, or the CLI exits non-zero)."""
+    import tempfile
+
+    from bitar_tpu_torch.cli import demo
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/corpus.bin"
+        with open(path, "wb") as f:
+            f.write(data)
+        rc = demo.main(["--file", path, "--mode", "sync"])
+    if rc != 0:
+        raise AssertionError(f"CLI sync suite: rc {rc}")
+    log(f"main path CLI sync suite: {len(data)} B at 128 KiB blocks bit-exact [{card}]")
+
+
 def tpu_phases(btt, mt, native_mod, data: bytes, card: str) -> None:
     """Host-clock phases of the tpu matcher's compress, as
     ``Engine._compress_tpu_match`` runs them, each ended by a sync."""
@@ -826,6 +897,7 @@ def main() -> int:
     from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
     from bitar_tpu_torch.utils.kernel_ab import emit_shapes
 
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -860,6 +932,7 @@ def main() -> int:
     kernels = {}
 
     # -- phase 3: every kernel against its plain version -------------------
+    log(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     batches = {"bench": planned_batch(btt, corpus), "text": planned_batch(btt, text),
                "raw_heavy": planned_batch(btt, raw_heavy)}
     err = 0
@@ -878,6 +951,26 @@ def main() -> int:
     for name, (rows, pt, comp_rows, _) in class_batches.items():
         err = max(err, compare_decode(df, rows, pt, comp_rows))
         log(f"decode_flat == plain version, byte for byte: {name}, {rows.shape[0]} blocks")
+    # The device-memory route: planes of 2048 and 8192 rows, whole batches
+    # and their class-pure batches.
+    large = {("bench", MID_BLOCK): corpus[:128 * MID_BLOCK], ("bench", LARGE_BLOCK): corpus,
+             ("text", MID_BLOCK): text[:64 * MID_BLOCK], ("text", LARGE_BLOCK): text}
+    large_batches = {}
+    df.gmem_launches = 0
+    for (name, block), data in large.items():
+        rows, pt, comp_rows, comp_len, stats = planned_batch(btt, data, block)
+        large_batches[(name, block)] = (rows, pt, comp_rows, comp_len)
+        err = max(err, compare_decode(df, rows, pt, comp_rows, block))
+        for cls, idx in df.block_classes(pt).items():
+            if idx.numel():
+                sr, sp = df.select_blocks(rows, pt, idx)
+                err = max(err, compare_decode(df, sr, sp, comp_rows, block))
+                log(f"decode_flat == plain version, byte for byte: {name} {block // 1024} KiB, "
+                    f"{cls}, {idx.numel()} blocks")
+        log(f"decode_flat == plain version, byte for byte: {name}, {block // 1024} KiB blocks "
+            f"({block // 128} rows, device-memory route; {stats})")
+    if df.gmem_launches == 0:
+        raise AssertionError("decode_flat: no launch took the device-memory route")
     kernels["decode_flat"] = {"max_abs_err": err}
 
     mplanes = planes_of(corpus, MATCH_BLOCKS)
@@ -1014,6 +1107,29 @@ def main() -> int:
             log(f"decode_tables == plain version, byte for byte: random tables, "
                 f"{'well-formed' if kind is True else 'malformed' if kind is False else kind}, "
                 f"{n} x {block} B, S {S}; blocks by path: parallel {paths[0]}, serial {paths[1]}")
+    # The device-memory route at 1 MiB: the tables of a bench unit under a
+    # small plan budget, and random well-formed and malformed tables.
+    dt.gmem_launches = 0
+    large_tables = {
+        "bench 1 MiB, 4-pass plan budget": table_batch(btt, corpus[:32 * LARGE_BLOCK],
+                                                       LARGE_BLOCK, max_passes=4)}
+    # (Malformed tables at S 64: their random literal runs, up to 256 KiB
+    # each, cost the plain version ~1 G elements at S 4096.)
+    for wf, S in ((True, 4096), (False, 64)):
+        r, tabs, ns = dt.random_tables(23 + wf, 12, S, LARGE_BLOCK, well_formed=wf)
+        large_tables[f"random {'well-formed' if wf else 'malformed'} 1 MiB"] = (
+            torch.from_numpy(r).cuda(), *dt.table_tensors(tabs, ns, "cuda"), LARGE_BLOCK, None,
+            f"12 x {LARGE_BLOCK} B, S {S}")
+    for name, (rows, nseq, tables, block, _, stats) in large_tables.items():
+        e, _, paths = compare_tables(dt, rows, nseq, tables, block)
+        err = max(err, e)
+        if "plan budget" in name and paths[1]:
+            raise AssertionError(f"decode_tables {name}: {paths[1]} parser blocks walked serially")
+        log(f"decode_tables == plain version, byte for byte: {name} (device-memory route; "
+            f"{stats}); blocks by path: parallel {paths[0]}, serial {paths[1]}")
+    if dt.gmem_launches != len(large_tables):
+        raise AssertionError(f"decode_tables: {dt.gmem_launches} of {len(large_tables)} 1 MiB "
+                             f"launches took the device-memory route")
     kernels["decode_tables"] = {"max_abs_err": err}
 
     err = 0
@@ -1100,6 +1216,7 @@ def main() -> int:
     kernels["decode_planned"] = {"max_abs_err": err}
 
     # -- phase 4: the main paths, launch counts reset just before each -------
+    log(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     counts = {}
     df.launches = 0
     host_path(btt, btt.Codec.LZ4, corpus)
@@ -1159,6 +1276,26 @@ def main() -> int:
     streams_path(btt, corpus)
     counts["streams path"] = {"decode_flat": df.launches}
 
+    # The paths of blocks up to 1 MiB: each decode launch must take the
+    # device-memory route.
+    gmem = {}
+    for what, run, kernel in (
+            ("1 MiB host path", lambda: host_path(btt, btt.Codec.LZ4, corpus, LARGE_BLOCK), df),
+            ("CLI skewed suite, 1 MiB", lambda: cli_skewed(card), df),
+            ("1 MiB tables path", lambda: large_tables_path(btt, text, card), dt)):
+        df.launches = df.gmem_launches = dt.launches = dt.gmem_launches = 0
+        run()
+        name = "decode_flat" if kernel is df else "decode_tables"
+        counts[what] = {name: kernel.launches}
+        gmem[what] = kernel.gmem_launches
+        if kernel.gmem_launches != kernel.launches or (df.launches if kernel is dt
+                                                       else dt.launches):
+            raise AssertionError(f"{what}: {kernel.gmem_launches} of {kernel.launches} {name} "
+                                 f"launches on the device-memory route; other kernel launched")
+    df.launches = 0
+    cli_sync(corpus[:CLI_SYNC_BYTES], card)
+    counts["CLI sync suite, 128 KiB"] = {"decode_flat": df.launches}
+
     md.dyn_launches, md.parse_walk_launches = 0, 0
     mlen4, moff4 = (t.reshape(MATCH_BLOCKS, BLOCK) for t in md.find_matches_dyn(
         mplanes.view(-1, nrows, 128), noff, offs, nrows=nrows, max_match=1024))
@@ -1195,6 +1332,7 @@ def main() -> int:
                 raise AssertionError(f"the {path} launched no {name} kernel")
 
     # -- phase 5: times ----------------------------------------------------
+    log(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     rows, pt, comp_rows, comp_len, _ = batches["bench"]
     nblk = rows.shape[0]
     res, ms = turns(timing, lambda: df.decode_blocks_flat(rows, pt, comp_rows=comp_rows,
@@ -1219,6 +1357,46 @@ def main() -> int:
             f"{sum(turns_ms) / 2:.4f} ms/launch (turns {', '.join(f'{x:.4f}' for x in turns_ms)}); "
             f"stored bytes a block {clen.mean():.1f} (at most {clen.max()}); "
             f"bound {decode_bound(cpt, clen)}")
+
+    # The device-memory route at 1 MiB: the bench batch (no out pass) and
+    # the text batch (out passes).
+    routes = {}
+    for name in ("bench", "text"):
+        rows, pt, comp_rows, comp_len = large_batches[(name, LARGE_BLOCK)]
+        n1, nr = rows.shape[0], LARGE_BLOCK // 128
+
+        def kernel(rows=rows, pt=pt, comp_rows=comp_rows):
+            return df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nr)
+
+        def plain(rows=rows, pt=pt, comp_rows=comp_rows):
+            return df.decode_flat_reference(rows, pt, comp_rows, nr)
+
+        label = f"decode_flat device-memory route {name} {n1} x 1 MiB"
+        res, ms = turns(timing, kernel, plain)
+        report(label, card, res, ms, n1 * LARGE_BLOCK)
+        k_ms = wrapper_times(timing, label, card, "decode_flat", kernel)
+        bound = decode_bound(pt, comp_len, LARGE_BLOCK)
+        log(f"{label}: bound {bound}")
+        routes[name] = {"shape": f"{name} {n1} x 1 MiB", "ms": res["kernel"],
+                        "plain_ms": res["plain"], "kernel_ms": k_ms, "bound_ms": bound[0],
+                        "bound_by": bound[1]}
+    kernels["decode_flat"]["device_memory_route"] = {
+        "launches": sum(v for k, v in gmem.items() if counts[k].get("decode_flat")),
+        "timed": [routes["bench"], routes["text"]]}
+    lrows, lnseq, ltables, lblock, lcomp, _ = large_tables["bench 1 MiB, 4-pass plan budget"]
+    label = f"decode_tables device-memory route bench {lrows.shape[0]} x 1 MiB"
+    res, ms = turns(timing, lambda: dt.decode_blocks(lrows, lnseq, ltables, out_rows=lblock // 128),
+                    lambda: dt.decode_tables_reference(lrows, lnseq, ltables, lblock // 128))
+    report(label, card, res, ms, lrows.shape[0] * lblock)
+    k_ms = wrapper_times(timing, label, card, "decode_tables", lambda: dt.decode_blocks(
+        lrows, lnseq, ltables, out_rows=lblock // 128))
+    bound = tables_bound(lrows, lnseq, lcomp, lblock)
+    log(f"{label}: bound {bound}")
+    kernels["decode_tables"]["device_memory_route"] = {
+        "launches": gmem["1 MiB tables path"],
+        "timed": [{"shape": f"bench {lrows.shape[0]} x 1 MiB", "ms": res["kernel"],
+                   "plain_ms": res["plain"], "kernel_ms": k_ms, "bound_ms": bound[0],
+                   "bound_by": bound[1]}]}
 
     # B5 and B4 on the bench batches (the kernels line) and on the text
     # batch with detect_fft's offsets.  A block with noff = 0 needs no plane
@@ -1411,6 +1589,7 @@ def main() -> int:
         "decode_planned": ("bitar_tpu_torch/csrc/decode_planned.cu",
                            "bitar_tpu/ops/pallas/lz4_decode_planned.py:62"),
     }
+    log(f"smoke wall clock {time.perf_counter() - t_start:.1f} s")
     line = []
     for name, k in kernels.items():
         b_ms, b_by = k["bound"]
@@ -1418,7 +1597,9 @@ def main() -> int:
                      "replaces": sources[name][1], "launches": k["launches"],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None} | ({"shape": k["shape"]} if "shape" in k else {}))
+                     "library_ms": None} | ({"shape": k["shape"]} if "shape" in k else {})
+                    | ({"device_memory_route": k["device_memory_route"]}
+                       if "device_memory_route" in k else {}))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,12 @@ its plain PyTorch version on the card, and the engine's
 paths there (host and device compress, tables, Zstd, the tpu matchers,
 batched decode) and the multi-device dry run's.
 
+Blocks of 256 KiB to 1 MiB take B1's and B2's device-memory routes: both
+against their plain versions (bench and text corpora, class-pure batches,
+random wires and tables), one B1 launch whose output passes 2^31 bytes, the
+engine at 1 MiB, the CLI's skewed suite in LZ4, Snappy and Zstd,
+``configs_bench`` config 2 at 1 GiB and ``multihost_bench --launch 2``.
+
 They skip without CUDA.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports JAX, so on the card run this file alone:
 
@@ -118,14 +124,17 @@ def test_kernel_matches_plain_version(batch, cuda_device):
 
 
 def test_kernel_rejects_oversized_plane(cuda_device):
+    # Planes above 1024 rows take the device-memory route; the kernel's
+    # limit is 65536 rows (8 MiB blocks), past which the launch is refused.
     rows = torch.zeros((1, 256), dtype=torch.uint8, device=cuda_device)
+    tiles = 65536 // 128 + 1
     plans = tflat.plan_tensors({
         "p_used": np.zeros(1, np.int32), "p_off": np.zeros(1, np.int32),
         "p0": np.zeros(1, np.int32),
-        "se": np.zeros((4, 16, 128), np.int16),
-        "shift": np.zeros((4, 16, 128), np.int32)}, cuda_device)
-    with pytest.raises(btt.StatusError):        # 2048 rows: past one CTA's plane
-        tflat.decode_blocks_flat(rows, plans, comp_rows=128, out_rows=2048)
+        "se": np.zeros((4, tiles, 128), np.int16),
+        "shift": np.zeros((4, tiles, 128), np.int32)}, cuda_device)
+    with pytest.raises(btt.StatusError, match="CUDA error"):
+        tflat.decode_blocks_flat(rows, plans, comp_rows=128, out_rows=tiles * 128)
 
 
 @pytest.mark.parametrize("commit", ["eager", "deferred"])
@@ -1052,3 +1061,166 @@ def test_dryrun_multichip_decodes_on_the_card(cuda_device):
     res = dryrun.dryrun_multichip(2, timeout=240.0)
     assert all(r["launches"]["decode_flat"] > 0 for r in res)
     assert sum(r["flat"]["live"] for r in res) == 4
+
+
+# ---------------------------------------------------------------------------
+# Blocks of 256 KiB to 1 MiB: the device-memory routes of B1 and B2
+
+
+def large_unit(device, data: bytes, block: int, codec=btt.Codec.LZ4, **kw):
+    """An engine of ``block``-byte blocks and the planned (or tabled) unit
+    of ``data`` on it."""
+    n = -(-len(data) // block)
+    cfg = btt.EngineConfig(codec=codec, block_size=block, burst_size=min(n, 1024),
+                           max_pool_slots=n + 32, commit="deferred", plan_build="lazy", **kw)
+    eng = btt.Engine(cfg, device=device).initialize()
+    unit = eng.compress(data)
+    eng.ensure_plans(unit)
+    return eng, unit
+
+
+@pytest.mark.parametrize("corpus,block", [("bench", 256 * 1024), ("bench", 1 << 20),
+                                          ("text", 256 * 1024), ("text", 1 << 20)])
+def test_decode_flat_device_memory_route_matches_plain(corpus, block, cuda_device):
+    data = {"bench": make_corpus, "text": make_text_corpus}[corpus](128)
+    eng, unit = large_unit(cuda_device, data, block)
+    assert unit.plan_flat is not None and unit.plan_flat["host_blocks"].size == 0
+    rows = eng.arena.gather_burst([r.slot for r in unit.refs])
+    pt, comp_rows, nrows = unit.plan_device_arrays(), unit.plan_comp_rows, block // 128
+    n = unit.nblocks
+    for cls, idx in {"all": torch.arange(n, device=cuda_device),
+                     **tflat.block_classes(pt)}.items():
+        if not idx.numel():
+            continue
+        r, p = tflat.select_blocks(rows, pt, idx)
+        before = tflat.gmem_launches
+        got = tflat.decode_blocks_flat(r, p, comp_rows=comp_rows, out_rows=nrows)
+        torch.cuda.synchronize()
+        assert tflat.gmem_launches == before + 1
+        assert torch.equal(got, tflat.decode_flat_reference(r, p, comp_rows, nrows)), cls
+        host = got.reshape(idx.numel(), -1).cpu().numpy()
+        for j, b in enumerate(idx.tolist()):
+            assert host[j].tobytes() == data[b * block:(b + 1) * block], (cls, b)
+    if corpus == "text":
+        assert tflat.block_classes(pt)["out passes"].numel() == n
+    eng.release()
+
+
+@pytest.mark.parametrize("out_rows,dcap,n", [(2048, 64, 40), (8192, 16, 12), (8192, 64, 133)])
+def test_decode_flat_device_memory_route_on_random_wires(out_rows, dcap, n, cuda_device):
+    comp, plans = tflat.random_wire(59 + n, n, out_rows, 2 * out_rows, dcap)
+    rows = torch.from_numpy(comp).to(cuda_device)
+    pt = tflat.plan_tensors(plans, cuda_device)
+    got = tflat.decode_blocks_flat(rows, pt, comp_rows=2 * out_rows, out_rows=out_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tflat.decode_flat_reference(rows, pt, 2 * out_rows, out_rows))
+
+
+def test_decode_flat_launch_past_2gib_of_output(cuda_device):
+    # ~2100 x 1 MiB of RLE and RAW blocks in one launch: 2.2 GB of output,
+    # so every block base past 2^31 bytes must be 64-bit.
+    block, n = 1 << 20, 2100
+    rng = np.random.default_rng(60)
+    randoms = [rng.integers(0, 256, block, np.uint8).tobytes() for i in range(7)]
+    data = b"".join(bytes([i & 0xFF]) * block if i % 3 == 0 else randoms[i % 7]
+                    for i in range(n))
+    eng, unit = large_unit(cuda_device, data, block)
+    assert unit.plan_flat["host_blocks"].size == 0 and n * block > 2**31
+    before = tflat.gmem_launches
+    out = eng.prepare_device_decode(unit)()
+    torch.cuda.synchronize()
+    assert tflat.gmem_launches == before + 1
+    want = torch.from_numpy(np.frombuffer(data, np.uint8)).to(cuda_device)
+    assert torch.equal(out.view(-1), want)
+    del out, want
+    eng.release()
+
+
+def test_decode_tables_device_memory_route_matches_plain(cuda_device):
+    block = 1 << 20
+    batches = {}
+    for name, data in (("bench", make_corpus(64)), ("text", make_text_corpus(64))):
+        datas = [data[i * block:(i + 1) * block] for i in range(8)]
+        batches[name] = (*tdt.parser_tables(datas)[:3], b"".join(datas))
+    # Malformed tables at S 64: their random literal runs (up to 256 KiB
+    # each) cost the plain version ~1 G elements at S 4096.
+    for kind, S in ((True, 4096), (False, 64)):
+        batches[f"random {kind}"] = (*tdt.random_tables(61 + kind, 12, S, block,
+                                                         well_formed=kind), None)
+    for name, (r, tabs, ns, want_bytes) in batches.items():
+        nseq, tt = tdt.table_tensors(tabs, ns, cuda_device)
+        rows = torch.from_numpy(r).to(cuda_device)
+        paths = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+        before = tdt.gmem_launches
+        got = tdt.decode_blocks(rows, nseq, tt, out_rows=block // 128, path_counts=paths)
+        torch.cuda.synchronize()
+        assert tdt.gmem_launches == before + 1
+        assert torch.equal(got, tdt.decode_tables_reference(rows, nseq, tt, block // 128)), name
+        wf = int(tdt.well_formed(nseq, tt).sum())
+        assert paths.tolist() == [wf, rows.shape[0] - wf], name
+        if want_bytes is not None:
+            assert got.cpu().numpy().tobytes() == want_bytes, name
+
+
+@pytest.mark.parametrize("block", [160 * 1024, 256 * 1024])
+def test_decode_tables_routes_meet_at_the_shared_limit(block, cuda_device):
+    # 160 KiB is past the shared route (~150 KiB beside the windows);
+    # both sizes decode the same through the device-memory route.
+    rows, tabs, ns = tdt.random_tables(62, 16, 1024, block, well_formed=True)
+    nseq, tt = tdt.table_tensors(tabs, ns, cuda_device)
+    r = torch.from_numpy(rows).to(cuda_device)
+    before = tdt.gmem_launches
+    got = tdt.decode_blocks(r, nseq, tt, out_rows=block // 128)
+    torch.cuda.synchronize()
+    assert tdt.gmem_launches == before + 1
+    assert torch.equal(got, tdt.decode_tables_reference(r, nseq, tt, block // 128))
+
+
+def test_engine_at_1mib_decodes_every_block_through_b1(cuda_device):
+    data = make_corpus(1024)                  # 128 x 1 MiB
+    eng, unit = large_unit(cuda_device, data, 1 << 20)
+    before = tflat.gmem_launches
+    assert eng.decompress(unit).tobytes() == data
+    assert unit.plan_flat["host_blocks"].size == 0 and eng.stats.host_decode_bursts == 0
+    assert tflat.gmem_launches > before
+    planes = eng.prepare_device_decode(unit)()
+    assert planes.reshape(-1).cpu().numpy().tobytes() == data
+    eng.release()
+
+
+@pytest.mark.parametrize("codec", ["lz4", "snappy", "zstd"])
+def test_cli_skewed_suite_at_1mib_on_card(codec, tmp_path, cuda_device):
+    import json
+
+    from bitar_tpu_torch.cli import demo
+
+    out = tmp_path / "skewed.json"
+    assert demo.main(["--mode", "skewed", "--block-size", str(1 << 20), "--blocks", "256",
+                      "--codec", codec, "--output", str(out)]) == 0
+    stats = json.loads(out.read_text())
+    assert stats["blocks"] == 256 and stats["device_GBps"] > 0
+    assert stats["lat_p50_ms"] <= stats["lat_p99_ms"]
+
+
+def test_configs_bench_config2_at_1gib_on_card(tmp_path, cuda_device):
+    import json
+
+    from bitar_tpu_torch.cli import configs_bench
+
+    out = tmp_path / "configs.json"
+    assert configs_bench.main(["--configs", "2", "--gib", "1", "--out", str(out)]) == 0
+    (run,) = json.loads(out.read_text())["runs"]
+    assert run["bit_exact"] and run["decompress_GBps"] > 0
+
+
+def test_multihost_bench_two_ranks_on_card(tmp_path, cuda_device):
+    import json
+
+    from bitar_tpu_torch.cli import multihost_bench
+
+    out = tmp_path / "multihost.json"
+    assert multihost_bench.main(["--launch", "2", "--blocks", "32", "--reps", "2",
+                                 "--timeout", "300", "--out", str(out)]) == 0
+    art = json.loads(out.read_text())
+    assert art["multi"]["verified_blocks"] == 32 and art["single"]["verified_blocks"] == 16
+    assert art["device"]["platform"] == "gpu"

@@ -27,7 +27,9 @@ def test_import_leaves_jax_out():
             "bitar_tpu_torch.ops.decode_planned, bitar_tpu_torch.parallel, "
             "bitar_tpu_torch.parallel.sharding, bitar_tpu_torch.parallel.shuffle, "
             "bitar_tpu_torch.parallel.pipeline, bitar_tpu_torch.parallel.ring, "
-            "bitar_tpu_torch.parallel.multihost, bitar_tpu_torch.parallel.dryrun, chip_smoke; "
+            "bitar_tpu_torch.parallel.multihost, bitar_tpu_torch.parallel.dryrun, "
+            "bitar_tpu_torch.cli.demo, bitar_tpu_torch.cli.configs_bench, "
+            "bitar_tpu_torch.cli.multihost_bench, bitar_tpu_torch.utils.profiling, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'bitar_tpu' or m.startswith('bitar_tpu.')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -72,12 +74,20 @@ def test_validate_matches_jax_cpu(kw):
 
 
 def test_h100_capabilities_name_the_block_limit():
+    # Blocks up to 1 MiB, as on the TPU (the decode kernels keep taller
+    # planes in device memory); 2 MiB is outside the range; the device
+    # matchers stop at 128 KiB and name their kernels.
     caps = tconfig.cuda_capabilities("NVIDIA H100 80GB HBM3", 80 << 30, 232448)
-    assert caps.max_block_size == 128 * 1024
-    ok = btt.EngineConfig(block_size=128 * 1024, burst_size=1024, max_pool_slots=1056)
-    assert ok.validate(caps).ok()
-    st = btt.EngineConfig(block_size=256 * 1024).validate(caps)
-    assert not st.ok() and "shared memory" in st.message
+    assert caps.max_block_size == 1 << 20
+    for block in (128 * 1024, 256 * 1024, 1 << 20):
+        ok = btt.EngineConfig(block_size=block, burst_size=1024, max_pool_slots=1056)
+        assert ok.validate(caps).ok(), block
+    st = btt.EngineConfig(block_size=2 << 20).validate(caps)
+    assert not st.ok() and "outside device range" in st.message
+    for matcher in ("tpu", "device"):
+        st = btt.EngineConfig(block_size=256 * 1024, compress_matcher=matcher).validate(caps)
+        assert not st.ok() and "match.cu" in st.message and "emit.cu" in st.message, matcher
+        assert btt.EngineConfig(compress_matcher=matcher).validate(caps).ok()
     assert caps.hbm_budget_bytes == 60 << 30
 
 
