@@ -21,6 +21,15 @@ Launch (spawns the ranks, then the baseline, and writes the artifact)::
 
     python -m bitar_tpu_torch.cli.multihost_bench --launch 2 --out MULTIHOST.json
 
+``--phases`` adds the flat step's exchange alone and its decode alone to
+each rank's result and the artifact's ``phase_attribution``;
+``--skew-bucket-log K`` coarsens the shuffle plan's balance order
+(``ShardingConfig.skew_bucket_log``); ``--pin-cores`` keeps every rank on
+a disjoint, equal share of the cores the launcher may use and the baseline
+on rank 0's share (the affinity ``taskset`` sets, set inside each rank).
+One rank runs per device, so the JAX harness's ``--devices-per-process``
+has no counterpart.
+
 One rank of a job started by hand (every rank with the same arguments)::
 
     python -m bitar_tpu_torch.cli.multihost_bench --processes 2 --process-id 0 \\
@@ -31,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import tempfile
 
@@ -65,35 +75,77 @@ def make_datas(nblocks: int) -> bytes:
 
 def bench_program(mesh, spec: dict) -> dict:
     """One rank: the step ``spec["step"]`` over ``spec["blocks"]`` blocks,
-    best of ``spec["reps"]`` runs, every received row checked bit-exact."""
+    best of ``spec["reps"]`` runs, every received row checked bit-exact;
+    with ``spec["phases"]`` (flat step) also its exchange and its decode
+    alone."""
     step = STEPS[spec["step"]]
+    if spec.get("cores"):
+        pin_to(spec["cores"][mesh_rank(mesh)])
     res = dryrun.steps_program(mesh, {"nblocks": spec["blocks"], "block": BLOCK,
                                       "corpus": make_datas, "steps": (step,),
-                                      "reps": spec["reps"]})
+                                      "reps": spec["reps"],
+                                      "skew_bucket_log": spec.get("skew_bucket_log", 0),
+                                      "phases": spec.get("phases", False)})
     r = res[step]
     if not r["exact"]:
         raise AssertionError(f"rank {mesh_rank(mesh)}: received rows not bit-exact")
     lo, hi = partition_blocks(spec["blocks"], mesh.size(), mesh_rank(mesh))
-    return dict(processes=mesh.size(), devices=mesh.size(), blocks=spec["blocks"],
-                step_ms=round(r["seconds"] * 1e3, 2), verified_blocks=r["live"],
-                staged_blocks=[lo, hi], launches=res["launches"])
+    out = dict(processes=mesh.size(), devices=mesh.size(), blocks=spec["blocks"],
+               step_ms=round(r["seconds"] * 1e3, 2), verified_blocks=r["live"],
+               staged_blocks=[lo, hi], launches=res["launches"],
+               cores=len(os.sched_getaffinity(0)))
+    if "exchange_seconds" in r:
+        out.update(exchange_ms=round(r["exchange_seconds"] * 1e3, 2),
+                   decode_ms=round(r["decode_seconds"] * 1e3, 2))
+    return out
 
 
 def _arm(ranks: list[dict]) -> dict:
-    """One arm's result: the slowest rank's step bounds the step."""
+    """One arm's result: the slowest rank's step bounds the step (and each
+    phase, where timed)."""
     worst = max(ranks, key=lambda r: r["step_ms"])
-    return dict(processes=worst["processes"], devices=worst["devices"],
-                blocks=worst["blocks"], step_ms=worst["step_ms"],
-                blocks_per_s=round(worst["blocks"] / (worst["step_ms"] / 1e3), 1),
-                verified_blocks=sum(r["verified_blocks"] for r in ranks),
-                rank_step_ms=[r["step_ms"] for r in ranks])
+    arm = dict(processes=worst["processes"], devices=worst["devices"],
+               blocks=worst["blocks"], step_ms=worst["step_ms"],
+               blocks_per_s=round(worst["blocks"] / (worst["step_ms"] / 1e3), 1),
+               verified_blocks=sum(r["verified_blocks"] for r in ranks),
+               rank_step_ms=[r["step_ms"] for r in ranks],
+               rank_cores=[r["cores"] for r in ranks])
+    for k in ("exchange_ms", "decode_ms"):
+        if k in worst:
+            arm[k] = max(r[k] for r in ranks)
+    return arm
+
+
+def core_shares(n: int) -> list[list[int]]:
+    """``n`` disjoint, equal shares of the cores this process may use, as
+    the JAX harness's ``taskset`` prefixes give its processes."""
+    cores = sorted(os.sched_getaffinity(0))
+    per = max(1, len(cores) // n)
+    return [cores[(r * per) % len(cores):][:per] for r in range(n)]
+
+
+def pin_to(cores: list[int]) -> None:
+    """Move every thread of this process onto ``cores`` (what ``taskset``
+    does for a process it starts; threads started later inherit the mask)
+    and size torch's intra-op pool to them."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cores)
+        except ProcessLookupError:      # the thread ended meanwhile
+            pass
+    torch.set_num_threads(len(cores))
 
 
 def launch(args) -> int:
     """Spawn the ranks, then the 1-process baseline; compute the scaling
     efficiency and write the artifact."""
-    spec = {"blocks": args.blocks, "reps": args.reps, "step": args.step}
-    base_spec = dict(spec, blocks=max(1, args.blocks // args.launch))
+    # With --pin-cores each rank, and the baseline on rank 0's share, keeps
+    # to one of --launch disjoint, equal core shares.
+    shares = core_shares(args.launch) if args.pin_cores else None
+    spec = {"blocks": args.blocks, "reps": args.reps, "step": args.step,
+            "skew_bucket_log": args.skew_bucket_log, "phases": args.phases, "cores": shares}
+    base_spec = dict(spec, blocks=max(1, args.blocks // args.launch),
+                     cores=shares[:1] if shares else None)
 
     def world(n: int, s: dict) -> dict:
         return _arm(dryrun.run_world(n, bench_program, s, device_type=args.device,
@@ -119,9 +171,16 @@ def launch(args) -> int:
         scaling_mode="weak (baseline runs blocks/N in one process: each rank decodes "
                      "the same share in both arms)",
         device=_device_record(args.device),
+        skew_bucket_log=args.skew_bucket_log, pinned_cores=args.pin_cores,
         note=(f"{args.launch} ranks, one process each, {backend} exchange, step "
               f"{args.step}, {BLOCK // 1024} KiB blocks; decode on "
               f"{'the card(s)' if args.device == 'cuda' else 'the CPU (plain versions)'}"))
+    if "exchange_ms" in multi and "exchange_ms" in base:
+        artifact["phase_attribution"] = dict(
+            multi_exchange_ms=multi["exchange_ms"], multi_decode_ms=multi["decode_ms"],
+            single_exchange_ms=base["exchange_ms"], single_decode_ms=base["decode_ms"],
+            exchange_ratio=round(multi["exchange_ms"] / max(base["exchange_ms"], 1e-9), 3),
+            decode_ratio=round(multi["decode_ms"] / max(base["decode_ms"], 1e-9), 3))
     blob = json.dumps(artifact, indent=1)
     print(blob)
     if args.out:
@@ -149,7 +208,9 @@ def worker(args) -> int:
         try:
             mesh = make_mesh(args.processes, device_type=args.device)
             result = bench_program(mesh, {"blocks": args.blocks, "reps": args.reps,
-                                          "step": args.step})
+                                          "step": args.step,
+                                          "skew_bucket_log": args.skew_bucket_log,
+                                          "phases": args.phases})
         finally:
             if torch.distributed.is_initialized():
                 torch.distributed.destroy_process_group()
@@ -158,7 +219,10 @@ def worker(args) -> int:
 
 
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(prog="bitar-tpu-torch-multihost-bench")
+    p = argparse.ArgumentParser(
+        prog="bitar-tpu-torch-multihost-bench",
+        epilog="One rank runs per device, so the JAX harness's --devices-per-process "
+               "has no counterpart here.")
     p.add_argument("--launch", type=int, default=0,
                    help="spawn N ranks and report scaling")
     p.add_argument("--processes", type=int, default=1)
@@ -177,6 +241,17 @@ def main(argv=None) -> int:
     p.add_argument("--timeout", type=float, default=600.0,
                    help="seconds a world (or a rank's collectives) may take")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    p.add_argument("--pin-cores", action="store_true",
+                   help="keep each rank on a disjoint, equal share of the cores this "
+                        "process may use, and the baseline on rank 0's share")
+    p.add_argument("--phases", action="store_true",
+                   help="also time the flat step's exchange alone and its decode alone "
+                        "(phase_attribution): locates a scaling loss in the collective or "
+                        "in the decode")
+    p.add_argument("--skew-bucket-log", type=int, default=0,
+                   help="coarsen the shuffle plan's balance order: bucket block sizes by "
+                        "log2(size) >> K before the sort (ShardingConfig.skew_bucket_log); "
+                        "0 = exact sizes")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():

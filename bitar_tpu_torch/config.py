@@ -83,8 +83,6 @@ class DeviceCapabilities:
     max_inflight_bursts: int
     shared_mem_bytes: int        # per-block shared memory (opt-in maximum)
     hbm_budget_bytes: int        # arena ceiling
-    #: the largest block the device matchers ("tpu", "device") take
-    matcher_max_block_size: int = 1 << 20
 
 
 _ALL_CODECS = (Codec.LZ4, Codec.SNAPPY, Codec.ZSTD, Codec.RAW)
@@ -93,9 +91,6 @@ _ALL_CODECS = (Codec.LZ4, Codec.SNAPPY, Codec.ZSTD, Codec.RAW)
 #: holds: 1024 threads x 32 register words x 4 bytes (csrc/decode_flat.cu
 #: kThreads * kMaxWords).  Taller planes take its device-memory route.
 DECODE_FLAT_MAX_ROWS = 1024
-#: Blocks the match kernels (B3, B5, B4) and the emitter are held to their
-#: plain versions at on a CUDA device; the device matchers take no larger.
-CUDA_MATCHER_MAX_BLOCK = 128 * 1024
 
 CPU_REFERENCE = DeviceCapabilities(
     name="cpu-reference",
@@ -113,11 +108,13 @@ def cuda_capabilities(name: str, total_memory: int,
                       shared_mem_per_block_optin: int) -> DeviceCapabilities:
     """Capability record of one CUDA device from its properties.
 
-    Blocks go up to 1 MiB, as on the TPU: the decode kernels keep planes of
-    up to 128 KiB in shared memory and taller ones in device memory.  The
-    device matchers take blocks up to ``CUDA_MATCHER_MAX_BLOCK``.  The arena
-    may take three quarters of device memory: the rest holds plans,
-    gathered bursts and decoded planes."""
+    Blocks go up to 1 MiB, as on the TPU, and ``EngineConfig.validate``
+    takes every matcher at every block size as it does for
+    ``bitar_tpu.config.TPU_V5E``: the decode kernels keep planes of up to
+    128 KiB in shared memory and taller ones in device memory, and the match
+    kernels and the emitter take planes up to 1 MiB.  The arena may take
+    three quarters of device memory: the rest holds plans, gathered bursts
+    and decoded planes."""
     return DeviceCapabilities(
         name=name,
         codecs=_ALL_CODECS,
@@ -127,7 +124,6 @@ def cuda_capabilities(name: str, total_memory: int,
         max_inflight_bursts=512,
         shared_mem_bytes=shared_mem_per_block_optin,
         hbm_budget_bytes=total_memory * 3 // 4,
-        matcher_max_block_size=CUDA_MATCHER_MAX_BLOCK,
     )
 
 
@@ -263,13 +259,6 @@ class EngineConfig:
                     f"device matcher layout needs {slots} sequence slots "
                     f">= 2^15 (block_size {self.block_size} / min_match "
                     f"{self.min_match}); raise min_match or shrink blocks")
-        if (self.compress_matcher in ("tpu", "device")
-                and self.block_size > caps.matcher_max_block_size):
-            return Status.Invalid(
-                f"compress_matcher {self.compress_matcher!r} takes blocks up to "
-                f"{caps.matcher_max_block_size} B on {caps.name}: the match kernels "
-                f"(csrc/match.cu, match_walk.cu, match_dyn.cu) and the emitter "
-                f"(csrc/emit.cu) are held to their plain versions only up to there")
         if self.commit not in ("eager", "deferred"):
             return Status.Invalid(
                 f"commit {self.commit!r} not in (eager, deferred)")

@@ -27,8 +27,12 @@
 // x[t0 - maxoff, t1 + cap) clipped to the plane (maxoff: the tuple's largest
 // offset below L; a position below an offset never matches, and a run reads
 // at most cap positions ahead), 16 bytes a thread by cp.async.  Where the
-// window would be large (ops/match.py `tile_plan`) the tile is the whole
-// plane, as in a one-CTA-per-block design.
+// window would pass the shared memory a block may opt in to (an offset
+// above ~220 KiB of a plane up to 1 MiB; ops/match.py `tile_plan`), the
+// kernel's second instantiation (kStaged false) stages nothing and reads
+// the plane through L1/L2 from device memory, as B4 and B5 read theirs: a
+// tile's comparisons read its own 8 KiB and 8 KiB behind each offset, so a
+// CTA never holds more than the opt-in allows, whatever the offset.
 //
 // Each warp scores 1024-position spans.  Lane w owns the 32 positions
 // p0 + 32 w + j (j < 32): it keeps their bytes in registers, and per offset
@@ -80,19 +84,26 @@ __device__ __forceinline__ int window_hi(int t1, const Args& a) {
   return min(a.L, (t1 + a.cap + 15) & ~15);
 }
 
+// kStaged: the tile's window is staged in shared memory; else every read
+// goes to the plane in device memory.
+template <bool kStaged>
 __global__ void __launch_bounds__(512) match_kernel(Args a) {
   extern __shared__ __align__(16) uint8_t win[];
   const int b = blockIdx.x / a.tiles;
   const int t0 = (blockIdx.x - b * a.tiles) * a.tile;
   const int t1 = min(a.L, t0 + a.tile);
-  const int lo = window_lo(t0, a), hi = window_hi(t1, a);
+  const int hi = window_hi(t1, a);
   const uint8_t* plane = a.planes + static_cast<long long>(b) * a.L;
-  for (int i = lo + 16 * threadIdx.x; i < hi; i += 16 * blockDim.x)
-    cp_async16(win + (i - lo), plane + i);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-  const uint8_t* x = win - lo;                // x[p] for p in [lo, hi)
+  const uint8_t* x = plane;                   // x[p] for p in [lo, hi)
+  if constexpr (kStaged) {
+    const int lo = window_lo(t0, a);
+    for (int i = lo + 16 * threadIdx.x; i < hi; i += 16 * blockDim.x)
+      cp_async16(win + (i - lo), plane + i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    x = win - lo;
+  }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -198,15 +209,17 @@ __global__ void __launch_bounds__(512) match_kernel(Args a) {
 
 // Launches n * ceil(L / tile) CTAs of `warps` warps on `stream`, each
 // staging `window` bytes (the largest tile window, from ops/match.py
-// `tile_plan`); returns the CUDA error code (0 on success).  Pointers are
-// device pointers; the caller allocates the outputs.  Offsets must lie in
-// [0, 2^20); max_match in [1, 1024].
+// `tile_plan`), or with `window` 0 reading the plane from device memory;
+// returns the CUDA error code (0 on success).  Pointers are device
+// pointers, the planes 16-byte aligned; the caller allocates the outputs.
+// Offsets must lie in [0, 2^20); max_match in [1, 1024].
 extern "C" int bt_match_launch(const void* planes, const void* offs, int K, void* mlen,
                                void* idx, int n, int L, int max_match, int emit_values,
                                int tile, int maxoff, int window, int warps, void* stream) {
   if (n < 0 || L <= 0 || L % 128 || K < 1 || max_match < 1 || max_match > 1024 ||
-      tile <= 0 || tile % 128 || maxoff < 0 || window < 16 || window > bt::kSmemMax ||
-      warps < 1 || warps > 16)
+      tile <= 0 || tile % 128 || maxoff < 0 || (window != 0 && window < 16) ||
+      window > bt::kSmemMax || warps < 1 || warps > 16 ||
+      (reinterpret_cast<uintptr_t>(planes) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   int cap = 1;
@@ -226,11 +239,15 @@ extern "C" int bt_match_launch(const void* planes, const void* offs, int K, void
   a.emit_values = emit_values;
   const long long grid = static_cast<long long>(n) * a.tiles;
   if (grid > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (window == 0) {
+    match_kernel<false><<<static_cast<unsigned>(grid), 32 * warps, 0, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
   // The opt-in is the device maximum, whatever this launch's window, so a
   // launch from another thread never meets a smaller limit.
-  const cudaError_t err = bt::smem_opt_in(match_kernel, bt::kSmemMax);
+  const cudaError_t err = bt::smem_opt_in(match_kernel<true>, bt::kSmemMax);
   if (err != cudaSuccess) return static_cast<int>(err);
-  match_kernel<<<static_cast<unsigned>(grid), 32 * warps, window,
-                 static_cast<cudaStream_t>(stream)>>>(a);
+  match_kernel<true><<<static_cast<unsigned>(grid), 32 * warps, window, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..config import DECODE_FLAT_MAX_ROWS
-from ._build import block_queue, check_cuda, load_cuda_kernel, require
+from ._build import block_queue, check_cuda, load_cuda_kernel, require, sm_count
 
 LANES = 128
 CB = 4                # passes per planner batch (plans pad to CB multiples)
@@ -374,19 +374,6 @@ def load_kernel() -> ctypes.CDLL:
     return load_cuda_kernel("decode_flat", _bind)
 
 
-_sm_counts: dict[int, int] = {}     # streaming multiprocessors per device index
-
-
-def _scratch_ctas(device: torch.device, n: int) -> int:
-    """CTAs of a device-memory-route launch: one per SM (a 1024-thread CTA
-    of this kernel takes a whole SM's registers), at most one per block."""
-    sms = _sm_counts.get(device.index)
-    if sms is None:
-        sms = _sm_counts.setdefault(
-            device.index, torch.cuda.get_device_properties(device).multi_processor_count)
-    return max(1, min(n, sms))
-
-
 def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
                    out_rows: int) -> torch.Tensor:
     global launches, gmem_launches
@@ -426,7 +413,7 @@ def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
         queue = block_queue(comp.device, stream)
         scratch, ctas = None, 0
         if gmem:                              # a scratch plane per CTA
-            ctas = _scratch_ctas(comp.device, n)
+            ctas = min(n, sm_count(comp.device))
             scratch = torch.empty((ctas, out_rows * LANES), dtype=torch.uint8,
                                   device=comp.device)
         rc = lib.bt_decode_flat_launch(

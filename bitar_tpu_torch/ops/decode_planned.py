@@ -12,7 +12,10 @@ kernel-vs-plain checks), ``class_plans`` and ``pass_reads_plane`` (the
 kernel's two pass classes), ``decode_planned_reference``,
 the plain PyTorch decode, and ``decode_blocks_planned``, the wrapper: on CPU
 tensors it runs the plain version, on CUDA tensors it launches
-``csrc/decode_planned.cu`` or raises.
+``csrc/decode_planned.cu`` or raises.  Planes of up to ``SHARED_OUT_ROWS``
+rows take the kernel's shared-memory route, taller ones (up to
+``MAX_OUT_ROWS``, a 1 MiB block) its device-memory route, with a scratch
+plane per CTA that the wrapper allocates.
 
 The function, per block ``i``.  S has ``w_rows = ceil((comp_rows +
 out_rows) / 1024) * 1024`` rows of 128 bytes: comp in rows
@@ -35,18 +38,24 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import block_queue, check_cuda, load_cuda_kernel, require
+from ._build import block_queue, check_cuda, load_cuda_kernel, require, sm_count
 from .cpu import native
 
 LANES = 128
 KCHUNK = 1024          # S rows round up to this (the reference's MXU K chunk)
-#: Output rows a block may have: the kernel keeps the out plane in shared
-#: memory (128 KiB), as B1 does.
-MAX_OUT_ROWS = 1024
+#: Output rows of the largest plane the kernel keeps in shared memory
+#: (128 KiB), as B1 does; taller planes take its device-memory route.
+SHARED_OUT_ROWS = 1024
+#: Output rows a block may have on the card: 1 MiB, the largest block of
+#: either package.
+MAX_OUT_ROWS = 8192
 
 #: Kernel launches made by ``decode_blocks_planned`` on CUDA tensors (one
 #: per call).  Reset it to 0 before a run whose kernel use is to be shown.
 launches = 0
+#: Of those, launches on the device-memory route (planes above
+#: ``SHARED_OUT_ROWS`` rows).
+gmem_launches = 0
 
 
 def pack_plan(r_dstart, r_dend, r_shift, p0, total_passes, comp_rows):
@@ -222,7 +231,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, c_int,                        # comp, comp_rows
         vp, vp, vp, c_int,                # p_used, se, shift, passes
         vp, vp, c_int, c_int,             # order, out, n, out_rows
-        vp, c_int, vp]                    # queue, device, stream
+        vp, vp, c_int,                    # queue, scratch, its CTA rows
+        c_int, vp]                        # device, stream
+    for fn in ("bt_decode_planned_shared_rows", "bt_decode_planned_max_rows"):
+        getattr(lib, fn).restype = c_int
+        getattr(lib, fn).argtypes = []
+    got = (lib.bt_decode_planned_shared_rows(), lib.bt_decode_planned_max_rows())
+    require(got == (SHARED_OUT_ROWS, MAX_OUT_ROWS),
+            lambda: f"decode_planned.cu holds {got} rows (shared route, all), "
+                    f"the wrapper says {(SHARED_OUT_ROWS, MAX_OUT_ROWS)}")
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -231,10 +248,10 @@ def load_kernel() -> ctypes.CDLL:
 
 
 def _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows) -> torch.Tensor:
-    global launches
+    global launches, gmem_launches
     require(out_rows <= MAX_OUT_ROWS,
-            lambda: f"decode_planned kernel holds at most {MAX_OUT_ROWS} rows per block "
-                    f"(its out plane lives in shared memory), got {out_rows}")
+            lambda: f"decode_planned kernel takes at most {MAX_OUT_ROWS} rows per block "
+                    f"(a 1 MiB block), got {out_rows}")
     n = comp.shape[0]
     tiles = out_rows // LANES
     require(comp.is_contiguous(), "comp: want a contiguous [N, comp_rows, 128] tensor")
@@ -251,12 +268,19 @@ def _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows) -> torc
     order = torch.empty(n, dtype=torch.int32, device=comp.device)
     lib = load_kernel()
     stream = torch.cuda.current_stream(comp.device).cuda_stream
+    gmem = out_rows > SHARED_OUT_ROWS
+    scratch, ctas = None, 0
+    if gmem:                              # a scratch plane per CTA (one CTA an SM)
+        ctas = min(n, sm_count(comp.device))
+        scratch = torch.empty((ctas, out_rows * LANES), dtype=torch.uint8, device=comp.device)
     rc = lib.bt_decode_planned_launch(
         comp.data_ptr(), comp_rows, p_used.data_ptr(), se.data_ptr(), shift.data_ptr(),
         passes, order.data_ptr(), out.data_ptr(), n, out_rows,
-        block_queue(comp.device, stream).data_ptr(), comp.device.index, stream)
+        block_queue(comp.device, stream).data_ptr(),
+        None if scratch is None else scratch.data_ptr(), ctas, comp.device.index, stream)
     check_cuda(rc, "decode_planned launch", lib)
     launches += 1
+    gmem_launches += gmem
     return out
 
 

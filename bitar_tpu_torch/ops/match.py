@@ -20,8 +20,10 @@ matches.  The wrapper runs the plain version on CPU tensors and launches
 ``csrc/match.cu`` on CUDA tensors, or raises.
 
 The kernel scores a block tile by tile; :func:`tile_plan` picks the tile and
-:func:`tile_windows` gives the bytes of the plane each tile stages (the
-positions its comparisons read), so both can be checked without a card.
+whether a tile stages its window in shared memory or reads its sources from
+device memory, and :func:`tile_windows` gives the bytes of the plane each
+tile reads (the positions its comparisons read), so both can be checked
+without a card.
 """
 
 from __future__ import annotations
@@ -43,11 +45,13 @@ MAX_MATCH = 64
 #: (``csrc/match.cu``) and hold the doubling cap, at most 1024.
 KERNEL_MAX_MATCH = 1024
 
-#: Positions one CTA scores when the tuple's window allows (8 warps, one
-#: 1024-position span each).
+#: Positions one CTA scores (8 warps, one 1024-position span each); a plane
+#: of at most this many bytes is one tile.
 TILE = 8192
-#: Largest window a tiled CTA stages; past it a CTA takes the whole plane.
-WINDOW_MAX = 64 * 1024
+#: Largest window a CTA stages: the shared memory a block of the card may
+#: opt in to (``csrc/cuda_util.cuh`` kSmemMax).  A tile whose window is
+#: larger (an offset above ~220 KiB) reads its sources from device memory.
+SMEM_MAX = 232448
 
 #: Kernel launches made by ``find_matches`` on CUDA tensors (one per call).
 launches = 0
@@ -67,19 +71,18 @@ def tile_windows(L: int, tile: int, maxoff: int, cap: int) -> list[tuple[int, in
 
 
 def tile_plan(L: int, offsets: tuple[int, ...], max_match: int) -> dict:
-    """How the kernel scores an L-byte plane: ``tile`` positions per CTA,
-    ``maxoff`` (the largest offset below L; larger ones never match),
-    ``window`` (the most bytes a CTA stages) and ``warps`` per CTA.  Tiles of
-    :data:`TILE` positions while their window fits :data:`WINDOW_MAX`; else
-    one CTA takes the whole plane."""
+    """How the kernel scores an L-byte plane: ``tile`` positions per CTA
+    (:data:`TILE`, or the whole plane when it is smaller), ``maxoff`` (the
+    largest offset below L; larger ones never match), ``window`` (the most
+    bytes a CTA stages in shared memory; 0 when the largest tile window
+    passes :data:`SMEM_MAX` and every CTA reads the plane from device memory
+    instead) and ``warps`` per CTA."""
     cap = 1 << (max_match - 1).bit_length()   # the reference's doubling cap
     maxoff = max((d for d in offsets if d < L), default=0)
-    tile = TILE
+    tile = min(L, TILE)
     window = max(hi - lo for _, _, lo, hi in tile_windows(L, tile, maxoff, cap))
-    if L <= TILE or window > WINDOW_MAX:
-        tile, window = L, L
-    return {"tile": tile, "maxoff": maxoff, "window": window, "cap": cap,
-            "warps": min(16, -(-tile // 1024))}
+    return {"tile": tile, "maxoff": maxoff, "window": window if window <= SMEM_MAX else 0,
+            "cap": cap, "warps": -(-tile // 1024)}
 
 
 def match_reference(x: torch.Tensor, offsets: tuple[int, ...], *, max_match: int,

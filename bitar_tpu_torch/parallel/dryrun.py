@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..config import ShardingConfig
 from ..ops import decode_flat, decode_tables
 from ..ops.cpu import native
 from ..status import Status, StatusError
@@ -49,12 +50,13 @@ from .sharding import (
     _TABLE_KEYS,
     make_mesh,
     mesh_device,
+    mesh_group,
     mesh_rank,
     prepare_sharded_batch,
     shard_blocks,
     sharded_decode,
 )
-from .shuffle import execute_shuffle, plan_shuffle
+from .shuffle import all_to_all_rows, execute_shuffle, plan_shuffle, stage_rows
 
 logger = get_logger("parallel.dryrun")
 
@@ -141,11 +143,14 @@ def steps_program(mesh, spec: dict) -> dict:
     ``spec``: ``nblocks``, ``block``, ``seed`` for :func:`make_batch` (or
     ``corpus``: "bench" for ``utils.corpus.make_corpus``, or a module-level
     function of ``nblocks`` that returns the bytes to cut), optional
-    ``return_rows`` and ``reps`` (runs of the flat and ring steps; their
-    "seconds" is the best).  Every live row is checked against its raw (or,
-    for "shuffle", stored) bytes.  Returns {step: {"live", "exact",
-    "seconds", "rows" (if asked)}, "ring_equals_flat", "launches": {kernel:
-    count}}."""
+    ``return_rows``, ``reps`` (runs of the flat and ring steps; their
+    "seconds" is the best), ``skew_bucket_log`` (above 0, the shuffle plan's
+    ``ShardingConfig.skew_bucket_log``) and ``phases`` (the flat step's
+    exchange alone and its decode alone, best of ``reps`` each, as
+    "exchange_seconds" and "decode_seconds").  Every live row is checked
+    against its raw (or, for "shuffle", stored) bytes.  Returns {step:
+    {"live", "exact", "seconds", "rows" (if asked)}, "ring_equals_flat",
+    "launches": {kernel: count}}."""
     d, me = mesh.size(), mesh_rank(mesh)
     device = mesh_device(mesh)
     data = None
@@ -157,7 +162,9 @@ def steps_program(mesh, spec: dict) -> dict:
     batch = make_batch(spec["nblocks"], spec["block"], spec.get("seed", 42), data)
     block, comp_rows, rows = batch["block"], batch["comp_rows"], batch["rows"]
     nrows = block // LANES
-    splan = plan_shuffle(len(batch["datas"]), d, sizes=batch["lens"].astype(np.int64))
+    skew = spec.get("skew_bucket_log", 0)
+    splan = plan_shuffle(len(batch["datas"]), d, sizes=batch["lens"].astype(np.int64),
+                         config=ShardingConfig(skew_bucket_log=skew) if skew > 0 else None)
     per_src = rows.shape[0] // d
     send_idx, valid = (torch.from_numpy(a).to(device) for a in splan.staging(me, per_src))
     (local_rows,) = shard_blocks(mesh, rows, device=device)
@@ -189,6 +196,15 @@ def steps_program(mesh, spec: dict) -> dict:
             local_rows, send_idx, valid, *(wires[k] for k in WIRE_KEYS), **kw),
             spec.get("reps", 1))
         flat = record("flat", out, s, recv_ids, lambda b: raw[b])
+        if spec.get("phases"):
+            # The fused step's two phases alone: stage + all-to-all, then B1
+            # on the rows received.
+            recv, s = _timed(device, lambda: all_to_all_rows(
+                stage_rows(local_rows, send_idx, valid), mesh_group(mesh)), spec.get("reps", 1))
+            plans = dict(zip(WIRE_KEYS, (wires[k] for k in WIRE_KEYS), strict=True))
+            _, s_dec = _timed(device, lambda: decode_flat.decode_blocks_flat(
+                recv, plans, comp_rows=comp_rows, out_rows=nrows), spec.get("reps", 1))
+            result["flat"].update(exchange_seconds=s, decode_seconds=s_dec)
     if "ring" in steps:
         wires = local_wires(prepare_ring_flat_wires_for_recv(splan, *batch["plan"], nrows), me,
                             device)

@@ -6,6 +6,7 @@ checkout's on one card, in turns, on the same inputs.
     python -m bitar_tpu_torch.utils.kernel_ab --old DIR [--out FILE]
         [--only match|match_walk|match_dyn|parse_walk|emit|decode_flat|decode_tables|
                 decode_planned]
+    python -m bitar_tpu_torch.utils.kernel_ab --only match_routes [--out FILE]
 
 ``DIR`` is the root of another checkout of the repo (for example a ``git
 archive`` of the parent commit unpacked into a git-ignored directory).  Its
@@ -22,6 +23,10 @@ those of ``detect_fft=True, fft_k=6`` (up to 10 a block).  B6 walks B4's
 planes of those two batches (seg 1024, wcap 8), and the emitter runs at
 every shape a main path launches it (:func:`emit_shapes`).  Each B6 and
 emitter line carries its bound (``bound_ms``, device memory at 3.35 TB/s).
+``--only match_routes`` needs no other checkout: it times B3's two routes
+in this one, tiles that stage their window in shared memory ("old") against
+tiles that read the plane from device memory ("new", ``tile_plan``'s
+window 0), at the shapes the main paths launch (:func:`ab_match_routes`).
 The plain
 versions are not timed here (``chip_smoke.py`` does that).  Prints one JSON
 object per shape and the card's name and power limit.  Needs CUDA.
@@ -98,12 +103,15 @@ def same(a, b) -> bool:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--old", required=True, type=Path, help="root of the other checkout")
+    ap.add_argument("--old", type=Path, help="root of the other checkout")
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
     ap.add_argument("--only", choices=("match", "match_walk", "match_dyn", "parse_walk", "emit",
-                                       "decode_flat", "decode_tables", "decode_planned"),
+                                       "decode_flat", "decode_tables", "decode_planned",
+                                       "match_routes"),
                     help="time one kernel only")
     args = ap.parse_args()
+    if args.old is None and args.only != "match_routes":
+        ap.error("--old is required")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
@@ -112,10 +120,6 @@ def main() -> int:
     from bitar_tpu_torch.ops import match as mt
     from bitar_tpu_torch.utils import timing
     from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
-
-    old = load_package(args.old.resolve(), "bitar_tpu_torch_old")
-    from bitar_tpu_torch_old.ops import decode_flat as odf
-    from bitar_tpu_torch_old.ops import match as omt
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -127,6 +131,13 @@ def main() -> int:
         print(lines[-1], flush=True)
 
     corpus = make_corpus(1024)
+    if args.only == "match_routes":
+        ab_match_routes(emit, timing, mt, corpus)
+        return finish(args, lines)
+    old = load_package(args.old.resolve(), "bitar_tpu_torch_old")
+    from bitar_tpu_torch_old.ops import decode_flat as odf
+    from bitar_tpu_torch_old.ops import match as omt
+
     if args.only in (None, "decode_tables"):
         ab_tables(emit, timing, corpus, make_text_corpus(256))
     if args.only in (None, "decode_planned"):
@@ -179,6 +190,36 @@ def main() -> int:
         emit({"kernel": "decode_flat", "shape": f"{name} x 128 KiB", "equal": equal,
               **turns(timing, prev, new, "decode_flat_kernel", 100)})
     return finish(args, lines)
+
+
+def ab_match_routes(emit, timing, mt, corpus: bytes) -> None:
+    """B3's staged route ("old") against its device-memory route ("new") on
+    the bench corpus at the shapes the main paths launch: 1024 x 128 KiB and
+    128 x 1 MiB, ``DEFAULT_OFFSETS``, indices at max_match 64 (the ``tpu``
+    matcher) and values at 1024 (``match_offsets``).  The device-memory
+    route is forced by a ``tile_plan`` that gives window 0."""
+    plan = mt.tile_plan
+
+    def routed(x, kw, staged: bool):
+        mt.tile_plan = plan if staged else (lambda *a: plan(*a) | {"window": 0})
+        try:
+            return mt.find_matches(x, **kw)
+        finally:
+            mt.tile_plan = plan
+
+    flat = torch.from_numpy(np.frombuffer(corpus, np.uint8).copy()).cuda()
+    for block in (BLOCK, 8 * BLOCK):
+        x = flat.view(-1, block // 128, 128)
+        for mm, values in ((64, False), (1024, True)):
+            kw = dict(offsets=mt.DEFAULT_OFFSETS, nrows=block // 128, max_match=mm,
+                      emit_values=values)
+            assert plan(block, mt.DEFAULT_OFFSETS, mm)["window"] > 0
+            equal = same(routed(x, kw, True), routed(x, kw, False))
+            res = turns(timing, lambda x=x, kw=kw: routed(x, kw, True),
+                        lambda x=x, kw=kw: routed(x, kw, False), "match_kernel", 100)
+            emit({"kernel": "match", "shape": f"{x.shape[0]} x {block >> 10} KiB, 26 offsets, "
+                  f"max_match {mm}, {'values' if values else 'indices'}",
+                  "routes": "old: staged window, new: device memory", "equal": equal, **res})
 
 
 def table_shapes(corpus: bytes, text: bytes) -> dict:

@@ -66,6 +66,20 @@ Phases (any failure raises, and the script exits non-zero):
      decodes to its raw bytes), on random malformed plans (as made and
      sorted by descending ``p_used``) and on plans whose passes read comp
      rows only, the out plane first, or both in turn (``class_plans``);
+   - at 256 KiB and 1 MiB: ``match`` (B3) on 8 blocks of each with offsets
+     65,535, 70,000 and one whose tile window passes shared memory (240,000
+     / 300,000: every tile reads device memory), each beside a block of that
+     period, indices at max_match 64 and values at 1024, and at the tpu
+     matcher's shape, 128 x 1 MiB; ``emit`` on 1 MiB edge layouts (LZ4 wcap
+     8 and the worst-case budget at min_match 64, Snappy wcap 8) up to the
+     LZ4 bound's width and at the engine's 1 MiB ``match_offsets`` shape
+     (128 rows, 17,409 slots); ``match_walk``, ``match_dyn`` and
+     ``parse_walk`` at 1 MiB through their own entry points (the edge batch,
+     offsets up to L - 128, seg 8192; ``walk_edge_batch(8192, 128)``); and
+     ``decode_planned``'s device-memory route on planner plans of text at
+     256 KiB and 1 MiB and of 32 x 1 MiB of the bench corpus (each block its
+     raw bytes) and on random and pass-class plans at 2048 and 8192 rows;
+     the wide plain versions a few blocks at a time;
 4. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
    - host compress -> decode, LZ4 then Snappy, at the bench's size:
@@ -96,6 +110,13 @@ Phases (any failure raises, and the script exits non-zero):
    every one bit-exact with no block decoded on the host;
    - ``find_matches_dyn`` -> ``parse_walk_dyn`` (B4, B6) and
      ``decode_blocks_planned`` (B7), the two kernels' own entry points;
+   - the device matchers at 1 MiB on 128 x 1 MiB of the bench corpus:
+     ``compress_matcher="tpu"`` (LZ4 and Snappy), ``"tpu-sort"``, and
+     ``"device"`` with ``match_offsets=DEFAULT_OFFSETS, min_match=64``,
+     each decoded through B1's device-memory route with its host-clock
+     phases logged, and 4 blocks' container equal to the port's CPU
+     engine's; ``decode_blocks_planned`` on the 32 x 1 MiB bench plans (B7's
+     device-memory route);
    - (a) an NCCL world of 1 in this process (``file://`` rendezvous):
      ``make_mesh(1)``, ``plan_shuffle``, ``execute_shuffle``, the fused flat
      step and the ring step over 1024 x 128 KiB (B1), then ``sharded_decode``
@@ -122,8 +143,13 @@ Phases (any failure raises, and the script exits non-zero):
    shape of phase 3 (the
    multi-device steps' host-clock times are logged in phase 4); the whole
    ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
-   and the host-clock phases of the tpu matcher's compress (plane packing,
-   upload, B3, hint readback, host emission) at 1024 x 128 KiB;
+   the host-clock phases of the tpu matcher's compress (plane packing,
+   upload, B3, hint readback, host emission) at 1024 x 128 KiB and at 128 x
+   1 MiB; and at the 1 MiB paths' shapes B3 (128 x 1 MiB, indices, max_match
+   64), the emitter (the engine's ``match_offsets`` shape, with an empty
+   kernel on its grid) and B7's device-memory route (32 x 1 MiB), each with
+   its bound and its launches on the 1 MiB paths (the kernels line carries
+   them under ``large_blocks`` and, for B7, ``device_memory_route``);
 6. only with ``--profile``: where the time of each engine main path (host
    compress, device compress) goes, for one warm LZ4 unit: host-clock
    phases and the ``torch.profiler`` rows with the most device time.
@@ -160,6 +186,13 @@ BATCH_UNIT_BLOCKS = 256       # blocks of each unit of the batched decode
 LARGE_BLOCK = 1 << 20         # blocks of B1's and B2's device-memory routes
 MID_BLOCK = 256 * 1024
 SKEWED_BLOCKS = 256           # the CLI's skewed suite (its default)
+MATCH_LARGE_BLOCKS = 128      # the 1 MiB matcher paths' unit: 128 MiB of the bench corpus
+LARGE_CHECK_BLOCKS = 8        # blocks of each far-offset B3 batch at 256 KiB and 1 MiB
+#: Offsets past 56 KiB (every tile window above 64 KiB), the LZ4 format's
+#: largest, and one whose window passes shared memory (device-memory reads).
+FAR_OFFSETS = {MID_BLOCK: (65535, 70000, 240000), LARGE_BLOCK: (65535, 70000, 300000)}
+LARGE_EDGE_BLOCKS = 12        # blocks of the 1 MiB B5 / B4 / B6 edge batch
+PLANNED_LARGE_BLOCKS = 32     # B7's 1 MiB bench batch (32 MiB, as at 128 KiB)
 CLI_SYNC_BYTES = 32 << 20     # the CLI's sync suite input
 #: Offsets that tie: multiples of one period, duplicates, a 0 that matches
 #: everywhere, one past the block.
@@ -546,10 +579,10 @@ def compare_match(mt, planes, offsets, max_match: int, emit_values: bool, what: 
     return err, later, float((want[0] > 0).float().mean())
 
 
-def match_bound(n: int, nk: int) -> tuple[float, str]:
+def match_bound(n: int, nk: int, block: int = BLOCK) -> tuple[float, str]:
     """The planes read, 8 bytes per position written; two int32 operations
     per position and offset (the equality, the comparison with the best)."""
-    return bound_ms(n * BLOCK * 9, 2.0 * n * BLOCK * nk)
+    return bound_ms(n * block * 9, 2.0 * n * block * nk)
 
 
 # ---------------------------------------------------------------------------
@@ -591,11 +624,11 @@ def walk_bound(md, mlen, moff, lengths, P, M, seg: int, wcap: int, min_match: in
                                         min_match=min_match))
 
 
-def planned_bound(p_used, stored: int, passes: int) -> tuple[float, str]:
+def planned_bound(p_used, stored: int, passes: int, block: int = BLOCK) -> tuple[float, str]:
     """B7's least traffic: the stored bytes, 8 bytes of plan per pass used
     and output row, the planes written."""
     used = int(p_used.clamp(min=0, max=passes).sum())
-    return bound_ms(stored + 8 * used * (BLOCK // 128) + p_used.shape[0] * BLOCK)
+    return bound_ms(stored + 8 * used * (block // 128) + p_used.shape[0] * block)
 
 
 # ---------------------------------------------------------------------------
@@ -851,26 +884,219 @@ def cli_sync(data: bytes, card: str) -> None:
     log(f"main path CLI sync suite: {len(data)} B at 128 KiB blocks bit-exact [{card}]")
 
 
-def tpu_phases(btt, mt, native_mod, data: bytes, card: str) -> None:
+def tpu_phases(btt, mt, native_mod, data: bytes, card: str, block: int = BLOCK) -> None:
     """Host-clock phases of the tpu matcher's compress, as
     ``Engine._compress_tpu_match`` runs them, each ended by a sync."""
-    n = len(data) // BLOCK
-    clock = PhaseClock(card, f"tpu matcher compress, {n} x 128 KiB")
-    planes = np.frombuffer(data, np.uint8).reshape(n, BLOCK // 128, 128).copy()
+    n = len(data) // block
+    clock = PhaseClock(card, f"tpu matcher compress, {n} x {block // 1024} KiB")
+    planes = np.frombuffer(data, np.uint8).reshape(n, block // 128, 128).copy()
     clock.mark("plane packing (numpy)")
     dplanes = torch.from_numpy(planes).cuda()
     clock.mark("upload (pageable H2D)")
-    mlen, oidx = mt.find_matches(dplanes, offsets=mt.DEFAULT_OFFSETS, nrows=BLOCK // 128)
+    mlen, oidx = mt.find_matches(dplanes, offsets=mt.DEFAULT_OFFSETS, nrows=block // 128)
     clock.mark("match kernel (B3)")
     mlen, oidx = mlen.cpu().numpy(), oidx.cpu().numpy()
     clock.mark(f"hint readback ({2 * mlen.nbytes >> 20} MiB, D2H)")
     native_mod.set_emit_min_match(6)
     raw = np.frombuffer(data, np.uint8)
     for i in range(n):
-        native_mod.lz4_emit_sequences(raw[i * BLOCK:(i + 1) * BLOCK], mlen[i].reshape(-1),
+        native_mod.lz4_emit_sequences(raw[i * block:(i + 1) * block], mlen[i].reshape(-1),
                                       oidx[i].reshape(-1), mt.DEFAULT_OFFSETS)
     clock.mark("host emission (one thread)")
     clock.log()
+
+
+# ---------------------------------------------------------------------------
+# The device matchers and B7 at 256 KiB to 1 MiB
+
+
+def large_planes(data: bytes, block: int, n: int) -> torch.Tensor:
+    """[n, block] planes of ``data`` on the card."""
+    return torch.from_numpy(np.frombuffer(data[:n * block], np.uint8).reshape(n, block)
+                            .copy()).cuda()
+
+
+def compare_match_chunked(mt, planes, offsets, max_match: int, values: bool, what: str,
+                          chunk: int = 4) -> int:
+    """B3 on the whole batch against its plain version ``chunk`` blocks at a
+    time; returns max |diff|."""
+    n, L = planes.shape
+    got = mt.find_matches(planes.view(n, -1, 128), offsets=offsets, nrows=L // 128,
+                          max_match=max_match, emit_values=values)
+    torch.cuda.synchronize()
+    err = 0
+    for r in range(0, n, chunk):
+        want = mt.match_reference(planes[r:r + chunk], offsets, max_match=max_match,
+                                  emit_values=values)
+        for k, g, w in zip(("mlen", "idx"), got, want):
+            err = max(err, check_equal(f"match {what} {k} blocks {r}+",
+                                       g[r:r + chunk].reshape(-1, L), w))
+    return err
+
+
+def large_match_checks(mt, corpus: bytes, lplanes: torch.Tensor) -> int:
+    """B3 at 256 KiB and 1 MiB: far offsets (past 56 KiB, every tile window
+    above 64 KiB; the LZ4 format's largest; one whose window passes shared
+    memory, so every tile reads device memory), each with a block of that
+    period, indices at max_match 64 and values at max_match 1024; and the
+    tpu matcher's launched shape, 128 x 1 MiB, ``DEFAULT_OFFSETS``."""
+    err = 0
+    for block, fars in FAR_OFFSETS.items():
+        planes = large_planes(corpus, block, LARGE_CHECK_BLOCKS)
+        for b, far in enumerate(fars, start=1):
+            planes[b] = planes[b, :far].repeat(block // far + 1)[:block]
+        for far in fars:
+            offsets = (3, far, 1, 64)
+            window = mt.tile_plan(block, offsets, 64)["window"]
+            for mm, values in ((64, False), (1024, True)):
+                err = max(err, compare_match_chunked(mt, planes, offsets, mm, values,
+                                                     f"{block // 1024} KiB far {far}"))
+            log(f"match == plain version (mlen/idx): {LARGE_CHECK_BLOCKS} x {block} B, offsets "
+                f"{offsets}, indices max_match 64 and values max_match 1024; "
+                + (f"tile window {window} B staged" if window else
+                   "tile windows past shared memory: sources read from device memory"))
+    err = max(err, compare_match_chunked(mt, lplanes, mt.DEFAULT_OFFSETS, 64, False,
+                                         "tpu shape 1 MiB", chunk=16))
+    log(f"match == plain version (mlen/idx): bench, the tpu matcher's shape {lplanes.shape[0]} "
+        f"x {LARGE_BLOCK} B, 26 offsets, indices, max_match 64")
+    return err
+
+
+def large_emit_checks(em, dc, mt, lplanes, llens) -> tuple[int, dict, int]:
+    """The emitter on 1 MiB edge layouts and at the engine's 1 MiB
+    ``match_offsets`` shape (the parse with the worst-case budget at
+    min_match 64, the engine's width), a few rows of the plain version at a
+    time; returns (max |diff|, that layout, its width)."""
+    err = 0
+    for fmt, wcap, mm in (("lz4", 8, 6), ("lz4", None, 64), ("snappy", 8, 6)):
+        epl, eln, elay = em.edge_layouts(LARGE_BLOCK, fmt=fmt, wcap=wcap, min_match=mm, n=8)
+        epl, eln = torch.from_numpy(epl).cuda(), torch.from_numpy(eln).cuda()
+        elay = {k: torch.from_numpy(v).cuda() for k, v in elay.items()}
+        widths = ((256, 98304) if fmt == "snappy"
+                  else (128, 98304, -(-dc.lz4_bound(LARGE_BLOCK) // 128) * 128))
+        for ow in widths:
+            got = em.emit_blocks(epl, elay, out_width=ow, fmt=fmt, lengths=eln)
+            torch.cuda.synchronize()
+            for r in range(0, 8, 2):
+                rows = {k: v[r:r + 2] for k, v in elay.items()}
+                err = max(err, check_equal(f"emit 1 MiB edge {fmt} wcap {wcap} ow {ow}",
+                                           got[r:r + 2], em.emit_reference(
+                                               epl[r:r + 2], rows, out_width=ow, fmt=fmt,
+                                               lengths=eln[r:r + 2])))
+        log(f"emit == plain version, whole rows: 1 MiB edge layouts {fmt}, wcap {wcap}, "
+            f"slots a row {elay['starts'].shape[1]}, widths {widths}")
+    lay = dc.match_parse_device(lplanes, llens, min_match=64, offsets=mt.DEFAULT_OFFSETS)
+    ow = dc.engine_width(lay["total"].cpu().numpy(), llens.cpu().numpy(), LARGE_BLOCK)
+    got = em.emit_blocks(lplanes, lay, out_width=ow, lengths=llens)
+    torch.cuda.synchronize()
+    for r in range(0, lplanes.shape[0], 16):
+        rows = {k: v[r:r + 16] for k, v in lay.items()}
+        err = max(err, check_equal(f"emit 1 MiB engine shape rows {r}+", got[r:r + 16],
+                                   em.emit_reference(lplanes[r:r + 16], rows, out_width=ow,
+                                                     lengths=llens[r:r + 16])))
+    log(f"emit == plain version, whole rows: the engine's match_offsets shape, "
+        f"{lplanes.shape[0]} x 1 MiB, min_match 64, slots a row {lay['starts'].shape[1]}, "
+        f"width {ow}")
+    return err, lay, ow
+
+
+def large_dyn_checks(md) -> tuple[int, int, int]:
+    """B5, B4 and B6 at 1 MiB through their own entry points: the edge batch
+    (offsets up to L - 128) at seg 8192 (nseg 128), B6 on B4's planes of it
+    and on ``walk_edge_batch(8192, 128)``; returns their max |diff|."""
+    pl, nf, of, ln = edge_batch(md, LARGE_BLOCK, LARGE_EDGE_BLOCKS)
+    e5, _ = compare_walk(md, pl, nf, of, ln, "edge 1 MiB", 8192, 1024)
+    e4, _ = compare_dyn(md, pl, nf, of, "edge 1 MiB", 2047)
+    mlen4, moff4 = (t.reshape(pl.shape[0], -1) for t in md.find_matches_dyn(
+        pl.view(pl.shape[0], -1, 128), nf, of, nrows=LARGE_BLOCK // 128, max_match=1024))
+    e6, _ = compare_parse_walk(md, mlen4, moff4, ln, 8192, "edge 1 MiB B4 planes")
+    wm, wo, wl = (torch.from_numpy(a).cuda() for a in md.walk_edge_batch(8192, 128))
+    for wcap in (0, 8):
+        got = md.parse_walk_dyn(wm, wo, wl, seg=8192, min_match=6, wcap=wcap)
+        torch.cuda.synchronize()
+        want = md.parse_walk_reference(wm, wo, wl, seg=8192, min_match=6, wcap=wcap)
+        e6 = max(e6, max(check_equal(f"parse_walk 1 MiB edge wcap {wcap} {k}", g, w)
+                         for k, g, w in zip("PMOo", got, want)))
+    log(f"match_walk, match_dyn, parse_walk == plain versions at 1 MiB: edge batch "
+        f"{LARGE_EDGE_BLOCKS} x 1 MiB (offsets up to L - 128), seg 8192, max_match 1024 (B5) "
+        f"and 2047 (B4), B6 on B4's planes and on walk_edge_batch(8192, 128), wcap 0 and 8")
+    return e5, e4, e6
+
+
+def large_planned_checks(dp, corpus: bytes, text: bytes) -> tuple[int, dict]:
+    """B7's device-memory route: planner plans of text at 256 KiB and 1 MiB
+    and of the bench corpus at 1 MiB (each block decodes to its raw bytes),
+    random malformed plans and pass-class plans at 2048 and 8192 rows;
+    returns (max |diff|, the bench batch for phases 4 and 5)."""
+    err, gmem = 0, dp.gmem_launches
+    bench = None
+    for name, data, block, n, passes in (
+            ("text", text, MID_BLOCK, 4, 256), ("text", text, LARGE_BLOCK, 4, 256),
+            ("bench", corpus, LARGE_BLOCK, PLANNED_LARGE_BLOCKS, PLANNED_MAX_PASSES)):
+        datas = [data[i * block:(i + 1) * block] for i in range(n)]
+        wire = dp.plan_blocks(datas, block, passes)
+        args = [torch.from_numpy(wire[k]).cuda() for k in ("comp", "p_used", "se", "shift")]
+        kw = dict(passes=wire["passes"], comp_rows=wire["comp_rows"], out_rows=block // 128)
+        got = dp.decode_blocks_planned(*args, **kw)
+        torch.cuda.synchronize()
+        host = got.reshape(len(wire["fit"]), -1).cpu().numpy()
+        if any(host[j].tobytes() != datas[i] for j, i in enumerate(wire["fit"])):
+            raise AssertionError(f"decode_planned {name} {block}: blocks differ from raw bytes")
+        for r in range(0, len(wire["fit"]), 8):
+            err = max(err, check_equal(f"decode_planned {name} {block} blocks {r}+",
+                                       got[r:r + 8], dp.decode_planned_reference(
+                                           *(a[r:r + 8] for a in args), **kw)))
+        log(f"decode_planned == plain version, byte for byte (device-memory route): {name}, "
+            f"{len(wire['fit'])} of {n} x {block} B planned within {passes} passes, passes "
+            f"{wire['passes']} (mean {float(args[1].float().mean()):.1f}), comp_rows "
+            f"{wire['comp_rows']}; every block its raw bytes")
+        if name == "bench":
+            bench = (wire, datas, args, kw)
+    for rows in (2048, 8192):
+        rp = [torch.from_numpy(a).cuda() for a in dp.random_plans(19, 8, 5, 1024, rows)]
+        kw = dict(passes=5, comp_rows=1024, out_rows=rows)
+        err = max(err, check_equal(f"decode_planned random {rows}", dp.decode_blocks_planned(
+            *rp, **kw), dp.decode_planned_reference(*rp, **kw)))
+        for reads in ([False] * 4, [True, False, False], [False, True, False, True, True]):
+            cp = [torch.from_numpy(a).cuda() for a in dp.class_plans(20, 8, reads, 512, rows)]
+            kw = dict(passes=len(reads), comp_rows=512, out_rows=rows)
+            err = max(err, check_equal(f"decode_planned class {rows}", dp.decode_blocks_planned(
+                *cp, **kw), dp.decode_planned_reference(*cp, **kw)))
+        log(f"decode_planned == plain version, byte for byte (device-memory route): random "
+            f"malformed plans and pass-class plans (c, Pcc, cPcPP), {rows} rows")
+    if dp.gmem_launches - gmem != 3 + 2 * 4:
+        raise AssertionError("decode_planned: a launch above 1024 rows missed the "
+                             "device-memory route")
+    return err, bench
+
+
+def large_matcher_path(btt, data: bytes, card: str, codec, counts: dict, mods: dict,
+                       name: str, **kw) -> None:
+    """A 1 MiB matcher path, the launch counts of ``mods`` (name -> kernel
+    module) reset just before it: compress -> decode through B1's
+    device-memory route, bit-exact, no block on the host, host-clock phases
+    logged; then 4 blocks' container equal to the port's CPU engine's (which
+    the CPU tests hold to the JAX engine's)."""
+    df = mods["decode_flat"]
+    for mod in mods.values():
+        mod.launches = 0
+    df.gmem_launches = 0
+    eng = engine(btt, codec, block=LARGE_BLOCK, nblocks=len(data) // LARGE_BLOCK, **kw)
+    unit, phases = roundtrip(eng, data, name)
+    log_path(name, unit, card, phases)
+    eng.recycle(unit)
+    counts[name] = {k: mod.launches for k, mod in mods.items()}
+    if df.gmem_launches != df.launches:
+        raise AssertionError(f"{name}: {df.gmem_launches} of {df.launches} decode_flat "
+                             f"launches on the device-memory route")
+    mine = eng.compress(data[:4 * LARGE_BLOCK]).to_host().to_bytes()
+    eng.release()
+    cfg = btt.EngineConfig(codec=codec, block_size=LARGE_BLOCK, burst_size=4,
+                           max_pool_slots=36, **kw)
+    with btt.Engine(cfg, device="cpu") as ref:
+        if ref.compress(data[:4 * LARGE_BLOCK]).to_host().to_bytes() != mine:
+            raise AssertionError(f"{name}: container differs from the CPU engine's")
+    log(f"main path {name}: 4 x 1 MiB container equal to the port's CPU engine's")
 
 
 def main() -> int:
@@ -1215,6 +1441,16 @@ def main() -> int:
             "comp rows only), comp_rows 512")
     kernels["decode_planned"] = {"max_abs_err": err}
 
+    # The device matchers and B7 at 256 KiB to 1 MiB.
+    mlplanes = large_planes(corpus, LARGE_BLOCK, MATCH_LARGE_BLOCKS)   # the 1 MiB paths' B3 shape
+    mllens = torch.full((MATCH_LARGE_BLOCKS,), LARGE_BLOCK, dtype=torch.int32, device="cuda")
+    errs = {"match": large_match_checks(mt, corpus, mlplanes)}
+    errs["emit"], large_lay, large_ow = large_emit_checks(em, dc, mt, mlplanes, mllens)
+    errs["match_walk"], errs["match_dyn"], errs["parse_walk"] = large_dyn_checks(md)
+    errs["decode_planned"], large_planned = large_planned_checks(dp, corpus, text)
+    for name, e in errs.items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
+
     # -- phase 4: the main paths, launch counts reset just before each -------
     log(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     counts = {}
@@ -1315,6 +1551,41 @@ def main() -> int:
     if any(host[j].tobytes() != d for j, d in enumerate(pdatas)):
         raise AssertionError("decode_blocks_planned: blocks differ from their raw bytes")
     log(f"main path decode_blocks_planned: {len(pfit)} x {BLOCK} B bit-exact")
+
+    # The device matchers at 1 MiB (128 MiB of the bench corpus), and B7's
+    # device-memory route through its own entry point.
+    large_paths = []
+    for name, codec, kw, expect in (
+            ("tpu matcher lz4, 1 MiB", btt.Codec.LZ4, dict(compress_matcher="tpu"),
+             ("match", "decode_flat")),
+            ("tpu matcher snappy, 1 MiB", btt.Codec.SNAPPY, dict(compress_matcher="tpu"),
+             ("match", "decode_flat")),
+            ("tpu-sort matcher lz4, 1 MiB", btt.Codec.LZ4, dict(compress_matcher="tpu-sort"),
+             ("decode_flat",)),
+            ("device match_offsets lz4, 1 MiB, min_match 64", btt.Codec.LZ4,
+             dict(compress_matcher="device", match_offsets=mt.DEFAULT_OFFSETS, min_match=64),
+             ("match", "emit", "decode_flat"))):
+        md.walk_launches = 0
+        large_matcher_path(btt, corpus, card, codec, counts,
+                           {"match": mt, "emit": em, "decode_flat": df}, name, **kw)
+        extra = [k for k, v in counts[name].items() if v and k not in expect]
+        if extra or md.walk_launches:
+            raise AssertionError(f"{name} launched {extra or 'match_walk'}")
+        counts[name] = {k: counts[name][k] for k in expect}
+        large_paths.append(name)
+    wire, pdatas_l, pargs_l, pkw_l = large_planned
+    dp.launches = dp.gmem_launches = 0
+    got = dp.decode_blocks_planned(*pargs_l, **pkw_l)
+    host = got.reshape(len(wire["fit"]), -1).cpu().numpy()
+    counts["decode_blocks_planned, 1 MiB"] = {"decode_planned": dp.launches}
+    if dp.gmem_launches != 1 or any(host[j].tobytes() != pdatas_l[i]
+                                    for j, i in enumerate(wire["fit"])):
+        raise AssertionError("decode_blocks_planned 1 MiB: not the device-memory route, or "
+                             "blocks differ from their raw bytes")
+    log(f"main path decode_blocks_planned: {len(wire['fit'])} x 1 MiB bit-exact "
+        "(device-memory route)")
+    large_launches = {k: sum(counts[p].get(k, 0) for p in large_paths) for k in ("match", "emit")}
+    large_launches["decode_planned"] = dp.gmem_launches
 
     nccl_world_of_one(df, dt, card, counts)
     gloo_ranks_on_one_card(card, counts)
@@ -1550,6 +1821,44 @@ def main() -> int:
     kernels["decode_planned"]["bound"] = planned_bound(pused, pstored, ppasses)
     tpu_phases(btt, mt, native, corpus, card)
 
+    # B3, the emitter and B7's device-memory route at the 1 MiB paths' shapes.
+    def timed_large(name, label, kernel, plain, stem, bound, shape):
+        res, ms = turns(timing, kernel, plain)
+        report(label, card, res, ms, MATCH_LARGE_BLOCKS * LARGE_BLOCK)
+        k_ms = wrapper_times(timing, label, card, stem, kernel)
+        log(f"{label}: bound {bound}")
+        return {"shape": shape, "launches": large_launches[name], "ms": res["kernel"],
+                "plain_ms": res["plain"], "kernel_ms": k_ms, "bound_ms": bound[0],
+                "bound_by": bound[1]}
+
+    kernels["match"]["large_blocks"] = timed_large(
+        "match", f"match bench {MATCH_LARGE_BLOCKS} x 1 MiB, 26 offsets, max_match 64, indices",
+        lambda: mt.find_matches(mlplanes.view(MATCH_LARGE_BLOCKS, -1, 128),
+                                nrows=LARGE_BLOCK // 128),
+        lambda: mt.match_reference(mlplanes, mt.DEFAULT_OFFSETS, max_match=64), "match",
+        match_bound(MATCH_LARGE_BLOCKS, len(mt.DEFAULT_OFFSETS), LARGE_BLOCK),
+        f"bench {MATCH_LARGE_BLOCKS} x 1 MiB, indices, max_match 64 (the tpu matcher's)")
+    label = (f"emit match_offsets {MATCH_LARGE_BLOCKS} x 1 MiB, min_match 64, width "
+             f"{large_ow}, slots a row {large_lay['starts'].shape[1]}")
+    kernels["emit"]["large_blocks"] = timed_large(
+        "emit", label,
+        lambda: em.emit_blocks(mlplanes, large_lay, out_width=large_ow, lengths=mllens),
+        lambda: em.emit_reference(mlplanes, large_lay, out_width=large_ow, lengths=mllens),
+        "emit", emit_bound(em, large_lay, large_ow),
+        f"match_offsets {MATCH_LARGE_BLOCKS} x 1 MiB, width {large_ow} (the engine's)")
+    floor = em.floor_kernel_ms(MATCH_LARGE_BLOCKS, large_lay["starts"].shape[1], large_ow,
+                               timing, TIMED_REPS[1])
+    log(f"{label}: empty kernel on the same grid {floor:.4f} ms kernel-only [{card}]")
+    nfit = len(wire["fit"])
+    kernels["decode_planned"]["device_memory_route"] = timed_large(
+        "decode_planned", f"decode_planned device-memory route bench {nfit} x 1 MiB, "
+        f"{pkw_l['passes']} passes",
+        lambda: dp.decode_blocks_planned(*pargs_l, **pkw_l),
+        lambda: dp.decode_planned_reference(*pargs_l, **pkw_l), "decode_planned",
+        planned_bound(pargs_l[1], wire["stored"], pkw_l["passes"], LARGE_BLOCK),
+        f"bench {nfit} x 1 MiB, {pkw_l['passes']} passes")
+    tpu_phases(btt, mt, native, corpus, card, LARGE_BLOCK)
+
     def pipeline():
         return dc.compress_blocks_device(mplanes, mlens, seg=1024, out_width=2048)
 
@@ -1599,7 +1908,8 @@ def main() -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None} | ({"shape": k["shape"]} if "shape" in k else {})
                     | ({"device_memory_route": k["device_memory_route"]}
-                       if "device_memory_route" in k else {}))
+                       if "device_memory_route" in k else {})
+                    | ({"large_blocks": k["large_blocks"]} if "large_blocks" in k else {}))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

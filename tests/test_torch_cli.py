@@ -5,6 +5,8 @@ the other way round), the skewed input, the scaling harness and the
 configs harness at small sizes, and the profiling hooks.  Every input is
 made from a numpy seed; tolerance 0 (bytes, sizes, exit codes)."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -224,3 +226,26 @@ def test_profiling_noop_and_annotation(tmp_path, monkeypatch):
     assert d == str(tmp_path)
     (trace,) = tmp_path.glob("trace-*.json")
     assert "traced-region" in trace.read_text()
+
+
+def test_multihost_bench_phases_skew_and_pinned_cores_on_the_cpu(tmp_path):
+    # --pin-cores keeps each rank on half the cores and the baseline on
+    # rank 0's half; --phases times the flat step's exchange and decode alone, and
+    # --skew-bucket-log reaches the shuffle plan.
+    out = tmp_path / "multihost.json"
+    rc = multihost_bench.main(["--launch", "2", "--device", "cpu", "--blocks", "8",
+                               "--reps", "1", "--timeout", "120", "--phases",
+                               "--skew-bucket-log", "1", "--pin-cores", "--out", str(out)])
+    assert rc == 0
+    import json
+    art = json.loads(out.read_text())
+    assert art["multi"]["verified_blocks"] == 8 and art["single"]["verified_blocks"] == 4
+    assert art["skew_bucket_log"] == 1 and art["pinned_cores"] is True
+    share = max(1, len(os.sched_getaffinity(0)) // 2)
+    assert art["multi"]["rank_cores"] == [share, share]
+    assert art["single"]["rank_cores"] == [share]
+    pa = art["phase_attribution"]
+    for k in ("multi_exchange_ms", "multi_decode_ms", "single_exchange_ms", "single_decode_ms"):
+        assert pa[k] > 0, k
+    assert pa["decode_ratio"] == round(pa["multi_decode_ms"] / pa["single_decode_ms"], 3)
+

@@ -356,21 +356,26 @@ def test_match_kernel_edges(block, max_match, emit_values, cuda_device):
 
 
 @pytest.mark.parametrize("emit_values", [False, True])
-def test_match_kernel_whole_plane_window(emit_values, cuda_device):
-    # An offset of 70000 makes every tile's window pass WINDOW_MAX: one CTA
-    # takes the whole plane.
-    planes, _ = corpus_planes(cuda_device, 128 * 1024)
-    planes[2] = planes[2, :70000].repeat(2)[:128 * 1024]
-    offsets = (3, 70000, 1, 64)
-    assert tmatch.tile_plan(128 * 1024, offsets, 64)["tile"] == 128 * 1024
+@pytest.mark.parametrize("block,far", [(128 * 1024, 70000), (256 * 1024, 65535),
+                                       (256 * 1024, 70000), (256 * 1024, 240000),
+                                       (1 << 20, 65535), (1 << 20, 70000), (1 << 20, 300000)])
+def test_match_kernel_far_offset_windows(block, far, emit_values, cuda_device):
+    # An offset past ~56 KiB makes every tile's window pass 64 KiB; past
+    # ~220 KiB past what shared memory holds, and every tile reads the plane
+    # from device memory (window 0).  A block of period `far` matches there.
+    planes, _ = corpus_planes(cuda_device, block)
+    planes[2] = planes[2, :far].repeat(block // far + 1)[:block]
+    offsets = (3, far, 1, 64)
+    tp = tmatch.tile_plan(block, offsets, 64)
+    assert tp["tile"] == tmatch.TILE and (tp["window"] == 0) == (far + 8192 + 64 > 232448)
     n = planes.shape[0]
-    kw = dict(offsets=offsets, nrows=1024, max_match=64, emit_values=emit_values)
+    kw = dict(offsets=offsets, nrows=block // 128, max_match=64, emit_values=emit_values)
     mlen, idx = tmatch.find_matches(planes.view(n, -1, 128), **kw)
     torch.cuda.synchronize()
     want = tmatch.match_reference(planes, offsets, max_match=64, emit_values=emit_values)
     assert torch.equal(mlen.view(n, -1), want[0])
     assert torch.equal(idx.view(n, -1), want[1])
-    assert (want[0][2, 70000:] == 64).float().mean() > 0.9
+    assert (want[0][2, far:] == 64).float().mean() > 0.9
 
 
 def engine_batch(device, block: int, n: int):
@@ -551,7 +556,8 @@ def assert_rows_decode(codec: str, out, sizes, planes, lengths) -> int:
 
 def corpus_planes(device, block=128 * 1024, n=8):
     """[n, block] planes of the bench corpus with two tail blocks, and lengths."""
-    planes = np.frombuffer(make_corpus(n), np.uint8).reshape(n, -1)[:, :block].copy()
+    planes = np.frombuffer(make_corpus(n * max(1, block // (128 * 1024))), np.uint8)
+    planes = planes.reshape(n, -1)[:, :block].copy()
     lengths = np.full(n, block, np.int32)
     lengths[[3, 6]] = [block - 1000, block - 37]
     for b, ln in enumerate(lengths):
@@ -1042,14 +1048,23 @@ def test_decode_planned_kernel_in_any_block_order(cuda_device):
     assert all(int(q.abs().sum()) == 0 for q in block_queues.values())
 
 
-def test_decode_planned_rejects_blocks_past_the_shared_plane(cuda_device):
+def test_decode_planned_device_memory_route_past_the_shared_plane(cuda_device):
+    # 1152 rows, one tile past the shared plane, take the device-memory route
+    # and decode equal to the plain version (the kernel takes up to 8192).
     from bitar_tpu_torch.ops import decode_planned as tdp
 
-    comp = torch.zeros((1, 32, 128), dtype=torch.uint8, device=cuda_device)
-    z = torch.zeros((1, 1, 9, 128), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(btt.StatusError, match="shared memory"):
-        tdp.decode_blocks_planned(comp, torch.ones(1, dtype=torch.int32, device=cuda_device),
-                                  z, z, passes=1, comp_rows=32, out_rows=1152)
+    plans = [torch.from_numpy(a).to(cuda_device)
+             for a in tdp.class_plans(16, 5, [False, True, True], 64, 1152)]
+    kw = dict(passes=3, comp_rows=64, out_rows=1152)
+    before = tdp.gmem_launches
+    got = tdp.decode_blocks_planned(*plans, **kw)
+    torch.cuda.synchronize()
+    assert tdp.gmem_launches == before + 1
+    assert torch.equal(got, tdp.decode_planned_reference(*plans, **kw))
+    with pytest.raises(btt.StatusError, match="8192 rows"):
+        z = torch.zeros((1, 1, 65, 128), dtype=torch.int32, device=cuda_device)
+        tdp.decode_blocks_planned(plans[0][:1], plans[1][:1], z, z, passes=1, comp_rows=64,
+                                  out_rows=8320)
 
 
 def test_dryrun_multichip_decodes_on_the_card(cuda_device):
@@ -1224,3 +1239,154 @@ def test_multihost_bench_two_ranks_on_card(tmp_path, cuda_device):
     art = json.loads(out.read_text())
     assert art["multi"]["verified_blocks"] == 32 and art["single"]["verified_blocks"] == 16
     assert art["device"]["platform"] == "gpu"
+
+
+def test_multihost_bench_phases_and_pinned_cores_on_card(tmp_path, cuda_device):
+    import json
+
+    from bitar_tpu_torch.cli import multihost_bench
+
+    out = tmp_path / "multihost.json"
+    assert multihost_bench.main(["--launch", "2", "--blocks", "32", "--reps", "2", "--phases",
+                                 "--skew-bucket-log", "1", "--pin-cores", "--timeout", "300",
+                                 "--out", str(out)]) == 0
+    art = json.loads(out.read_text())
+    assert art["multi"]["verified_blocks"] == 32
+    assert art["phase_attribution"]["multi_decode_ms"] > 0
+    assert art["single"]["rank_cores"] == art["multi"]["rank_cores"][:1]
+
+
+# ---------------------------------------------------------------------------
+# The device matchers and B7 at 256 KiB to 1 MiB: B3 (any window), the
+# emitter and the parse at 1 MiB, B4 / B5 / B6 through their own entry
+# points, B7's device-memory route, and the engine's 1 MiB matcher paths.
+
+
+@pytest.mark.parametrize("fmt,wcap,L,min_match", [("lz4", 8, 256 * 1024, 6),
+                                                  ("lz4", None, 256 * 1024, 64),
+                                                  ("lz4", 8, 1 << 20, 6),
+                                                  ("lz4", None, 1 << 20, 64),
+                                                  ("snappy", 8, 1 << 20, 6)])
+def test_emit_kernel_on_large_edge_layouts(fmt, wcap, L, min_match, cuda_device):
+    # Whole rows equal the plain version's at widths that cut rows, hold
+    # every row, and the LZ4 bound of the block (the width the XLA emitter
+    # of the reference stands for); the plain version a few rows at a time.
+    planes, lengths, lay = temit.edge_layouts(L, fmt=fmt, wcap=wcap, min_match=min_match, n=8)
+    planes, lengths = (torch.from_numpy(a).to(cuda_device) for a in (planes, lengths))
+    layout = {k: torch.from_numpy(v).to(cuda_device) for k, v in lay.items()}
+    widths = (256, 98304) if fmt == "snappy" else (128, 98304, -(-tdc.lz4_bound(L) // 128) * 128)
+    for ow in widths:
+        got = temit.emit_blocks(planes, layout, out_width=ow, fmt=fmt, lengths=lengths)
+        torch.cuda.synchronize()
+        for r in range(0, 8, 2):
+            rows = {k: v[r:r + 2] for k, v in layout.items()}
+            assert torch.equal(got[r:r + 2], temit.emit_reference(
+                planes[r:r + 2], rows, out_width=ow, fmt=fmt, lengths=lengths[r:r + 2])), (ow, r)
+
+
+def test_match_offsets_parse_and_emit_at_1mib(cuda_device):
+    # The engine's match_offsets path at 1 MiB: B3 values at max_match 1024,
+    # the parse with the worst-case budget (min_match 64: 17,409 slots) and
+    # the emitter at the engine's width, against the plain versions.
+    planes, lengths = corpus_planes(cuda_device, 1 << 20, n=16)
+    offsets = tmatch.DEFAULT_OFFSETS
+    layout = tdc.match_parse_device(planes, lengths, min_match=64, offsets=offsets)
+    mlen, moff = tmatch.match_reference(planes, offsets, max_match=1024, emit_values=True)
+    want = tdc.parse_and_size(mlen, moff, lengths, seg=1024, min_match=64, length=1 << 20,
+                              wcap=None)
+    for k in want:
+        assert torch.equal(layout[k], want[k]), k
+    sizes = layout["total"].cpu().numpy()
+    ow = tdc.engine_width(sizes, lengths.cpu().numpy(), 1 << 20)
+    got = temit.emit_blocks(planes, layout, out_width=ow, lengths=lengths)
+    torch.cuda.synchronize()
+    for r in range(0, 16, 4):
+        rows = {k: v[r:r + 4] for k, v in layout.items()}
+        assert torch.equal(got[r:r + 4], temit.emit_reference(planes[r:r + 4], rows,
+                                                              out_width=ow, lengths=lengths[r:r + 4]))
+    assert assert_rows_decode("lz4", got, layout["total"], planes, lengths) > 0
+
+
+@pytest.mark.parametrize("max_match", [64, 2047])
+def test_match_dyn_kernel_at_1mib(max_match, cuda_device):
+    # Explicit offsets up to L - 128 (edge_batch's kinds at 1 MiB).
+    planes, noff, offs, _ = edge_tensors(cuda_device, 1 << 20, n=12)
+    moff = dyn_equals_plain(planes, noff, offs, max_match)
+    assert (moff[4] == (1 << 20) - 128).any()
+
+
+@pytest.mark.parametrize("seg,max_match", [(8192, 1024), (16384, 2047)])
+def test_match_walk_kernel_at_1mib(seg, max_match, cuda_device):
+    # nseg 128 and 64: the segment counts B5 takes at 1 MiB.
+    batch = edge_tensors(cuda_device, 1 << 20, n=12)
+    P = walk_equals_plain(*batch, seg, max_match)[0]
+    assert (P[0] == -1).all() and (P[5] >= 0).any()
+
+
+@pytest.mark.parametrize("wcap", [0, 8])
+def test_parse_walk_kernel_at_1mib(wcap, cuda_device):
+    wm, wo, wl = (torch.from_numpy(a).to(cuda_device) for a in tmd.walk_edge_batch(8192, 128))
+    got = tmd.parse_walk_dyn(wm, wo, wl, seg=8192, min_match=6, wcap=wcap)
+    torch.cuda.synchronize()
+    want = tmd.parse_walk_reference(wm, wo, wl, seg=8192, min_match=6, wcap=wcap)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("corpus,block,max_passes", [("text", 256 * 1024, 256),
+                                                     ("text", 1 << 20, 256),
+                                                     ("bench", 1 << 20, 64)])
+def test_decode_planned_device_memory_route_on_planner_plans(corpus, block, max_passes,
+                                                             cuda_device):
+    from bitar_tpu_torch.ops import decode_planned as tdp
+
+    data = (make_text_corpus if corpus == "text" else make_corpus)(4 * block // (128 * 1024))
+    datas = [data[i * block:(i + 1) * block] for i in range(4)]
+    wire = tdp.plan_blocks(datas, block, max_passes)
+    assert wire["fit"] == [0, 1, 2, 3]
+    args = [torch.from_numpy(wire[k]).to(cuda_device) for k in ("comp", "p_used", "se", "shift")]
+    kw = dict(passes=wire["passes"], comp_rows=wire["comp_rows"], out_rows=block // 128)
+    before = tdp.gmem_launches
+    got = tdp.decode_blocks_planned(*args, **kw)
+    torch.cuda.synchronize()
+    assert tdp.gmem_launches == before + 1
+    assert [g.tobytes() for g in got.reshape(4, -1).cpu().numpy()] == datas
+    assert torch.equal(got, tdp.decode_planned_reference(*args, **kw))
+
+
+@pytest.mark.parametrize("out_rows", [2048, 8192])
+def test_decode_planned_device_memory_route_on_random_and_class_plans(out_rows, cuda_device):
+    from bitar_tpu_torch.ops import decode_planned as tdp
+
+    rp = [torch.from_numpy(a).to(cuda_device) for a in tdp.random_plans(17, 8, 5, 1024, out_rows)]
+    kw = dict(passes=5, comp_rows=1024, out_rows=out_rows)
+    assert torch.equal(tdp.decode_blocks_planned(*rp, **kw), tdp.decode_planned_reference(*rp, **kw))
+    for reads in ([False] * 4, [True, False, False], [False, True, False, True, True]):
+        cp = [torch.from_numpy(a).to(cuda_device)
+              for a in tdp.class_plans(18, 8, reads, 512, out_rows)]
+        kw = dict(passes=len(reads), comp_rows=512, out_rows=out_rows)
+        got = tdp.decode_blocks_planned(*cp, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tdp.decode_planned_reference(*cp, **kw)), reads
+
+
+@pytest.mark.parametrize("kw", [dict(compress_matcher="tpu"),
+                                dict(compress_matcher="tpu", codec=btt.Codec.SNAPPY),
+                                dict(compress_matcher="tpu-sort"),
+                                dict(compress_matcher="device",
+                                     match_offsets=tmatch.DEFAULT_OFFSETS, min_match=64)],
+                         ids=["tpu-lz4", "tpu-snappy", "tpu-sort", "device-match-offsets"])
+def test_engine_matchers_at_1mib(kw, cuda_device):
+    # 32 x 1 MiB of the bench corpus round trip with no block on the host,
+    # and 4 blocks' containers equal the CPU engine's.
+    block = 1 << 20
+    data = make_corpus(256)
+    cfg = btt.EngineConfig(block_size=block, burst_size=32, max_pool_slots=64,
+                           commit="deferred", **kw)
+    with btt.Engine(cfg, device=cuda_device) as eng:
+        unit = eng.compress(data)
+        assert eng.decompress(unit).tobytes() == data
+        assert unit.plan_flat["host_blocks"].size == 0
+        assert unit.manifest.ratio() > 1.2
+        mine = eng.compress(data[:4 * block]).to_host().to_bytes()
+    with btt.Engine(cfg, device="cpu") as ref:
+        assert ref.compress(data[:4 * block]).to_host().to_bytes() == mine

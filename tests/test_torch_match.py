@@ -86,7 +86,7 @@ def tiled_scores(x: np.ndarray, offsets, max_match: int) -> tuple[np.ndarray, np
     mlen = np.zeros((n, L), np.int32)
     slot = np.zeros((n, L), np.int32)
     for t0, t1, lo, hi in tmatch.tile_windows(L, tp["tile"], tp["maxoff"], cap):
-        assert hi - lo <= tp["window"]
+        assert tp["window"] == 0 or hi - lo <= tp["window"]   # 0: read from device memory
         win = x[:, lo:hi].astype(np.int32)
         p = np.arange(lo, hi)
         best = np.zeros((n, t1 - t0), np.int32)
@@ -118,7 +118,9 @@ def tiled_scores(x: np.ndarray, offsets, max_match: int) -> tuple[np.ndarray, np
      (1, 8191, 8192, 8193, 16384, 3, 32768, 40000, 12), 100),
     ("K > 32, a duplicate, 0 last", 16 * 1024, tuple(range(1, 40)) + (7, 0), 1),
     ("a far offset, 38 KiB windows", 32 * 1024, (3, 30000, 1, 64), 64),
-    ("whole-plane window", 128 * 1024, (3, 70000, 1, 64), 64),
+    ("a far offset, windows past 64 KiB", 128 * 1024, (3, 70000, 1, 64), 64),
+    ("256 KiB, the largest LZ4 offset", 256 * 1024, (3, 65535, 1, 64), 64),
+    ("256 KiB, windows past shared memory", 256 * 1024, (3, 230000, 70000, 1), 100),
 ])
 def test_tile_windows_hold_every_byte_a_tile_reads(case):
     _, L, offsets, max_match = case
@@ -137,7 +139,9 @@ def test_tile_windows_hold_every_byte_a_tile_reads(case):
 @pytest.mark.parametrize("L,offsets,max_match,want", [
     (128 * 1024, None, 64, dict(tile=8192, maxoff=8192, cap=64, warps=8)),
     (128 * 1024, None, 1024, dict(tile=8192, maxoff=8192, cap=1024, warps=8)),
-    (128 * 1024, (3, 70000, 1, 64), 64, dict(tile=128 * 1024, maxoff=70000, warps=16)),
+    (128 * 1024, (3, 70000, 1, 64), 64, dict(tile=8192, maxoff=70000, window=78256, warps=8)),
+    (1 << 20, (1, 65535), 64, dict(tile=8192, maxoff=65535, window=73792, warps=8)),
+    (1 << 20, (1, 300000, 70000), 1024, dict(tile=8192, maxoff=300000, window=0, warps=8)),
     (16 * 1024, (3, 16384, 20000, 1), 100, dict(tile=8192, maxoff=3, cap=128, warps=8)),
     (4 * 1024, None, 64, dict(tile=4096, maxoff=2048, warps=4)),
     (8 * 1024, (0,), 1, dict(tile=8192, maxoff=0, cap=1, warps=8)),
@@ -147,8 +151,10 @@ def test_tile_plan(L, offsets, max_match, want):
     tp = tmatch.tile_plan(L, offsets, max_match)
     assert {k: tp[k] for k in want} == want
     wins = tmatch.tile_windows(L, tp["tile"], tp["maxoff"], tp["cap"])
-    assert tp["window"] == max(hi - lo for _, _, lo, hi in wins)
-    assert tp["window"] <= max(L, tmatch.WINDOW_MAX)
+    # A window that shared memory holds is staged; past it every tile reads
+    # the plane from device memory (window 0).
+    widest = max(hi - lo for _, _, lo, hi in wins)
+    assert tp["window"] == (widest if widest <= tmatch.SMEM_MAX else 0)
     # The tiles cover the plane in order; every window is 16-aligned and
     # holds the bytes from maxoff before its tile to cap past it.
     assert [w[0] for w in wins] == list(range(0, L, tp["tile"])) and wins[-1][1] == L
