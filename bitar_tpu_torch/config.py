@@ -89,7 +89,8 @@ _ALL_CODECS = (Codec.LZ4, Codec.SNAPPY, Codec.ZSTD, Codec.RAW)
 
 #: Rows of 128 bytes of the largest plane decode_flat's shared-memory route
 #: holds: 1024 threads x 32 register words x 4 bytes (csrc/decode_flat.cu
-#: kThreads * kMaxWords).  Taller planes take its device-memory route.
+#: kThreads * kMaxWords).  Taller planes take its tall route, whose cluster
+#: kernel holds a plane in CTAs of this many rows each.
 DECODE_FLAT_MAX_ROWS = 1024
 
 CPU_REFERENCE = DeviceCapabilities(

@@ -54,23 +54,55 @@
 // the unit's widest plane, so staging would copy comp_rows * 128 bytes a
 // block where the bench's decoded blocks store ~550 (they stay in L1).
 //
-// Planes taller than 1024 rows (blocks of 256 KiB to 1 MiB: 8192 rows, 256
-// words a thread) take the device-memory route, a second instantiation of
-// the same kernel (kGlobal).  RAW blocks and blocks with no out pass are
-// what they are on the shared route; the sweep walks the plane's tiles
-// eight at a time.  A block with out passes is swept into its own output
-// row, and each out pass gathers the new value of every word it writes into
-// the CTA's scratch row in device memory, __syncthreads(), writes them to
-// the output row, __syncthreads(): every read sees the plane as it stood
-// before the pass (a CTA's global writes are visible to its threads after
-// the barrier).  A pass moves ~3x the bytes it writes (read source, write
-// and read scratch, write plane) through L2 instead of shared memory; no
-// bulk store.  Holding the plane in a cluster's distributed shared memory is
-// the Hopper design for a later version.
+// Planes taller than 1024 rows (blocks of 256 KiB to 1 MiB: up to 8192
+// rows) take the tall route.  What held its first version (one CTA a block,
+// each out pass walking the whole plane twice through L2 and a scratch row)
+// far from the bound was that a pass moved ~3x the bytes it wrote through L2
+// on one SM a block, and that a burst of 32 blocks kept 32 of 132 SMs busy.
+// The route is two kernels on the launch's stream:
+//   * the slice kernel: persistent CTAs on every SM share out the blocks
+//     in block order, whole blocks when there are at least as many as CTAs,
+//     else each in parts of its 1024-row slices, as many parts as keep every
+//     CTA busy; RAW and no-out-pass slices are copied or swept straight to
+//     device memory (a CTA pays a block's plan and first loads once for its
+//     run of slices), and a block with out passes is listed for the second
+//     kernel.  (A single cluster kernel for every class ran the bench's
+//     128 blocks of 1 MiB, none with out passes, at 1.9x the first
+//     version's time: an H100 holds only 15 clusters of 8 such CTAs at once,
+//     120 of its 132 SMs, so the blocks took two rounds.)
+//   * the cluster kernel: a thread-block cluster of C = ceil(out_rows /
+//     1024) CTAs (2 at 256 KiB, 8 at 1 MiB: the portable maximum) decodes
+//     each listed block, CTA r holding rows [1024 r, 1024 (r + 1)) of its
+//     plane in its own shared memory (the shared route's 128 KiB slice).
+//     Each CTA sweeps its rows into its slice, then per out pass gathers the
+//     new value of each of its words from the CTA that holds the source
+//     bytes (distributed shared memory: a whole word as two aligned words
+//     and a funnel shift, else byte by byte), cluster barrier, writes the
+//     words it gathered, cluster barrier: every read sees the plane as it
+//     stood before the pass.  A pass's se/shift cells of the CTA's rows are
+//     staged as on the shared route (shift only for live rows); a CTA skips
+//     the words of rows whose cell is empty, and a pass with no live row
+//     among its rows costs it the two barriers and nothing else.  Each slice
+//     leaves by its own TMA bulk store.  A cluster's next block is one
+//     atomic, taken by its rank-0 CTA and written into every CTA's slot
+//     through distributed shared memory before a cluster barrier; the grid
+//     is as many clusters as can be resident at once
+//     (cudaOccupancyMaxActiveClusters); with no block listed it exits at
+//     once.
+// What bounds the route now: in the slice kernel the device-memory bytes
+// (the dq plane's 2 bytes a plane byte, the plane, the comp rows); in the
+// cluster kernel the chain of a block's out passes, two cluster barriers
+// and a gather through distributed shared memory a pass.  A cluster launch
+// the card refuses returns its error.
 
+#include <cooperative_groups.h>
+
+#include <algorithm>
 #include <cstdint>
 
 #include "cuda_util.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -79,7 +111,10 @@ constexpr int kMaxWords = 32;     // words per thread of the shared route: 1024 
 constexpr int kGroup = 4;         // tiles whose words a thread sweeps at once
 constexpr int kRawBatch = 4;      // 16-byte chunks a thread loads at once in a RAW copy
 constexpr int kLanes = 128;
-constexpr int kMaxRows = 65536;   // 8 MiB planes: every index inside a plane fits an int
+constexpr int kSliceRows = kThreads * kMaxWords / (kLanes / 4);   // rows a CTA holds: 1024
+constexpr int kSliceShift = 17;   // log2 of a slice's bytes
+constexpr int kMaxCluster = 8;    // the portable cluster size: planes of up to 8192 rows
+static_assert(kSliceRows * kLanes == 1 << kSliceShift, "a slice is 2^17 bytes");
 
 struct Args {
   const uint8_t* comp;            // [n] rows of comp_stride bytes
@@ -101,8 +136,9 @@ struct Args {
   uint8_t* out;                   // [n, out_rows * 128]
   int out_rows;
   int n;
-  int* queue;                     // [next block to take, CTAs done]: 0 at launch
-  uint32_t* scratch;              // device-memory route: [grid, out_rows * 32] words
+  int* queue;                     // [next block, CTAs (clusters) done, listed blocks]: 0 at launch
+  int* list;                      // tall route: [n] the blocks with out passes
+  int parts;                      // tall route: parts a block's slices are shared out in
 };
 
 // One block's plan, the same in every thread.
@@ -133,16 +169,19 @@ __device__ __forceinline__ uint32_t set_byte(uint32_t w, int j, uint32_t b) {
   return (w & ~(0xFFu << (8 * j))) | (b << (8 * j));
 }
 
-// RAW block: out[p] = comp[p] below min(comp_len, comp_width), 0 after.
-// Each thread loads kRawBatch of its chunks before it stores any, so that
-// many loads are in flight.
-__device__ void copy_raw(const uint8_t* cp, uint8_t* out, int out_len, const Args& a) {
+// RAW block: out[p] = comp[p] below min(comp_len, comp_width), 0 after, for
+// the bytes [lo, hi) of the plane (multiples of 16: the whole plane on the
+// shared route, a CTA's rows on the cluster route).  Each thread loads
+// kRawBatch of its chunks before it stores any, so that many loads are in
+// flight.
+__device__ void copy_raw(const uint8_t* cp, uint8_t* out, int lo, int hi, int out_len,
+                         const Args& a) {
   const int lim = min(min(a.comp_len, a.comp_width), out_len);
   const uintptr_t align = reinterpret_cast<uintptr_t>(cp);
   if ((align & 15) == 0) {
     uint4* o = reinterpret_cast<uint4*>(out);
     const uint4* s = reinterpret_cast<const uint4*>(cp);
-    for (int i0 = threadIdx.x; i0 < out_len / 16; i0 += kRawBatch * kThreads) {
+    for (int i0 = lo / 16 + threadIdx.x; i0 < hi / 16; i0 += kRawBatch * kThreads) {
       uint4 v[kRawBatch];
 #pragma unroll
       for (int r = 0; r < kRawBatch; ++r) {
@@ -159,13 +198,13 @@ __device__ void copy_raw(const uint8_t* cp, uint8_t* out, int out_len, const Arg
       }
 #pragma unroll
       for (int r = 0; r < kRawBatch; ++r)
-        if (i0 + r * kThreads < out_len / 16) o[i0 + r * kThreads] = v[r];
+        if (i0 + r * kThreads < hi / 16) o[i0 + r * kThreads] = v[r];
     }
     return;
   }
   uint32_t* o = reinterpret_cast<uint32_t*>(out);
   const bool words = (align & 3) == 0;
-  for (int w0 = threadIdx.x; w0 < out_len / 4; w0 += kRawBatch * kThreads) {
+  for (int w0 = lo / 4 + threadIdx.x; w0 < hi / 4; w0 += kRawBatch * kThreads) {
     uint32_t v[kRawBatch];
 #pragma unroll
     for (int r = 0; r < kRawBatch; ++r) {
@@ -181,12 +220,12 @@ __device__ void copy_raw(const uint8_t* cp, uint8_t* out, int out_len, const Arg
     }
 #pragma unroll
     for (int r = 0; r < kRawBatch; ++r)
-      if (w0 + r * kThreads < out_len / 4) o[w0 + r * kThreads] = v[r];
+      if (w0 + r * kThreads < hi / 4) o[w0 + r * kThreads] = v[r];
   }
 }
 
-// Dense and comp passes for the thread's words into dst (the shared plane
-// or the block's output row).  Word i of thread t (w = t + 1024 i) lies in
+// Dense and comp passes for the thread's words into dst (the shared plane,
+// a CTA's slice, or the block's output row from tile t0 on).  Word i of thread t (w = t + 1024 i) lies in
 // row r = t / 32 + 32 (i & 3) of tile i >> 2 (a tile is 128 rows), so the
 // sweep takes the four row classes g = i & 3 in turn and, within one, its
 // words of kGroup tiles at once.  A warp's word covers one row: lane l
@@ -195,7 +234,8 @@ __device__ void copy_raw(const uint8_t* cp, uint8_t* out, int out_len, const Arg
 // each byte takes its pass's anchor by a shuffle.
 //
 // Tiles [t0, t0 + nt) of the plane, nt <= 8 (the shared route sweeps its
-// 1-8 tiles in one call, the device-memory route in octets).
+// 1-8 tiles in one call, each CTA of the cluster route its own); dst holds
+// tile t0's first word.
 __device__ __forceinline__ void sweep_tiles(const Block& k, uint32_t* dst, const Args& a,
                                             int t0, int nt) {
   const int out_len = a.out_rows * kLanes;
@@ -277,19 +317,8 @@ __device__ __forceinline__ void sweep_tiles(const Block& k, uint32_t* dst, const
       }
 #pragma unroll
       for (int cc = 0; cc < kGroup; ++cc)
-        if (c0 + cc < nt) dst[threadIdx.x + (4 * (t0 + c0 + cc) + g) * kThreads] = v[cc];
+        if (c0 + cc < nt) dst[threadIdx.x + (4 * (c0 + cc) + g) * kThreads] = v[cc];
     }
-  }
-}
-
-template <bool kGlobal>
-__device__ void sweep(const Block& k, uint32_t* dst, const Args& a) {
-  const int tiles = a.out_rows / kLanes;           // 1 to 8 on the shared route
-  if constexpr (kGlobal) {
-#pragma unroll 1
-    for (int t0 = 0; t0 < tiles; t0 += 8) sweep_tiles(k, dst, a, t0, min(8, tiles - t0));
-  } else {
-    sweep_tiles(k, dst, a, 0, tiles);
   }
 }
 
@@ -355,47 +384,102 @@ __device__ void out_passes(const Block& k, uint32_t* plane, const Cells& c, cons
   }
 }
 
-// Out passes on the block's output row in device memory (the device-memory
-// route): per pass, the new value of every word the pass writes goes to the
-// CTA's scratch row, barrier, the scratch words go to the plane, barrier.
-// A thread reads back only the scratch words it wrote itself; the plane is
-// read with plain loads (it is written during the kernel, so never __ldg).
-__device__ void out_passes_global(const Block& k, uint32_t* plane, uint32_t* scratch,
-                                  const Args& a) {
-  const int out_words = a.out_rows * (kLanes / 4);
+// A CTA's slice of the plane on the cluster route: rows [row0, row0 + rows).
+struct Slice {
+  int rank;                       // the CTA's rank in its cluster
+  int row0;                       // 1024 * rank
+  int rows;                       // 1024, fewer in the last CTA of a plane
+};
+
+// Stages pass kk's cells of the slice's rows (the shift only of live rows);
+// returns whether any of them is live in this thread.
+__device__ __forceinline__ bool stage_slice_cells(const Block& k, int kk, int buf, const Cells& c,
+                                                  const Slice& s, const Args& a) {
+  bool live = false;
+  for (int r = threadIdx.x; r < s.rows; r += kThreads) {
+    const long long cell = (k.base + kk) * a.out_rows + s.row0 + r;
+    const uint16_t se = static_cast<uint16_t>(__ldg(a.se + cell));
+    const bool on = ((se >> 8) & 0x7F) < (se & 0xFF);
+    c.se[buf * kSliceRows + r] = se;
+    c.shift[buf * kSliceRows + r] = on ? __ldg(a.shift + cell) : 0;
+    live = live || on;
+  }
+  return live;
+}
+
+// Word q / 4 (q a multiple of 4) and byte q of the block's plane, read from
+// the slice of the cluster's CTA that holds them.
+__device__ __forceinline__ uint32_t plane_word(const cg::cluster_group& cl, uint32_t* slice, int q) {
+  return *cl.map_shared_rank(slice + ((q & ((1 << kSliceShift) - 1)) >> 2), q >> kSliceShift);
+}
+
+__device__ __forceinline__ uint32_t plane_byte(const cg::cluster_group& cl, uint32_t* slice, int q) {
+  uint8_t* b = reinterpret_cast<uint8_t*>(slice) + (q & ((1 << kSliceShift) - 1));
+  return *cl.map_shared_rank(b, q >> kSliceShift);
+}
+
+// Out passes on the cluster route: per pass each CTA gathers the new value
+// of the words of its rows that the pass writes, from whichever slice holds
+// their source bytes, cluster barrier, writes them into its slice (and
+// stages the next pass's cells), cluster barrier.  `live`: whether the first
+// pass writes any of the slice's rows.
+__device__ void out_passes_cluster(const Block& k, uint32_t* slice, const Cells& c, const Slice& s,
+                                   bool live, const Args& a) {
+  const cg::cluster_group cl = cg::this_cluster();
   const int out_len = a.out_rows * kLanes;
-  const uint8_t* pb = reinterpret_cast<const uint8_t*>(plane);
+  const int words = s.rows * (kLanes / 4);
+  const int w0 = s.row0 * (kLanes / 4);            // the slice's first word in the plane
   for (int kk = k.ncomp; kk < k.npass; ++kk) {
-    const long long wire = (k.base + kk) * a.out_rows;
-#pragma unroll 4
-    for (int w = threadIdx.x; w < out_words; w += kThreads) {
-      const int row = w >> 5;
-      const int lane0 = (w & 31) * 4;
-      const uint32_t s = static_cast<uint16_t>(__ldg(a.se + wire + row));
-      const int start = (s >> 8) & 0x7F, end = s & 0xFF;
-      if (start < lane0 + 4 && end > lane0 && start < end) {
-        const long long sh = __ldg(a.shift + wire + row);
-        uint32_t v = plane[w];
-        for (int j = 0; j < 4; ++j) {
-          const int lane = lane0 + j;
-          if (lane >= start && lane < end) {
-            long long q = w * 4LL + j + sh;
-            q = q < 0 ? 0 : (q >= out_len ? out_len - 1 : q);
-            v = set_byte(v, j, pb[q]);
+    const int buf = (kk - k.ncomp) & 1;
+    const uint16_t* cse = c.se + buf * kSliceRows;
+    const int32_t* csh = c.shift + buf * kSliceRows;
+    uint32_t pend[kMaxWords];
+    uint32_t mask = 0;                             // bit i: word i takes pend[i]
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < kMaxWords; ++i) {
+        const int wl = threadIdx.x + i * kThreads;
+        pend[i] = 0;
+        if (wl >= words) continue;
+        const int row = wl >> 5;
+        const int lane0 = (wl & 31) * 4;
+        const uint32_t cs = cse[row];
+        const int start = (cs >> 8) & 0x7F, end = cs & 0xFF;
+        if (!(start < lane0 + 4 && end > lane0 && start < end)) continue;
+        const long long q0 = 4LL * (w0 + wl) + csh[row];
+        uint32_t v;
+        if (start <= lane0 && end >= lane0 + 4 && q0 >= 0 && q0 <= out_len - 4) {
+          // The whole word from its (possibly unaligned) source: two
+          // aligned words, the second inside the plane when the first is
+          // not its last.
+          const int q = static_cast<int>(q0);
+          const uint32_t lo = plane_word(cl, slice, q & ~3);
+          v = (q & 3) ? __funnelshift_r(lo, plane_word(cl, slice, (q & ~3) + 4), 8 * (q & 3)) : lo;
+        } else {
+          v = slice[wl];
+          for (int j = 0; j < 4; ++j) {
+            const int lane = lane0 + j;
+            if (lane >= start && lane < end) {
+              long long q = q0 + j;
+              q = q < 0 ? 0 : (q >= out_len ? out_len - 1 : q);
+              v = set_byte(v, j, plane_byte(cl, slice, static_cast<int>(q)));
+            }
           }
         }
-        scratch[w] = v;
+        pend[i] = v;
+        mask |= 1u << i;
       }
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int w = threadIdx.x; w < out_words; w += kThreads) {
-      const int lane0 = (w & 31) * 4;
-      const uint32_t s = static_cast<uint16_t>(__ldg(a.se + wire + (w >> 5)));
-      const int start = (s >> 8) & 0x7F, end = s & 0xFF;
-      if (start < lane0 + 4 && end > lane0 && start < end) plane[w] = scratch[w];
+    cl.sync();                                     // every CTA has read the plane
+#pragma unroll
+    for (int i = 0; i < kMaxWords; ++i)
+      if ((mask >> i) & 1u) slice[threadIdx.x + i * kThreads] = pend[i];
+    if (kk + 1 < k.npass) {
+      live = __syncthreads_or(stage_slice_cells(k, kk + 1, buf ^ 1, c, s, a));
+      cl.sync();                                   // every CTA has written its slice
+    } else {
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 
@@ -406,18 +490,11 @@ __device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc, int byt
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
-// Block b, by class (the CTA's threads all take the same branch).
-template <bool kGlobal>
-__device__ void decode_block(int b, uint32_t* plane, const Cells& cells, const Args& a) {
-  const int out_len = a.out_rows * kLanes;
-  Block k;
+// Block b's plan into k (the same in every thread); false for a RAW block.
+__device__ __forceinline__ bool load_block(int b, Block& k, const Args& a) {
   k.cp = a.comp + static_cast<long long>(b) * a.comp_stride;
-  uint8_t* out = a.out + static_cast<long long>(b) * out_len;
   k.dn = __ldg(a.dense + b);
-  if (k.dn < 0) {               // RAW: the output is the comp plane
-    copy_raw(k.cp, out, out_len, a);
-    return;
-  }
+  if (k.dn < 0) return false;
   // Pass bounds, clamped to the wire so a malformed plan cannot read past it.
   k.base = __ldg(a.p_off + b);
   long long np = __ldg(a.p_used + b);
@@ -429,39 +506,66 @@ __device__ void decode_block(int b, uint32_t* plane, const Cells& cells, const A
   k.ncomp = nc < 0 ? 0 : (nc > k.npass ? k.npass : nc);
   k.di = __ldg(a.dq_idx + b);
   k.dense_on = k.dn > 0 && k.di >= 0 && k.di < a.dq_rows;
-  if (k.ncomp == k.npass) {     // no out pass: straight to device memory
-    sweep<kGlobal>(k, reinterpret_cast<uint32_t*>(out), a);
-    return;
-  }
-  if constexpr (kGlobal) {      // out passes on the output row itself
-    uint32_t* row = reinterpret_cast<uint32_t*>(out);
-    sweep<true>(k, row, a);
-    __syncthreads();
-    out_passes_global(k, row, a.scratch + static_cast<long long>(blockIdx.x) * out_len / 4, a);
-  } else {
-    // The plane may still be read by the previous block's bulk store.
-    if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-    __syncthreads();
-    sweep<false>(k, plane, a);
-    stage_cells(k, k.ncomp, 0, cells, a);
-    __syncthreads();
-    out_passes(k, plane, cells, a);
-    // The plane's generic-proxy writes, made visible to the bulk store.
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    if (threadIdx.x == 0) bulk_store(out, plane, out_len);
-  }
+  return true;
 }
 
-// kGlobal: the device-memory route (planes taller than kMaxWords allows);
-// its shared memory holds only the queue's two slots.
-template <bool kGlobal>
-__global__ void __launch_bounds__(kThreads, 1) decode_flat_kernel(Args a) {
-  // Shared memory: the plane, the queue's two slots (16 bytes), the cells.
+// Block b on the shared route, by class (the CTA's threads all take the
+// same branch).
+__device__ void decode_block(int b, uint32_t* plane, const Cells& cells, const Args& a) {
+  const int out_len = a.out_rows * kLanes;
+  Block k;
+  uint8_t* out = a.out + static_cast<long long>(b) * out_len;
+  if (!load_block(b, k, a)) {   // RAW: the output is the comp plane
+    copy_raw(k.cp, out, 0, out_len, out_len, a);
+    return;
+  }
+  if (k.ncomp == k.npass) {     // no out pass: straight to device memory
+    sweep_tiles(k, reinterpret_cast<uint32_t*>(out), a, 0, a.out_rows / kLanes);
+    return;
+  }
+  // The plane may still be read by the previous block's bulk store.
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  __syncthreads();
+  sweep_tiles(k, plane, a, 0, a.out_rows / kLanes);
+  stage_cells(k, k.ncomp, 0, cells, a);
+  __syncthreads();
+  out_passes(k, plane, cells, a);
+  // The plane's generic-proxy writes, made visible to the bulk store.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) bulk_store(out, plane, out_len);
+}
+
+// Block b, which has out passes, in the cluster kernel: this CTA's rows.
+__device__ void decode_out_block(int b, uint32_t* slice, const Cells& cells, const Slice& s,
+                                 const Args& a) {
+  const int out_len = a.out_rows * kLanes;
+  Block k;
+  load_block(b, k, a);
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  __syncthreads();
+  sweep_tiles(k, slice, a, s.row0 / kLanes, s.rows / kLanes);
+  const bool live = __syncthreads_or(stage_slice_cells(k, k.ncomp, 0, cells, s, a));
+  cg::this_cluster().sync();    // every slice swept: the first pass may read any
+  out_passes_cluster(k, slice, cells, s, live, a);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0)
+    bulk_store(a.out + static_cast<long long>(b) * out_len + s.row0 * kLanes, slice,
+               s.rows * kLanes);
+}
+
+// Shared memory: the plane (the cluster kernel: the CTA's slice), the
+// queue's slots (16 bytes), two passes' cells.
+__device__ __forceinline__ Cells cells_after(int* next, int rows) {
+  return {next + 4, reinterpret_cast<uint16_t*>(next + 4 + 2 * rows)};
+}
+
+// The shared route (planes of up to 1024 rows): one CTA a block.
+__global__ void __launch_bounds__(kThreads, 1) decode_flat_kernel_shared(Args a) {
   extern __shared__ __align__(16) uint32_t plane[];
-  const int out_len = kGlobal ? 0 : a.out_rows * kLanes;
-  int* next = reinterpret_cast<int*>(plane + out_len / 4);
-  const Cells cells = {next + 4, reinterpret_cast<uint16_t*>(next + 4 + 2 * a.out_rows)};
+  int* next = reinterpret_cast<int*>(plane + a.out_rows * kLanes / 4);
+  const Cells cells = cells_after(next, a.out_rows);
   // The first block is the CTA's own index; each later one is taken from
   // the queue when the block before it ends.  (Taking it while that block
   // runs hides the atomic's latency but fixes the CTA's next block before
@@ -469,7 +573,7 @@ __global__ void __launch_bounds__(kThreads, 1) decode_flat_kernel(Args a) {
   // decodes then end up to 1.5x slower.)
   int b = blockIdx.x;
   for (int it = 0; b < a.n; ++it) {
-    decode_block<kGlobal>(b, plane, cells, a);
+    decode_block(b, plane, cells, a);
     if (threadIdx.x == 0) next[it & 1] = static_cast<int>(gridDim.x) + atomicAdd(a.queue, 1);
     __syncthreads();
     b = next[it & 1];
@@ -486,48 +590,158 @@ __global__ void __launch_bounds__(kThreads, 1) decode_flat_kernel(Args a) {
   }
 }
 
+// The tall route's first kernel (planes of 1025 to 8192 rows): each block
+// in a.parts parts of its 1024-row slices (1 when there are at least as
+// many blocks as CTAs, else as many as keep every CTA busy), the n * parts
+// parts shared out in block order among persistent CTAs on every SM, a
+// CTA's run [i U / G, (i + 1) U / G).  RAW and no-out-pass slices are
+// copied or swept straight to device memory (a CTA pays a block's plan and
+// first loads once for its run); a block with out passes is only listed,
+// at its part 0, for the cluster kernel: list[count++], count being
+// queue[2].
+__global__ void __launch_bounds__(kThreads, 1) decode_flat_kernel_slices(Args a) {
+  const int ctas = (a.out_rows + kSliceRows - 1) / kSliceRows;
+  const int out_len = a.out_rows * kLanes;
+  const long long units = static_cast<long long>(a.n) * a.parts;
+  const long long u0 = units * blockIdx.x / gridDim.x, u1 = units * (blockIdx.x + 1) / gridDim.x;
+  int cur = -1;
+  Block k;
+  bool raw = false;
+  for (long long u = u0; u < u1; ++u) {
+    const int b = static_cast<int>(u / a.parts), part = static_cast<int>(u % a.parts);
+    if (b != cur) {
+      cur = b;
+      raw = !load_block(b, k, a);
+    }
+    uint8_t* out = a.out + static_cast<long long>(b) * out_len;
+    if (!raw && k.ncomp < k.npass) {
+      if (part == 0 && threadIdx.x == 0) a.list[atomicAdd(a.queue + 2, 1)] = b;
+      continue;
+    }
+    for (int r = part * ctas / a.parts; r < (part + 1) * ctas / a.parts; ++r) {
+      const int row0 = r * kSliceRows, rows = min(kSliceRows, a.out_rows - row0);
+      if (raw)
+        copy_raw(k.cp, out, row0 * kLanes, (row0 + rows) * kLanes, out_len, a);
+      else
+        sweep_tiles(k, reinterpret_cast<uint32_t*>(out + row0 * kLanes), a, row0 / kLanes,
+                    rows / kLanes);
+    }
+  }
+}
+
+// The tall route's second kernel: the listed blocks (those with out passes),
+// one cluster a block.  A cluster's next block is taken by its rank-0 CTA
+// (one atomic a block) and written into every CTA's slot before the
+// barrier.
+__global__ void __launch_bounds__(kThreads, 1) decode_flat_kernel_cluster(Args a) {
+  extern __shared__ __align__(16) uint32_t plane[];
+  int* next = reinterpret_cast<int*>(plane + kSliceRows * kLanes / 4);
+  const Cells cells = cells_after(next, kSliceRows);
+  const cg::cluster_group cl = cg::this_cluster();
+  const int ctas = static_cast<int>(cl.num_blocks());
+  const int clusters = static_cast<int>(gridDim.x) / ctas;
+  Slice s;
+  s.rank = static_cast<int>(cl.block_rank());
+  s.row0 = s.rank * kSliceRows;
+  s.rows = min(kSliceRows, a.out_rows - s.row0);
+  const int listed = a.queue[2];    // written by the first kernel
+  if (listed == 0) return;          // no block with out passes: the queue is still 0
+  for (int it = 0;; ++it) {
+    if (s.rank == 0 && threadIdx.x == 0) {
+      const int j = atomicAdd(a.queue, 1);
+      const int b = j < listed ? a.list[j] : -1;
+      for (int r = 0; r < ctas; ++r) *cl.map_shared_rank(next + (it & 1), r) = b;
+    }
+    cl.sync();                  // also: no CTA reads another's slice past here
+    const int b = next[it & 1];
+    if (b < 0) break;
+    decode_out_block(b, plane, cells, s, a);
+  }
+  if (threadIdx.x == 0) {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    // The last cluster to finish sets the queue and the list's count back
+    // to 0: every cluster has taken its last entry by then.
+    if (s.rank == 0) {
+      __threadfence();
+      if (atomicAdd(a.queue + 1, 1) == clusters - 1) {
+        a.queue[0] = 0;
+        a.queue[1] = 0;
+        a.queue[2] = 0;
+      }
+    }
+  }
+}
+
 }  // namespace
 
-// Rows of the largest plane the shared-memory route holds; taller planes
-// take the device-memory route.
-extern "C" int bt_decode_flat_shared_rows() { return kThreads * kMaxWords / (kLanes / 4); }
+// CTAs that decode one block of an `out_rows`-row plane: 1 on the shared
+// route (up to 1024 rows), else the cluster route's ceil(out_rows / 1024);
+// 0 past a cluster of 8 slices (8192 rows).
+extern "C" int bt_decode_flat_cluster_ctas(int out_rows) {
+  if (out_rows <= 0 || out_rows > kSliceRows * kMaxCluster) return 0;
+  return out_rows <= kSliceRows ? 1 : (out_rows + kSliceRows - 1) / kSliceRows;
+}
 
-// Launches the persistent CTAs on `stream` (as many as fit on the device,
-// at most n; on the device-memory route also at most scratch_ctas); returns
-// the CUDA error code (0 on success).  Pointers are device pointers; the
-// caller allocates `out`, the two ints of `queue`, which must be 0 and are
-// 0 again when the launch ends (so launches that share a queue must run in
-// turn, as on one stream), and for planes taller than
-// bt_decode_flat_shared_rows() rows `scratch`, scratch_ctas rows of
-// out_rows * 128 bytes.
+namespace {
+
+// The launch of the cluster kernel for planes of out_rows: its grid, block,
+// shared memory and cluster size (ctas > 1); `clusters` gets how many such
+// clusters can be resident at once.  Returns the CUDA error code.
+cudaError_t cluster_config(int out_rows, cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                           cudaLaunchAttribute* attr, int* clusters) {
+  const int smem = kSliceRows * kLanes + 16 + 2 * kSliceRows * 6;
+  cudaError_t err = bt::smem_opt_in(decode_flat_kernel_cluster, bt::kSmemMax);
+  if (err != cudaSuccess) return err;
+  *cfg = {};
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = bt_decode_flat_cluster_ctas(out_rows);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->gridDim = dim3(attr->val.clusterDim.x);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(clusters, decode_flat_kernel_cluster, cfg);
+}
+
+}  // namespace
+
+// Clusters of the tall route's kernel for planes of out_rows that can be
+// resident at once on the current device (GPCs, not SMs, bound it), or a
+// negative CUDA error code.
+extern "C" int bt_decode_flat_resident_clusters(int out_rows) {
+  if (bt_decode_flat_cluster_ctas(out_rows) < 2) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  const cudaError_t err = cluster_config(out_rows, nullptr, &cfg, &attr, &clusters);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
+}
+
+// Launches the kernels on `stream`; returns the CUDA error code (0 on
+// success), also when the card refuses the cluster launch.  Planes of up to
+// 1024 rows: the shared route's persistent CTAs, as many as can be resident,
+// at most n.  Taller planes: the slice kernel on every SM, then the cluster
+// kernel, as many clusters as can be resident, at most n.  Pointers are
+// device pointers; the caller allocates `out`, on the tall route `list` (n
+// ints), and `queue` (three ints), which must be 0 and is 0 again when the
+// launch ends (so launches that share a queue must run in turn, as on one
+// stream).
 extern "C" int bt_decode_flat_launch(
     const void* comp, long long comp_stride, int comp_width, int comp_rows,
     const void* p_used, const void* p_off, const void* p0, const void* dense,
     const void* dq_idx, const void* se, const void* shift, long long s_rows,
     const void* dq, int dq_rows, const void* row_a, int dcap, void* out, int n,
-    int out_rows, void* queue, void* scratch, int scratch_ctas, void* stream) {
-  const bool global = out_rows > bt_decode_flat_shared_rows();
-  if (out_rows <= 0 || out_rows % kLanes != 0 || out_rows > kMaxRows ||
+    int out_rows, void* queue, void* list, void* stream) {
+  const int ctas = bt_decode_flat_cluster_ctas(out_rows);
+  if (ctas == 0 || out_rows % kLanes != 0 ||
       comp_rows <= 0 || comp_rows > (1 << 24) || dcap <= 0 || n < 0 ||
       (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(dq) & 7) != 0 ||
-      (global && (scratch == nullptr || scratch_ctas < 1 ||
-                  (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)))
+      (reinterpret_cast<uintptr_t>(dq) & 7) != 0 || (ctas > 1 && list == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  // The plane, the queue slots, two passes' cells (int32 shift, int16 se);
-  // the device-memory route only the queue slots, so it needs no opt-in.
-  const int smem = global ? 16 : out_rows * kLanes + 16 + 2 * out_rows * 6;
-  cudaError_t err = cudaSuccess;
-  if (!global && (err = bt::smem_opt_in(decode_flat_kernel<false>, bt::kSmemMax)) != cudaSuccess)
-    return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, global ? decode_flat_kernel<true> : decode_flat_kernel<false>, kThreads,
-           smem)) != cudaSuccess)
-    return static_cast<int>(err);
   Args a;
   a.comp = static_cast<const uint8_t*>(comp);
   a.comp_stride = comp_stride;
@@ -549,13 +763,42 @@ extern "C" int bt_decode_flat_launch(
   a.out_rows = out_rows;
   a.n = n;
   a.queue = static_cast<int*>(queue);
-  a.scratch = static_cast<uint32_t*>(scratch);
-  int grid = per_sm < 1 ? 1 : (n < per_sm * sms ? n : per_sm * sms);
-  if (global) {
-    if (grid > scratch_ctas) grid = scratch_ctas;
-    decode_flat_kernel<true><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  } else {
-    decode_flat_kernel<false><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  a.list = static_cast<int*>(list);
+  a.parts = 1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (ctas == 1) {
+    // The plane, the queue slots, two passes' cells (int32 shift, int16 se).
+    const int smem = out_rows * kLanes + 16 + 2 * out_rows * 6;
+    if ((err = bt::smem_opt_in(decode_flat_kernel_shared, bt::kSmemMax)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, decode_flat_kernel_shared, kThreads, smem)) != cudaSuccess)
+      return static_cast<int>(err);
+    const int grid = per_sm < 1 ? 1 : (n < per_sm * sms ? n : per_sm * sms);
+    decode_flat_kernel_shared<<<grid, kThreads, smem, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_flat_kernel_slices,
+                                                           kThreads, 0)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int ctas_on_card = per_sm < 1 ? 1 : per_sm * sms;
+  a.parts = std::max(1, std::min(ctas, ctas_on_card / n));
+  const int grid = static_cast<int>(std::min<long long>(static_cast<long long>(n) * a.parts,
+                                                        ctas_on_card));
+  decode_flat_kernel_slices<<<grid, kThreads, 0, st>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  if ((err = cluster_config(out_rows, st, &cfg, &attr, &clusters)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  cfg.gridDim = dim3(ctas * (n < clusters ? n : clusters));
+  if ((err = cudaLaunchKernelEx(&cfg, decode_flat_kernel_cluster, a)) != cudaSuccess)
+    return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,23 +56,65 @@
 // extent are stored as zeros, never zeroed in shared memory first.
 //
 // Planes that do not fit in shared memory beside the windows and the map
-// (blocks of 256 KiB to 1 MiB) take the device-memory route, a second
-// instantiation of the same kernel (kGlobal): the plane is the block's
-// output row, every path reads earlier output bytes from device memory and
-// synchronizes where the shared route does (__syncwarp in the serial walk,
-// __syncthreads at the windows' barriers; a CTA's global writes are visible
-// to its threads after them), and a well-formed block's bytes past its
-// extent are zeroed in place instead of being copied out.
-//
+// (blocks of ~150 KiB to 1 MiB) take the cluster route, a second kernel
+// built from the same templates.  What bounds such a block is the chain of
+// its windows: ~21,000 sequences of a 1 MiB text block make ~83 windows of
+// 256, one after another, and on one CTA with its plane in device memory
+// each took ~20 us, every literal write and match-source read an L2 round
+// trip (the first version: 1.92 ms for 32 text blocks on 32 SMs).  Now a
+// thread-block cluster of C CTAs (2, 4 or 8: the least power of two whose
+// 128 KiB slices hold the plane) decodes one block, its plane dealt to the
+// CTAs' shared memory in stripes of 1 KiB (stripe s to CTA s mod C), and:
+//   * the windows take up to 1024 sequences whose starts lie within 64 KiB
+//     of the first (~21 a 1 MiB text block), each CTA staging the window's
+//     entries itself; each CTA takes the window's chunks that lie in its
+//     own stripes, so its writes stay in its shared memory and a window's
+//     bytes spread over the cluster's 8192 threads (with the plane in
+//     contiguous 128 KiB slices a window lay in one CTA, and the other
+//     seven's byte traffic to it ran 32 text blocks 2.2x slower than the
+//     first version); match-source and chase reads go to the CTA that holds
+//     the byte (distributed shared memory).  A thread resolves each match
+//     byte of its chunk to the plane byte it copies (the chase's hops need
+//     no plane read) and then issues the chunk's reads together.  Chunks
+//     are 4 bytes for literals and for the matches of a sparse window, 1
+//     byte for the matches of a dense one (entries under 256 bytes on
+//     average: a text window's chase chains are long, and a thread's bytes
+//     run one after another; with 8-byte chunks 32 text blocks of 1 MiB
+//     took 3.23 ms, 1.7x the first version).  A byte map of the shared
+//     route's kind would need 16 bits a byte for 1024 entries and does not
+//     fit beside a slice, so each CTA indexes the window's entries by
+//     64-byte bucket (the last entry that starts at or before each bucket):
+//     a lookup is one load and a search among a bucket's few entries, where
+//     a search among all 1024 made every hop of a chase ten dependent
+//     loads.  The barrier between the literals and the matches is a cluster
+//     barrier, and it also orders the previous windows' writes;
+//   * a block of at most 8 sequences: each CTA sweeps the bytes of its
+//     stripes (remote reads only for match sources), with cluster barriers;
+//   * the literal-block copy: each CTA a C-th of the output;
+//     the serial walk: the first warp of the cluster, through distributed
+//     shared memory, with a cluster-scope fence before each __syncwarp;
+//   * the classifier splits the sequences across the cluster and combines
+//     the CTAs' verdicts through distributed shared memory.
+// Each CTA stores its stripes at the end, zeros past the decoded extent.
+// What bounds the route now is still the windows' chain: a dense window's
+// match bytes wait on their chase hops, and each window costs a cluster
+// barrier; 32 blocks of 1 MiB are 256 CTAs of one an SM, more than the card
+// holds at once, so they take rounds.  A cluster launch the card refuses
+// returns its error.
+
 // A launch optionally adds its blocks to paths[0] (well-formed, decoded in
 // parallel) and paths[1] (serial walk), so a caller can show which path its
 // tables took.
+
+#include <cooperative_groups.h>
 
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
 
 #include "cuda_util.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -83,6 +125,16 @@ constexpr int kMaxMap = 65536;      // bytes a window's sequence map covers
 constexpr int kChunk = 8;           // consecutive bytes a thread takes at once
 constexpr int kMapMin = 16;         // windows of more entries map each byte to its entry
 constexpr int kSweepMax = 8;        // blocks of at most this many sequences are swept in order
+constexpr int kSliceBytes = 1 << 17;  // plane bytes a cluster CTA holds at most
+constexpr int kStripeShift = 10;    // the cluster route's plane: 1 KiB stripes dealt to the CTAs
+constexpr int kMaxCluster = 8;      // the portable cluster size: planes of up to 1 MiB
+constexpr int kClusterWindow = 1024;  // sequences per window on the cluster route
+constexpr int kClusterChunk = 4;    // consecutive bytes a thread takes at once there: the
+                                    // literals, and the matches of a sparse window;
+constexpr int kDenseChunk = 1;      // the matches of a dense window (entries of fewer than
+constexpr int kDenseBytes = 256;    // kDenseBytes bytes on average: text)
+constexpr int kBucketShift = 6;     // the cluster route's entry index: one slot a 64-byte bucket
+constexpr int kBuckets = kMaxMap >> kBucketShift;
 
 struct Args {
   const uint8_t* comp;            // [n] rows of comp_stride bytes
@@ -98,8 +150,126 @@ struct Args {
   uint8_t* out;                   // [n, out_len]
   int n, out_len;
   int window;                     // W: a power of two, at most blockDim.x
-  int map_len;                    // min(out_len, kMaxMap)
+  int span;                       // a window's starts lie within this many bytes of its first
+  int map_len;                    // min(out_len, kMaxMap); 0 on the cluster route (no map)
   int* paths;                     // [2] or null
+};
+
+// Where a block's plane lives, and which threads share it.  CtaPlane: the
+// shared route, the whole plane in the CTA's shared memory.  ClusterPlane:
+// the cluster route, the plane dealt to the cluster's C CTAs (a power of
+// two) in stripes of 1 KiB, stripe s to CTA s mod C, packed in its shared
+// memory at (s / C) KiB; so any stretch of the plane spreads over every CTA.
+//   * at(p): byte p wherever it lives;
+//   * block(), tid(), threads(): the block, and the threads that share its
+//     bytes;
+//   * chunk0<K>(lo) and chunk_next<K>(c0): the chunks of K bytes this
+//     thread takes of a window from byte lo on (the shared route's are
+//     kChunk bytes whatever K; the cluster route's lie in the CTA's own
+//     stripes, K-aligned, so the first may start before lo);
+//   * own0(a) and own_step(): the bytes from a on that this thread takes in
+//     a sweep (the CTA's own on the cluster route);
+//   * local(), own_words(out_len), plane_word(k): the CTA's bytes in its
+//     shared memory, how many 16-byte words of them hold the plane, and the
+//     plane's word index of local word k;
+//   * word_range: the 16-byte words of the output this CTA writes when the
+//     plane is not needed (a literal block);
+//   * sync(), fence(), all(): barriers over the plane's threads, a fence that
+//     orders a warp's accesses to other CTAs' shared memory before its
+//     __syncwarp (the serial walk), and every thread's verdict.
+struct CtaPlane {
+  static constexpr bool kCluster = false;
+  static constexpr int kChunkBytes = kChunk;
+  uint8_t* base;
+
+  __device__ __forceinline__ uint8_t& at(int p) const { return base[p]; }
+  __device__ __forceinline__ int block() const { return blockIdx.x; }
+  __device__ __forceinline__ int tid() const { return threadIdx.x; }
+  __device__ __forceinline__ int threads() const { return blockDim.x; }
+  template <int K>
+  __device__ __forceinline__ int chunk0(int lo) const { return lo + kChunk * threadIdx.x; }
+  template <int K>
+  __device__ __forceinline__ int chunk_next(int c0) const { return c0 + kChunk * blockDim.x; }
+  __device__ __forceinline__ long long own0(long long a) const { return a + threadIdx.x; }
+  __device__ __forceinline__ int own_step() const { return blockDim.x; }
+  __device__ __forceinline__ uint8_t* local() const { return base; }
+  __device__ __forceinline__ int own_words(int out_len) const { return out_len / 16; }
+  __device__ __forceinline__ int plane_word(int k) const { return k; }
+  __device__ __forceinline__ void word_range(int out_len, int* w0, int* w1) const {
+    *w0 = 0;
+    *w1 = out_len / 16;
+  }
+  __device__ __forceinline__ void sync() const { __syncthreads(); }
+  __device__ __forceinline__ void fence() const {}
+  __device__ __forceinline__ bool all(bool ok, int*) const { return __syncthreads_and(ok); }
+};
+
+struct ClusterPlane {
+  static constexpr bool kCluster = true;
+  static constexpr int kChunkBytes = kClusterChunk;
+  uint8_t* slice;
+  int rank, lg;                    // the CTA's rank, log2 of the cluster's CTAs
+
+  __device__ __forceinline__ uint8_t& at(int p) const {
+    const int s = p >> kStripeShift;
+    uint8_t* q = slice + (((s >> lg) << kStripeShift) | (p & ((1 << kStripeShift) - 1)));
+    return *cg::cluster_group::map_shared_rank(q, s & ((1 << lg) - 1));
+  }
+  __device__ __forceinline__ int block() const { return blockIdx.x >> lg; }
+  __device__ __forceinline__ int tid() const { return rank * blockDim.x + threadIdx.x; }
+  __device__ __forceinline__ int threads() const { return blockDim.x << lg; }
+  // Own chunk j of the window (a stripe holds 1024 / K): in own stripe
+  // j K / 1024 after the first at or past lo, at (j K) mod 1024; thread t's
+  // chunks are j = t + i blockDim.x (blockDim.x K a multiple of 1024).
+  template <int K>
+  __device__ __forceinline__ int chunk0(int lo) const {
+    const int first = (lo >> kStripeShift) + ((rank - (lo >> kStripeShift)) & ((1 << lg) - 1));
+    const int j = threadIdx.x * K;
+    return ((first + ((j >> kStripeShift) << lg)) << kStripeShift) +
+           (j & ((1 << kStripeShift) - 1));
+  }
+  template <int K>
+  __device__ __forceinline__ int chunk_next(int c0) const {
+    return c0 + ((blockDim.x * K) << lg);
+  }
+  __device__ __forceinline__ long long own0(long long a) const {
+    long long p = ((a >> kStripeShift) << kStripeShift) + threadIdx.x;
+    if (p < a) p += 1 << kStripeShift;
+    return p + ((static_cast<long long>((rank - (p >> kStripeShift)) & ((1 << lg) - 1)))
+                << kStripeShift);
+  }
+  __device__ __forceinline__ int own_step() const { return 1 << (lg + kStripeShift); }
+  __device__ __forceinline__ uint8_t* local() const { return slice; }
+  __device__ __forceinline__ int own_words(int out_len) const {
+    const int stripes = (out_len + (1 << kStripeShift) - 1) >> kStripeShift;
+    return ((stripes - rank + (1 << lg) - 1) >> lg) << (kStripeShift - 4);
+  }
+  __device__ __forceinline__ int plane_word(int k) const {
+    return ((rank + ((k >> (kStripeShift - 4)) << lg)) << (kStripeShift - 4)) |
+           (k & ((1 << (kStripeShift - 4)) - 1));
+  }
+  __device__ __forceinline__ void word_range(int out_len, int* w0, int* w1) const {
+    const int words = out_len / 16;
+    *w0 = static_cast<int>(static_cast<long long>(words) * rank >> lg);
+    *w1 = static_cast<int>(static_cast<long long>(words) * (rank + 1) >> lg);
+  }
+  __device__ __forceinline__ void sync() const { cg::cluster_group::sync(); }
+  __device__ __forceinline__ void fence() const {
+    asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  }
+  // Every CTA's verdict, each written into every CTA's `flags` before a
+  // cluster barrier (which also makes sure every CTA of the cluster runs
+  // before any reads another's shared memory).
+  __device__ __forceinline__ bool all(bool ok, int* flags) const {
+    const bool mine = __syncthreads_and(ok);
+    if (threadIdx.x == 0)
+      for (int r = 0; r < (1 << lg); ++r)
+        *cg::cluster_group::map_shared_rank(flags + rank, r) = mine;
+    cg::cluster_group::sync();
+    bool every = true;
+    for (int r = 0; r < (1 << lg); ++r) every = every && flags[r] != 0;
+    return every;
+  }
 };
 
 // One window's entries in shared memory.
@@ -134,6 +304,24 @@ __device__ __forceinline__ int entry_of(int p, const int32_t* op, const uint8_t*
   return p - lo < map_len ? map[p - lo] : cnt - 1;     // every entry starts below lo + map_len
 }
 
+// The window entry that holds byte p (lo <= p < the window's end) on the
+// cluster route: bk[k] is the last entry that starts at or before byte
+// lo + 64 k of the window's span, so p's entry lies between the entries of
+// its bucket's two ends: a binary search over the few of them.
+__device__ __forceinline__ int entry_in_buckets(int p, const int32_t* op, const int16_t* bk, int lo,
+                                                int cnt) {
+  const int d = p - lo;
+  if (d >= kMaxMap) return cnt - 1;               // every entry starts below lo + span
+  int i = bk[d >> kBucketShift];
+  int j = (d >> kBucketShift) + 1 < kBuckets ? bk[(d >> kBucketShift) + 1] : cnt - 1;
+  while (i < j) {
+    const int m = (i + j + 1) >> 1;
+    if (op[m] <= p) i = m;
+    else j = m - 1;
+  }
+  return i;
+}
+
 // Entry i of a window in registers: where it starts, where its literals and
 // its match end (clamped to int), its offset, and lit_ptr - out_pos.
 struct Seq {
@@ -152,12 +340,12 @@ struct Seq {
 // The final value of byte p, a byte of the window (p >= lo).  Each hop goes
 // to an earlier entry (a source lies before its match's dst), so the loop
 // ends within cnt hops.
-__device__ __forceinline__ uint8_t chase(int p, const uint8_t* plane, const Window& w,
-                                         const uint8_t* map, int lo, int map_len, int cnt,
-                                         int half, bool use_map) {
+template <class Plane, class Lookup>
+__device__ __forceinline__ uint8_t chase(int p, const Plane& plane, const Window& w, int lo,
+                                         const Lookup& entry) {
   for (;;) {
-    const int i = entry_of(p, w.op, map, lo, map_len, cnt, half, use_map);
-    if (p - w.op[i] < w.ll[i]) return plane[p];       // a literal of this window
+    const int i = entry(p);
+    if (p - w.op[i] < w.ll[i]) return plane.at(p);    // a literal of this window
     const int d = w.op[i] + w.ll[i];                  // <= p, so no overflow
     const int o = w.off[i];
     if (o < 1) return 0;
@@ -165,25 +353,93 @@ __device__ __forceinline__ uint8_t chase(int p, const uint8_t* plane, const Wind
     const int src = r < o ? p - o : d - o + static_cast<int>(static_cast<unsigned>(r) %
                                                              static_cast<unsigned>(o));
     if (src < 0) return 0;
-    if (src < lo) return plane[src];                  // finished by an earlier window
+    if (src < lo) return plane.at(src);               // finished by an earlier window
     p = src;
   }
 }
 
+// Where byte p of the window (p >= lo) gets its final value: the plane byte
+// it copies (a literal of the window or a byte before it), or -1 for 0.
+// The hops of chase() without its read, so that a chunk's reads can be in
+// flight together (the cluster route: each read may cross the cluster).
+template <class Lookup>
+__device__ __forceinline__ int chase_to(int p, const Window& w, int lo, const Lookup& entry) {
+  for (;;) {
+    const int i = entry(p);
+    if (p - w.op[i] < w.ll[i]) return p;
+    const int d = w.op[i] + w.ll[i];
+    const int o = w.off[i];
+    if (o < 1) return -1;
+    const int r = p - d;
+    const int src = r < o ? p - o : d - o + static_cast<int>(static_cast<unsigned>(r) %
+                                                             static_cast<unsigned>(o));
+    if (src < lo) return src < 0 ? -1 : src;
+    p = src;
+  }
+}
+
+// The cluster route's match bytes of a window [lo, hi), in this thread's
+// chunks of K bytes: each match byte's source first (chase_to), then the
+// chunk's reads together, then its writes (to the CTA's own stripes).
+template <int K, class Lookup>
+__device__ __forceinline__ void cluster_matches(const ClusterPlane& plane, const Window& w, int lo,
+                                                int hi, int cnt, const Lookup& entry) {
+  for (int c0 = plane.chunk0<K>(lo); c0 < hi; c0 = plane.chunk_next<K>(c0)) {
+    int i = entry(max(c0, lo));
+    Seq q;
+    q.load(w, i, cnt);
+    int m = -1;
+    int src[K];                                 // the byte to read, -1 for 0, -2 no match byte
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int p = c0 + j;
+      src[j] = -2;
+      if (p < lo || p >= hi) continue;
+      while (p >= q.end) {
+        q.load(w, ++i, cnt);
+        m = -1;
+      }
+      if (p < q.d) continue;
+      src[j] = -1;
+      if (q.off >= 1) {
+        const int r = p - q.d;
+        int s = p - q.off;
+        if (r >= q.off) {
+          m = m < 0 ? static_cast<int>(static_cast<unsigned>(r) % static_cast<unsigned>(q.off))
+                    : (m + 1 == q.off ? 0 : m + 1);
+          s = q.d - q.off + m;
+        }
+        src[j] = s >= lo ? chase_to(s, w, lo, entry) : (s < 0 ? -1 : s);
+      }
+    }
+    uint8_t v[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) v[j] = src[j] >= 0 ? plane.at(src[j]) : 0;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (src[j] != -2) plane.at(c0 + j) = v[j];
+  }
+}
+
 // Well-formed blocks: the sequences in windows of at most W entries whose
-// starts lie within map_len bytes of the first.  Each thread takes chunks of
-// kChunk consecutive bytes and keeps the current entry in registers (one
-// binary search a chunk, a step where an entry ends): a chunk's literal
-// bytes are loaded together, and a match byte's source offset (r mod off)
-// advances by one a byte instead of a division a byte.
+// starts lie within a.span bytes of the first.  Each of the plane's threads
+// takes chunks of kChunk consecutive bytes and keeps the current entry in
+// registers (one binary search a chunk, a step where an entry ends): a
+// chunk's literal bytes are loaded together, and a match byte's source
+// offset (r mod off) advances by one a byte instead of a division a byte.
+// Each CTA stages the window's entries in its own shared memory.  `map`:
+// the shared route's byte map, or the cluster route's bucket index.
+template <class Plane>
 __device__ void decode_windows(const Args& a, const uint8_t* cp, long long row, int ns,
-                               uint8_t* plane, uint8_t* entries, uint8_t* map) {
-  const int T = blockDim.x, tid = threadIdx.x, W = a.window, half = W / 2;
+                               const Plane& plane, uint8_t* entries, uint8_t* map) {
+  constexpr int K = Plane::kChunkBytes;          // bytes a thread takes at once
+  const int W = a.window, half = W / 2;
+  const int ctid = threadIdx.x;                 // this CTA's copy of the entries
   const int olen = a.out_len, map_len = a.map_len;
   int n_op = 0, n_ll = 0, n_lp = 0, n_off = 0, n_ml = 0;     // this thread's next entry
   auto fetch = [&](int s) {
-    if (tid < W && s + tid < ns) {
-      const long long e = row + s + tid;
+    if (ctid < W && s + ctid < ns) {
+      const long long e = row + s + ctid;
       n_op = __ldg(a.out_pos + e);
       n_ll = __ldg(a.lit_len + e);
       n_lp = __ldg(a.lit_ptr + e);
@@ -195,35 +451,48 @@ __device__ void decode_windows(const Args& a, const uint8_t* cp, long long row, 
   for (int s0 = 0, buf = 0; s0 < ns; buf ^= 1) {
     const Window w = window_at(entries + buf * W * kEntryBytes, W);
     const int avail = min(W, ns - s0);
-    const bool mine = tid < avail && n_ml > 0;
-    if (tid < avail) {
-      w.op[tid] = n_op;
-      w.ll[tid] = n_ll;
-      w.lp[tid] = n_lp;
-      w.off[tid] = n_off;
-      w.ml[tid] = n_ml;
+    const bool mine = ctid < avail && n_ml > 0;
+    if (ctid < avail) {
+      w.op[ctid] = n_op;
+      w.ll[ctid] = n_ll;
+      w.lp[ctid] = n_lp;
+      w.off[ctid] = n_off;
+      w.ml[ctid] = n_ml;
     }
-    // The entries, and the plane as the previous window left it; whether
-    // the entries hold a match.  (The other buffer and the map are free:
-    // every thread has ended the previous window.)
+    // The entries; whether they hold a match.  (The other buffer and the
+    // map are free: every thread of the CTA has ended the previous window.
+    // On the shared route this barrier also orders the previous window's
+    // writes; on the cluster route the barrier before the matches does.)
     const bool matches = __syncthreads_or(mine);
     const int lo = w.op[0];
     if (lo >= olen) break;                      // the rest lies past the plane
-    const int cnt = 1 + find(w.op, avail, lo + map_len - 1, half);
+    const int cnt = 1 + find(w.op, avail, lo + a.span - 1, half);
     fetch(s0 + cnt);                            // in flight during this window
     const long long hi64 = static_cast<long long>(w.op[cnt - 1]) + w.ll[cnt - 1] + w.ml[cnt - 1];
     const int hi = static_cast<int>(min(hi64, static_cast<long long>(olen)));
-    const bool use_map = matches && cnt > kMapMin;
-    for (int c0 = lo + kChunk * tid; c0 < hi; c0 += kChunk * T) {
-      int i = find(w.op, cnt, c0, half);
+    const bool use_map = matches && cnt > kMapMin && map_len > 0;
+    int16_t* bk = reinterpret_cast<int16_t*>(map);
+    const auto entry = [&](int p) {
+      if constexpr (Plane::kCluster) return entry_in_buckets(p, w.op, bk, lo, cnt);
+      else return entry_of(p, w.op, map, lo, map_len, cnt, half, use_map);
+    };
+    if constexpr (Plane::kCluster) {            // this CTA's bucket index of the window
+      for (int k = ctid; k < kBuckets; k += blockDim.x)
+        bk[k] = static_cast<int16_t>(find(w.op, cnt, lo + (k << kBucketShift), half));
+      __syncthreads();
+    }
+    for (int c0 = plane.template chunk0<K>(lo); c0 < hi; c0 = plane.template chunk_next<K>(c0)) {
+      int i;
+      if constexpr (Plane::kCluster) i = entry(max(c0, lo));
+      else i = find(w.op, cnt, c0, half);
       Seq q;
       q.load(w, i, cnt);
-      int src[kChunk];                          // comp index of a literal byte, -2 past the
+      int src[K];                               // comp index of a literal byte, -2 past the
 #pragma unroll                                  // row, -1 not a literal
-      for (int j = 0; j < kChunk; ++j) {
+      for (int j = 0; j < K; ++j) {
         const int p = c0 + j;
         src[j] = -1;
-        if (p < hi) {
+        if (p < hi && (!Plane::kCluster || p >= lo)) {
           while (p >= q.end) q.load(w, ++i, cnt);
           if (use_map && p - lo < map_len) map[p - lo] = static_cast<uint8_t>(i);
           if (p < q.d) {
@@ -232,25 +501,33 @@ __device__ void decode_windows(const Args& a, const uint8_t* cp, long long row, 
           }
         }
       }
-      uint8_t v[kChunk];
+      uint8_t v[K];
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) v[j] = src[j] >= 0 ? __ldg(cp + src[j]) : 0;
+      for (int j = 0; j < K; ++j) v[j] = src[j] >= 0 ? __ldg(cp + src[j]) : 0;
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j)
-        if (src[j] != -1) plane[c0 + j] = v[j];
+      for (int j = 0; j < K; ++j)
+        if (src[j] != -1) plane.at(c0 + j) = v[j];
     }
-    if (!matches) {                             // the next window's barrier orders the writes
+    if (!matches) {                             // a later barrier orders the writes
       s0 += cnt;
       continue;
     }
-    __syncthreads();                            // the window's literals and map
-    for (int c0 = lo + kChunk * tid; c0 < hi; c0 += kChunk * T) {
-      int i = entry_of(c0, w.op, map, lo, map_len, cnt, half, use_map);
+    plane.sync();                               // the window's literals and map
+    if constexpr (Plane::kCluster) {
+      if (hi - lo < kDenseBytes * cnt)
+        cluster_matches<kDenseChunk>(plane, w, lo, hi, cnt, entry);
+      else
+        cluster_matches<kClusterChunk>(plane, w, lo, hi, cnt, entry);
+      s0 += cnt;
+      continue;
+    }
+    for (int c0 = plane.template chunk0<K>(lo); c0 < hi; c0 = plane.template chunk_next<K>(c0)) {
+      int i = entry(c0);
       Seq q;
       q.load(w, i, cnt);
       int m = -1;                               // r mod off of the last match byte, or -1
 #pragma unroll 1
-      for (int j = 0; j < kChunk; ++j) {
+      for (int j = 0; j < K; ++j) {
         const int p = c0 + j;
         if (p >= hi) break;
         while (p >= q.end) {
@@ -267,41 +544,43 @@ __device__ void decode_windows(const Args& a, const uint8_t* cp, long long row, 
                       : (m + 1 == q.off ? 0 : m + 1);
             src = q.d - q.off + m;
           }
-          if (src >= lo) v = chase(src, plane, w, map, lo, map_len, cnt, half, use_map);
-          else if (src >= 0) v = plane[src];
+          if (src >= lo) v = chase(src, plane, w, lo, entry);
+          else if (src >= 0) v = plane.at(src);
         }
-        plane[p] = v;
+        plane.at(p) = v;
       }
     }
     s0 += cnt;
   }
-  __syncthreads();
+  plane.sync();
 }
 
 // A well-formed block of at most kSweepMax sequences: each sequence in turn,
-// all threads on its literal bytes, a barrier, all threads on its match
+// each CTA's threads on the literal bytes it holds, a barrier, on its match
 // bytes in closed form (their sources lie before dst, final by then), a
-// barrier.  A thread's bytes are T apart, so its r mod off steps by T mod
-// off: one division a sequence.  (Windows would search, map and chase for
+// barrier.  A thread's bytes are T apart (T = own_step()), so its r mod off
+// steps by T mod off: one division a sequence.  (Windows would search, map and chase for
 // blocks that are one or two long runs, as most 4 KiB blocks are.)
+template <class Plane>
 __device__ void decode_sweep(const Args& a, const uint8_t* cp, long long row, int ns,
-                             uint8_t* plane) {
-  const int T = blockDim.x, tid = threadIdx.x;
+                             const Plane& plane) {
+  const int T = plane.own_step();
   const long long olen = a.out_len;
   for (int s = 0; s < ns; ++s) {
     const long long op = __ldg(a.out_pos + row + s), ll = __ldg(a.lit_len + row + s);
     const long long lp = __ldg(a.lit_ptr + row + s) - op;
-    for (long long p = op + tid; p < min(op + ll, olen); p += T) {
+    for (long long p = plane.own0(op); p < min(op + ll, olen); p += T) {
       const long long q = lp + p;
-      plane[p] = q >= 0 && q < a.comp_width ? __ldg(cp + q) : 0;
+      plane.at(p) = q >= 0 && q < a.comp_width ? __ldg(cp + q) : 0;
     }
-    __syncthreads();
+    plane.sync();
     const long long d = op + ll, end = min(d + __ldg(a.mlen + row + s), olen);
     const int o = __ldg(a.off + row + s);
-    if (d + tid < end) {
+    const long long p0 = plane.own0(d);
+    if (p0 < end) {
       const int tm = o >= 1 ? T % o : 0;
       int m = -1;                           // r mod o once r >= o
-      for (long long p = d + tid; p < end; p += T) {
+      for (long long p = p0; p < end; p += T) {
         const int r = static_cast<int>(p - d);
         long long src = -1;
         if (o >= 1) {
@@ -312,25 +591,25 @@ __device__ void decode_sweep(const Args& a, const uint8_t* cp, long long row, in
             src = d - o + m;
           }
         }
-        plane[p] = src >= 0 ? plane[src] : 0;
+        plane.at(p) = src >= 0 ? plane.at(src) : 0;
       }
     }
-    __syncthreads();
+    plane.sync();
   }
 }
 
 // A well-formed block of one literal run and no match (a RAW block): bytes
 // [0, len) are the comp row from lit_ptr (0 outside the row), zeros after;
-// copied straight to device memory, 16 bytes a thread where the source is
-// 16-byte aligned and inside the row.
+// this CTA's 16-byte words [lo, words) of them copied straight to device
+// memory, 16 bytes a thread where the source is 16-byte aligned and inside
+// the row.
 __device__ void copy_literal_block(const Args& a, const uint8_t* cp, long long lp, long long len,
-                                   uint8_t* out) {
+                                   uint8_t* out, int lo, int words) {
   uint4* o = reinterpret_cast<uint4*>(out);
-  const int words = a.out_len / 16;
   if (lp >= 0 && lp + len <= a.comp_width && (reinterpret_cast<uintptr_t>(cp + lp) & 15) == 0) {
     const uint4* s = reinterpret_cast<const uint4*>(cp + lp);
 #pragma unroll 4
-    for (int i = threadIdx.x; i < words; i += blockDim.x) {
+    for (int i = lo + threadIdx.x; i < words; i += blockDim.x) {
       uint4 v = make_uint4(0, 0, 0, 0);
       if (16LL * i + 16 <= len) {
         v = __ldg(s + i);
@@ -344,7 +623,7 @@ __device__ void copy_literal_block(const Args& a, const uint8_t* cp, long long l
     }
     return;
   }
-  for (int i = threadIdx.x; i < words; i += blockDim.x) {
+  for (int i = lo + threadIdx.x; i < words; i += blockDim.x) {
     uint32_t w[4] = {0, 0, 0, 0};
     for (int j = 0; j < 16 && 16LL * i + j < len; ++j) {
       const long long q = lp + 16LL * i + j;
@@ -355,13 +634,15 @@ __device__ void copy_literal_block(const Args& a, const uint8_t* cp, long long l
 }
 
 // Any table: the first warp walks the sequences in order (the function's
-// definition); the plane is zeroed first.
+// definition); each CTA zeroes its bytes of the plane first.
+template <class Plane>
 __device__ void decode_serial(const Args& a, const uint8_t* cp, long long row, int ns,
-                              uint8_t* plane) {
-  uint4* pv = reinterpret_cast<uint4*>(plane);
-  for (int i = threadIdx.x; i < a.out_len / 16; i += blockDim.x) pv[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
-  if (threadIdx.x < 32) {
+                              const Plane& plane) {
+  uint4* pv = reinterpret_cast<uint4*>(plane.local());
+  const int own = plane.own_words(a.out_len);
+  for (int i = threadIdx.x; i < own; i += blockDim.x) pv[i] = make_uint4(0, 0, 0, 0);
+  plane.sync();
+  if (plane.tid() < 32) {
     const int lane = threadIdx.x;
     const long long olen = a.out_len;
     for (int base = 0; base < ns; base += 32) {      // literals
@@ -381,8 +662,9 @@ __device__ void decode_serial(const Args& a, const uint8_t* cp, long long row, i
         const long long hi = len < olen - p0 ? len : olen - p0;
         for (long long j = lo + lane; j < hi; j += 32) {
           const long long q = q0 + j;
-          plane[p0 + j] = (q >= 0 && q < a.comp_width) ? cp[q] : 0;
+          plane.at(static_cast<int>(p0 + j)) = (q >= 0 && q < a.comp_width) ? cp[q] : 0;
         }
+        plane.fence();
         __syncwarp();
       }
     }
@@ -410,46 +692,47 @@ __device__ void decode_serial(const Args& a, const uint8_t* cp, long long row, i
             // j < olen < 2^31 and 1 <= o < 2^31: a 32-bit remainder.
             const long long r = j < o ? j : static_cast<unsigned>(j) % static_cast<unsigned>(o);
             const long long q = d - o + r;
-            if (q >= 0) v = plane[q];
+            if (q >= 0) v = plane.at(static_cast<int>(q));
           }
-          plane[d + j] = v;
+          plane.at(static_cast<int>(d + j)) = v;
         }
+        plane.fence();
         __syncwarp();
       }
     }
   }
-  __syncthreads();
+  plane.sync();
 }
 
-// kGlobal: the plane is the output row (the device-memory route).
-template <bool kGlobal>
-__global__ void __launch_bounds__(kMaxThreads) decode_tables_kernel(Args a) {
-  // Shared memory: the plane (shared route only), two windows of entries,
-  // the window's map (the entry of each byte).
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int b = blockIdx.x;
+// One block: classify, decode into the plane, store this CTA's bytes of it
+// (zeros past a well-formed block's extent).  `flags`: the cluster route's
+// verdict slots.
+template <class Plane>
+__device__ void decode_block(const Args& a, const Plane& plane, uint8_t* windows, int* flags) {
+  const int b = plane.block();
   uint8_t* out = a.out + static_cast<long long>(b) * a.out_len;
-  uint8_t* plane = kGlobal ? out : smem;
-  uint8_t* windows = kGlobal ? smem : smem + a.out_len;
   const uint8_t* cp = a.comp + static_cast<long long>(b) * a.comp_stride;
   const long long row = static_cast<long long>(b) * a.S;
   int ns = a.nseq[b];
   ns = ns < 0 ? 0 : (ns > a.S ? a.S : ns);
 
   bool ok = true;
-  for (int s = threadIdx.x; s < ns; s += blockDim.x) {
+  for (int s = plane.tid(); s < ns; s += plane.threads()) {
     const long long op = __ldg(a.out_pos + row + s);
     const long long ll = __ldg(a.lit_len + row + s);
     const long long ml = __ldg(a.mlen + row + s);
     ok = ok && ll >= 0 && ml >= 0 && (s > 0 || op == 0) &&
          (s + 1 >= ns || __ldg(a.out_pos + row + s + 1) == op + ll + ml);
   }
-  const bool well = __syncthreads_and(ok);
-  if (a.paths != nullptr && threadIdx.x == 0) atomicAdd(a.paths + (well ? 0 : 1), 1);
+  const bool well = plane.all(ok, flags);
+  if (a.paths != nullptr && plane.tid() == 0) atomicAdd(a.paths + (well ? 0 : 1), 1);
 
   if (well && ns == 1 && __ldg(a.mlen + row) == 0) {
     const long long ll = __ldg(a.lit_len + row);
-    copy_literal_block(a, cp, __ldg(a.lit_ptr + row), ll < a.out_len ? ll : a.out_len, out);
+    int w0, w1;
+    plane.word_range(a.out_len, &w0, &w1);
+    copy_literal_block(a, cp, __ldg(a.lit_ptr + row), ll < a.out_len ? ll : a.out_len, out, w0,
+                       w1);
     return;
   }
   long long lim = a.out_len;        // bytes of the plane that hold decoded data
@@ -470,77 +753,107 @@ __global__ void __launch_bounds__(kMaxThreads) decode_tables_kernel(Args a) {
     decode_serial(a, cp, row, ns, plane);
   }
 
-  if constexpr (kGlobal) {          // zeros past the decoded extent, in place
-    const long long head = min(static_cast<long long>(a.out_len), (lim + 15) & ~15LL);
-    for (long long p = lim + threadIdx.x; p < head; p += blockDim.x)
-      out[p] = 0;
-    uint4* ov = reinterpret_cast<uint4*>(out);
-    for (int i = static_cast<int>((lim + 15) >> 4) + threadIdx.x; i < a.out_len / 16;
-         i += blockDim.x)
-      ov[i] = make_uint4(0, 0, 0, 0);
-    return;
-  }
+  // This CTA's bytes of the plane: local word k is the plane's word i.
+  const uint8_t* pl = plane.local();
   uint4* ov = reinterpret_cast<uint4*>(out);
-  const uint4* pv = reinterpret_cast<const uint4*>(plane);
-  for (int i = threadIdx.x; i < a.out_len / 16; i += blockDim.x) {
+  const uint4* pv = reinterpret_cast<const uint4*>(pl);
+  const int own = plane.own_words(a.out_len);
+  for (int k = threadIdx.x; k < own; k += blockDim.x) {
+    const int i = plane.plane_word(k);
+    if (i >= a.out_len / 16) break;                 // the last stripe's words past the plane
     uint4 v = make_uint4(0, 0, 0, 0);
     if (16LL * i + 16 <= lim) {
-      v = pv[i];
+      v = pv[k];
     } else if (16LL * i < lim) {
       uint32_t w[4] = {0, 0, 0, 0};
       for (int j = 0; 16LL * i + j < lim; ++j)
-        w[j >> 2] |= static_cast<uint32_t>(plane[16 * i + j]) << (8 * (j & 3));
+        w[j >> 2] |= static_cast<uint32_t>(pl[16 * k + j]) << (8 * (j & 3));
       v = make_uint4(w[0], w[1], w[2], w[3]);
     }
     ov[i] = v;
   }
 }
 
+// Shared memory: the plane (shared route) or the CTA's slice of it
+// (cluster route), two windows of entries, the window's map (shared route
+// only), the cluster's verdict slots (cluster route only).
+__global__ void __launch_bounds__(kMaxThreads) decode_tables_kernel_shared(Args a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  decode_block(a, CtaPlane{smem}, smem + a.out_len, nullptr);
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1) decode_tables_kernel_cluster(Args a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const ClusterPlane plane{smem, static_cast<int>(cg::cluster_group::block_rank()),
+                           __ffs(static_cast<int>(cg::cluster_group::num_blocks())) - 1};
+  uint8_t* windows = smem + kSliceBytes;     // then the bucket index, the verdict slots
+  decode_block(a, plane, windows,
+               reinterpret_cast<int*>(windows + 2 * a.window * kEntryBytes + 2 * kBuckets));
+}
+
 // Devices whose shared-memory opt-in is done (bit d for device d < 64),
 // per route.
 std::atomic<unsigned long long> g_opted[2] = {0, 0};
 
-}  // namespace
-
-// Rows of the largest plane the shared-memory route holds.
-extern "C" int bt_decode_tables_shared_rows() {
-  return (bt::kSmemMax - 2 * kMaxWindow * kEntryBytes - kMaxMap) / 128;
+// Bytes of shared memory the shared route needs for a plane of out_len.
+long long shared_route_bytes(long long out_len, int* threads, int* window, int* map_len) {
+  *threads = static_cast<int>(std::min<long long>(kMaxThreads, std::max<long long>(128, out_len / 32)));
+  *window = std::min(*threads, kMaxWindow);
+  *map_len = static_cast<int>(std::min<long long>(out_len, kMaxMap));
+  return out_len + 2LL * *window * kEntryBytes + *map_len;
 }
 
-// Launches one CTA per block on `stream` of `device`, on the shared-memory
-// route when the plane fits beside the windows and the map, else on the
-// device-memory route; returns the CUDA error code (0 on success).
-// Pointers are device pointers; the caller allocates `out` (16-byte
-// aligned) and, if not null, `paths` (two ints).
+}  // namespace
+
+// CTAs that decode one block of an `out_rows`-row plane: 1 on the shared
+// route (the plane fits beside the windows and the map), else a cluster of
+// the least power of two of 128 KiB slices that holds the plane (2, 4 or
+// 8); 0 for a plane the kernel does not take.
+extern "C" int bt_decode_tables_cluster_ctas(int out_rows) {
+  if (out_rows < 1 || out_rows > (1 << 16)) return 0;
+  int threads, window, map_len;
+  const long long out_len = static_cast<long long>(out_rows) * 128;
+  if (shared_route_bytes(out_len, &threads, &window, &map_len) <= bt::kSmemMax) return 1;
+  int ctas = 2;                     // a power of two that holds the plane in 128 KiB slices
+  while (ctas < kMaxCluster && static_cast<long long>(ctas) * kSliceBytes < out_len) ctas *= 2;
+  return static_cast<long long>(ctas) * kSliceBytes >= out_len ? ctas : 0;
+}
+
+// Launches one CTA (shared route) or one cluster (cluster route) per block
+// on `stream` of `device`; returns the CUDA error code (0 on success), also
+// when the card refuses the cluster launch.  Pointers are device pointers;
+// the caller allocates `out` (16-byte aligned) and, if not null, `paths`
+// (two ints).
 extern "C" int bt_decode_tables_launch(
     const void* comp, long long comp_stride, int comp_width, const void* nseq,
     const void* lit_ptr, const void* lit_len, const void* off, const void* mlen,
     const void* out_pos, int S, void* out, int n, int out_rows, void* paths, int device,
     void* stream) {
-  const long long out_len = static_cast<long long>(out_rows) * 128;
-  const int threads = static_cast<int>(std::min<long long>(kMaxThreads,
-                                                           std::max<long long>(128, out_len / 32)));
-  const int window = std::min(threads, kMaxWindow);
-  const int map_len = static_cast<int>(std::min<long long>(out_len, kMaxMap));
-  // The shared route holds the plane beside the windows and the map; a
-  // plane that does not fit takes the device-memory route.
-  const long long tables_smem = 2LL * window * kEntryBytes + map_len;
-  const bool global = out_len + tables_smem > bt::kSmemMax;
-  const long long smem = global ? tables_smem : out_len + tables_smem;
-  if (n < 0 || S < 1 || out_rows < 1 || out_rows > (1 << 16) || comp_width < 0 ||
+  const int ctas = bt_decode_tables_cluster_ctas(out_rows);
+  if (n < 0 || S < 1 || ctas == 0 || comp_width < 0 ||
       (reinterpret_cast<uintptr_t>(out) & 15) != 0 || device < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
+  const long long out_len = static_cast<long long>(out_rows) * 128;
+  const bool cluster = ctas > 1;
+  int threads, window, map_len;
+  long long smem = shared_route_bytes(out_len, &threads, &window, &map_len);
+  if (cluster) {                    // the slice, two windows of entries, the bucket index,
+    threads = kMaxThreads;          // the verdict slots
+    window = kClusterWindow;
+    map_len = 0;
+    smem = kSliceBytes + 2LL * window * kEntryBytes + 2 * kBuckets + 4 * kMaxCluster;
+  }
   int current = 0;
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   // The whole opt-in range, once per device: a launch with a larger plane
   // from another thread then never meets a smaller limit set for this one.
-  auto* kernel = global ? decode_tables_kernel<true> : decode_tables_kernel<false>;
-  if (device >= 64 || !(g_opted[global].load() & (1ULL << device))) {
+  auto* kernel = cluster ? decode_tables_kernel_cluster : decode_tables_kernel_shared;
+  if (device >= 64 || !(g_opted[cluster].load() & (1ULL << device))) {
     err = bt::smem_opt_in(kernel, bt::kSmemMax);
-    if (err == cudaSuccess && device < 64) g_opted[global].fetch_or(1ULL << device);
+    if (err == cudaSuccess && device < 64) g_opted[cluster].fetch_or(1ULL << device);
   }
   if (err == cudaSuccess) {
     Args a;
@@ -558,10 +871,28 @@ extern "C" int bt_decode_tables_launch(
     a.n = n;
     a.out_len = static_cast<int>(out_len);
     a.window = window;
+    a.span = cluster ? kMaxMap : map_len;
     a.map_len = map_len;
     a.paths = static_cast<int*>(paths);
-    kernel<<<n, threads, static_cast<int>(smem), static_cast<cudaStream_t>(stream)>>>(a);
-    err = cudaGetLastError();
+    if (cluster) {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = ctas;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.gridDim = dim3(static_cast<unsigned>(n) * ctas);
+      cfg.blockDim = dim3(threads);
+      cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+      cfg.stream = static_cast<cudaStream_t>(stream);
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaLaunchKernelEx(&cfg, kernel, a);
+      if (err == cudaSuccess) err = cudaGetLastError();
+    } else {
+      kernel<<<n, threads, static_cast<int>(smem), static_cast<cudaStream_t>(stream)>>>(a);
+      err = cudaGetLastError();
+    }
   }
   if (current != device) cudaSetDevice(current);
   return static_cast<int>(err);

@@ -116,9 +116,10 @@ def load_cuda_kernel(stem: str, bind, headers: tuple[str, ...] = ()) -> ctypes.C
 
 
 #: The block queue of the persistent kernels (B1, B7) per (device, stream):
-#: int32 [next block, CTAs done], zero at launch.  A launch's last CTA sets
-#: both back to zero, so one buffer serves every launch of a stream (they
-#: run in turn) and no launch pays a memset of its own.
+#: int32 [next block, CTAs done, blocks listed (B1's tall route), spare],
+#: zero at launch.  A launch's last CTA (cluster) sets them back to zero, so
+#: one buffer serves every launch of a stream (they run in turn) and no
+#: launch pays a memset of its own.
 block_queues: dict[tuple[int, int], torch.Tensor] = {}
 
 
@@ -126,7 +127,7 @@ def block_queue(device: torch.device, stream: int) -> torch.Tensor:
     q = block_queues.get((device.index, stream))
     if q is None:                 # zeroed on this stream, before any launch on it
         q = block_queues.setdefault((device.index, stream),
-                                    torch.zeros(2, dtype=torch.int32, device=device))
+                                    torch.zeros(4, dtype=torch.int32, device=device))
     return q
 
 
@@ -135,8 +136,8 @@ _sm_counts: dict[int, int] = {}     # streaming multiprocessors per device index
 
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device: the CTAs of a
-    device-memory-route launch of B1 or B7, one per SM (a 1024-thread CTA of
-    either kernel takes a whole SM's registers), each with a scratch plane."""
+    device-memory-route launch of B7, one per SM (a 1024-thread CTA takes a
+    whole SM's registers), each with a scratch plane."""
     sms = _sm_counts.get(device.index)
     if sms is None:
         sms = _sm_counts.setdefault(

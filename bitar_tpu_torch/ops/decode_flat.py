@@ -11,9 +11,11 @@ planner (``plan.cc``) turns every compressed block into a schedule over its
 * ``decode_blocks_flat``: the wrapper.  On CPU tensors it runs the plain
   version; on CUDA tensors it launches the hand-written kernel
   ``csrc/decode_flat.cu`` or raises.  It never falls back.  Planes of up to
-  ``DECODE_FLAT_MAX_ROWS`` rows take the kernel's shared-memory route,
-  taller ones (blocks of 256 KiB to 1 MiB) its device-memory route, with a
-  scratch row per CTA that the wrapper allocates.
+  ``DECODE_FLAT_MAX_ROWS`` rows take the kernel's shared-memory route (one
+  CTA a block), taller ones (blocks of 256 KiB to 1 MiB) its tall route: a
+  kernel on every SM for the blocks without out passes, then a
+  thread-block cluster for each block with out passes, each CTA holding
+  1024 rows of its plane in shared memory (:func:`cluster_ctas`).
 
 Plan wire, per block ``i`` (see ``decode_flat_reference`` for the order):
 
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 
 from ..config import DECODE_FLAT_MAX_ROWS
-from ._build import block_queue, check_cuda, load_cuda_kernel, require, sm_count
+from ._build import block_queue, check_cuda, load_cuda_kernel, require
 
 LANES = 128
 CB = 4                # passes per planner batch (plans pad to CB multiples)
@@ -51,9 +53,23 @@ KBAND = 256           # row quantum of comp planes taller than 128 rows
 #: call).  Read it to show that a run went through the kernel; reset it to
 #: 0 before such a run.
 launches = 0
-#: Those of them that took the device-memory route (planes taller than
+#: Those of them that took the tall route, whose cluster kernel holds a
+#: block's plane in a thread-block cluster (planes taller than
 #: ``DECODE_FLAT_MAX_ROWS`` rows).
-gmem_launches = 0
+cluster_launches = 0
+MAX_CLUSTER = 8       # the portable cluster size: planes of up to 8192 rows
+
+
+def cluster_ctas(out_rows: int) -> int:
+    """CTAs of the kernel that decode one block of an ``out_rows``-row
+    plane: 1 on the shared route (up to ``DECODE_FLAT_MAX_ROWS`` rows), else
+    the cluster route's ``ceil(out_rows / DECODE_FLAT_MAX_ROWS)``, CTA r
+    holding rows ``[1024 r, 1024 (r + 1))``; 0 past 8192 rows, which the
+    kernel refuses.  ``csrc/decode_flat.cu`` computes the same (checked
+    when it loads)."""
+    if not 0 < out_rows <= MAX_CLUSTER * DECODE_FLAT_MAX_ROWS:
+        return 0
+    return -(-out_rows // DECODE_FLAT_MAX_ROWS)
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +281,42 @@ def random_wire(seed: int, n: int, out_rows: int, comp_rows: int, dcap: int) -> 
     return comp, plans
 
 
+def slice_crossing_wire(out_rows: int, seed: int) -> tuple:
+    """Four blocks whose comp pass fills the plane with the comp row's bytes
+    and whose out passes gather across the cluster route's slices (1024
+    rows each): whole rows shifted back and forth by a few bytes past every
+    slice edge (the kernel's whole-word path), part rows a slice away (its
+    byte path), rows at each edge from up to 4000 bytes back, and shifts
+    that clip at the plane's first and last byte.  Returns numpy (comp [4,
+    out_rows * 128] uint8, wire dict); comp_rows is out_rows."""
+    rng = np.random.default_rng(seed)
+    tiles, olen, edge = out_rows // LANES, out_rows * LANES, DECODE_FLAT_MAX_ROWS
+    n, npass = 4, 8
+    se = np.zeros((n * npass + _S_QUANTUM, out_rows), np.int16)
+    sh = np.zeros(se.shape, np.int32)
+    for b in range(n):
+        base = b * npass
+        se[base] = LANES                                 # comp pass: lanes [0, 128) everywhere
+        for k, (lo, hi, shift, lanes) in enumerate([
+                (0, out_rows, -(3 * LANES + 5 + b), (0, LANES)),    # back across every edge
+                (0, out_rows, 7 * LANES + 3 + b, (0, LANES)),       # forward across every edge
+                (0, 8, -olen, (0, LANES)),                          # clips at byte 0
+                (out_rows - 8, out_rows, olen, (0, LANES)),         # clips at the last byte
+                (0, out_rows, -edge * LANES + 1, (5 + b, 99)),      # a slice back, part rows
+                (0, out_rows, edge * LANES - 2, (1, 127 - b))]):    # a slice on, part rows
+            se[base + 2 + k, lo:hi] = (lanes[0] << 8) | lanes[1]
+            sh[base + 2 + k, lo:hi] = shift
+        for e in range(edge, out_rows, edge):            # a pass of the rows at each edge
+            se[base + 1, e - 2:e + 2] = LANES
+            sh[base + 1, e - 2:e + 2] = -int(rng.integers(1, 4000))
+    plans = {"p_used": np.full(n, npass, np.int32),
+             "p_off": (np.arange(n) * npass).astype(np.int32),
+             "p0": np.ones(n, np.int32),
+             "se": se.reshape(-1, tiles, 128), "shift": sh.reshape(-1, tiles, 128)}
+    comp = rng.integers(0, 256, (n, olen), np.uint8)
+    return comp, plans
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch decode
 
@@ -361,12 +413,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, vp, c_ll,                     # se, shift, wire rows
         vp, c_int, vp, c_int,             # dq, dq rows, row_a, dcap
         vp, c_int, c_int, vp,             # out, n, out_rows, queue
-        vp, c_int, vp]                    # scratch, its CTA rows, stream
-    lib.bt_decode_flat_shared_rows.restype = c_int
-    lib.bt_decode_flat_shared_rows.argtypes = []
-    require(lib.bt_decode_flat_shared_rows() == DECODE_FLAT_MAX_ROWS,
-            lambda: f"decode_flat.cu's shared route holds {lib.bt_decode_flat_shared_rows()} "
-                    f"rows, config.DECODE_FLAT_MAX_ROWS says {DECODE_FLAT_MAX_ROWS}")
+        vp, vp]                           # list (tall route), stream
+    lib.bt_decode_flat_resident_clusters.restype = c_int
+    lib.bt_decode_flat_resident_clusters.argtypes = [c_int]
+    lib.bt_decode_flat_cluster_ctas.restype = c_int
+    lib.bt_decode_flat_cluster_ctas.argtypes = [c_int]
+    bad = [r for r in range(LANES, 8193 + LANES, LANES)
+           if lib.bt_decode_flat_cluster_ctas(r) != cluster_ctas(r)]
+    require(not bad, lambda: f"decode_flat.cu's cluster sizes differ from cluster_ctas "
+                             f"at {bad[:4]} rows")
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -374,9 +429,20 @@ def load_kernel() -> ctypes.CDLL:
     return load_cuda_kernel("decode_flat", _bind)
 
 
+def resident_clusters(out_rows: int) -> int:
+    """Clusters of the tall route's cluster kernel for ``out_rows``-row
+    planes that the current CUDA device holds at once (its GPCs bound it,
+    not its SM count).  Raises StatusError without CUDA or for a plane of
+    the shared route."""
+    lib = load_kernel()
+    got = lib.bt_decode_flat_resident_clusters(out_rows)
+    check_cuda(max(0, -got), "decode_flat resident clusters", lib)
+    return got
+
+
 def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
                    out_rows: int) -> torch.Tensor:
-    global launches, gmem_launches
+    global launches, cluster_launches
     n = comp.shape[0]
     for k in ("p_used", "p_off", "p0", "dense", "dq_idx"):
         t = pt[k]
@@ -407,26 +473,22 @@ def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
     if dq.data_ptr() % 8:             # the kernel reads a word's 4 dq entries at once
         dq = dq.clone()
     lib = load_kernel()
-    gmem = out_rows > DECODE_FLAT_MAX_ROWS
+    tall = cluster_ctas(out_rows) > 1
     with torch.cuda.device(comp.device):      # launch on the tensors' device
         stream = torch.cuda.current_stream(comp.device).cuda_stream
-        queue = block_queue(comp.device, stream)
-        scratch, ctas = None, 0
-        if gmem:                              # a scratch plane per CTA
-            ctas = min(n, sm_count(comp.device))
-            scratch = torch.empty((ctas, out_rows * LANES), dtype=torch.uint8,
-                                  device=comp.device)
+        # The tall route lists its blocks with out passes for its cluster kernel.
+        listed = torch.empty(n if tall else 0, dtype=torch.int32, device=comp.device)
         rc = lib.bt_decode_flat_launch(
             comp.data_ptr(), comp.stride(0), comp.shape[1], comp_rows,
             pt["p_used"].data_ptr(), pt["p_off"].data_ptr(), pt["p0"].data_ptr(),
             pt["dense"].data_ptr(), pt["dq_idx"].data_ptr(),
             pt["se"].data_ptr(), pt["shift"].data_ptr(), s_rows,
             dq.data_ptr(), dq_rows, ra.data_ptr(), ra.shape[1],
-            out.data_ptr(), n, out_rows, queue.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), ctas, stream)
+            out.data_ptr(), n, out_rows, block_queue(comp.device, stream).data_ptr(),
+            listed.data_ptr() if tall else None, stream)
     check_cuda(rc, "decode_flat launch", lib)
     launches += 1
-    gmem_launches += gmem
+    cluster_launches += tall
     return out
 
 

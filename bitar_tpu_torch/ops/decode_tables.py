@@ -16,8 +16,9 @@ literal run.  This module holds
 * ``decode_tables_reference``: the plain PyTorch decode;
 * ``decode_blocks``: the wrapper.  On CPU tensors it runs the plain version;
   on CUDA tensors it launches ``csrc/decode_tables.cu`` or raises.  The
-  kernel keeps a plane in shared memory where it fits beside its windows
-  (up to ~150 KiB), else in the block's output row in device memory.
+  kernel keeps a plane in one CTA's shared memory where it fits beside its
+  windows (up to ~150 KiB), else spread over the shared memory of a
+  thread-block cluster (:func:`cluster_ctas`; planes of up to 1 MiB).
 
 The function, per block ``b`` with ``ns = clamp(nseq[b], 0, S)`` sequences:
 
@@ -53,9 +54,34 @@ LANES = 128
 
 #: Kernel launches made by ``decode_blocks`` on CUDA tensors (one per call).
 launches = 0
-#: Those of them that took the device-memory route (planes too tall to sit
-#: in shared memory beside the windows: blocks of 256 KiB to 1 MiB).
-gmem_launches = 0
+#: Those of them that took the cluster route (planes too tall to sit in one
+#: CTA's shared memory beside the windows: blocks of ~150 KiB to 1 MiB).
+cluster_launches = 0
+
+SMEM_MAX = 232448         # an H100 CTA's shared memory (the opt-in limit)
+SLICE_BYTES = 128 * 1024  # plane bytes a CTA of the cluster route holds
+MAX_CLUSTER = 8           # the portable cluster size: planes of up to 1 MiB
+
+
+def cluster_ctas(out_rows: int) -> int:
+    """CTAs of the kernel that decode one block of an ``out_rows``-row
+    plane: 1 where the plane fits in shared memory beside the shared
+    route's windows (up to 256 entries of 20 bytes, two of them) and its
+    map (a byte a plane byte, at most 64 KiB), else the cluster route's
+    least power of two of 128 KiB slices that holds the plane (2, 4 or 8:
+    the plane is dealt to the CTAs in 1 KiB stripes); 0 past 1 MiB, which
+    the kernel refuses.  ``csrc/decode_tables.cu`` computes the same
+    (checked when it loads)."""
+    if not 1 <= out_rows <= 1 << 16:
+        return 0
+    out_len = out_rows * LANES
+    threads = min(1024, max(128, out_len // 32))
+    if out_len + 2 * min(threads, 256) * 20 + min(out_len, 65536) <= SMEM_MAX:
+        return 1
+    ctas = 2
+    while ctas < MAX_CLUSTER and ctas * SLICE_BYTES < out_len:
+        ctas *= 2
+    return ctas if ctas * SLICE_BYTES >= out_len else 0
 
 
 def pad_tables(tables: list[dict[str, np.ndarray]], keys: tuple[str, ...],
@@ -281,8 +307,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, vp, vp, vp, vp, vp, c_int,    # nseq, lit_ptr, lit_len, off, mlen, out_pos, S
         vp, c_int, c_int, vp,             # out, n, out_rows, paths
         c_int, vp]                        # device, stream
-    lib.bt_decode_tables_shared_rows.restype = c_int
-    lib.bt_decode_tables_shared_rows.argtypes = []
+    lib.bt_decode_tables_cluster_ctas.restype = c_int
+    lib.bt_decode_tables_cluster_ctas.argtypes = [c_int]
+    bad = [r for r in range(1, 8194) if lib.bt_decode_tables_cluster_ctas(r) != cluster_ctas(r)]
+    require(not bad, lambda: f"decode_tables.cu's cluster sizes differ from cluster_ctas "
+                             f"at {bad[:4]} rows")
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -291,12 +320,11 @@ def load_kernel() -> ctypes.CDLL:
 
 
 _launch_fn = None     # the library's bound launch function, once loaded
-_shared_rows = 0      # rows of the largest plane the kernel's shared route holds
 
 
 def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
                    out_rows: int, path_counts: torch.Tensor | None) -> torch.Tensor:
-    global launches, gmem_launches, _launch_fn, _shared_rows
+    global launches, cluster_launches, _launch_fn
     n = comp.shape[0]
     dev = comp.device
     cols = [tables[k] for k in SEQUENCE_KEYS]
@@ -317,7 +345,6 @@ def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
     if n == 0:
         return out
     if _launch_fn is None:
-        _shared_rows = load_kernel().bt_decode_tables_shared_rows()
         _launch_fn = load_kernel().bt_decode_tables_launch
     # The device's current stream as torch.cuda.current_stream(dev).cuda_stream
     # gives it, without building a Stream object (0.14 us a call against 5.4
@@ -327,7 +354,7 @@ def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
                     dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
     check_cuda(rc, "decode_tables launch", load_kernel())
     launches += 1
-    gmem_launches += out_rows > _shared_rows
+    cluster_launches += cluster_ctas(out_rows) > 1
     return out
 
 

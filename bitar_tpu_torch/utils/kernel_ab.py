@@ -16,6 +16,9 @@ events, mean ms per launch) after the two outputs are checked equal; B1,
 B2, B3, B4, B5 and B7 are also timed kernel-only (``timing.kernel_time_ms``)
 and by the host clock per call (``timing.host_us_per_call``), in the same
 turns.
+B1 also runs at the shapes of its cluster route (:func:`large_flat_shapes`:
+1 MiB and 256 KiB blocks, and a burst of the CLI's skewed suite on
+8192-row planes), and B2 on 1 MiB and 256 KiB tables (:func:`table_shapes`).
 B5 runs on 256 x 128 KiB of the bench corpus (seg 1024, max_match 1024)
 and B4 on 64 x 128 KiB of it (max_match 256), each with the offsets the
 device matcher detects, and both on 64 x 128 KiB of the text corpus with
@@ -49,6 +52,10 @@ REPS = 20
 WALK_BLOCKS = 256             # B5's bench batch (the device matcher's)
 DYN_BLOCKS = 64               # B4's bench batch (seg 256)
 DYN_TEXT_BLOCKS = 64          # B5's and B4's text batch
+LARGE = 1 << 20               # blocks of B1's and B2's cluster routes
+MID = 256 * 1024
+SKEWED_BLOCKS = 256           # the CLI's skewed suite (its default)
+SKEWED_BURST = 32             # one burst of it (the CLI's default burst size)
 
 
 def load_package(root: Path, name: str):
@@ -62,13 +69,15 @@ def load_package(root: Path, name: str):
     return mod
 
 
-def planned_batch(btt, data: bytes, nblocks: int):
+def planned_batch(btt, data: bytes, nblocks: int, block: int = BLOCK, sizes=None,
+                  burst: int = 1024):
     """Comp rows, plan tensors and comp_rows of ``data`` compressed (LZ4) and
-    planned by an engine of this checkout."""
-    cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=BLOCK, burst_size=min(nblocks, 1024),
+    planned by an engine of this checkout (``sizes``: the blocks' raw
+    sizes, as ``Engine.compress`` takes them)."""
+    cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=block, burst_size=min(nblocks, burst),
                            max_pool_slots=nblocks + 32, commit="deferred")
     eng = btt.Engine(cfg, device="cuda").initialize()
-    unit = eng.compress(data)
+    unit = eng.compress(data, sizes=sizes)
     eng.ensure_plans(unit)
     rows = eng.arena.gather_burst([r.slot for r in unit.refs])
     batch = (rows, unit.plan_device_arrays(), unit.plan_comp_rows)
@@ -179,17 +188,42 @@ def main() -> int:
             if idx.numel():
                 batches[f"{whole.split()[0]}, {cls} ({idx.numel()} blocks)"] = (
                     *df.select_blocks(rows, pt, idx), comp_rows)
-    for name, (rows, pt, comp_rows) in batches.items():
-        def new(rows=rows, pt=pt, cr=comp_rows):
-            return df.decode_blocks_flat(rows, pt, comp_rows=cr, out_rows=nrows)
+    batches = {f"{k} x 128 KiB": (*v, nrows) for k, v in batches.items()}
+    batches |= large_flat_shapes(btt, df, corpus, make_text_corpus(256))
+    for name, (rows, pt, comp_rows, out_rows) in batches.items():
+        def new(rows=rows, pt=pt, cr=comp_rows, nr=out_rows):
+            return df.decode_blocks_flat(rows, pt, comp_rows=cr, out_rows=nr)
 
-        def prev(rows=rows, pt=pt, cr=comp_rows):
-            return odf.decode_blocks_flat(rows, pt, comp_rows=cr, out_rows=nrows)
+        def prev(rows=rows, pt=pt, cr=comp_rows, nr=out_rows):
+            return odf.decode_blocks_flat(rows, pt, comp_rows=cr, out_rows=nr)
 
         equal = same(new(), prev())
-        emit({"kernel": "decode_flat", "shape": f"{name} x 128 KiB", "equal": equal,
+        emit({"kernel": "decode_flat", "shape": name, "equal": equal,
               **turns(timing, prev, new, "decode_flat_kernel", 100)})
     return finish(args, lines)
+
+
+def large_flat_shapes(btt, df, corpus: bytes, text: bytes) -> dict:
+    """B1's shapes above 1024 rows: the bench corpus as 128 x 1 MiB and 128 x
+    256 KiB, the text corpus as 32 x 1 MiB and 64 x 256 KiB, and one burst
+    of the CLI's skewed suite (its first 32 blocks of 4 KiB to 1 MiB, LZ4,
+    each on an 8192-row plane: ``cli.demo.make_skewed_input``, BASELINE
+    config 4).  Name -> (rows, plan tensors, comp_rows, out_rows)."""
+    from bitar_tpu_torch.cli.demo import make_skewed_input
+
+    shapes = {}
+    for name, data, block in (("bench 128 x 1 MiB", corpus, LARGE),
+                              ("text 32 x 1 MiB", text, LARGE),
+                              ("bench 128 x 256 KiB", corpus[:128 * MID], MID),
+                              ("text 64 x 256 KiB", text[:64 * MID], MID)):
+        shapes[name] = (*planned_batch(btt, data, len(data) // block, block), block // 128)
+    data, sizes = make_skewed_input(LARGE, SKEWED_BLOCKS)
+    rows, pt, comp_rows = planned_batch(btt, data, SKEWED_BLOCKS, LARGE, sizes, SKEWED_BURST)
+    idx = torch.arange(SKEWED_BURST, device=rows.device)
+    shapes[f"skewed burst {SKEWED_BURST} blocks of {min(sizes[:SKEWED_BURST]):,}-"
+           f"{max(sizes[:SKEWED_BURST]):,} B, 8192-row planes"] = (
+        *df.select_blocks(rows, pt, idx), comp_rows, LARGE // 128)
+    return shapes
 
 
 def ab_match_routes(emit, timing, mt, corpus: bytes) -> None:
@@ -225,18 +259,25 @@ def ab_match_routes(emit, timing, mt, corpus: bytes) -> None:
 def table_shapes(corpus: bytes, text: bytes) -> dict:
     """B2's shapes: the engine's 4 KiB burst and 8192 blocks of the bench
     corpus, 256 x 128 KiB of it (the parallel tables step's) and 256 x 128
-    KiB of markdown (deep tables); numpy (rows, tables, nseq, block)."""
+    KiB of markdown (deep tables), and the cluster route's: 32 x 1 MiB of
+    the bench corpus and of markdown, and 128 x 256 KiB of the bench corpus;
+    numpy (rows, tables, nseq, block)."""
     from bitar_tpu_torch.ops import decode_tables as dt
+
+    def tables(data: bytes, n: int, block: int):
+        return (*dt.parser_tables([data[i * block:(i + 1) * block] for i in range(n)])[:3],
+                block)
 
     small = 4096
     b4 = dt.parser_tables([corpus[i * small:(i + 1) * small] for i in range(8192)])[:3]
     return {"burst 1024 x 4 KiB": (b4[0][:1024], {k: v[:1024] for k, v in b4[1].items()},
                                    b4[2][:1024], small),
             "bench 8192 x 4 KiB": (*b4, small),
-            "bench 256 x 128 KiB": (*dt.parser_tables(
-                [corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(256)])[:3], BLOCK),
-            "deep text 256 x 128 KiB": (*dt.parser_tables(
-                [text[i * BLOCK:(i + 1) * BLOCK] for i in range(256)])[:3], BLOCK)}
+            "bench 256 x 128 KiB": tables(corpus, 256, BLOCK),
+            "deep text 256 x 128 KiB": tables(text, 256, BLOCK),
+            "bench 32 x 1 MiB": tables(corpus, 32, LARGE),
+            "text 32 x 1 MiB": tables(text, 32, LARGE),
+            "bench 128 x 256 KiB": tables(corpus, 128, MID)}
 
 
 def ab_tables(emit, timing, corpus: bytes, text: bytes) -> None:

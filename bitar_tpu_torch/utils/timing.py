@@ -114,10 +114,12 @@ def device_time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def kernel_time_ms(fn, reps: int, name: str, warmup: int = 1) -> float:
-    """Mean device milliseconds per launch of the kernels whose name
-    contains ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler``
-    (CUDA activity only): the kernel's own duration, without the gaps that
-    the host leaves between launches.
+    """Device milliseconds of the kernels whose name contains ``name``, over
+    ``reps`` calls of ``fn`` under ``torch.profiler`` (CUDA activity only):
+    the mean duration of each such kernel, summed over the kernels of
+    different names (a call that launches two kernels, as B1's tall route
+    does, counts both), without the gaps that the host leaves between
+    launches.
 
     The profiler keeps only device records that fall inside its window on
     the host's clock, and CUPTI's clock is converted to that one; so the
@@ -136,14 +138,14 @@ def kernel_time_ms(fn, reps: int, name: str, warmup: int = 1) -> float:
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
-        total_us, count = 0.0, 0
+        mean_us, count = 0.0, 0
         for e in prof.key_averages():
-            if name in e.key:
+            if name in e.key and e.count:
                 t = getattr(e, "device_time_total", None)    # cuda_time_total before torch 2.4
-                total_us += float(t if t is not None else e.cuda_time_total)
+                mean_us += float(t if t is not None else e.cuda_time_total) / e.count
                 count += e.count
         if count:
-            return total_us / count / 1e3
+            return mean_us / 1e3
     raise StatusError(Status.IOError(
         f"kernel_time_ms: no kernel named like {name!r} ran under the profiler "
         f"in {PROFILE_TRIES} windows"))

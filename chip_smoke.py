@@ -14,9 +14,15 @@ Phases (any failure raises, and the script exits non-zero):
      of the markdown text corpus (256 x 128 KiB) and of a RAW-heavy batch,
      and on the class-pure batches of the first two (``block_classes``: the
      RAW blocks, the blocks with no out pass, those with out passes); its
-     device-memory route (planes of 2048 and 8192 rows) on the bench corpus
-     in 256 KiB and 1 MiB blocks (128 of each), the text corpus in 256 KiB
-     (64) and 1 MiB (32) blocks, and their class-pure batches;
+     tall route (planes of 2048 and 8192 rows: a kernel on every SM for the
+     blocks without out passes, then a thread-block cluster a block with
+     out passes) on the bench corpus in 256 KiB and 1 MiB blocks (128 of
+     each), the text corpus in 256 KiB (64) and 1 MiB (32) blocks, and
+     their class-pure batches, on ``slice_crossing_wire`` (out passes that
+     gather across the cluster's 1024-row slices and clip at both plane
+     ends) and ``random_wire`` at 1152, 2048, 4096 and 8192 rows, and on one
+     burst of the CLI's skewed suite (32 blocks of 4 KiB-1 MiB, 8192-row
+     planes); every launch above 1024 rows on the tall route;
    - ``match_walk`` (B5) on 256 x 128 KiB of the bench corpus, seg 1024;
    - ``match_dyn`` (B4) on 64 x 128 KiB of it with the offsets that
      ``compress_blocks_device(seg=256)`` detects;
@@ -47,9 +53,10 @@ Phases (any failure raises, and the script exits non-zero):
      bench corpus (the parallel tables step's shape), of RLE blocks with
      offsets 1-130 (both sides of the 128-byte row) and on random
      well-formed, malformed and mixed tables at 4 and 128 KiB
-     (``random_tables``), and on its device-memory route at 1 MiB: the bench
-     corpus under a 4-pass plan budget and random well-formed and malformed
-     tables; each batch logs its
+     (``random_tables``), and on its cluster route: the bench corpus at 1
+     MiB under a 4-pass plan budget and its parser tables at 256 KiB, random
+     well-formed and malformed tables at 1 MiB and at 1300 and 4096 rows,
+     and RLE offsets 1-130 over 1 MiB planes; each batch logs its
      blocks by path (parallel,
      serial walk), which must be the classifier's
      (``well_formed``): 0 serial blocks on every parser batch;
@@ -103,7 +110,7 @@ Phases (any failure raises, and the script exits non-zero):
      B1 launch);
    - four streams on one engine (``make_streams``/``wait_all``);
    - 128 x 1 MiB of the bench corpus through the same host path (B1's
-     device-memory route);
+     tall route);
    - the CLI: ``cli.demo.main(["--mode", "skewed", "--block-size",
      "1048576", "--blocks", "256"])`` (BASELINE config 4, LZ4; its stats
      line logged) and its sync suite on 32 MiB of the corpus at 128 KiB;
@@ -113,7 +120,7 @@ Phases (any failure raises, and the script exits non-zero):
    - the device matchers at 1 MiB on 128 x 1 MiB of the bench corpus:
      ``compress_matcher="tpu"`` (LZ4 and Snappy), ``"tpu-sort"``, and
      ``"device"`` with ``match_offsets=DEFAULT_OFFSETS, min_match=64``,
-     each decoded through B1's device-memory route with its host-clock
+     each decoded through B1's tall route with its host-clock
      phases logged, and 4 blocks' container equal to the port's CPU
      engine's; ``decode_blocks_planned`` on the 32 x 1 MiB bench plans (B7's
      device-memory route);
@@ -136,10 +143,11 @@ Phases (any failure raises, and the script exits non-zero):
    the text ``detect_fft`` batch; the emitter at every main-path shape of
    phase 3 (with its bound and an empty kernel's time on the same grid;
    the kernels line takes the shape with the most kernel-only time over
-   its bound and names it); B6 on the bench and text B4 planes; the
-   device-memory routes at 1 MiB: B1 on the bench (128 blocks) and text
-   (32) batches, B2 on the bench tables (with their bounds; the kernels
-   line carries them under ``device_memory_route``); B7 at the
+   its bound and names it); B6 on the bench and text B4 planes; the tall
+   routes: B1 on the bench (128 blocks) and text (32) batches at 1 MiB, the
+   text batch at 256 KiB and the skewed suite's burst, B2 on the bench
+   tables at 1 MiB and 256 KiB (with their bounds; the kernels line carries them and
+   B1's resident clusters under ``cluster_route``); B7 at the
    shape of phase 3 (the
    multi-device steps' host-clock times are logged in phase 4); the whole
    ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
@@ -183,9 +191,13 @@ DYN_BLOCKS = 64               # B4 batch (seg 256); also B3's small batch
 TABLE_BLOCK = 4096            # block size of the sequence-table path
 TABLE_CHECK_BLOCKS = 8192     # B2 batch of phase 3 (32 MiB of the corpus)
 BATCH_UNIT_BLOCKS = 256       # blocks of each unit of the batched decode
-LARGE_BLOCK = 1 << 20         # blocks of B1's and B2's device-memory routes
+LARGE_BLOCK = 1 << 20         # blocks of B1's and B2's tall (cluster) routes
 MID_BLOCK = 256 * 1024
 SKEWED_BLOCKS = 256           # the CLI's skewed suite (its default)
+SKEWED_BURST = 32             # one burst of it (the CLI's default burst size)
+#: Plane heights of the tall routes' hand-made and random checks: a last
+#: slice of 128 rows, 2, 4 and 8 slices.
+TALL_ROWS = (1152, 2048, 4096, 8192)
 MATCH_LARGE_BLOCKS = 128      # the 1 MiB matcher paths' unit: 128 MiB of the bench corpus
 LARGE_CHECK_BLOCKS = 8        # blocks of each far-offset B3 batch at 256 KiB and 1 MiB
 #: Offsets past 56 KiB (every tile window above 64 KiB), the LZ4 format's
@@ -287,6 +299,41 @@ def compare_decode(df, rows, pt, comp_rows, block: int = BLOCK) -> int:
     torch.cuda.synchronize()
     want = df.decode_flat_reference(rows, pt, comp_rows, block // 128)
     return check_equal("decode_flat", got, want)
+
+
+def compare_flat(df, rows, pt, comp_rows, out_rows: int) -> int:
+    """B1 against its plain version at any plane height; max |diff|."""
+    got = df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=out_rows)
+    torch.cuda.synchronize()
+    return check_equal("decode_flat", got, df.decode_flat_reference(rows, pt, comp_rows,
+                                                                    out_rows))
+
+
+def skewed_burst(btt, df):
+    """One burst of the CLI's skewed suite (BASELINE config 4): the first
+    SKEWED_BURST of its 256 LZ4 blocks of 4 KiB-1 MiB on 8192-row planes, as
+    the engine launches B1 on them.  Returns (rows, plan tensors, comp_rows,
+    stored bytes a block, stats)."""
+    from bitar_tpu_torch.cli.demo import make_skewed_input
+
+    data, sizes = make_skewed_input(LARGE_BLOCK, SKEWED_BLOCKS)
+    cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=LARGE_BLOCK, burst_size=SKEWED_BURST,
+                           max_pool_slots=SKEWED_BLOCKS + 32, commit="deferred")
+    eng = btt.Engine(cfg, device="cuda").initialize()
+    unit = eng.compress(data, sizes=sizes)
+    eng.ensure_plans(unit)
+    rows = eng.arena.gather_burst([r.slot for r in unit.refs[:SKEWED_BURST]])
+    pt = unit.plan_device_arrays()
+    pt = {k: v[:SKEWED_BURST] if k in ("p_used", "p_off", "p0", "dense", "dq_idx") else v
+          for k, v in pt.items()}
+    comp_len = unit.manifest.comp_len[:SKEWED_BURST].astype(np.int64)
+    stats = (f"{SKEWED_BURST} blocks of {min(sizes[:SKEWED_BURST]):,}-"
+             f"{max(sizes[:SKEWED_BURST]):,} B, classes "
+             + ", ".join(f"{k} {v.numel()}" for k, v in df.block_classes(pt).items()))
+    batch = (rows, pt, unit.plan_comp_rows, comp_len, stats)
+    eng.recycle(unit)
+    eng.release()
+    return batch
 
 
 def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
@@ -525,24 +572,25 @@ def table_batch(btt, data: bytes, block: int, max_passes: int | None = None):
     return batch
 
 
-def rle_table_batch(dt, block: int = TABLE_BLOCK):
-    """Offsets 1..130, both sides of the 128-byte row: d literal bytes, one
-    match of offset d, 5 final literals; 4 KiB blocks."""
+def rle_table_batch(dt, block: int = TABLE_BLOCK, step: int = 1):
+    """Offsets 1..130 (every ``step``-th), both sides of the 128-byte row: d
+    literal bytes, one match of offset d, 5 final literals; blocks of
+    ``block`` bytes."""
     rng = np.random.default_rng(12)
-    n = 130
+    n = -(-130 // step)
     rows = rng.integers(0, 256, (n, 256), np.uint8)
     tables = {k: np.zeros((n, 128), np.int32) for k in ("lit_ptr", "lit_len", "off", "mlen",
                                                          "out_pos")}
-    for i in range(n):
-        d = i + 1
+    offs = [1 + i * step for i in range(n)]
+    for i, d in enumerate(offs):
         tables["lit_len"][i, :2] = [d, 5]
         tables["off"][i, 0] = d
         tables["mlen"][i, 0] = block - d - 5
         tables["lit_ptr"][i, 1] = d
         tables["out_pos"][i, 1] = block - 5
     nseq, tt = dt.table_tensors(tables, np.full(n, 2, np.int32), "cuda")
-    want = np.stack([np.concatenate([np.tile(rows[i, :i + 1], block // (i + 1) + 1)[:block - 5],
-                                     rows[i, i + 1:i + 6]]) for i in range(n)])
+    want = np.stack([np.concatenate([np.tile(rows[i, :d], block // d + 1)[:block - 5],
+                                     rows[i, d:d + 5]]) for i, d in enumerate(offs)])
     return torch.from_numpy(rows).cuda(), nseq, tt, block, np.full(n, 256), want
 
 
@@ -833,7 +881,7 @@ def streams_path(btt, data: bytes) -> None:
 
 def large_tables_path(btt, data: bytes, card: str) -> None:
     """A unit of 1 MiB blocks the planner takes no block of (a 2-pass plan
-    budget on the text corpus): decoded by B2's device-memory route."""
+    budget on the text corpus): decoded by B2's cluster route."""
     eng = engine(btt, btt.Codec.LZ4, block=LARGE_BLOCK, nblocks=len(data) // LARGE_BLOCK)
     eng._PLAN_MAX_PASSES = 2
     unit, phases = roundtrip(eng, data, "1 MiB tables")
@@ -1073,22 +1121,22 @@ def large_planned_checks(dp, corpus: bytes, text: bytes) -> tuple[int, dict]:
 def large_matcher_path(btt, data: bytes, card: str, codec, counts: dict, mods: dict,
                        name: str, **kw) -> None:
     """A 1 MiB matcher path, the launch counts of ``mods`` (name -> kernel
-    module) reset just before it: compress -> decode through B1's
-    device-memory route, bit-exact, no block on the host, host-clock phases
+    module) reset just before it: compress -> decode through B1's tall
+    (cluster) route, bit-exact, no block on the host, host-clock phases
     logged; then 4 blocks' container equal to the port's CPU engine's (which
     the CPU tests hold to the JAX engine's)."""
     df = mods["decode_flat"]
     for mod in mods.values():
         mod.launches = 0
-    df.gmem_launches = 0
+    df.cluster_launches = 0
     eng = engine(btt, codec, block=LARGE_BLOCK, nblocks=len(data) // LARGE_BLOCK, **kw)
     unit, phases = roundtrip(eng, data, name)
     log_path(name, unit, card, phases)
     eng.recycle(unit)
     counts[name] = {k: mod.launches for k, mod in mods.items()}
-    if df.gmem_launches != df.launches:
-        raise AssertionError(f"{name}: {df.gmem_launches} of {df.launches} decode_flat "
-                             f"launches on the device-memory route")
+    if df.cluster_launches != df.launches:
+        raise AssertionError(f"{name}: {df.cluster_launches} of {df.launches} decode_flat "
+                             f"launches on the tall (cluster) route")
     mine = eng.compress(data[:4 * LARGE_BLOCK]).to_host().to_bytes()
     eng.release()
     cfg = btt.EngineConfig(codec=codec, block_size=LARGE_BLOCK, burst_size=4,
@@ -1177,12 +1225,12 @@ def main() -> int:
     for name, (rows, pt, comp_rows, _) in class_batches.items():
         err = max(err, compare_decode(df, rows, pt, comp_rows))
         log(f"decode_flat == plain version, byte for byte: {name}, {rows.shape[0]} blocks")
-    # The device-memory route: planes of 2048 and 8192 rows, whole batches
-    # and their class-pure batches.
+    # The tall route: planes of 2048 and 8192 rows, whole batches and their
+    # class-pure batches.
     large = {("bench", MID_BLOCK): corpus[:128 * MID_BLOCK], ("bench", LARGE_BLOCK): corpus,
              ("text", MID_BLOCK): text[:64 * MID_BLOCK], ("text", LARGE_BLOCK): text}
     large_batches = {}
-    df.gmem_launches = 0
+    df.launches = df.cluster_launches = 0
     for (name, block), data in large.items():
         rows, pt, comp_rows, comp_len, stats = planned_batch(btt, data, block)
         large_batches[(name, block)] = (rows, pt, comp_rows, comp_len)
@@ -1194,9 +1242,27 @@ def main() -> int:
                 log(f"decode_flat == plain version, byte for byte: {name} {block // 1024} KiB, "
                     f"{cls}, {idx.numel()} blocks")
         log(f"decode_flat == plain version, byte for byte: {name}, {block // 1024} KiB blocks "
-            f"({block // 128} rows, device-memory route; {stats})")
-    if df.gmem_launches == 0:
-        raise AssertionError("decode_flat: no launch took the device-memory route")
+            f"({block // 128} rows, tall route; {stats})")
+    # The tall route on out passes that gather across its 1024-row slices
+    # (whole and part rows, shifts that clip at both plane ends), on
+    # malformed random wires, and on one burst of the CLI's skewed suite.
+    for out_rows in TALL_ROWS:
+        comp, plans = df.slice_crossing_wire(out_rows, 64 + out_rows // 128)
+        err = max(err, compare_flat(df, torch.from_numpy(comp).cuda(),
+                                    df.plan_tensors(plans, "cuda"), out_rows, out_rows))
+        comp, plans = df.random_wire(59 + out_rows // 128, 16, out_rows, 2 * out_rows, 16)
+        err = max(err, compare_flat(df, torch.from_numpy(comp).cuda(),
+                                    df.plan_tensors(plans, "cuda"), 2 * out_rows, out_rows))
+        log(f"decode_flat == plain version, byte for byte: {out_rows} rows, out passes across "
+            "slices and clipped at both ends; random malformed wires (16 blocks)")
+    skewed = skewed_burst(btt, df)
+    err = max(err, compare_flat(df, *skewed[:3], LARGE_BLOCK // 128))
+    log(f"decode_flat == plain version, byte for byte: skewed suite burst ({skewed[4]})")
+    if df.cluster_launches != df.launches:
+        raise AssertionError(f"decode_flat: {df.cluster_launches} of {df.launches} launches above "
+                             "1024 rows took the tall route")
+    log(f"decode_flat resident clusters [{card}]: " + ", ".join(
+        f"{r} rows {df.resident_clusters(r)} of {df.cluster_ctas(r)} CTAs" for r in TALL_ROWS))
     kernels["decode_flat"] = {"max_abs_err": err}
 
     mplanes = planes_of(corpus, MATCH_BLOCKS)
@@ -1333,9 +1399,9 @@ def main() -> int:
             log(f"decode_tables == plain version, byte for byte: random tables, "
                 f"{'well-formed' if kind is True else 'malformed' if kind is False else kind}, "
                 f"{n} x {block} B, S {S}; blocks by path: parallel {paths[0]}, serial {paths[1]}")
-    # The device-memory route at 1 MiB: the tables of a bench unit under a
-    # small plan budget, and random well-formed and malformed tables.
-    dt.gmem_launches = 0
+    # The cluster route at 1 MiB: the tables of a bench unit under a small
+    # plan budget, and random well-formed and malformed tables.
+    dt.cluster_launches = 0
     large_tables = {
         "bench 1 MiB, 4-pass plan budget": table_batch(btt, corpus[:32 * LARGE_BLOCK],
                                                        LARGE_BLOCK, max_passes=4)}
@@ -1346,16 +1412,38 @@ def main() -> int:
         large_tables[f"random {'well-formed' if wf else 'malformed'} 1 MiB"] = (
             torch.from_numpy(r).cuda(), *dt.table_tensors(tabs, ns, "cuda"), LARGE_BLOCK, None,
             f"12 x {LARGE_BLOCK} B, S {S}")
+    # 256 KiB parser tables of the bench corpus (2 CTAs), random tables at
+    # 1300 and 4096 rows (2 and 4 CTAs), and runs of offsets 1-130 over
+    # whole 1 MiB planes.
+    mrows, mtabs, mnseq, mid_lens = dt.parser_tables(
+        [corpus[i * MID_BLOCK:(i + 1) * MID_BLOCK] for i in range(128)])
+    large_tables["bench 256 KiB"] = (torch.from_numpy(mrows).cuda(),
+                                     *dt.table_tensors(mtabs, mnseq, "cuda"), MID_BLOCK, mid_lens,
+                                     f"128 x {MID_BLOCK} B, sequences {int(mnseq.sum())}")
+    for out_rows in (1300, 4096):
+        for wf, S in ((True, 1024), (False, 64)):
+            r, tabs, ns = dt.random_tables(65 + wf + out_rows, 9, S, out_rows * 128,
+                                           well_formed=wf)
+            large_tables[f"random {'well-formed' if wf else 'malformed'} {out_rows} rows"] = (
+                torch.from_numpy(r).cuda(), *dt.table_tensors(tabs, ns, "cuda"),
+                out_rows * 128, None, f"9 x {out_rows * 128} B, S {S}")
     for name, (rows, nseq, tables, block, _, stats) in large_tables.items():
         e, _, paths = compare_tables(dt, rows, nseq, tables, block)
         err = max(err, e)
-        if "plan budget" in name and paths[1]:
+        if ("plan budget" in name or "bench" in name) and paths[1]:
             raise AssertionError(f"decode_tables {name}: {paths[1]} parser blocks walked serially")
-        log(f"decode_tables == plain version, byte for byte: {name} (device-memory route; "
+        log(f"decode_tables == plain version, byte for byte: {name} (cluster route; "
             f"{stats}); blocks by path: parallel {paths[0]}, serial {paths[1]}")
-    if dt.gmem_launches != len(large_tables):
-        raise AssertionError(f"decode_tables: {dt.gmem_launches} of {len(large_tables)} 1 MiB "
-                             f"launches took the device-memory route")
+    rrows, rnseq, rtables, rblock, _, rwant = rle_table_batch(dt, LARGE_BLOCK, 12)
+    e, got, paths = compare_tables(dt, rrows, rnseq, rtables, rblock)
+    if got.reshape(rwant.shape[0], -1).cpu().numpy().tobytes() != rwant.tobytes():
+        raise AssertionError("decode_tables: RLE offsets 1-130 at 1 MiB decode wrong")
+    err = max(err, e)
+    log("decode_tables == plain version, byte for byte: RLE offsets 1-130, 1 MiB blocks "
+        "(cluster route), each the expected period")
+    if dt.cluster_launches != len(large_tables) + 1:
+        raise AssertionError(f"decode_tables: {dt.cluster_launches} of {len(large_tables) + 1} "
+                             "launches above 1224 rows took the cluster route")
     kernels["decode_tables"] = {"max_abs_err": err}
 
     err = 0
@@ -1513,21 +1601,21 @@ def main() -> int:
     counts["streams path"] = {"decode_flat": df.launches}
 
     # The paths of blocks up to 1 MiB: each decode launch must take the
-    # device-memory route.
-    gmem = {}
+    # tall (cluster) route.
+    tall = {}
     for what, run, kernel in (
             ("1 MiB host path", lambda: host_path(btt, btt.Codec.LZ4, corpus, LARGE_BLOCK), df),
             ("CLI skewed suite, 1 MiB", lambda: cli_skewed(card), df),
             ("1 MiB tables path", lambda: large_tables_path(btt, text, card), dt)):
-        df.launches = df.gmem_launches = dt.launches = dt.gmem_launches = 0
+        df.launches = df.cluster_launches = dt.launches = dt.cluster_launches = 0
         run()
         name = "decode_flat" if kernel is df else "decode_tables"
         counts[what] = {name: kernel.launches}
-        gmem[what] = kernel.gmem_launches
-        if kernel.gmem_launches != kernel.launches or (df.launches if kernel is dt
-                                                       else dt.launches):
-            raise AssertionError(f"{what}: {kernel.gmem_launches} of {kernel.launches} {name} "
-                                 f"launches on the device-memory route; other kernel launched")
+        tall[what] = kernel.cluster_launches
+        if kernel.cluster_launches != kernel.launches or (df.launches if kernel is dt
+                                                          else dt.launches):
+            raise AssertionError(f"{what}: {kernel.cluster_launches} of {kernel.launches} {name} "
+                                 f"launches on the cluster route; other kernel launched")
     df.launches = 0
     cli_sync(corpus[:CLI_SYNC_BYTES], card)
     counts["CLI sync suite, 128 KiB"] = {"decode_flat": df.launches}
@@ -1629,45 +1717,49 @@ def main() -> int:
             f"stored bytes a block {clen.mean():.1f} (at most {clen.max()}); "
             f"bound {decode_bound(cpt, clen)}")
 
-    # The device-memory route at 1 MiB: the bench batch (no out pass) and
-    # the text batch (out passes).
-    routes = {}
-    for name in ("bench", "text"):
-        rows, pt, comp_rows, comp_len = large_batches[(name, LARGE_BLOCK)]
-        n1, nr = rows.shape[0], LARGE_BLOCK // 128
-
-        def kernel(rows=rows, pt=pt, comp_rows=comp_rows):
-            return df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nr)
-
-        def plain(rows=rows, pt=pt, comp_rows=comp_rows):
-            return df.decode_flat_reference(rows, pt, comp_rows, nr)
-
-        label = f"decode_flat device-memory route {name} {n1} x 1 MiB"
+    # The tall routes: B1 on the bench batch at 1 MiB (no out pass: the
+    # slice kernel only), the text batch at 1 MiB and 256 KiB (out passes:
+    # the cluster kernel), and one burst of the CLI's skewed suite; B2 on
+    # the 1 MiB bench tables and the 256 KiB bench tables.
+    def timed_route(label, kernel, plain, stem, raw_bytes, bound, shape):
         res, ms = turns(timing, kernel, plain)
-        report(label, card, res, ms, n1 * LARGE_BLOCK)
-        k_ms = wrapper_times(timing, label, card, "decode_flat", kernel)
-        bound = decode_bound(pt, comp_len, LARGE_BLOCK)
+        report(label, card, res, ms, raw_bytes)
+        k_ms = wrapper_times(timing, label, card, stem, kernel)
         log(f"{label}: bound {bound}")
-        routes[name] = {"shape": f"{name} {n1} x 1 MiB", "ms": res["kernel"],
-                        "plain_ms": res["plain"], "kernel_ms": k_ms, "bound_ms": bound[0],
-                        "bound_by": bound[1]}
-    kernels["decode_flat"]["device_memory_route"] = {
-        "launches": sum(v for k, v in gmem.items() if counts[k].get("decode_flat")),
-        "timed": [routes["bench"], routes["text"]]}
-    lrows, lnseq, ltables, lblock, lcomp, _ = large_tables["bench 1 MiB, 4-pass plan budget"]
-    label = f"decode_tables device-memory route bench {lrows.shape[0]} x 1 MiB"
-    res, ms = turns(timing, lambda: dt.decode_blocks(lrows, lnseq, ltables, out_rows=lblock // 128),
-                    lambda: dt.decode_tables_reference(lrows, lnseq, ltables, lblock // 128))
-    report(label, card, res, ms, lrows.shape[0] * lblock)
-    k_ms = wrapper_times(timing, label, card, "decode_tables", lambda: dt.decode_blocks(
-        lrows, lnseq, ltables, out_rows=lblock // 128))
-    bound = tables_bound(lrows, lnseq, lcomp, lblock)
-    log(f"{label}: bound {bound}")
-    kernels["decode_tables"]["device_memory_route"] = {
-        "launches": gmem["1 MiB tables path"],
-        "timed": [{"shape": f"bench {lrows.shape[0]} x 1 MiB", "ms": res["kernel"],
-                   "plain_ms": res["plain"], "kernel_ms": k_ms, "bound_ms": bound[0],
-                   "bound_by": bound[1]}]}
+        return {"shape": shape, "ms": res["kernel"], "plain_ms": res["plain"], "kernel_ms": k_ms,
+                "bound_ms": bound[0], "bound_by": bound[1]}
+
+    flat_shapes = {f"{name} {rows.shape[0]} x {block >> 10} KiB": (rows, pt, cr, clen, block)
+                   for (name, block), (rows, pt, cr, clen) in large_batches.items()
+                   if (name, block) != ("bench", MID_BLOCK)}
+    flat_shapes[f"skewed burst {SKEWED_BURST} x 4 KiB-1 MiB"] = (*skewed[:4], LARGE_BLOCK)
+    timed = []
+    for shape, (rows, pt, cr, clen, block) in flat_shapes.items():
+        nr = block // 128
+        timed.append(timed_route(
+            f"decode_flat tall route {shape}",
+            lambda rows=rows, pt=pt, cr=cr, nr=nr: df.decode_blocks_flat(rows, pt, comp_rows=cr,
+                                                                         out_rows=nr),
+            lambda rows=rows, pt=pt, cr=cr, nr=nr: df.decode_flat_reference(rows, pt, cr, nr),
+            "decode_flat", rows.shape[0] * block, decode_bound(pt, clen, block), shape))
+    kernels["decode_flat"]["cluster_route"] = {
+        "launches": sum(v for k, v in tall.items() if counts[k].get("decode_flat")),
+        "resident_clusters": {str(r): df.resident_clusters(r) for r in TALL_ROWS},
+        "timed": timed}
+    timed = []
+    for name in ("bench 1 MiB, 4-pass plan budget", "bench 256 KiB"):
+        lrows, lnseq, ltables, lblock, lcomp, _ = large_tables[name]
+        shape = f"bench {lrows.shape[0]} x {lblock >> 10} KiB tables"
+        timed.append(timed_route(
+            f"decode_tables cluster route {shape}",
+            lambda r=lrows, n=lnseq, t=ltables, b=lblock: dt.decode_blocks(r, n, t,
+                                                                          out_rows=b // 128),
+            lambda r=lrows, n=lnseq, t=ltables, b=lblock: dt.decode_tables_reference(
+                r, n, t, b // 128),
+            "decode_tables", lrows.shape[0] * lblock, tables_bound(lrows, lnseq, lcomp, lblock),
+            shape))
+    kernels["decode_tables"]["cluster_route"] = {"launches": tall["1 MiB tables path"],
+                                                 "timed": timed}
 
     # B5 and B4 on the bench batches (the kernels line) and on the text
     # batch with detect_fft's offsets.  A block with noff = 0 needs no plane
@@ -1907,8 +1999,8 @@ def main() -> int:
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None} | ({"shape": k["shape"]} if "shape" in k else {})
-                    | ({"device_memory_route": k["device_memory_route"]}
-                       if "device_memory_route" in k else {})
+                    | {key: k[key] for key in ("cluster_route", "device_memory_route")
+                       if key in k}
                     | ({"large_blocks": k["large_blocks"]} if "large_blocks" in k else {}))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {

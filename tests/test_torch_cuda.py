@@ -8,10 +8,12 @@ its plain PyTorch version on the card, and the engine's
 paths there (host and device compress, tables, Zstd, the tpu matchers,
 batched decode) and the multi-device dry run's.
 
-Blocks of 256 KiB to 1 MiB take B1's and B2's device-memory routes: both
-against their plain versions (bench and text corpora, class-pure batches,
-random wires and tables), one B1 launch whose output passes 2^31 bytes, the
-engine at 1 MiB, the CLI's skewed suite in LZ4, Snappy and Zstd,
+Blocks of 256 KiB to 1 MiB take B1's and B2's cluster routes (a plane
+spread over a thread-block cluster's shared memory): both against their
+plain versions (bench and text corpora, class-pure batches, random wires
+and tables at heights of 1152 to 8192 rows, out passes that gather across
+slices, a skewed burst, RLE tables), one B1 launch whose output passes 2^31
+bytes, the engine at 1 MiB, the CLI's skewed suite in LZ4, Snappy and Zstd,
 ``configs_bench`` config 2 at 1 GiB and ``multihost_bench --launch 2``.
 
 They skip without CUDA.  The machine with the card has no JAX, and
@@ -124,10 +126,11 @@ def test_kernel_matches_plain_version(batch, cuda_device):
 
 
 def test_kernel_rejects_oversized_plane(cuda_device):
-    # Planes above 1024 rows take the device-memory route; the kernel's
-    # limit is 65536 rows (8 MiB blocks), past which the launch is refused.
+    # Planes above 1024 rows take the cluster route; the kernel's limit is a
+    # cluster of 8 slices, 8192 rows (1 MiB blocks), past which the launch
+    # is refused.
     rows = torch.zeros((1, 256), dtype=torch.uint8, device=cuda_device)
-    tiles = 65536 // 128 + 1
+    tiles = 8192 // 128 + 1
     plans = tflat.plan_tensors({
         "p_used": np.zeros(1, np.int32), "p_off": np.zeros(1, np.int32),
         "p0": np.zeros(1, np.int32),
@@ -1079,17 +1082,18 @@ def test_dryrun_multichip_decodes_on_the_card(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# Blocks of 256 KiB to 1 MiB: the device-memory routes of B1 and B2
+# Blocks of 256 KiB to 1 MiB: the cluster routes of B1 and B2
 
 
-def large_unit(device, data: bytes, block: int, codec=btt.Codec.LZ4, **kw):
+def large_unit(device, data: bytes, block: int, codec=btt.Codec.LZ4, sizes=None,
+               burst_size=1024, **kw):
     """An engine of ``block``-byte blocks and the planned (or tabled) unit
-    of ``data`` on it."""
-    n = -(-len(data) // block)
-    cfg = btt.EngineConfig(codec=codec, block_size=block, burst_size=min(n, 1024),
+    of ``data`` (cut at ``sizes`` when given) on it."""
+    n = len(sizes) if sizes is not None else -(-len(data) // block)
+    cfg = btt.EngineConfig(codec=codec, block_size=block, burst_size=min(n, burst_size),
                            max_pool_slots=n + 32, commit="deferred", plan_build="lazy", **kw)
     eng = btt.Engine(cfg, device=device).initialize()
-    unit = eng.compress(data)
+    unit = eng.compress(data, sizes=sizes)
     eng.ensure_plans(unit)
     return eng, unit
 
@@ -1108,10 +1112,10 @@ def test_decode_flat_device_memory_route_matches_plain(corpus, block, cuda_devic
         if not idx.numel():
             continue
         r, p = tflat.select_blocks(rows, pt, idx)
-        before = tflat.gmem_launches
+        before = tflat.cluster_launches
         got = tflat.decode_blocks_flat(r, p, comp_rows=comp_rows, out_rows=nrows)
         torch.cuda.synchronize()
-        assert tflat.gmem_launches == before + 1
+        assert tflat.cluster_launches == before + 1
         assert torch.equal(got, tflat.decode_flat_reference(r, p, comp_rows, nrows)), cls
         host = got.reshape(idx.numel(), -1).cpu().numpy()
         for j, b in enumerate(idx.tolist()):
@@ -1121,14 +1125,66 @@ def test_decode_flat_device_memory_route_matches_plain(corpus, block, cuda_devic
     eng.release()
 
 
-@pytest.mark.parametrize("out_rows,dcap,n", [(2048, 64, 40), (8192, 16, 12), (8192, 64, 133)])
+@pytest.mark.parametrize("out_rows,dcap,n", [(2048, 64, 40), (8192, 16, 12), (8192, 64, 133),
+                                          (1152, 16, 21), (4096, 32, 17)])
 def test_decode_flat_device_memory_route_on_random_wires(out_rows, dcap, n, cuda_device):
+    # Malformed plans (every pass id, anchors out of range, RAW, dense,
+    # comp and out passes with random ranges and shifts that cross slices
+    # and clip at both plane ends) at heights of 1152 (a last slice of 128
+    # rows) to 8192 rows.
     comp, plans = tflat.random_wire(59 + n, n, out_rows, 2 * out_rows, dcap)
     rows = torch.from_numpy(comp).to(cuda_device)
     pt = tflat.plan_tensors(plans, cuda_device)
+    before = tflat.cluster_launches
     got = tflat.decode_blocks_flat(rows, pt, comp_rows=2 * out_rows, out_rows=out_rows)
     torch.cuda.synchronize()
+    assert tflat.cluster_launches == before + 1
     assert torch.equal(got, tflat.decode_flat_reference(rows, pt, 2 * out_rows, out_rows))
+
+
+@pytest.mark.parametrize("out_rows", [1152, 2048, 4096, 8192])
+def test_decode_flat_cluster_route_gathers_across_slices(out_rows, cuda_device):
+    comp, plans = tflat.slice_crossing_wire(out_rows, 64 + out_rows // 128)
+    rows = torch.from_numpy(comp).to(cuda_device)
+    pt = tflat.plan_tensors(plans, cuda_device)
+    assert tflat.block_classes(pt)["out passes"].numel() == 4
+    before = tflat.cluster_launches
+    got = tflat.decode_blocks_flat(rows, pt, comp_rows=out_rows, out_rows=out_rows)
+    torch.cuda.synchronize()
+    assert tflat.cluster_launches == before + 1
+    want = tflat.decode_flat_reference(rows, pt, out_rows, out_rows)
+    assert torch.equal(got, want)
+    assert not torch.equal(want.reshape(4, -1), rows)    # the out passes moved bytes
+
+
+def test_decode_flat_cluster_route_on_a_skewed_burst(cuda_device):
+    # The CLI's skewed suite (BASELINE config 4): 4 KiB to 1 MiB blocks of
+    # three kinds, each on an 8192-row plane, every burst of 32 (RAW copies
+    # and blocks of one or two dense passes, which the planner gives every
+    # LZ4 block of the suite, in one launch) against the plain version.
+    from bitar_tpu_torch.cli.demo import make_skewed_input
+
+    block = 1 << 20
+    data, sizes = make_skewed_input(block, 96)
+    eng, unit = large_unit(cuda_device, data, block, sizes=sizes, burst_size=32)
+    rows = eng.arena.gather_burst([r.slot for r in unit.refs])
+    pt, comp_rows = unit.plan_device_arrays(), unit.plan_comp_rows
+    classes = tflat.block_classes(pt)
+    assert classes["raw"].numel() and classes["no out pass"].numel()
+    ends = np.cumsum([0] + sizes)
+    for start in range(0, 96, 32):
+        idx = torch.arange(start, start + 32, device=cuda_device)
+        r, p = tflat.select_blocks(rows, pt, idx)
+        before = tflat.cluster_launches
+        got = tflat.decode_blocks_flat(r, p, comp_rows=comp_rows, out_rows=block // 128)
+        torch.cuda.synchronize()
+        assert tflat.cluster_launches == before + 1
+        assert torch.equal(got, tflat.decode_flat_reference(r, p, comp_rows, block // 128))
+        host = got.reshape(32, -1).cpu().numpy()
+        for j in range(32):
+            b = start + j
+            assert host[j, :sizes[b]].tobytes() == data[ends[b]:ends[b + 1]], b
+    eng.release()
 
 
 def test_decode_flat_launch_past_2gib_of_output(cuda_device):
@@ -1141,10 +1197,10 @@ def test_decode_flat_launch_past_2gib_of_output(cuda_device):
                     for i in range(n))
     eng, unit = large_unit(cuda_device, data, block)
     assert unit.plan_flat["host_blocks"].size == 0 and n * block > 2**31
-    before = tflat.gmem_launches
+    before = tflat.cluster_launches
     out = eng.prepare_device_decode(unit)()
     torch.cuda.synchronize()
-    assert tflat.gmem_launches == before + 1
+    assert tflat.cluster_launches == before + 1
     want = torch.from_numpy(np.frombuffer(data, np.uint8)).to(cuda_device)
     assert torch.equal(out.view(-1), want)
     del out, want
@@ -1166,10 +1222,10 @@ def test_decode_tables_device_memory_route_matches_plain(cuda_device):
         nseq, tt = tdt.table_tensors(tabs, ns, cuda_device)
         rows = torch.from_numpy(r).to(cuda_device)
         paths = torch.zeros(2, dtype=torch.int32, device=cuda_device)
-        before = tdt.gmem_launches
+        before = tdt.cluster_launches
         got = tdt.decode_blocks(rows, nseq, tt, out_rows=block // 128, path_counts=paths)
         torch.cuda.synchronize()
-        assert tdt.gmem_launches == before + 1
+        assert tdt.cluster_launches == before + 1
         assert torch.equal(got, tdt.decode_tables_reference(rows, nseq, tt, block // 128)), name
         wf = int(tdt.well_formed(nseq, tt).sum())
         assert paths.tolist() == [wf, rows.shape[0] - wf], name
@@ -1180,24 +1236,79 @@ def test_decode_tables_device_memory_route_matches_plain(cuda_device):
 @pytest.mark.parametrize("block", [160 * 1024, 256 * 1024])
 def test_decode_tables_routes_meet_at_the_shared_limit(block, cuda_device):
     # 160 KiB is past the shared route (~150 KiB beside the windows);
-    # both sizes decode the same through the device-memory route.
+    # both sizes decode the same through the cluster route (2 CTAs each).
     rows, tabs, ns = tdt.random_tables(62, 16, 1024, block, well_formed=True)
     nseq, tt = tdt.table_tensors(tabs, ns, cuda_device)
     r = torch.from_numpy(rows).to(cuda_device)
-    before = tdt.gmem_launches
+    before = tdt.cluster_launches
     got = tdt.decode_blocks(r, nseq, tt, out_rows=block // 128)
     torch.cuda.synchronize()
-    assert tdt.gmem_launches == before + 1
+    assert tdt.cluster_launches == before + 1
     assert torch.equal(got, tdt.decode_tables_reference(r, nseq, tt, block // 128))
+
+
+@pytest.mark.parametrize("out_rows", [1300, 2048, 4096, 8192])
+def test_decode_tables_cluster_route_by_plane_height(out_rows, cuda_device):
+    # Past the shared route (1224 rows) at heights that are and are not a
+    # whole number of 128 KiB slices: the parser's tables of markdown and
+    # random well-formed (chains, offsets 1-130, extents past the plane) and
+    # malformed tables (the serial walk), in one launch each.
+    block = out_rows * 128
+    text = make_text_corpus(-(-6 * block // (128 * 1024)))
+    parser = tdt.parser_tables([text[i * block:(i + 1) * block] for i in range(6)])[:3]
+    batches = {"parser": parser,
+               "well-formed": tdt.random_tables(65, 9, 1024, block, well_formed=True),
+               "malformed": tdt.random_tables(66, 9, 64, block, well_formed=False)}
+    for name, (r, tabs, ns) in batches.items():
+        nseq, tt = tdt.table_tensors(tabs, ns, cuda_device)
+        rows = torch.from_numpy(r).to(cuda_device)
+        paths = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+        before = tdt.cluster_launches
+        got = tdt.decode_blocks(rows, nseq, tt, out_rows=out_rows, path_counts=paths)
+        torch.cuda.synchronize()
+        assert tdt.cluster_launches == before + 1
+        assert torch.equal(got, tdt.decode_tables_reference(rows, nseq, tt, out_rows)), name
+        wf = int(tdt.well_formed(nseq, tt).sum())
+        assert paths.tolist() == [wf, rows.shape[0] - wf], name
+        assert (wf == rows.shape[0]) == (name != "malformed"), name
+
+
+def test_decode_tables_cluster_route_on_rle_tables_at_1mib(cuda_device):
+    # Runs of offsets 1-130 over a whole 1 MiB plane: d literal bytes, one
+    # match of offset d to 5 bytes before the end, 5 literals; a block of
+    # at most 8 sequences, each CTA sweeping the bytes it holds.
+    block, n = 1 << 20, 12
+    offs = [1, 2, 3, 4, 7, 16, 31, 64, 100, 127, 128, 130]
+    rng = np.random.default_rng(67)
+    rows = rng.integers(0, 256, (n, 256), np.uint8)
+    tables = {k: np.zeros((n, 128), np.int32) for k in ("lit_ptr", "lit_len", "off", "mlen",
+                                                         "out_pos")}
+    for i, d in enumerate(offs):
+        tables["lit_len"][i, :2] = [d, 5]
+        tables["off"][i, 0] = d
+        tables["mlen"][i, 0] = block - d - 5
+        tables["lit_ptr"][i, 1] = d
+        tables["out_pos"][i, 1] = block - 5
+    nseq, tt = tdt.table_tensors(tables, np.full(n, 2, np.int32), cuda_device)
+    r = torch.from_numpy(rows).to(cuda_device)
+    before = tdt.cluster_launches
+    got = tdt.decode_blocks(r, nseq, tt, out_rows=block // 128)
+    torch.cuda.synchronize()
+    assert tdt.cluster_launches == before + 1
+    assert torch.equal(got, tdt.decode_tables_reference(r, nseq, tt, block // 128))
+    host = got.reshape(n, -1).cpu().numpy()
+    for i, d in enumerate(offs):
+        want = np.concatenate([np.resize(rows[i, :d], block - 5), rows[i, d:d + 5]])
+        assert host[i].tobytes() == want.tobytes(), d
 
 
 def test_engine_at_1mib_decodes_every_block_through_b1(cuda_device):
     data = make_corpus(1024)                  # 128 x 1 MiB
     eng, unit = large_unit(cuda_device, data, 1 << 20)
-    before = tflat.gmem_launches
+    before = tflat.cluster_launches
     assert eng.decompress(unit).tobytes() == data
     assert unit.plan_flat["host_blocks"].size == 0 and eng.stats.host_decode_bursts == 0
-    assert tflat.gmem_launches > before
+    assert tflat.cluster_launches > before
     planes = eng.prepare_device_decode(unit)()
     assert planes.reshape(-1).cpu().numpy().tobytes() == data
     eng.release()

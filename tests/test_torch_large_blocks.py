@@ -6,9 +6,10 @@ the card; here they are held to the JAX package's: ``decode_flat_reference``
 to the numpy oracle ``decode_flat_numpy`` on the engine's own wire (banded
 above 1024 rows, and equal to the JAX engine's), ``decode_tables_reference``
 to the JAX B2 kernel in interpret mode, and both engines to each other at
-256 KiB and 1 MiB (uniform and skewed units, LZ4, Snappy and Zstd).  Inputs
-come from numpy seeds and the bench corpora; tolerance 0 (bytes, sizes,
-status).
+256 KiB and 1 MiB (uniform and skewed units, LZ4, Snappy and Zstd).  The
+kernels' launch geometry (``cluster_ctas``: one CTA, or a cluster's CTAs, a
+block) is checked for every plane height of 128 to 8192 rows.  Inputs come
+from numpy seeds and the bench corpora; tolerance 0 (bytes, sizes, status).
 """
 
 import jax.numpy as jnp
@@ -91,6 +92,21 @@ def test_flat_reference_equals_jax_oracle_on_random_wires(out_rows):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("out_rows", [1152, 8192])
+def test_flat_reference_equals_jax_oracle_on_slice_crossing_wires(out_rows):
+    # Out passes that gather across the kernel's 1024-row slices, whole and
+    # part rows, and clip at both plane ends (the wire the card tests hold
+    # the cluster route to).
+    comp, plans = df.slice_crossing_wire(out_rows, 64 + out_rows // 128)
+    pt = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in plans.items()}
+    got = df.decode_blocks_flat(torch.from_numpy(comp), df.plan_tensors(plans, "cpu"),
+                                comp_rows=out_rows, out_rows=out_rows)
+    want = jflat.decode_flat_numpy(list(comp), plans, out_rows, out_rows)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got.numpy().reshape(4, -1) != comp).any()
+    assert pt["p0"].tolist() == [1] * 4
+
+
 def test_tables_reference_equals_jax_b2_at_1mib():
     # The JAX B2 in interpret mode takes ~10 s here at 1 MiB even for blocks
     # of one or two sequences (its trace and compile), so this holds it to
@@ -169,6 +185,36 @@ def test_engine_parity_at_large_blocks(codec, block, shape):
     assert ref.decompress(mine).tobytes() == data
     port.release()
     ref.release()
+
+
+def test_decode_flat_launch_geometry_by_plane_height():
+    # B1: one CTA a block up to 1024 rows (the shared route), else a
+    # cluster of one CTA per 1024 rows (2 at 256 KiB, 8 at 1 MiB), none
+    # past 8192 rows.
+    for rows in range(128, 8193, 128):
+        want = 1 if rows <= 1024 else -(-rows // 1024)
+        assert df.cluster_ctas(rows) == want, rows
+    assert df.cluster_ctas(2048) == 2 and df.cluster_ctas(8192) == 8
+    assert df.cluster_ctas(8192 + 128) == 0 and df.cluster_ctas(0) == 0
+
+
+def test_decode_tables_launch_geometry_by_plane_height():
+    # B2: one CTA a block while the plane fits in 227 KiB of shared memory
+    # beside two windows of 256 entries (20 bytes each) and a 64 KiB map,
+    # that is up to 1224 rows; else a cluster of 2, 4 or 8 CTAs, the least
+    # that holds the plane in 128 KiB each (its 1 KiB stripes are dealt
+    # round the cluster); none past 1 MiB.
+    for rows in range(128, 8193, 128):
+        if rows * 128 + 2 * 256 * 20 + 65536 <= 232448:
+            want = 1
+        else:
+            want = 2 if rows <= 2048 else 4 if rows <= 4096 else 8
+        assert dt.cluster_ctas(rows) == want, rows
+    assert dt.cluster_ctas(1224) == 1 and dt.cluster_ctas(1225) == 2
+    assert dt.cluster_ctas(3072) == 4 and dt.cluster_ctas(8192) == 8
+    # Small planes keep the shared route (fewer threads, a smaller window).
+    assert all(dt.cluster_ctas(r) == 1 for r in range(1, 128))
+    assert dt.cluster_ctas(8193) == 0 and dt.cluster_ctas(0) == 0
 
 
 def test_h100_record_takes_1mib_and_refuses_2mib():

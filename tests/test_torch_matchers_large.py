@@ -2,10 +2,11 @@
 to 1 MiB, in the port against the JAX package, on the CPU.
 
 * the engines' containers at 256 KiB (``compress_matcher="tpu"``, LZ4 and
-  Snappy; ``"device"`` with ``match_offsets`` at ``min_match`` 9 and 64)
-  are equal byte for byte, and both packages raise the same errors there:
-  the worst-case sequence budget at ``min_match`` 6, and the detectors,
-  which take no block above 128 KiB in either package;
+  Snappy; ``"tpu-sort"``, LZ4; ``"device"`` with ``match_offsets`` at
+  ``min_match`` 9 and 64) are equal byte for byte, and both packages
+  raise the same errors there: the worst-case sequence budget at
+  ``min_match`` 6, and the detectors, which take no block above 128 KiB in
+  either package;
 * at 1 MiB, on two blocks: B3 (``find_matches``, offset 65,535),
   ``parse_and_size`` and the emitter against the JAX ``find_matches``
   (interpret mode), ``parse_and_size`` and its XLA ``materialize``;
@@ -69,9 +70,10 @@ def engines(codec: str, block: int, **kw):
 @pytest.mark.parametrize("codec,kw", [
     ("lz4", dict(compress_matcher="tpu")),
     ("snappy", dict(compress_matcher="tpu")),
+    ("lz4", dict(compress_matcher="tpu-sort")),
     ("lz4", dict(compress_matcher="device", match_offsets=FAR_OFFSETS, min_match=9)),
     ("lz4", dict(compress_matcher="device", match_offsets=FAR_OFFSETS, min_match=64)),
-], ids=["tpu-lz4", "tpu-snappy", "device-offsets-mm9", "device-offsets-mm64"])
+], ids=["tpu-lz4", "tpu-snappy", "tpu-sort-lz4", "device-offsets-mm9", "device-offsets-mm64"])
 def test_engine_containers_at_256k_match_jax(codec, kw):
     block = 256 * KIB
     data = engine_data(block)
@@ -80,9 +82,11 @@ def test_engine_containers_at_256k_match_jax(codec, kw):
     np.testing.assert_array_equal(tu.manifest.comp_len, ju.manifest.comp_len)
     assert tu.to_host().to_bytes() == ju.to_host().to_bytes()
     # The phrase compresses at offset 24; the period-65535 block only through
-    # the farthest offset.
+    # the farthest offset, which match_offsets list and the sort matcher
+    # finds among all offsets of the window.
     assert tu.manifest.comp_len[0] < block // 8
-    assert (tu.manifest.comp_len[1] < block // 2) == ("match_offsets" in kw)
+    far = "match_offsets" in kw or kw["compress_matcher"] == "tpu-sort"
+    assert (tu.manifest.comp_len[1] < block // 2) == far
     assert te.decompress(tu).tobytes() == data
     je.release()
     te.release()

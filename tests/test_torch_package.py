@@ -166,6 +166,40 @@ def test_kernel_time_ms_profiles_again_after_a_window_without_the_kernel(
         assert len(windows) == timing.PROFILE_TRIES
 
 
+def test_kernel_time_ms_sums_the_kernels_a_call_launches(monkeypatch):
+    # B1's tall route launches two kernels a call: the time of a call is the
+    # mean of each kernel summed; kernels of other names do not count.
+    import torch
+
+    from bitar_tpu_torch.utils import timing
+
+    def average(key, total, count):
+        return type("Average", (), {"key": key, "device_time_total": total, "count": count})()
+
+    class Profile:
+        def __init__(self, **kw):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [average("decode_flat_kernel_slices(Args)", 20.0, 2),
+                    average("decode_flat_kernel_cluster(Args)", 60.0, 2),
+                    average("emit_kernel(Args)", 500.0, 2)]
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(timing, "PROFILE_PAD_S", 0.0)
+    assert timing.kernel_time_ms(lambda: None, 2, "decode_flat_kernel") == pytest.approx(0.04)
+    assert timing.kernel_time_ms(lambda: None, 2, "decode_flat_kernel_cluster") == pytest.approx(
+        0.03)
+
+
 def test_require_builds_its_message_only_on_failure():
     from bitar_tpu_torch.ops._build import require
 
