@@ -42,33 +42,82 @@
 // MXU row fetch and its bf16 plane are not carried over.
 //
 // Planes taller than 1024 rows (blocks of 256 KiB to 1 MiB: up to 8192
-// rows) take the device-memory route, a second instantiation of the same
-// kernel (kGlobal), as B1's (csrc/decode_flat.cu): the plane is the block's
-// own output row, zeroed first; shared memory holds one pass's cells, the
-// pass classes and the queue slots.  Comp-only runs go as above, thread r
-// taking rows r, r + 1024, ...  A plane-reading pass reads S as it stood
-// before the pass: each warp gathers its rows' new words into the CTA's
-// scratch row in device memory, __syncthreads(), the words go to the plane,
-// __syncthreads() (a CTA's global writes are visible to its threads after
-// the barrier).  Such a pass moves its words three times more through L2
-// than the shared route through shared memory; the block order and the
-// pass classes are the shared route's.
+// rows) take the tall route, after B1's (csrc/decode_flat.cu).  What held
+// its first version (one CTA a block with the plane in device memory: 32
+// blocks of 1 MiB on 32 of 132 SMs, and every plane-reading pass moving
+// its words through a scratch row and L2 three times) at 30x its bound was
+// the SMs it left idle and those trips.  The plane is cut into 1024-row
+// slices, each in the shared route's padded layout, and the route is two
+// kernels on the launch's stream behind the block order:
+//   * the slice kernel: persistent CTAs on every SM take (block, slice)
+//     units by descending p_used.  A pass's class belongs to the whole
+//     block (another slice's plane-reading pass k reads this slice as it
+//     stood before k), so a slice cannot tell alone how far its row-local
+//     run may go.  It reads each of its rows' cells once, kCellBatch passes
+//     at a time (the next batch in flight): it classes them (the slice's
+//     classes, one bit a pass, OR-ed by atomics in shared memory), and
+//     applies them, thread r to row r as above, up to its stop, the first
+//     pass at which one of its rows reads an out row.  It stores the slice
+//     as it stood at its stop, the stop and its classes.  A block whose
+//     slices all stop at its last pass (the bench corpus's RAW and
+//     single-pass blocks) is then done, with its cells read once.
+//   * the cluster kernel: a thread-block cluster of C = ceil(out_rows /
+//     1024) CTAs (2 at 256 KiB, 8 at 1 MiB) takes each block that has a
+//     plane-reading pass, in the same order; CTA r holds rows [1024 r,
+//     1024 (r + 1)).  The block's first plane-reading pass is the least
+//     stop of its slices, its classes the OR of theirs.  A CTA whose stop
+//     is that pass loads its slice back; any other applies the block's
+//     leading comp-only run again from its cells (on planner plans the
+//     slices whose rows have no match at the first out pass).  Then per
+//     plane-reading pass: the pass's cells of the CTA's rows staged,
+//     cluster barrier, each warp gathers its rows' words, cluster barrier,
+//     the words written (and the next pass's cells, loaded during the
+//     gather, staged).  Every read sees the plane as it stood before the
+//     pass.  A row's two candidate source rows are resolved once to byte
+//     pointers: a comp row, a row of the CTA that holds it (distributed
+//     shared memory) or a row of zeros in shared memory; a lane reads its
+//     word from one row as two aligned words and a funnel shift, else byte
+//     by byte.  (Resolving each byte's row and rank on its own made the
+//     gather, which is bound by what it issues a row, the slowest of the
+//     variants timed; batching several rows' loads, or freeing registers by
+//     staging half the gathered words in shared memory, bought nothing.)
+//     Comp-only runs between them stay row-local, behind a CTA barrier,
+//     kCellBatch cells at a time.  Each slice leaves in 16-byte stores.  A
+//     cluster's next block is taken by its rank-0 CTA and written into
+//     every CTA's slot through distributed shared memory before a cluster
+//     barrier; the grid is as many clusters as can be resident at once
+//     (cudaOccupancyMaxActiveClusters), and it exits at once when no block
+//     has a plane-reading pass.
+// Quiet blocks never take a cluster: an H100 holds only 15 clusters of 8
+// such CTAs (120 of its 132 SMs).  What bounds the route now: in the
+// cluster kernel the chain of a block's plane-reading passes, each two
+// cluster barriers and a gather of every active row; at 1 MiB, 32 blocks
+// take 3 rounds of 15 clusters.  A cluster launch the card refuses returns
+// its error.
+
+#include <cooperative_groups.h>
 
 #include <cstdint>
 
 #include "cuda_util.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 1024;                    // the shared route's plane
-constexpr int kMaxGlobalRows = 8192;              // the device-memory route's: 1 MiB
+constexpr int kMaxRows = 1024;                    // the shared route's plane, a tall route's slice
+constexpr int kMaxCluster = 8;                    // the portable cluster size
+constexpr int kMaxTallRows = kMaxRows * kMaxCluster;   // the tall route's plane: 1 MiB
 constexpr int kRowsPerWarp = kMaxRows / kWarps;   // 32
 constexpr int kRowWords = 33;                     // a plane row: 32 words and one of padding
-constexpr int kMaxClassed = 4096;                 // passes the prologue classes; later ones read the plane
+constexpr int kMaxClassed = 4096;                 // passes classed; later ones read the plane
+constexpr int kClassWords = kMaxClassed / 32;
 constexpr int kOrderBuckets = 4096;               // pass counts the block order tells apart
+constexpr int kCellBatch = 4;                     // passes whose cells a tall thread loads at once
 constexpr unsigned kFull = 0xffffffffu;
+static_assert(32 % kCellBatch == 0, "a batch's classes lie in one word");
 
 struct Args {
   const uint8_t* comp;          // [n, comp_rows, 128]
@@ -80,24 +129,37 @@ struct Args {
   const int32_t* order;         // [n]: the blocks in the order to take them
   uint8_t* out;                 // [n, out_rows, 128]
   int out_rows, w_rows, n;
-  int* queue;                   // [next block to take, CTAs done]: 0 at launch
-  uint32_t* scratch;            // device-memory route: [grid, out_rows * 32] words
+  // Shared route: [next block, CTAs done].  Tall route: [next unit, CTAs
+  // (then clusters) done, next block of the cluster kernel, whether a block
+  // has a plane-reading pass].  0 at launch.
+  int* queue;
+  int slices;                   // tall route: C, a plane's 1024-row slices
+  int class_words;              // tall route: words of a slice's classes
+  int* stops;                   // tall route: [n, slices]
+  uint32_t* classes;            // tall route: [n, slices, class_words]
 };
 
-// Words of a plane row: padded in shared memory, the output row's 32 on the
-// device-memory route.
-template <bool kGlobal>
-constexpr int kRowStride = kGlobal ? 32 : kRowWords;
-
-// Shared memory: the padded plane (the output row on the device-memory
-// route), one pass's cells, the pass classes, the next block.
+// Shared memory: the padded plane (a tall route's slice), one pass's cells,
+// the pass classes, the next block.
 struct Smem {
-  uint32_t* plane;              // [out_rows][kRowStride]
-  int32_t* se;                  // [out_rows]
-  int32_t* shift;               // [out_rows]
-  uint32_t* reads;              // [kMaxClassed / 32]: bit k set when pass k reads the plane
+  uint32_t* plane;              // [rows][kRowWords]
+  int32_t* se;                  // [rows]
+  int32_t* shift;               // [rows]
+  uint32_t* reads;              // [kClassWords]: bit k set when pass k reads the plane
   int* next;                    // [2]
+  uint32_t* zeros;              // tall route: [32], a row of zeros
 };
+
+__device__ __forceinline__ Smem smem_at(uint32_t* smem, int rows) {
+  Smem s;
+  s.plane = smem;
+  s.se = reinterpret_cast<int32_t*>(smem + rows * kRowWords);
+  s.shift = s.se + rows;
+  s.reads = reinterpret_cast<uint32_t*>(s.shift + rows);
+  s.next = reinterpret_cast<int*>(s.reads + kClassWords);
+  s.zeros = reinterpret_cast<uint32_t*>(s.next + 4);
+  return s;
+}
 
 // One cell of row r: its active lanes [lo, hi) and their first and last q.
 struct Cell {
@@ -133,25 +195,32 @@ __device__ __forceinline__ bool reads_plane(const Cell& c, const Args& a) {
   return (has_a && ra >= lo && ra < hi) || (has_b && ra + 1 >= lo && ra + 1 < hi);
 }
 
-template <bool kGlobal>
-__device__ __forceinline__ uint32_t plane_byte(const uint32_t* plane, uint32_t row,
-                                               uint32_t lane) {
-  return reinterpret_cast<const uint8_t*>(plane)[row * (4 * kRowStride<kGlobal>) + lane];
-}
+// Out rows as the passes read them: the shared plane; none in a comp-only
+// pass (which reads no out row); a slice of the cluster's plane.
+struct SharedPlane {
+  const uint32_t* p;
+  __device__ __forceinline__ uint32_t byte(uint32_t row, uint32_t lane) const {
+    return reinterpret_cast<const uint8_t*>(p)[row * (4 * kRowWords) + lane];
+  }
+};
+
+struct NoPlane {
+  __device__ __forceinline__ uint32_t byte(uint32_t, uint32_t) const { return 0; }
+};
 
 // S[row][lane] of block comp.  The plane is read with plain loads: it is
 // written during the kernel.
-template <bool kGlobal>
-__device__ __forceinline__ uint32_t s_byte(const uint8_t* comp, const uint32_t* plane,
+template <typename Plane>
+__device__ __forceinline__ uint32_t s_byte(const uint8_t* comp, const Plane& plane,
                                            const Args& a, uint32_t row, uint32_t lane) {
   if (row < static_cast<uint32_t>(a.comp_rows)) return __ldg(comp + row * 128u + lane);
   row -= a.comp_rows;
-  if (row < static_cast<uint32_t>(a.out_rows)) return plane_byte<kGlobal>(plane, row, lane);
+  if (row < static_cast<uint32_t>(a.out_rows)) return plane.byte(row, lane);
   return 0;
 }
 
-__device__ __forceinline__ bool is_plane_pass(const Smem& s, int k) {
-  return k >= kMaxClassed || ((s.reads[k >> 5] >> (k & 31)) & 1u);
+__device__ __forceinline__ bool is_plane_pass(const uint32_t* reads, int k) {
+  return k >= kMaxClassed || ((reads[k >> 5] >> (k & 31)) & 1u);
 }
 
 // One comp-only pass on row r.  In the usual cell (q does not wrap, the
@@ -160,9 +229,9 @@ __device__ __forceinline__ bool is_plane_pass(const Smem& s, int k) {
 // region (a comp-only pass reads no out row).  It is copied 16 bytes at a
 // time from at most five aligned comp words, all loaded before any is used;
 // any other cell goes byte by byte.
-template <bool kGlobal>
+template <typename Plane>
 __device__ __forceinline__ void comp_pass_row(const uint8_t* comp, uint8_t* row, const Cell& c,
-                                              const Smem& s, const Args& a) {
+                                              const Plane& plane, const Args& a) {
   const uint32_t cap = static_cast<uint32_t>(a.w_rows - 2);
   const uint32_t comp_len = static_cast<uint32_t>(a.comp_rows) * 128u;
   const uint32_t n = c.hi - c.lo;
@@ -196,7 +265,7 @@ __device__ __forceinline__ void comp_pass_row(const uint8_t* comp, uint8_t* row,
     for (int j = 0; j < 4; ++j) {
       const uint32_t q = c.q0 + (l0 - c.lo) + j;
       const uint32_t src = (q >> 7) == ra ? ra : ra + 1;
-      v[j] = l0 + j < c.hi ? s_byte<kGlobal>(comp, s.plane, a, src, q & 127u) : 0u;
+      v[j] = l0 + j < c.hi ? s_byte(comp, plane, a, src, q & 127u) : 0u;
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -204,28 +273,56 @@ __device__ __forceinline__ void comp_pass_row(const uint8_t* comp, uint8_t* row,
   }
 }
 
-// Passes [k0, k_end), all comp-only, applied by thread r to row r in order
-// (and on the device-memory route to rows r + 1024, ... in turn).
-template <bool kGlobal>
+// Passes [k0, k_end), all comp-only, applied in order by thread r to row r
+// of the shared route's plane, held at `row`.  se_b and sh_b are the
+// block's cells.
 __device__ void comp_passes(const uint8_t* comp, const int32_t* se_b, const int32_t* sh_b,
-                            int k0, int k_end, const Smem& s, const Args& a) {
-  for (int r = threadIdx.x; r < a.out_rows; r += kThreads) {
-    uint8_t* row = reinterpret_cast<uint8_t*>(s.plane + r * kRowStride<kGlobal>);
-    uint32_t n_se = 0, n_sh = 0;
-    if (k0 < k_end) {
-      n_se = __ldg(se_b + static_cast<long long>(k0) * a.out_rows + r);
-      n_sh = __ldg(sh_b + static_cast<long long>(k0) * a.out_rows + r);
+                            int k0, int k_end, uint8_t* row, int r, const SharedPlane& plane,
+                            const Args& a) {
+  uint32_t n_se = 0, n_sh = 0;
+  if (k0 < k_end) {
+    n_se = __ldg(se_b + static_cast<long long>(k0) * a.out_rows + r);
+    n_sh = __ldg(sh_b + static_cast<long long>(k0) * a.out_rows + r);
+  }
+  for (int k = k0; k < k_end; ++k) {
+    const uint32_t se = n_se, sh = n_sh;
+    if (k + 1 < k_end) {        // the next pass's cell, in flight during this one
+      n_se = __ldg(se_b + static_cast<long long>(k + 1) * a.out_rows + r);
+      n_sh = __ldg(sh_b + static_cast<long long>(k + 1) * a.out_rows + r);
     }
-    for (int k = k0; k < k_end; ++k) {
-      const uint32_t se = n_se, sh = n_sh;
-      if (k + 1 < k_end) {        // the next pass's cell, in flight during this one
-        n_se = __ldg(se_b + static_cast<long long>(k + 1) * a.out_rows + r);
-        n_sh = __ldg(sh_b + static_cast<long long>(k + 1) * a.out_rows + r);
-      }
-      const Cell c = cell_of(se, sh, r);
-      if (c.lo < c.hi) comp_pass_row<kGlobal>(comp, row, c, s, a);
+    const Cell c = cell_of(se, sh, r);
+    if (c.lo < c.hi) comp_pass_row(comp, row, c, plane, a);
+  }
+}
+
+// A row's cells of passes [k0, k0 + kCellBatch) below `lim` (0 past it):
+// se_r and sh_r are the row's cells of pass 0.
+__device__ __forceinline__ void load_cells(const int32_t* se_r, const int32_t* sh_r, int k0,
+                                           int lim, uint32_t* se, uint32_t* sh, const Args& a) {
+#pragma unroll
+  for (int j = 0; j < kCellBatch; ++j) {
+    const bool on = k0 + j < lim;
+    se[j] = on ? __ldg(se_r + static_cast<long long>(k0 + j) * a.out_rows) : 0u;
+    sh[j] = on ? __ldg(sh_r + static_cast<long long>(k0 + j) * a.out_rows) : 0u;
+  }
+}
+
+// Passes [k0, k_end), all comp-only, applied in order to out row r at `row`
+// on the tall route, kCellBatch passes' cells loaded at once and the next
+// kCellBatch in flight meanwhile.
+__device__ void comp_run(const uint8_t* comp, const int32_t* se_r, const int32_t* sh_r, int k0,
+                         int k_end, uint8_t* row, int r, const Args& a) {
+  uint32_t se[kCellBatch], sh[kCellBatch];
+  load_cells(se_r, sh_r, k0, k_end, se, sh, a);
+  for (int k = k0; k < k_end; k += kCellBatch) {
+    uint32_t n_se[kCellBatch], n_sh[kCellBatch];
+    load_cells(se_r, sh_r, k + kCellBatch, k_end, n_se, n_sh, a);
+#pragma unroll
+    for (int j = 0; j < kCellBatch; ++j) {
+      const Cell c = cell_of(se[j], sh[j], r);
+      if (c.lo < c.hi) comp_pass_row(comp, row, c, NoPlane{}, a);
+      se[j] = n_se[j], sh[j] = n_sh[j];
     }
-    if constexpr (!kGlobal) break;  // out_rows <= kThreads
   }
 }
 
@@ -242,6 +339,7 @@ __device__ void plane_pass(const uint8_t* comp, const int32_t* se_b, const int32
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const uint32_t cap = static_cast<uint32_t>(a.w_rows - 2);
+  const SharedPlane plane{s.plane};
   uint32_t vals[kRowsPerWarp];
   uint32_t act = 0;
 #pragma unroll
@@ -270,7 +368,7 @@ __device__ void plane_pass(const uint8_t* comp, const int32_t* se_b, const int32
     for (int j = 0; j < 4; ++j) {
       if (active & (1u << j)) {
         const uint32_t src = (q[j] >> 7) == row_a ? row_a : row_a + 1;
-        const uint32_t byte = s_byte<false>(comp, s.plane, a, src, q[j] & 127u);
+        const uint32_t byte = s_byte(comp, plane, a, src, q[j] & 127u);
         v = (v & ~(0xFFu << (8 * j))) | (byte << (8 * j));
       }
     }
@@ -283,63 +381,15 @@ __device__ void plane_pass(const uint8_t* comp, const int32_t* se_b, const int32
     if (act & (1u << i)) s.plane[(warp + kWarps * i) * kRowWords + lane] = vals[i];
 }
 
-// Whether row r's staged cell has an active lane.
-__device__ __forceinline__ bool row_active(const Smem& s, int r) {
-  const uint32_t se = static_cast<uint32_t>(s.se[r]);
-  const uint32_t start = se >> 8, end = se & 0xFFu;
-  return start < end && start < 128u;
+// Rows [0, rows) of the padded plane out to dst (rows of 128 bytes), 16
+// bytes a thread: row i / 8, words 4 (i % 8) ... + 3.
+__device__ __forceinline__ void store_plane(const uint32_t* plane, uint4* dst, int rows) {
+  for (int i = threadIdx.x; i < rows * 8; i += kThreads) {
+    const uint32_t* w = plane + (i >> 3) * kRowWords + 4 * (i & 7);
+    dst[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
-// Plane-reading pass k on the device-memory route: stage its cells, gather
-// every active row's new words into the CTA's scratch row, barrier, copy
-// them to the plane, barrier (the next pass restages the cells and reads
-// the plane).  A thread reads back only the scratch words it wrote.
-__device__ void plane_pass_global(const uint8_t* comp, const int32_t* se_b,
-                                  const int32_t* sh_b, int k, uint32_t* scratch, const Smem& s,
-                                  const Args& a) {
-  for (int r = threadIdx.x; r < a.out_rows; r += kThreads) {
-    s.se[r] = __ldg(se_b + static_cast<long long>(k) * a.out_rows + r);
-    s.shift[r] = __ldg(sh_b + static_cast<long long>(k) * a.out_rows + r);
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint32_t cap = static_cast<uint32_t>(a.w_rows - 2);
-  for (int r = warp; r < a.out_rows; r += kWarps) {
-    if (!row_active(s, r)) continue;               // warp-uniform
-    const uint32_t se = static_cast<uint32_t>(s.se[r]);
-    const uint32_t start = se >> 8, end = se & 0xFFu;
-    const uint32_t sh = static_cast<uint32_t>(s.shift[r]);
-    uint32_t q[4];
-    uint32_t low = 1u << 29;
-    unsigned active = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t l = 4u * lane + j;
-      q[j] = static_cast<uint32_t>(r) * 128u + l + sh;
-      if (l >= start && l < end) {
-        active |= 1u << j;
-        low = min(low, q[j] >> 7);
-      }
-    }
-    const uint32_t row_a = min(__reduce_min_sync(kFull, low), cap);
-    uint32_t v = s.plane[r * 32 + lane];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (active & (1u << j)) {
-        const uint32_t src = (q[j] >> 7) == row_a ? row_a : row_a + 1;
-        const uint32_t byte = s_byte<true>(comp, s.plane, a, src, q[j] & 127u);
-        v = (v & ~(0xFFu << (8 * j))) | (byte << (8 * j));
-      }
-    }
-    scratch[r * 32 + lane] = v;
-  }
-  __syncthreads();
-  for (int r = warp; r < a.out_rows; r += kWarps)
-    if (row_active(s, r)) s.plane[r * 32 + lane] = scratch[r * 32 + lane];
-  __syncthreads();
-}
-
-template <bool kGlobal>
 __device__ void decode_block(int b, Smem s, const Args& a) {
   const uint8_t* comp = a.comp + static_cast<long long>(b) * a.comp_rows * 128;
   const long long cells = static_cast<long long>(a.passes) * a.out_rows;
@@ -347,13 +397,10 @@ __device__ void decode_block(int b, Smem s, const Args& a) {
   const int32_t* sh_b = a.shift + b * cells;
   const int np = max(0, min(__ldg(a.p_used + b), a.passes));
   uint4* dst = reinterpret_cast<uint4*>(a.out + static_cast<long long>(b) * a.out_rows * 128);
-  if constexpr (kGlobal) {        // the plane is the output row, zeroed first
-    s.plane = reinterpret_cast<uint32_t*>(dst);
-    for (int i = threadIdx.x; i < a.out_rows * 8; i += kThreads) dst[i] = make_uint4(0, 0, 0, 0);
-  } else if (threadIdx.x < a.out_rows) {           // each thread zeroes its own row
+  if (threadIdx.x < a.out_rows) {                  // each thread zeroes its own row
     for (int w = 0; w < kRowWords; ++w) s.plane[threadIdx.x * kRowWords + w] = 0;
   }
-  for (int w = threadIdx.x; w < kMaxClassed / 32; w += kThreads) s.reads[w] = 0;
+  for (int w = threadIdx.x; w < kClassWords; w += kThreads) s.reads[w] = 0;
   __syncthreads();
   // Prologue: the class of every pass (up to kMaxClassed).  Whole warps take
   // each row: out_rows is a multiple of 128.
@@ -379,33 +426,24 @@ __device__ void decode_block(int b, Smem s, const Args& a) {
   }
   __syncthreads();
   bool synced = true;             // every thread's plane writes are visible to all
+  uint8_t* row = reinterpret_cast<uint8_t*>(s.plane + threadIdx.x * kRowWords);
   for (int k = 0; k < np;) {
-    if (is_plane_pass(s, k)) {
-      // Its staging barrier orders earlier writes.
-      if constexpr (kGlobal)
-        plane_pass_global(comp, se_b, sh_b, k,
-                          a.scratch + static_cast<long long>(blockIdx.x) * a.out_rows * 32, s, a);
-      else
-        plane_pass(comp, se_b, sh_b, k, s, a);
+    if (is_plane_pass(s.reads, k)) {
+      plane_pass(comp, se_b, sh_b, k, s, a);       // its staging barrier orders earlier writes
       synced = false;
       ++k;
     } else {
       int k_end = k + 1;
-      while (k_end < np && !is_plane_pass(s, k_end)) ++k_end;
+      while (k_end < np && !is_plane_pass(s.reads, k_end)) ++k_end;
       if (!synced) __syncthreads();                // the plane pass's writes, other rows
-      comp_passes<kGlobal>(comp, se_b, sh_b, k, k_end, s, a);
+      if (threadIdx.x < a.out_rows)
+        comp_passes(comp, se_b, sh_b, k, k_end, row, threadIdx.x, SharedPlane{s.plane}, a);
       synced = false;
       k = k_end;
     }
   }
   __syncthreads();
-  if constexpr (!kGlobal) {       // on the device-memory route the plane is the output
-    // The plane out, 16 bytes a thread: row i / 8, words 4 (i % 8) ... + 3.
-    for (int i = threadIdx.x; i < a.out_rows * 8; i += kThreads) {
-      const uint32_t* w = s.plane + (i >> 3) * kRowWords + 4 * (i & 7);
-      dst[i] = make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
+  store_plane(s.plane, dst, a.out_rows);
 }
 
 // The blocks by descending pass count (p_used clamped to [0, passes] and to
@@ -463,106 +501,397 @@ __global__ void __launch_bounds__(kThreads) decode_planned_order_kernel(const in
   for (int b = tid; b < n; b += kThreads) order[atomicAdd(start + key(b), 1)] = b;
 }
 
-// kGlobal: the device-memory route (planes taller than kMaxRows); its
-// shared memory holds no plane.
-template <bool kGlobal>
+// The last CTA (cluster) of a launch to finish sets `count` queue slots from
+// `first` back to 0 for the stream's next launch: every other one has taken
+// its last work by then.  `done` counts them; `of` is how many there are.
+__device__ __forceinline__ void reset_queue(int* queue, int done, int first, int count, int of) {
+  __threadfence();
+  if (atomicAdd(queue + done, 1) == of - 1)
+    for (int i = first; i < first + count; ++i) queue[i] = 0;
+}
+
+// The shared route (planes of up to 1024 rows): one CTA a block.
 __global__ void __launch_bounds__(kThreads, 1) decode_planned_kernel(Args a) {
   extern __shared__ __align__(16) uint32_t smem[];
-  Smem s;
-  s.plane = smem;                 // the device-memory route sets it per block
-  s.se = reinterpret_cast<int32_t*>(smem + (kGlobal ? 0 : a.out_rows * kRowWords));
-  s.shift = s.se + a.out_rows;
-  s.reads = reinterpret_cast<uint32_t*>(s.shift + a.out_rows);
-  s.next = reinterpret_cast<int*>(s.reads + kMaxClassed / 32);
+  const Smem s = smem_at(smem, a.out_rows);
   // The first block is the CTA's own index in the order; each later one is
   // taken from the queue once the block before it ends.
   int i = blockIdx.x;
   for (int it = 0; i < a.n; ++it) {
-    decode_block<kGlobal>(__ldg(a.order + i), s, a);
+    decode_block(__ldg(a.order + i), s, a);
     if (threadIdx.x == 0) s.next[it & 1] = static_cast<int>(gridDim.x) + atomicAdd(a.queue, 1);
     __syncthreads();
     i = s.next[it & 1];
   }
-  if (threadIdx.x == 0) {
-    // The last CTA to finish sets the queue back to 0 for the stream's next
-    // launch: every other CTA has taken its last block by then.
-    __threadfence();
-    if (atomicAdd(a.queue + 1, 1) == static_cast<int>(gridDim.x) - 1) {
-      a.queue[0] = 0;
-      a.queue[1] = 0;
+  if (threadIdx.x == 0) reset_queue(a.queue, 1, 0, 2, static_cast<int>(gridDim.x));
+}
+
+// ---------------------------------------------------------------------------
+// The tall route (planes of 1025 to 8192 rows)
+
+// Block b's cells of out row r: pass k's at [k * out_rows].
+__device__ __forceinline__ const int32_t* block_cells(const int32_t* cells, int b, int r,
+                                                      const Args& a) {
+  return cells + static_cast<long long>(b) * a.passes * a.out_rows + r;
+}
+
+// The slice kernel's unit: slice `sl` of block b (rows [1024 sl, ...)),
+// thread t taking out row 1024 sl + t.
+__device__ void slice_unit(int b, int sl, const Smem& s, const Args& a) {
+  const int row0 = sl * kMaxRows, rows = min(kMaxRows, a.out_rows - row0);
+  const int r = row0 + static_cast<int>(threadIdx.x);
+  const bool mine = static_cast<int>(threadIdx.x) < rows;     // warp-uniform: rows % 128 == 0
+  const uint8_t* comp = a.comp + static_cast<long long>(b) * a.comp_rows * 128;
+  const int32_t* se_r = block_cells(a.se, b, r, a);
+  const int32_t* sh_r = block_cells(a.shift, b, r, a);
+  const int np = max(0, min(__ldg(a.p_used + b), a.passes));
+  const int nk = min(np, kMaxClassed);
+  uint8_t* row = reinterpret_cast<uint8_t*>(s.plane + threadIdx.x * kRowWords);
+  if (mine)
+    for (int w = 0; w < kRowWords; ++w) s.plane[threadIdx.x * kRowWords + w] = 0;
+  for (int w = threadIdx.x; w < a.class_words; w += kThreads) s.reads[w] = 0;
+  __syncthreads();
+  const int lim = mine ? nk : 0;
+  int stop = nk;                  // the first pass at which a row of the slice reads an out row
+  uint32_t se[kCellBatch], sh[kCellBatch];
+  load_cells(se_r, sh_r, 0, lim, se, sh, a);
+  for (int k0 = 0; k0 < nk; k0 += kCellBatch) {
+#pragma unroll
+    for (int j = 0; j < kCellBatch; ++j) {
+      const Cell c = cell_of(se[j], sh[j], r);
+      if (__any_sync(kFull, c.lo < c.hi && reads_plane(c, a)) && (threadIdx.x & 31) == 0)
+        atomicOr(s.reads + ((k0 + j) >> 5), 1u << ((k0 + j) & 31));
     }
+    uint32_t n_se[kCellBatch], n_sh[kCellBatch];          // the next batch, in flight meanwhile
+    load_cells(se_r, sh_r, k0 + kCellBatch, lim, n_se, n_sh, a);
+    __syncthreads();                               // the batch's classes are known
+    if (k0 < stop) {
+      const uint32_t w = (s.reads[k0 >> 5] >> (k0 & 31)) & ((1u << kCellBatch) - 1u);
+      if (w) stop = k0 + __ffs(static_cast<int>(w)) - 1;
+      if (mine) {
+#pragma unroll
+        for (int j = 0; j < kCellBatch; ++j) {
+          const Cell c = cell_of(se[j], sh[j], r);
+          if (k0 + j < stop && c.lo < c.hi) comp_pass_row(comp, row, c, NoPlane{}, a);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCellBatch; ++j) se[j] = n_se[j], sh[j] = n_sh[j];
   }
+  __syncthreads();
+  uint4* dst = reinterpret_cast<uint4*>(a.out + (static_cast<long long>(b) * a.out_rows + row0) *
+                                        128);
+  store_plane(s.plane, dst, rows);
+  const long long u = static_cast<long long>(b) * a.slices + sl;
+  for (int w = threadIdx.x; w < a.class_words; w += kThreads)
+    a.classes[u * a.class_words + w] = s.reads[w];
+  if (threadIdx.x == 0) {
+    a.stops[u] = stop;
+    if (stop < np) atomicOr(a.queue + 3, 1);
+  }
+}
+
+// The tall route's first kernel: the n * slices units, block by block in
+// the order, taken by persistent CTAs on every SM.
+__global__ void __launch_bounds__(kThreads, 1) decode_planned_kernel_slices(Args a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Smem s = smem_at(smem, kMaxRows);
+  const int units = a.n * a.slices;
+  int u = blockIdx.x;
+  for (int it = 0; u < units; ++it) {
+    slice_unit(__ldg(a.order + u / a.slices), u % a.slices, s, a);
+    if (threadIdx.x == 0) s.next[it & 1] = static_cast<int>(gridDim.x) + atomicAdd(a.queue, 1);
+    __syncthreads();
+    u = s.next[it & 1];
+  }
+  if (threadIdx.x == 0) reset_queue(a.queue, 1, 0, 2, static_cast<int>(gridDim.x));
+}
+
+// Whether block b has a plane-reading pass: one of its slices stopped short.
+__device__ __forceinline__ bool needs_cluster(int b, const Args& a) {
+  const int np = max(0, min(__ldg(a.p_used + b), a.passes));
+  for (int sl = 0; sl < a.slices; ++sl)
+    if (__ldg(a.stops + static_cast<long long>(b) * a.slices + sl) < np) return true;
+  return false;
+}
+
+// Row `row` of S as 128 bytes: a comp row, a row of the cluster's plane (in
+// the shared memory of the CTA that holds its slice, row / 1024), or the
+// CTA's row of zeros.
+__device__ __forceinline__ const uint8_t* s_row(const uint8_t* comp, const Smem& s,
+                                                const Args& a, uint32_t row) {
+  if (row < static_cast<uint32_t>(a.comp_rows)) return comp + row * 128u;
+  row -= a.comp_rows;
+  if (row >= static_cast<uint32_t>(a.out_rows)) return reinterpret_cast<const uint8_t*>(s.zeros);
+  return reinterpret_cast<const uint8_t*>(cg::cluster_group::map_shared_rank(
+      s.plane + (row % kMaxRows) * kRowWords, row / kMaxRows));
+}
+
+// Block b's slice on this CTA (rows [row0, row0 + rows)): its leading
+// comp-only run (loaded back or applied again), then its passes.
+__device__ void cluster_block(int b, const Smem& s, int rank, const Args& a) {
+  const int row0 = rank * kMaxRows, rows = min(kMaxRows, a.out_rows - row0);
+  const bool mine = static_cast<int>(threadIdx.x) < rows;
+  const int r = row0 + static_cast<int>(threadIdx.x);
+  const uint8_t* comp = a.comp + static_cast<long long>(b) * a.comp_rows * 128;
+  const int32_t* se_b = block_cells(a.se, b, 0, a);
+  const int32_t* sh_b = block_cells(a.shift, b, 0, a);
+  const int np = max(0, min(__ldg(a.p_used + b), a.passes));
+  const long long u0 = static_cast<long long>(b) * a.slices;
+  // The block's first plane-reading pass and classes, from its slices'.
+  int first = np;
+  for (int sl = 0; sl < a.slices; ++sl) first = min(first, __ldg(a.stops + u0 + sl));
+  for (int w = threadIdx.x; w < a.class_words; w += kThreads) {
+    uint32_t x = 0;
+    for (int sl = 0; sl < a.slices; ++sl) x |= __ldg(a.classes + (u0 + sl) * a.class_words + w);
+    s.reads[w] = x;
+  }
+  uint4* dst = reinterpret_cast<uint4*>(a.out + (static_cast<long long>(b) * a.out_rows + row0) *
+                                        128);
+  uint8_t* row = reinterpret_cast<uint8_t*>(s.plane + threadIdx.x * kRowWords);
+  if (__ldg(a.stops + u0 + rank) == first) {       // the slice kernel stored it at `first`
+    for (int i = threadIdx.x; i < rows * 8; i += kThreads) {
+      const uint4 v = dst[i];
+      uint32_t* w = s.plane + (i >> 3) * kRowWords + 4 * (i & 7);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    }
+  } else if (mine) {              // it ran past `first`: the leading run again
+    for (int w = 0; w < kRowWords; ++w) s.plane[threadIdx.x * kRowWords + w] = 0;
+    comp_run(comp, se_b + r, sh_b + r, 0, first, row, r, a);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t cap = static_cast<uint32_t>(a.w_rows - 2);
+  bool staged = false;            // the next pass's cells are in s.se / s.shift
+  for (int k = first; k < np;) {
+    if (!is_plane_pass(s.reads, k)) {
+      int k_end = k + 1;
+      while (k_end < np && !is_plane_pass(s.reads, k_end)) ++k_end;
+      __syncthreads();                             // the plane pass's writes, other rows
+      if (mine) comp_run(comp, se_b + r, sh_b + r, k, k_end, row, r, a);
+      k = k_end;
+      continue;
+    }
+    if (!staged && mine) {
+      s.se[threadIdx.x] = __ldg(se_b + static_cast<long long>(k) * a.out_rows + r);
+      s.shift[threadIdx.x] = __ldg(sh_b + static_cast<long long>(k) * a.out_rows + r);
+    }
+    // Every CTA's writes before the pass (and the cells) visible to all.
+    cg::cluster_group::sync();
+    const bool next = k + 1 < np && is_plane_pass(s.reads, k + 1);
+    int32_t n_se = 0, n_sh = 0;                    // its cells, in flight during the gather
+    if (next && mine) {
+      n_se = __ldg(se_b + static_cast<long long>(k + 1) * a.out_rows + r);
+      n_sh = __ldg(sh_b + static_cast<long long>(k + 1) * a.out_rows + r);
+    }
+    uint32_t vals[kRowsPerWarp];
+    uint32_t act = 0;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int lr = warp + kWarps * i;
+      if (lr >= rows) break;                       // warp-uniform
+      const uint32_t se = static_cast<uint32_t>(s.se[lr]);
+      const uint32_t start = se >> 8, end = se & 0xFFu;
+      if (start >= end || start >= 128u) continue;  // no active lane: warp-uniform
+      const uint32_t q0 = static_cast<uint32_t>(row0 + lr) * 128u + 4u * lane +
+                          static_cast<uint32_t>(s.shift[lr]);
+      uint32_t low = 1u << 29;
+      unsigned active = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t l = 4u * lane + j;
+        if (l >= start && l < end) {
+          active |= 1u << j;
+          low = min(low, (q0 + j) >> 7);
+        }
+      }
+      // The row's two source rows, resolved once (warp-uniform).
+      const uint32_t row_a = min(__reduce_min_sync(kFull, low), cap);
+      const uint8_t* pa = s_row(comp, s, a, row_a);
+      const uint8_t* pb = s_row(comp, s, a, row_a + 1);
+      uint32_t v = s.plane[lr * kRowWords + lane];
+      if (active == 0xFu && (q0 & 127u) <= 124u) {  // four bytes of one source row
+        const uint32_t* w = reinterpret_cast<const uint32_t*>(
+            ((q0 >> 7) == row_a ? pa : pb) + (q0 & 124u));
+        const uint32_t sh = 8u * (q0 & 3u);
+        v = sh ? __funnelshift_r(w[0], w[1], sh) : w[0];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (active & (1u << j)) {
+            const uint32_t q = q0 + j;
+            const uint32_t byte = ((q >> 7) == row_a ? pa : pb)[q & 127u];
+            v = (v & ~(0xFFu << (8 * j))) | (byte << (8 * j));
+          }
+        }
+      }
+      vals[i] = v;
+      act |= 1u << i;
+    }
+    cg::cluster_group::sync();                     // every CTA has read the plane
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i)
+      if (act & (1u << i)) s.plane[(warp + kWarps * i) * kRowWords + lane] = vals[i];
+    if (next && mine) {
+      s.se[threadIdx.x] = n_se;
+      s.shift[threadIdx.x] = n_sh;
+    }
+    staged = next;
+    ++k;
+  }
+  __syncthreads();
+  store_plane(s.plane, dst, rows);
+}
+
+// The tall route's second kernel: the blocks with a plane-reading pass, one
+// cluster a block, in the order.  A cluster's next block is found by its
+// rank-0 CTA and written into every CTA's slot before the barrier.
+__global__ void __launch_bounds__(kThreads, 1) decode_planned_kernel_cluster(Args a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Smem s = smem_at(smem, kMaxRows);
+  const int rank = static_cast<int>(cg::cluster_group::block_rank());
+  const int ctas = static_cast<int>(cg::cluster_group::num_blocks());
+  if (*reinterpret_cast<volatile int*>(a.queue + 3) == 0) return;   // every block is done
+  if (threadIdx.x < 32) s.zeros[threadIdx.x] = 0;   // before the first cluster barrier
+  for (int it = 0;; ++it) {
+    if (rank == 0 && threadIdx.x == 0) {
+      int b = -1;
+      for (int j; b < 0 && (j = atomicAdd(a.queue + 2, 1)) < a.n;) {
+        const int c = __ldg(a.order + j);
+        if (needs_cluster(c, a)) b = c;
+      }
+      for (int r = 0; r < ctas; ++r) *cg::cluster_group::map_shared_rank(s.next + (it & 1), r) = b;
+    }
+    cg::cluster_group::sync();    // also: no CTA reads another's slice past here
+    const int b = s.next[it & 1];
+    if (b < 0) break;
+    cluster_block(b, s, rank, a);
+  }
+  if (rank == 0 && threadIdx.x == 0)
+    reset_queue(a.queue, 1, 1, 3, static_cast<int>(gridDim.x) / ctas);
 }
 
 }  // namespace
 
 // Rows of the largest plane the shared-memory route holds; taller planes
-// (up to bt_decode_planned_max_rows()) take the device-memory route.
+// (up to bt_decode_planned_max_rows()) take the tall route.
 extern "C" int bt_decode_planned_shared_rows() { return kMaxRows; }
-extern "C" int bt_decode_planned_max_rows() { return kMaxGlobalRows; }
+extern "C" int bt_decode_planned_max_rows() { return kMaxTallRows; }
+
+// CTAs that decode one block of an `out_rows`-row plane: 1 on the shared
+// route (up to 1024 rows), else the tall route's slices and cluster size,
+// ceil(out_rows / 1024); 0 past 8192 rows.
+extern "C" int bt_decode_planned_cluster_ctas(int out_rows) {
+  if (out_rows <= 0 || out_rows > kMaxTallRows) return 0;
+  return (out_rows + kMaxRows - 1) / kMaxRows;
+}
+
+namespace {
+
+// The launch's kernels on `stream` after the block order: the shared
+// route's persistent CTAs (as many as fit, at most n), or for taller planes
+// the slice kernel on every SM and the cluster kernel (as many clusters as
+// can be resident, at most n).
+cudaError_t launch_routes(const Args& a, int32_t* order, int device, cudaStream_t st) {
+  // Shared memory: the plane (a slice), one pass's cells, the pass classes,
+  // the queue slots.  Each kernel opts in to its largest, so launches of
+  // other block sizes from other threads never meet a smaller limit.
+  const int tail = kClassWords * 4 + 16;
+  const int most = kMaxRows * (kRowWords * 4 + 8) + tail;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  decode_planned_order_kernel<<<1, kThreads, 0, st>>>(a.p_used, a.passes, a.n, order);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (a.slices == 1) {
+    const int smem = a.out_rows * (kRowWords * 4 + 8) + tail;
+    if ((err = bt::smem_opt_in(decode_planned_kernel, most)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_planned_kernel,
+                                                             kThreads, smem)) != cudaSuccess)
+      return err;
+    const int grid = per_sm < 1 ? 1 : (a.n < per_sm * sms ? a.n : per_sm * sms);
+    decode_planned_kernel<<<grid, kThreads, smem, st>>>(a);
+    return cudaGetLastError();
+  }
+  if ((err = bt::smem_opt_in(decode_planned_kernel_slices, most)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, decode_planned_kernel_slices, kThreads, most)) != cudaSuccess)
+    return err;
+  const long long units = static_cast<long long>(a.n) * a.slices;
+  const long long fit = per_sm < 1 ? 1 : static_cast<long long>(per_sm) * sms;
+  decode_planned_kernel_slices<<<static_cast<int>(units < fit ? units : fit), kThreads, most,
+                                st>>>(a);
+  const int cluster_smem = most + 128;            // and the row of zeros
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = bt::smem_opt_in(decode_planned_kernel_cluster, cluster_smem)) != cudaSuccess)
+    return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.slices;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(a.slices);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = cluster_smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if ((err = cudaOccupancyMaxActiveClusters(&clusters, decode_planned_kernel_cluster, &cfg)) !=
+      cudaSuccess)
+    return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  cfg.gridDim = dim3(a.slices * (a.n < clusters ? a.n : clusters));
+  if ((err = cudaLaunchKernelEx(&cfg, decode_planned_kernel_cluster, a)) != cudaSuccess)
+    return err;
+  return cudaGetLastError();
+}
+
+}  // namespace
 
 // Launches the block order (one CTA, into `order`, n ints) and then the
-// persistent CTAs (as many as fit, at most n; on the device-memory route
-// also at most scratch_ctas) on `stream` of `device`; returns the CUDA
-// error code (0 on success).  Pointers are device pointers; the caller
-// allocates `out` (16-byte aligned), `order`, the two ints of `queue`,
-// which must be 0 and are 0 again when the launch ends (so launches that
-// share a queue must run in turn, as on one stream), and for planes taller
-// than kMaxRows `scratch`, scratch_ctas rows of out_rows * 128 bytes.
+// route's kernels on `stream` of `device` (see launch_routes); returns the
+// CUDA error code (0 on success), also when the card refuses the cluster
+// launch.  Pointers are device pointers; the caller allocates `out`
+// (16-byte aligned), `order`, the four ints of `queue`, which must be 0 and
+// are 0 again when the launch ends (so launches that share a queue must run
+// in turn, as on one stream), and on the tall route `stops` (n * C ints, C =
+// bt_decode_planned_cluster_ctas(out_rows)) and `classes` (n * C *
+// max(1, ceil(min(passes, 4096) / 32)) words).
 extern "C" int bt_decode_planned_launch(const void* comp, int comp_rows, const void* p_used,
                                         const void* se, const void* shift, int passes,
                                         void* order, void* out, int n, int out_rows,
-                                        void* queue, void* scratch, int scratch_ctas,
-                                        int device, void* stream) {
-  const bool global = out_rows > kMaxRows;
-  if (n < 0 || comp_rows < 0 || passes < 0 || out_rows <= 0 || out_rows % 128 ||
-      out_rows > kMaxGlobalRows || device < 0 || (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
-      (global && (scratch == nullptr || scratch_ctas < 1 ||
-                  (reinterpret_cast<uintptr_t>(scratch) & 15) != 0)))
+                                        void* queue, void* stops, void* classes, int device,
+                                        void* stream) {
+  const int ctas = bt_decode_planned_cluster_ctas(out_rows);
+  if (n < 0 || comp_rows < 0 || passes < 0 || ctas == 0 || out_rows % 128 || device < 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
+      (ctas > 1 && (stops == nullptr || classes == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   int current = 0;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  cudaError_t err = bt::enter_device(device, &current);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // The plane (shared route), one pass's cells, the pass classes, the queue
-  // slots.  Each route opts in to its largest plane, so launches of other
-  // block sizes from other threads never meet a smaller limit.
-  const int tail = out_rows * 8 + kMaxClassed / 8 + 16;
-  const int smem = (global ? 0 : out_rows * kRowWords * 4) + tail;
-  const int smem_max = global ? kMaxGlobalRows * 8 + kMaxClassed / 8 + 16
-                              : kMaxRows * kRowWords * 4 + kMaxRows * 8 + kMaxClassed / 8 + 16;
-  auto kernel = global ? decode_planned_kernel<true> : decode_planned_kernel<false>;
-  int sms = 0, per_sm = 0;
-  if ((err = bt::smem_opt_in(kernel, smem_max)) == cudaSuccess &&
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) ==
-          cudaSuccess &&
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem)) ==
-          cudaSuccess) {
-    Args a;
-    a.comp = static_cast<const uint8_t*>(comp);
-    a.comp_rows = comp_rows;
-    a.p_used = static_cast<const int32_t*>(p_used);
-    a.se = static_cast<const int32_t*>(se);
-    a.shift = static_cast<const int32_t*>(shift);
-    a.passes = passes;
-    a.order = static_cast<const int32_t*>(order);
-    a.out = static_cast<uint8_t*>(out);
-    a.out_rows = out_rows;
-    a.w_rows = (comp_rows + out_rows + 1023) / 1024 * 1024;
-    a.n = n;
-    a.queue = static_cast<int*>(queue);
-    a.scratch = static_cast<uint32_t*>(scratch);
-    int grid = per_sm < 1 ? 1 : (n < per_sm * sms ? n : per_sm * sms);
-    if (global && grid > scratch_ctas) grid = scratch_ctas;
-    decode_planned_order_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        a.p_used, passes, n, static_cast<int32_t*>(order));
-    err = cudaGetLastError();
-    if (err == cudaSuccess) {
-      kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-      err = cudaGetLastError();
-    }
-  }
+  Args a;
+  a.comp = static_cast<const uint8_t*>(comp);
+  a.comp_rows = comp_rows;
+  a.p_used = static_cast<const int32_t*>(p_used);
+  a.se = static_cast<const int32_t*>(se);
+  a.shift = static_cast<const int32_t*>(shift);
+  a.passes = passes;
+  a.order = static_cast<const int32_t*>(order);
+  a.out = static_cast<uint8_t*>(out);
+  a.out_rows = out_rows;
+  a.w_rows = (comp_rows + out_rows + 1023) / 1024 * 1024;
+  a.n = n;
+  a.queue = static_cast<int*>(queue);
+  a.slices = ctas;
+  a.class_words = passes < 32 ? 1 : ((passes < kMaxClassed ? passes : kMaxClassed) + 31) / 32;
+  a.stops = static_cast<int*>(stops);
+  a.classes = static_cast<uint32_t*>(classes);
+  err = launch_routes(a, static_cast<int32_t*>(order), device, static_cast<cudaStream_t>(stream));
   if (current != device) cudaSetDevice(current);
   return static_cast<int>(err);
 }

@@ -131,20 +131,6 @@ def block_queue(device: torch.device, stream: int) -> torch.Tensor:
     return q
 
 
-_sm_counts: dict[int, int] = {}     # streaming multiprocessors per device index
-
-
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of a CUDA device: the CTAs of a
-    device-memory-route launch of B7, one per SM (a 1024-thread CTA takes a
-    whole SM's registers), each with a scratch plane."""
-    sms = _sm_counts.get(device.index)
-    if sms is None:
-        sms = _sm_counts.setdefault(
-            device.index, torch.cuda.get_device_properties(device).multi_processor_count)
-    return sms
-
-
 def require(cond: bool, msg) -> None:
     """Raise StatusError(Invalid(msg)) unless ``cond``: a wrapper's check of
     what its kernel takes.  ``msg`` is the message, or a function that

@@ -12,10 +12,15 @@ kernel-vs-plain checks), ``class_plans`` and ``pass_reads_plane`` (the
 kernel's two pass classes), ``decode_planned_reference``,
 the plain PyTorch decode, and ``decode_blocks_planned``, the wrapper: on CPU
 tensors it runs the plain version, on CUDA tensors it launches
-``csrc/decode_planned.cu`` or raises.  Planes of up to ``SHARED_OUT_ROWS``
-rows take the kernel's shared-memory route, taller ones (up to
-``MAX_OUT_ROWS``, a 1 MiB block) its device-memory route, with a scratch
-plane per CTA that the wrapper allocates.
+``csrc/decode_planned.cu`` or raises; it never falls back.  Planes of up to
+``SHARED_OUT_ROWS`` rows take the kernel's shared-memory route, one CTA a
+block.  Taller ones (up to ``MAX_OUT_ROWS``, a 1 MiB block) take its tall
+route, the plane cut into ``cluster_ctas(out_rows)`` slices of 1024 rows: a
+slice kernel on every SM classes each slice's passes and applies them row
+by row up to the slice's stop (:func:`slice_stops`), and a thread-block
+cluster of one CTA a slice finishes each block that has a plane-reading
+pass (the least stop of its slices is below its pass count), the plane in
+the cluster's distributed shared memory.
 
 The function, per block ``i``.  S has ``w_rows = ceil((comp_rows +
 out_rows) / 1024) * 1024`` rows of 128 bytes: comp in rows
@@ -38,24 +43,37 @@ import ctypes
 import numpy as np
 import torch
 
-from ._build import block_queue, check_cuda, load_cuda_kernel, require, sm_count
+from ._build import block_queue, check_cuda, load_cuda_kernel, require
 from .cpu import native
 
 LANES = 128
 KCHUNK = 1024          # S rows round up to this (the reference's MXU K chunk)
 #: Output rows of the largest plane the kernel keeps in shared memory
-#: (128 KiB), as B1 does; taller planes take its device-memory route.
+#: (128 KiB), as B1 does, and of a slice of a taller plane on its tall route.
 SHARED_OUT_ROWS = 1024
 #: Output rows a block may have on the card: 1 MiB, the largest block of
-#: either package.
+#: either package, a cluster of 8 slices.
 MAX_OUT_ROWS = 8192
+#: Passes the kernel classes; every later pass counts as plane-reading.
+MAX_CLASSED = 4096
 
 #: Kernel launches made by ``decode_blocks_planned`` on CUDA tensors (one
 #: per call).  Reset it to 0 before a run whose kernel use is to be shown.
 launches = 0
-#: Of those, launches on the device-memory route (planes above
-#: ``SHARED_OUT_ROWS`` rows).
+#: Of those, launches on the tall route (planes above ``SHARED_OUT_ROWS``
+#: rows): its slice and cluster kernels count as one.
 gmem_launches = 0
+
+
+def cluster_ctas(out_rows: int) -> int:
+    """CTAs that decode one block of an ``out_rows``-row plane: 1 on the
+    shared route (up to ``SHARED_OUT_ROWS`` rows), else the tall route's
+    slices, ``ceil(out_rows / 1024)``, which is also its cluster size (2 at
+    256 KiB, 8 at 1 MiB); 0 past ``MAX_OUT_ROWS``, which the kernel refuses.
+    ``csrc/decode_planned.cu`` computes the same (checked when it loads)."""
+    if not 0 < out_rows <= MAX_OUT_ROWS:
+        return 0
+    return -(-out_rows // SHARED_OUT_ROWS)
 
 
 def pack_plan(r_dstart, r_dend, r_shift, p0, total_passes, comp_rows):
@@ -136,12 +154,16 @@ def random_plans(seed: int, n: int, passes: int, comp_rows: int, out_rows: int) 
     return comp, p_used, se, shift
 
 
-def class_plans(seed: int, n: int, reads: list[bool], comp_rows: int, out_rows: int) -> tuple:
+def class_plans(seed: int, n: int, reads: list[bool], comp_rows: int, out_rows: int,
+                slices: list | None = None) -> tuple:
     """Random well-aimed plans whose pass ``k`` reads out rows when
     ``reads[k]`` (every active lane's source in the out region) and only
     comp rows or the zeros above otherwise, to hold the kernel's two pass
     classes and the seams between them to the plain version.  ``p_used``
     spreads over 0..passes, with values past ``passes`` and negative ones.
+    ``slices[k]``, where given and not None, lists the 1024-row slices whose
+    rows have cells in pass k (the others' are empty), so the slices of a
+    tall plane stop at different passes (:func:`slice_stops`).
     Returns numpy (comp, p_used, se, shift)."""
     rng = np.random.default_rng(seed)
     passes, rows = len(reads), out_rows
@@ -157,6 +179,9 @@ def class_plans(seed: int, n: int, reads: list[bool], comp_rows: int, out_rows: 
     target = np.where(np.asarray(reads, bool)[None, :, None], plane, target)
     shift = (target - r * LANES).astype(np.int32)
     se = ((start << 8) | end).astype(np.int32)
+    for k, live in enumerate(slices or []):
+        if live is not None:
+            se[:, k, ~np.isin(np.arange(rows) // SHARED_OUT_ROWS, live)] = 0
     shape = (n, passes, rows // LANES, LANES)
     p_used = np.resize(np.array([passes, passes + 3, 0, -2, 1, max(1, passes // 2), passes - 1],
                                 np.int32), n)
@@ -183,6 +208,60 @@ def pass_reads_plane(se: torch.Tensor, shift: torch.Tensor, *, comp_rows: int,
         src = torch.where(qrow == row_a, row_a, row_a + 1)
         res[i] = (active & (src >= comp_rows) & (src < comp_rows + out_rows)).flatten(1).any(1)
     return res
+
+
+def _row_reads_plane(se: torch.Tensor, shift: torch.Tensor, *, comp_rows: int,
+                     out_rows: int) -> torch.Tensor:
+    """[N, passes, out_rows] bool: whether row r's cell of pass k reads an
+    out row, in closed form from its first and last active lane, as the
+    kernel classes a cell (:func:`pass_reads_plane` is the lane-by-lane
+    definition).  The anchor is the first lane's qrow, or 0 when q wraps
+    past 2^32 inside the row (some lane then has q = 0), capped at ``w_rows
+    - 2``; some lane reads ``row_a`` when the first lane's qrow is at most
+    the cap, and some reads ``row_a + 1`` when a lane's qrow differs from
+    it."""
+    n, passes = se.shape[:2]
+    w_rows = -(-(comp_rows + out_rows) // KCHUNK) * KCHUNK
+    cap = w_rows - 2
+    u32 = (1 << 32) - 1
+    sek = se.reshape(n, passes, out_rows).long() & u32
+    lo, hi = sek >> 8, (sek & 0xFF).clamp(max=LANES)
+    base = torch.arange(out_rows, device=se.device) * LANES + shift.reshape(
+        n, passes, out_rows).long()
+    q0, q1 = (base + lo) & u32, (base + hi - 1) & u32
+    wrap = q1 < q0
+    ra = torch.where(wrap, 0, q0 >> 7).clamp(max=cap)
+    has_a = wrap | ((q0 >> 7) <= cap)
+    has_b = wrap | ((q1 >> 7) != ra) | ((q0 >> 7) != ra)
+
+    def in_out(row):
+        return (row >= comp_rows) & (row < comp_rows + out_rows)
+
+    return (lo < hi) & ((has_a & in_out(ra)) | (has_b & in_out(ra + 1)))
+
+
+def slice_stops(se: torch.Tensor, shift: torch.Tensor, p_used: torch.Tensor, *, passes: int,
+                comp_rows: int, out_rows: int) -> torch.Tensor:
+    """[N, cluster_ctas(out_rows)] int32: for each block and 1024-row slice
+    of its plane, the first pass at which a row of the slice reads an out
+    row, else its pass count ``min(max(p_used, 0), passes)``, capped at
+    ``MAX_CLASSED``.  The tall route's slice kernel applies each slice's
+    passes up to its stop.  A block's least stop is its leading run of
+    comp-only passes (:func:`pass_reads_plane` false for every pass before
+    it), and the block takes a cluster when that is below its pass count."""
+    n = se.shape[0]
+    c = cluster_ctas(out_rows)
+    if passes == 0:
+        return torch.zeros((n, c), dtype=torch.int32, device=se.device)
+    reads = _row_reads_plane(se, shift, comp_rows=comp_rows, out_rows=out_rows)
+    by_slice = torch.zeros((n, passes, c * SHARED_OUT_ROWS), dtype=torch.bool,
+                           device=se.device)
+    by_slice[..., :out_rows] = reads
+    reads = by_slice.reshape(n, passes, c, SHARED_OUT_ROWS).any(3)
+    nk = p_used.long().clamp(min=0, max=passes).clamp(max=MAX_CLASSED)
+    k = torch.arange(passes, device=se.device)[None, :, None]
+    first = torch.where(reads & (k < nk[:, None, None]), k, passes).min(1).values
+    return torch.minimum(first, nk[:, None]).to(torch.int32)
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -231,15 +310,21 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, c_int,                        # comp, comp_rows
         vp, vp, vp, c_int,                # p_used, se, shift, passes
         vp, vp, c_int, c_int,             # order, out, n, out_rows
-        vp, vp, c_int,                    # queue, scratch, its CTA rows
+        vp, vp, vp,                       # queue, stops and classes (tall route)
         c_int, vp]                        # device, stream
     for fn in ("bt_decode_planned_shared_rows", "bt_decode_planned_max_rows"):
         getattr(lib, fn).restype = c_int
         getattr(lib, fn).argtypes = []
+    lib.bt_decode_planned_cluster_ctas.restype = c_int
+    lib.bt_decode_planned_cluster_ctas.argtypes = [c_int]
     got = (lib.bt_decode_planned_shared_rows(), lib.bt_decode_planned_max_rows())
     require(got == (SHARED_OUT_ROWS, MAX_OUT_ROWS),
             lambda: f"decode_planned.cu holds {got} rows (shared route, all), "
                     f"the wrapper says {(SHARED_OUT_ROWS, MAX_OUT_ROWS)}")
+    bad = [r for r in range(LANES, MAX_OUT_ROWS + 2 * LANES, LANES)
+           if lib.bt_decode_planned_cluster_ctas(r) != cluster_ctas(r)]
+    require(not bad, lambda: f"decode_planned.cu's slice counts differ from cluster_ctas "
+                             f"at {bad[:4]} rows")
 
 
 def load_kernel() -> ctypes.CDLL:
@@ -247,7 +332,8 @@ def load_kernel() -> ctypes.CDLL:
     return load_cuda_kernel("decode_planned", _bind)
 
 
-def _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows) -> torch.Tensor:
+def _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows,
+                   stops) -> torch.Tensor:
     global launches, gmem_launches
     require(out_rows <= MAX_OUT_ROWS,
             lambda: f"decode_planned kernel takes at most {MAX_OUT_ROWS} rows per block "
@@ -262,31 +348,34 @@ def _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows) -> torc
                 and tuple(t.shape) == shape,
                 lambda: f"{name}: want contiguous int32 {list(shape)} on {comp.device}, "
                         f"got {t.dtype} {list(t.shape)} on {t.device}")
+    c = cluster_ctas(out_rows)
+    tall = c > 1
+    if stops is None and tall:
+        stops = torch.empty((n, c), dtype=torch.int32, device=comp.device)
     out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=comp.device)
     if n == 0:
         return out
     order = torch.empty(n, dtype=torch.int32, device=comp.device)
+    # The tall route's slice classes, one bit a pass up to MAX_CLASSED.
+    words = max(1, -(-min(passes, MAX_CLASSED) // 32))
+    classes = torch.empty(n * c * words if tall else 0, dtype=torch.int32, device=comp.device)
     lib = load_kernel()
     stream = torch.cuda.current_stream(comp.device).cuda_stream
-    gmem = out_rows > SHARED_OUT_ROWS
-    scratch, ctas = None, 0
-    if gmem:                              # a scratch plane per CTA (one CTA an SM)
-        ctas = min(n, sm_count(comp.device))
-        scratch = torch.empty((ctas, out_rows * LANES), dtype=torch.uint8, device=comp.device)
     rc = lib.bt_decode_planned_launch(
         comp.data_ptr(), comp_rows, p_used.data_ptr(), se.data_ptr(), shift.data_ptr(),
         passes, order.data_ptr(), out.data_ptr(), n, out_rows,
         block_queue(comp.device, stream).data_ptr(),
-        None if scratch is None else scratch.data_ptr(), ctas, comp.device.index, stream)
+        stops.data_ptr() if tall else None, classes.data_ptr() if tall else None,
+        comp.device.index, stream)
     check_cuda(rc, "decode_planned launch", lib)
     launches += 1
-    gmem_launches += gmem
+    gmem_launches += tall
     return out
 
 
 def decode_blocks_planned(comp: torch.Tensor, p_used: torch.Tensor, se: torch.Tensor,
                           shift: torch.Tensor, *, passes: int, comp_rows: int,
-                          out_rows: int) -> torch.Tensor:
+                          out_rows: int, stops: torch.Tensor | None = None) -> torch.Tensor:
     """Decode a batch of blocks via their scheduled fragment plans.
 
     ``comp``: [N, comp_rows, 128] uint8 compressed planes; ``p_used`` [N]
@@ -295,14 +384,27 @@ def decode_blocks_planned(comp: torch.Tensor, p_used: torch.Tensor, se: torch.Te
     Returns [N, out_rows, 128] uint8.  Raises StatusError unless ``out_rows
     % 128 == 0`` and ``comp_rows % 32 == 0``, the reference's asserts.  A
     CPU ``comp`` runs :func:`decode_planned_reference`; a CUDA one launches
-    the kernel or raises."""
+    the kernel or raises.  ``stops``, for planes above ``SHARED_OUT_ROWS``
+    rows only: a contiguous int32 [N, cluster_ctas(out_rows)] tensor beside
+    ``comp`` that receives each slice's stop as the tall route found it
+    (:func:`slice_stops` on the CPU)."""
     require(out_rows % LANES == 0, "planned kernel requires out_rows % 128 == 0")
     require(comp_rows % 32 == 0, "uint8 comp planes need 32-row tiling")
     require(comp.dtype == torch.uint8 and tuple(comp.shape[1:]) == (comp_rows, LANES),
             lambda: f"comp: want [N, {comp_rows}, 128] uint8, got {list(comp.shape)} {comp.dtype}")
+    if stops is not None:
+        shape = (comp.shape[0], cluster_ctas(out_rows))
+        require(shape[1] > 1 and stops.device == comp.device and stops.dtype == torch.int32
+                and stops.is_contiguous() and tuple(stops.shape) == shape,
+                lambda: f"stops: want contiguous int32 {list(shape)} on {comp.device} for a "
+                        f"plane above {SHARED_OUT_ROWS} rows, got {stops.dtype} "
+                        f"{list(stops.shape)} on {stops.device}")
     if comp.device.type == "cpu":
+        if stops is not None:
+            stops.copy_(slice_stops(se, shift, p_used, passes=passes, comp_rows=comp_rows,
+                                    out_rows=out_rows))
         return decode_planned_reference(comp, p_used, se, shift, passes=passes,
                                         comp_rows=comp_rows, out_rows=out_rows)
     require(comp.device.type == "cuda",
             lambda: f"decode_blocks_planned: no kernel for device {comp.device}")
-    return _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows)
+    return _launch_kernel(comp, p_used, se, shift, passes, comp_rows, out_rows, stops)

@@ -16,6 +16,10 @@ events, mean ms per launch) after the two outputs are checked equal; B1,
 B2, B3, B4, B5 and B7 are also timed kernel-only (``timing.kernel_time_ms``)
 and by the host clock per call (``timing.host_us_per_call``), in the same
 turns.
+B7 runs at the shapes of :func:`planned_shapes` (its shared route at the
+bench's 128 KiB, its tall route at 256 KiB and 1 MiB), each tall line with
+this checkout's slice and cluster kernels timed apart (``new_kernel_split``),
+and a last line times this checkout's two routes on the same 32 MiB.
 B1 also runs at the shapes of its cluster route (:func:`large_flat_shapes`:
 1 MiB and 256 KiB blocks, and a burst of the CLI's skewed suite on
 8192-row planes), and B2 on 1 MiB and 256 KiB tables (:func:`table_shapes`).
@@ -150,7 +154,7 @@ def main() -> int:
     if args.only in (None, "decode_tables"):
         ab_tables(emit, timing, corpus, make_text_corpus(256))
     if args.only in (None, "decode_planned"):
-        ab_planned(emit, timing, corpus)
+        ab_planned(emit, timing, corpus, make_text_corpus(32))
     if args.only in (None, "match_walk", "match_dyn"):
         ab_match_dyn(emit, timing, corpus, make_text_corpus(DYN_TEXT_BLOCKS), args.only)
     if args.only in (None, "parse_walk"):
@@ -302,22 +306,81 @@ def ab_tables(emit, timing, corpus: bytes, text: bytes) -> None:
                       1000 if block <= 4096 else 100)})
 
 
-def ab_planned(emit, timing, corpus: bytes) -> None:
+def planned_shapes(dp, corpus: bytes, text: bytes) -> dict:
+    """B7's shapes on the card: name -> ([comp, p_used, se, shift] on the
+    card, keywords).  The shared route at the bench's 128 KiB shape, as
+    planned and sorted by descending p_used; the tall route on 32 x 1 MiB of
+    the bench corpus (64-pass budget, the same 32 MiB), the quiet blocks of
+    that batch alone (no plane-reading pass: ``slice_stops``), text at 4 x 1
+    MiB and 4 x 256 KiB (256 passes), pass-class plans at 8192 rows, and an
+    all-quiet batch of pass-class plans at 8192 rows."""
+    def planned(data: bytes, n: int, block: int, budget: int):
+        wire = dp.plan_blocks([data[i * block:(i + 1) * block] for i in range(n)], block, budget)
+        args = [torch.from_numpy(wire[k]).cuda() for k in ("comp", "p_used", "se", "shift")]
+        return len(wire["fit"]), args, dict(passes=wire["passes"], comp_rows=wire["comp_rows"],
+                                            out_rows=block // 128)
+
+    def plans(arrays, comp_rows: int, out_rows: int):
+        args = [torch.from_numpy(a).cuda() for a in arrays]
+        return args, dict(passes=args[2].shape[1], comp_rows=comp_rows, out_rows=out_rows)
+
+    shapes = {}
+    n, args, kw = planned(corpus, 256, BLOCK, 64)
+    order = torch.argsort(args[1], descending=True)
+    shapes[f"bench {n} x 128 KiB, {kw['passes']} passes, as planned"] = (args, kw)
+    shapes[f"bench {n} x 128 KiB, {kw['passes']} passes, sorted by descending p_used"] = (
+        [t[order] for t in args], kw)
+    n, args, kw = planned(corpus, 32, LARGE, 64)
+    shapes[f"tall: bench {n} x 1 MiB, {kw['passes']} passes"] = (args, kw)
+    stops = dp.slice_stops(*args[2:], args[1], **kw)
+    quiet = (stops.min(1).values >= args[1].clamp(0, kw["passes"])).nonzero().flatten()
+    if quiet.numel():
+        shapes[f"tall: bench 1 MiB, its {quiet.numel()} quiet blocks"] = (
+            [t[quiet] for t in args], kw)
+    for block in (LARGE, MID):
+        n, args, kw = planned(text, 4, block, 256)
+        shapes[f"tall: text {n} x {block // 1024} KiB, {kw['passes']} passes"] = (args, kw)
+    reads = [False] * 4 + [True, False] * 4
+    shapes["tall: class plans 16 x 8192 rows, cccc(Pc)x4"] = plans(
+        dp.class_plans(31, 16, reads, 512, 8192), 512, 8192)
+    shapes["tall: class plans 32 x 8192 rows, 16 comp-only passes (all quiet)"] = plans(
+        dp.class_plans(32, 32, [False] * 16, 512, 8192), 512, 8192)
+    return shapes
+
+
+def ab_planned(emit, timing, corpus: bytes, text: bytes) -> None:
     from bitar_tpu_torch.ops import decode_planned as dp
     from bitar_tpu_torch_old.ops import decode_planned as odp
 
-    wire = dp.plan_blocks([corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(256)], BLOCK, 64)
-    args = [torch.from_numpy(wire[k]).cuda() for k in ("comp", "p_used", "se", "shift")]
-    kw = dict(passes=wire["passes"], comp_rows=wire["comp_rows"], out_rows=BLOCK // 128)
-    for order, a in (("as planned", args),
-                     ("sorted by descending p_used", [t[torch.argsort(args[1], descending=True)]
-                                                      for t in args])):
-        equal = same(dp.decode_blocks_planned(*a, **kw), odp.decode_blocks_planned(*a, **kw))
-        emit({"kernel": "decode_planned", "shape": f"bench {len(wire['fit'])} x 128 KiB, "
-              f"{wire['passes']} passes, {order}", "equal": equal,
-              **turns(timing, lambda a=a: odp.decode_blocks_planned(*a, **kw),
-                      lambda a=a: dp.decode_blocks_planned(*a, **kw),
-                      "decode_planned_kernel", 100)})
+    shapes = planned_shapes(dp, corpus, text)
+    for name, (a, kw) in shapes.items():
+        def new(a=a, kw=kw):
+            return dp.decode_blocks_planned(*a, **kw)
+
+        equal = same(new(), odp.decode_blocks_planned(*a, **kw))
+        rec = {"kernel": "decode_planned", "shape": name, "equal": equal,
+               **turns(timing, lambda a=a, kw=kw: odp.decode_blocks_planned(*a, **kw), new,
+                       "decode_planned_kernel", 100)}
+        if name.startswith("tall"):       # this checkout's tall route, kernel by kernel
+            rec["new_kernel_split"] = {
+                k: timing.kernel_time_ms(new, REPS, f"decode_planned_kernel_{k}")
+                for k in ("slices", "cluster")}
+        emit(rec)
+    # This checkout's two routes on the same 32 MiB of the bench corpus:
+    # "old" the shared route at 128 KiB blocks, "new" the tall route at 1 MiB.
+    sa, skw = next(v for k, v in shapes.items() if k.endswith("as planned"))
+    ta, tkw = next(v for k, v in shapes.items() if k.startswith("tall: bench")
+                   and k.endswith("passes"))
+    raw = {}
+    for side, a, kw in (("old", sa, skw), ("new", ta, tkw)):
+        out = dp.decode_blocks_planned(*a, **kw).reshape(-1).cpu().numpy().tobytes()
+        raw[side] = out == corpus[:len(out)]
+    emit({"kernel": "decode_planned", "shape": "routes on the same bytes: old = shared route, "
+          f"bench {sa[0].shape[0]} x 128 KiB; new = tall route, bench {ta[0].shape[0]} x 1 MiB",
+          "equal": all(raw.values()), "raw_bytes": {"old": sa[0].shape[0] * BLOCK,
+                                                    "new": ta[0].shape[0] * LARGE},
+          **turns(timing, lambda: dp.decode_blocks_planned(*sa, **skw),
+                  lambda: dp.decode_blocks_planned(*ta, **tkw), "decode_planned_kernel", 100)})
 
 
 def ab_match_dyn(emit, timing, corpus: bytes, text: bytes, only: str | None) -> None:

@@ -54,8 +54,9 @@ Phases (any failure raises, and the script exits non-zero):
      offsets 1-130 (both sides of the 128-byte row) and on random
      well-formed, malformed and mixed tables at 4 and 128 KiB
      (``random_tables``), and on its cluster route: the bench corpus at 1
-     MiB under a 4-pass plan budget and its parser tables at 256 KiB, random
-     well-formed and malformed tables at 1 MiB and at 1300 and 4096 rows,
+     MiB under a 4-pass plan budget and its parser tables at 256 KiB, the
+     markdown's parser tables at 1 MiB (32 blocks), random well-formed and
+     malformed tables at 1 MiB and at 1300 and 4096 rows,
      and RLE offsets 1-130 over 1 MiB planes; each batch logs its
      blocks by path (parallel,
      serial walk), which must be the classifier's
@@ -83,9 +84,12 @@ Phases (any failure raises, and the script exits non-zero):
      (128 rows, 17,409 slots); ``match_walk``, ``match_dyn`` and
      ``parse_walk`` at 1 MiB through their own entry points (the edge batch,
      offsets up to L - 128, seg 8192; ``walk_edge_batch(8192, 128)``); and
-     ``decode_planned``'s device-memory route on planner plans of text at
-     256 KiB and 1 MiB and of 32 x 1 MiB of the bench corpus (each block its
-     raw bytes) and on random and pass-class plans at 2048 and 8192 rows;
+     ``decode_planned``'s tall route on planner plans of text at 256 KiB
+     and 1 MiB and of 32 x 1 MiB of the bench corpus (each block its raw
+     bytes) and on random and pass-class plans at 1152, 2048, 5120 and 8192
+     rows (batches all quiet, all taking a cluster, and both; slices that
+     stop at different passes), each launch's slice stops equal to
+     ``slice_stops``;
      the wide plain versions a few blocks at a time;
 4. the main paths, each with every kernel's launch count set to 0 just
    before it and read just after:
@@ -123,7 +127,7 @@ Phases (any failure raises, and the script exits non-zero):
      each decoded through B1's tall route with its host-clock
      phases logged, and 4 blocks' container equal to the port's CPU
      engine's; ``decode_blocks_planned`` on the 32 x 1 MiB bench plans (B7's
-     device-memory route);
+     tall route);
    - (a) an NCCL world of 1 in this process (``file://`` rendezvous):
      ``make_mesh(1)``, ``plan_shuffle``, ``execute_shuffle``, the fused flat
      step and the ring step over 1024 x 128 KiB (B1), then ``sharded_decode``
@@ -146,18 +150,18 @@ Phases (any failure raises, and the script exits non-zero):
    its bound and names it); B6 on the bench and text B4 planes; the tall
    routes: B1 on the bench (128 blocks) and text (32) batches at 1 MiB, the
    text batch at 256 KiB and the skewed suite's burst, B2 on the bench
-   tables at 1 MiB and 256 KiB (with their bounds; the kernels line carries them and
-   B1's resident clusters under ``cluster_route``); B7 at the
-   shape of phase 3 (the
+   tables at 1 MiB and 256 KiB and the markdown's at 1 MiB (with their
+   bounds; the kernels line carries them and B1's resident clusters under
+   ``cluster_route``); B7 at the shape of phase 3 (the
    multi-device steps' host-clock times are logged in phase 4); the whole
    ``compress_blocks_device(seg=1024, out_width=2048)`` on 256 x 128 KiB;
    the host-clock phases of the tpu matcher's compress (plane packing,
    upload, B3, hint readback, host emission) at 1024 x 128 KiB and at 128 x
    1 MiB; and at the 1 MiB paths' shapes B3 (128 x 1 MiB, indices, max_match
    64), the emitter (the engine's ``match_offsets`` shape, with an empty
-   kernel on its grid) and B7's device-memory route (32 x 1 MiB), each with
-   its bound and its launches on the 1 MiB paths (the kernels line carries
-   them under ``large_blocks`` and, for B7, ``device_memory_route``);
+   kernel on its grid) and B7's tall route (32 x 1 MiB), each with its
+   bound and its launches on the 1 MiB paths (the kernels line carries
+   them under ``large_blocks`` and, for B7, ``tall_route``);
 6. only with ``--profile``: where the time of each engine main path (host
    compress, device compress) goes, for one warm LZ4 unit: host-clock
    phases and the ``torch.profiler`` rows with the most device time.
@@ -241,9 +245,9 @@ def engine(btt, codec, block=BLOCK, nblocks=NBLOCKS, **kw):
     return btt.Engine(cfg, device="cuda").initialize()
 
 
-def turns(timing, kernel, plain):
+def turns(timing, kernel, plain, plain_reps: int = TIMED_REPS[0]):
     """Plain, kernel, kernel, plain: mean ms per call of each, and the turns."""
-    plain_reps, kernel_reps = TIMED_REPS
+    kernel_reps = TIMED_REPS[1]
     ms = {"plain": [], "kernel": []}
     for name, fn, reps in (("plain", plain, plain_reps), ("kernel", kernel, kernel_reps),
                            ("kernel", kernel, kernel_reps), ("plain", plain, plain_reps)):
@@ -1072,49 +1076,70 @@ def large_dyn_checks(md) -> tuple[int, int, int]:
 
 
 def large_planned_checks(dp, corpus: bytes, text: bytes) -> tuple[int, dict]:
-    """B7's device-memory route: planner plans of text at 256 KiB and 1 MiB
-    and of the bench corpus at 1 MiB (each block decodes to its raw bytes),
-    random malformed plans and pass-class plans at 2048 and 8192 rows;
-    returns (max |diff|, the bench batch for phases 4 and 5)."""
-    err, gmem = 0, dp.gmem_launches
+    """B7's tall route: planner plans of text at 256 KiB and 1 MiB and of
+    the bench corpus at 1 MiB (each block decodes to its raw bytes), random
+    malformed plans and pass-class plans at 1152, 2048, 5120 and 8192 rows
+    (batches all quiet, all taking a cluster, both, and slices that stop at
+    different passes); every launch's slice stops are ``slice_stops``'s.
+    Returns (max |diff|, the bench batch for phases 4 and 5)."""
+    err, gmem, calls = 0, dp.gmem_launches, 0
+
+    def check(what, plans, **kw):
+        nonlocal err, calls
+        plans = [torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in plans]
+        stops = torch.empty((plans[0].shape[0], dp.cluster_ctas(kw["out_rows"])),
+                            dtype=torch.int32, device="cuda")
+        got = dp.decode_blocks_planned(*plans, stops=stops, **kw)
+        torch.cuda.synchronize()
+        calls += 1
+        for r in range(0, got.shape[0], 8):
+            err = max(err, check_equal(f"decode_planned {what} blocks {r}+", got[r:r + 8],
+                                       dp.decode_planned_reference(
+                                           *(a[r:r + 8] for a in plans), **kw)))
+        if not torch.equal(stops, dp.slice_stops(*plans[2:], plans[1], **kw)):
+            raise AssertionError(f"decode_planned {what}: slice stops differ from slice_stops")
+        return got, stops
+
     bench = None
     for name, data, block, n, passes in (
             ("text", text, MID_BLOCK, 4, 256), ("text", text, LARGE_BLOCK, 4, 256),
             ("bench", corpus, LARGE_BLOCK, PLANNED_LARGE_BLOCKS, PLANNED_MAX_PASSES)):
         datas = [data[i * block:(i + 1) * block] for i in range(n)]
         wire = dp.plan_blocks(datas, block, passes)
-        args = [torch.from_numpy(wire[k]).cuda() for k in ("comp", "p_used", "se", "shift")]
+        args = [wire[k] for k in ("comp", "p_used", "se", "shift")]
         kw = dict(passes=wire["passes"], comp_rows=wire["comp_rows"], out_rows=block // 128)
-        got = dp.decode_blocks_planned(*args, **kw)
-        torch.cuda.synchronize()
+        got, stops = check(f"{name} {block}", args, **kw)
         host = got.reshape(len(wire["fit"]), -1).cpu().numpy()
         if any(host[j].tobytes() != datas[i] for j, i in enumerate(wire["fit"])):
             raise AssertionError(f"decode_planned {name} {block}: blocks differ from raw bytes")
-        for r in range(0, len(wire["fit"]), 8):
-            err = max(err, check_equal(f"decode_planned {name} {block} blocks {r}+",
-                                       got[r:r + 8], dp.decode_planned_reference(
-                                           *(a[r:r + 8] for a in args), **kw)))
-        log(f"decode_planned == plain version, byte for byte (device-memory route): {name}, "
+        quiet = int((stops.min(1).values.cpu().numpy() >= wire["p_used"]).sum())
+        log(f"decode_planned == plain version, byte for byte (tall route): {name}, "
             f"{len(wire['fit'])} of {n} x {block} B planned within {passes} passes, passes "
-            f"{wire['passes']} (mean {float(args[1].float().mean()):.1f}), comp_rows "
-            f"{wire['comp_rows']}; every block its raw bytes")
+            f"{wire['passes']} (mean {float(wire['p_used'].mean()):.1f}), comp_rows "
+            f"{wire['comp_rows']}; every block its raw bytes; {quiet} blocks quiet (no "
+            f"plane-reading pass), the others in clusters of {dp.cluster_ctas(block // 128)}")
         if name == "bench":
-            bench = (wire, datas, args, kw)
-    for rows in (2048, 8192):
-        rp = [torch.from_numpy(a).cuda() for a in dp.random_plans(19, 8, 5, 1024, rows)]
-        kw = dict(passes=5, comp_rows=1024, out_rows=rows)
-        err = max(err, check_equal(f"decode_planned random {rows}", dp.decode_blocks_planned(
-            *rp, **kw), dp.decode_planned_reference(*rp, **kw)))
+            bench = (wire, datas, [torch.from_numpy(a).cuda() for a in args], kw)
+    for rows in (1152, 2048, 5120, 8192):
+        c = dp.cluster_ctas(rows)
+        check(f"random {rows}", dp.random_plans(19, 8, 5, 1024, rows),
+              passes=5, comp_rows=1024, out_rows=rows)
         for reads in ([False] * 4, [True, False, False], [False, True, False, True, True]):
-            cp = [torch.from_numpy(a).cuda() for a in dp.class_plans(20, 8, reads, 512, rows)]
-            kw = dict(passes=len(reads), comp_rows=512, out_rows=rows)
-            err = max(err, check_equal(f"decode_planned class {rows}", dp.decode_blocks_planned(
-                *cp, **kw), dp.decode_planned_reference(*cp, **kw)))
-        log(f"decode_planned == plain version, byte for byte (device-memory route): random "
-            f"malformed plans and pass-class plans (c, Pcc, cPcPP), {rows} rows")
-    if dp.gmem_launches - gmem != 3 + 2 * 4:
-        raise AssertionError("decode_planned: a launch above 1024 rows missed the "
-                             "device-memory route")
+            check(f"class {rows}", dp.class_plans(20, 8, reads, 512, rows),
+                  passes=len(reads), comp_rows=512, out_rows=rows)
+        check(f"staggered {rows}", dp.class_plans(
+            21, 8, [False, True, False, True, True], 64, rows,
+            slices=[None, [c - 1], None, [0], None]), passes=5, comp_rows=64, out_rows=rows)
+        quiet = dp.class_plans(22, 4, [False] * 4, 512, rows)
+        busy = list(dp.class_plans(23, 4, [False, True, False, True], 512, rows))
+        busy[1] = np.full(4, 4, np.int32)
+        check(f"mixed {rows}", [np.concatenate(x) for x in zip(quiet, busy)],
+              passes=4, comp_rows=512, out_rows=rows)
+        log(f"decode_planned == plain version, byte for byte (tall route): random malformed "
+            f"plans, pass-class plans (c, Pcc, cPcPP), slices stopping at different passes, "
+            f"a batch half quiet, {rows} rows")
+    if dp.gmem_launches - gmem != calls:
+        raise AssertionError("decode_planned: a launch above 1024 rows missed the tall route")
     return err, bench
 
 
@@ -1420,6 +1445,12 @@ def main() -> int:
     large_tables["bench 256 KiB"] = (torch.from_numpy(mrows).cuda(),
                                      *dt.table_tensors(mtabs, mnseq, "cuda"), MID_BLOCK, mid_lens,
                                      f"128 x {MID_BLOCK} B, sequences {int(mnseq.sum())}")
+    # 32 x 1 MiB of markdown: deep parser tables.
+    xrows, xtabs, xnseq, xlens = dt.parser_tables(
+        [text[i * LARGE_BLOCK:(i + 1) * LARGE_BLOCK] for i in range(32)])
+    large_tables["text 1 MiB"] = (torch.from_numpy(xrows).cuda(),
+                                  *dt.table_tensors(xtabs, xnseq, "cuda"), LARGE_BLOCK, xlens,
+                                  f"32 x {LARGE_BLOCK} B, sequences {int(xnseq.sum())}")
     for out_rows in (1300, 4096):
         for wf, S in ((True, 1024), (False, 64)):
             r, tabs, ns = dt.random_tables(65 + wf + out_rows, 9, S, out_rows * 128,
@@ -1430,7 +1461,7 @@ def main() -> int:
     for name, (rows, nseq, tables, block, _, stats) in large_tables.items():
         e, _, paths = compare_tables(dt, rows, nseq, tables, block)
         err = max(err, e)
-        if ("plan budget" in name or "bench" in name) and paths[1]:
+        if ("plan budget" in name or "bench" in name or "text" in name) and paths[1]:
             raise AssertionError(f"decode_tables {name}: {paths[1]} parser blocks walked serially")
         log(f"decode_tables == plain version, byte for byte: {name} (cluster route; "
             f"{stats}); blocks by path: parallel {paths[0]}, serial {paths[1]}")
@@ -1641,7 +1672,7 @@ def main() -> int:
     log(f"main path decode_blocks_planned: {len(pfit)} x {BLOCK} B bit-exact")
 
     # The device matchers at 1 MiB (128 MiB of the bench corpus), and B7's
-    # device-memory route through its own entry point.
+    # tall route through its own entry point.
     large_paths = []
     for name, codec, kw, expect in (
             ("tpu matcher lz4, 1 MiB", btt.Codec.LZ4, dict(compress_matcher="tpu"),
@@ -1668,10 +1699,10 @@ def main() -> int:
     counts["decode_blocks_planned, 1 MiB"] = {"decode_planned": dp.launches}
     if dp.gmem_launches != 1 or any(host[j].tobytes() != pdatas_l[i]
                                     for j, i in enumerate(wire["fit"])):
-        raise AssertionError("decode_blocks_planned 1 MiB: not the device-memory route, or "
+        raise AssertionError("decode_blocks_planned 1 MiB: not the tall route, or "
                              "blocks differ from their raw bytes")
     log(f"main path decode_blocks_planned: {len(wire['fit'])} x 1 MiB bit-exact "
-        "(device-memory route)")
+        "(tall route)")
     large_launches = {k: sum(counts[p].get(k, 0) for p in large_paths) for k in ("match", "emit")}
     large_launches["decode_planned"] = dp.gmem_launches
 
@@ -1721,8 +1752,9 @@ def main() -> int:
     # slice kernel only), the text batch at 1 MiB and 256 KiB (out passes:
     # the cluster kernel), and one burst of the CLI's skewed suite; B2 on
     # the 1 MiB bench tables and the 256 KiB bench tables.
-    def timed_route(label, kernel, plain, stem, raw_bytes, bound, shape):
-        res, ms = turns(timing, kernel, plain)
+    def timed_route(label, kernel, plain, stem, raw_bytes, bound, shape,
+                    plain_reps=TIMED_REPS[0]):
+        res, ms = turns(timing, kernel, plain, plain_reps)
         report(label, card, res, ms, raw_bytes)
         k_ms = wrapper_times(timing, label, card, stem, kernel)
         log(f"{label}: bound {bound}")
@@ -1747,9 +1779,9 @@ def main() -> int:
         "resident_clusters": {str(r): df.resident_clusters(r) for r in TALL_ROWS},
         "timed": timed}
     timed = []
-    for name in ("bench 1 MiB, 4-pass plan budget", "bench 256 KiB"):
+    for name in ("bench 1 MiB, 4-pass plan budget", "bench 256 KiB", "text 1 MiB"):
         lrows, lnseq, ltables, lblock, lcomp, _ = large_tables[name]
-        shape = f"bench {lrows.shape[0]} x {lblock >> 10} KiB tables"
+        shape = f"{name.split()[0]} {lrows.shape[0]} x {lblock >> 10} KiB tables"
         timed.append(timed_route(
             f"decode_tables cluster route {shape}",
             lambda r=lrows, n=lnseq, t=ltables, b=lblock: dt.decode_blocks(r, n, t,
@@ -1757,7 +1789,7 @@ def main() -> int:
             lambda r=lrows, n=lnseq, t=ltables, b=lblock: dt.decode_tables_reference(
                 r, n, t, b // 128),
             "decode_tables", lrows.shape[0] * lblock, tables_bound(lrows, lnseq, lcomp, lblock),
-            shape))
+            shape, 1 if name == "text 1 MiB" else TIMED_REPS[0]))   # its plain call takes ~15 s
     kernels["decode_tables"]["cluster_route"] = {"launches": tall["1 MiB tables path"],
                                                  "timed": timed}
 
@@ -1913,10 +1945,10 @@ def main() -> int:
     kernels["decode_planned"]["bound"] = planned_bound(pused, pstored, ppasses)
     tpu_phases(btt, mt, native, corpus, card)
 
-    # B3, the emitter and B7's device-memory route at the 1 MiB paths' shapes.
-    def timed_large(name, label, kernel, plain, stem, bound, shape):
+    # B3, the emitter and B7's tall route at the 1 MiB paths' shapes.
+    def timed_large(name, label, kernel, plain, stem, bound, shape, nbytes):
         res, ms = turns(timing, kernel, plain)
-        report(label, card, res, ms, MATCH_LARGE_BLOCKS * LARGE_BLOCK)
+        report(label, card, res, ms, nbytes)
         k_ms = wrapper_times(timing, label, card, stem, kernel)
         log(f"{label}: bound {bound}")
         return {"shape": shape, "launches": large_launches[name], "ms": res["kernel"],
@@ -1929,7 +1961,8 @@ def main() -> int:
                                 nrows=LARGE_BLOCK // 128),
         lambda: mt.match_reference(mlplanes, mt.DEFAULT_OFFSETS, max_match=64), "match",
         match_bound(MATCH_LARGE_BLOCKS, len(mt.DEFAULT_OFFSETS), LARGE_BLOCK),
-        f"bench {MATCH_LARGE_BLOCKS} x 1 MiB, indices, max_match 64 (the tpu matcher's)")
+        f"bench {MATCH_LARGE_BLOCKS} x 1 MiB, indices, max_match 64 (the tpu matcher's)",
+        MATCH_LARGE_BLOCKS * LARGE_BLOCK)
     label = (f"emit match_offsets {MATCH_LARGE_BLOCKS} x 1 MiB, min_match 64, width "
              f"{large_ow}, slots a row {large_lay['starts'].shape[1]}")
     kernels["emit"]["large_blocks"] = timed_large(
@@ -1937,18 +1970,19 @@ def main() -> int:
         lambda: em.emit_blocks(mlplanes, large_lay, out_width=large_ow, lengths=mllens),
         lambda: em.emit_reference(mlplanes, large_lay, out_width=large_ow, lengths=mllens),
         "emit", emit_bound(em, large_lay, large_ow),
-        f"match_offsets {MATCH_LARGE_BLOCKS} x 1 MiB, width {large_ow} (the engine's)")
+        f"match_offsets {MATCH_LARGE_BLOCKS} x 1 MiB, width {large_ow} (the engine's)",
+        MATCH_LARGE_BLOCKS * LARGE_BLOCK)
     floor = em.floor_kernel_ms(MATCH_LARGE_BLOCKS, large_lay["starts"].shape[1], large_ow,
                                timing, TIMED_REPS[1])
     log(f"{label}: empty kernel on the same grid {floor:.4f} ms kernel-only [{card}]")
     nfit = len(wire["fit"])
-    kernels["decode_planned"]["device_memory_route"] = timed_large(
-        "decode_planned", f"decode_planned device-memory route bench {nfit} x 1 MiB, "
+    kernels["decode_planned"]["tall_route"] = timed_large(
+        "decode_planned", f"decode_planned tall route bench {nfit} x 1 MiB, "
         f"{pkw_l['passes']} passes",
         lambda: dp.decode_blocks_planned(*pargs_l, **pkw_l),
         lambda: dp.decode_planned_reference(*pargs_l, **pkw_l), "decode_planned",
         planned_bound(pargs_l[1], wire["stored"], pkw_l["passes"], LARGE_BLOCK),
-        f"bench {nfit} x 1 MiB, {pkw_l['passes']} passes")
+        f"bench {nfit} x 1 MiB, {pkw_l['passes']} passes", nfit * LARGE_BLOCK)
     tpu_phases(btt, mt, native, corpus, card, LARGE_BLOCK)
 
     def pipeline():
@@ -1999,7 +2033,7 @@ def main() -> int:
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None} | ({"shape": k["shape"]} if "shape" in k else {})
-                    | {key: k[key] for key in ("cluster_route", "device_memory_route")
+                    | {key: k[key] for key in ("cluster_route", "tall_route")
                        if key in k}
                     | ({"large_blocks": k["large_blocks"]} if "large_blocks" in k else {}))
     log(json.dumps({"kernels": line}))

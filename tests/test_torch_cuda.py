@@ -1052,18 +1052,28 @@ def test_decode_planned_kernel_in_any_block_order(cuda_device):
 
 
 def test_decode_planned_device_memory_route_past_the_shared_plane(cuda_device):
-    # 1152 rows, one tile past the shared plane, take the device-memory route
-    # and decode equal to the plain version (the kernel takes up to 8192).
+    # Planes of 1152 rows (one tile past the shared plane) and 5120 take the
+    # tall route, their last slice partial, and decode equal to the plain
+    # version; the slices stop where slice_stops says (the last one reads
+    # the plane first, the others later), and the queue is back at zero.
+    # The kernel takes up to 8192 rows.
     from bitar_tpu_torch.ops import decode_planned as tdp
 
-    plans = [torch.from_numpy(a).to(cuda_device)
-             for a in tdp.class_plans(16, 5, [False, True, True], 64, 1152)]
-    kw = dict(passes=3, comp_rows=64, out_rows=1152)
-    before = tdp.gmem_launches
-    got = tdp.decode_blocks_planned(*plans, **kw)
-    torch.cuda.synchronize()
-    assert tdp.gmem_launches == before + 1
-    assert torch.equal(got, tdp.decode_planned_reference(*plans, **kw))
+    for rows in (1152, 5120):
+        c = tdp.cluster_ctas(rows)
+        plans = [torch.from_numpy(a).to(cuda_device) for a in tdp.class_plans(
+            16, 5, [False, True, False, True, True], 64, rows,
+            slices=[None, [c - 1], None, [0], None])]
+        kw = dict(passes=5, comp_rows=64, out_rows=rows)
+        stops = torch.full((5, c), -1, dtype=torch.int32, device=cuda_device)
+        before = tdp.gmem_launches
+        got = tdp.decode_blocks_planned(*plans, stops=stops, **kw)
+        torch.cuda.synchronize()
+        assert tdp.gmem_launches == before + 1
+        assert torch.equal(got, tdp.decode_planned_reference(*plans, **kw))
+        want = tdp.slice_stops(*plans[2:], plans[1], **kw)
+        assert torch.equal(stops, want) and int(want[0, -1]) == 1 and int(want[0, 0]) == 3
+        assert all(int(q.abs().sum()) == 0 for q in block_queues.values())
     with pytest.raises(btt.StatusError, match="8192 rows"):
         z = torch.zeros((1, 1, 65, 128), dtype=torch.int32, device=cuda_device)
         tdp.decode_blocks_planned(plans[0][:1], plans[1][:1], z, z, passes=1, comp_rows=64,
@@ -1445,39 +1455,62 @@ def test_parse_walk_kernel_at_1mib(wcap, cuda_device):
 
 @pytest.mark.parametrize("corpus,block,max_passes", [("text", 256 * 1024, 256),
                                                      ("text", 1 << 20, 256),
-                                                     ("bench", 1 << 20, 64)])
+                                                     ("bench", 1 << 20, 64),
+                                                     ("text", 1152 * 128, 512),
+                                                     ("bench", 5120 * 128, 64)])
 def test_decode_planned_device_memory_route_on_planner_plans(corpus, block, max_passes,
                                                              cuda_device):
+    # The tall route on planner plans: every block its raw bytes, the slices'
+    # stops those of slice_stops (at least the planner's p0).
     from bitar_tpu_torch.ops import decode_planned as tdp
 
-    data = (make_text_corpus if corpus == "text" else make_corpus)(4 * block // (128 * 1024))
+    data = (make_text_corpus if corpus == "text" else make_corpus)(-(-4 * block // (128 * 1024)))
     datas = [data[i * block:(i + 1) * block] for i in range(4)]
     wire = tdp.plan_blocks(datas, block, max_passes)
     assert wire["fit"] == [0, 1, 2, 3]
     args = [torch.from_numpy(wire[k]).to(cuda_device) for k in ("comp", "p_used", "se", "shift")]
     kw = dict(passes=wire["passes"], comp_rows=wire["comp_rows"], out_rows=block // 128)
+    stops = torch.empty((4, tdp.cluster_ctas(block // 128)), dtype=torch.int32,
+                        device=cuda_device)
     before = tdp.gmem_launches
-    got = tdp.decode_blocks_planned(*args, **kw)
+    got = tdp.decode_blocks_planned(*args, stops=stops, **kw)
     torch.cuda.synchronize()
     assert tdp.gmem_launches == before + 1
     assert [g.tobytes() for g in got.reshape(4, -1).cpu().numpy()] == datas
     assert torch.equal(got, tdp.decode_planned_reference(*args, **kw))
+    assert torch.equal(stops, tdp.slice_stops(*args[2:], args[1], **kw))
+    assert (stops.min(1).values.cpu().numpy() >= wire["p0"]).all()
 
 
-@pytest.mark.parametrize("out_rows", [2048, 8192])
+@pytest.mark.parametrize("out_rows", [1152, 2048, 5120, 8192])
 def test_decode_planned_device_memory_route_on_random_and_class_plans(out_rows, cuda_device):
+    # Random malformed plans, pass-class plans, and batches whose blocks are
+    # all quiet (no plane-reading pass), all take a cluster, or both.
     from bitar_tpu_torch.ops import decode_planned as tdp
 
-    rp = [torch.from_numpy(a).to(cuda_device) for a in tdp.random_plans(17, 8, 5, 1024, out_rows)]
-    kw = dict(passes=5, comp_rows=1024, out_rows=out_rows)
-    assert torch.equal(tdp.decode_blocks_planned(*rp, **kw), tdp.decode_planned_reference(*rp, **kw))
-    for reads in ([False] * 4, [True, False, False], [False, True, False, True, True]):
-        cp = [torch.from_numpy(a).to(cuda_device)
-              for a in tdp.class_plans(18, 8, reads, 512, out_rows)]
-        kw = dict(passes=len(reads), comp_rows=512, out_rows=out_rows)
-        got = tdp.decode_blocks_planned(*cp, **kw)
+    def check(plans, passes, comp_rows, what):
+        plans = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device) for a in plans]
+        kw = dict(passes=passes, comp_rows=comp_rows, out_rows=out_rows)
+        stops = torch.empty((plans[0].shape[0], tdp.cluster_ctas(out_rows)), dtype=torch.int32,
+                            device=cuda_device)
+        got = tdp.decode_blocks_planned(*plans, stops=stops, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(got, tdp.decode_planned_reference(*cp, **kw)), reads
+        assert torch.equal(got, tdp.decode_planned_reference(*plans, **kw)), what
+        assert torch.equal(stops, tdp.slice_stops(*plans[2:], plans[1], **kw)), what
+        return stops.min(1).values.cpu() < plans[1].clamp(0, passes).cpu()
+
+    check(tdp.random_plans(17, 8, 5, 1024, out_rows), 5, 1024, "random")
+    for reads in ([False] * 4, [True, False, False], [False, True, False, True, True]):
+        check(tdp.class_plans(18, 8, reads, 512, out_rows), len(reads), 512, reads)
+    quiet = tdp.class_plans(19, 6, [False] * 4, 512, out_rows)
+    busy = list(tdp.class_plans(20, 6, [False, True, False, True], 512, out_rows))
+    busy[1] = np.full(6, 4, np.int32)
+    assert not check(quiet, 4, 512, "quiet").any()
+    assert check(busy, 4, 512, "every block a cluster").all()
+    mixed = [np.concatenate([q, b])[[0, 6, 1, 7, 2, 8, 3, 9, 4, 10, 5, 11]]
+             for q, b in zip(quiet, busy)]
+    assert check(mixed, 4, 512, "mixed").tolist() == [False, True] * 6
+    assert all(int(q.abs().sum()) == 0 for q in block_queues.values())
 
 
 @pytest.mark.parametrize("kw", [dict(compress_matcher="tpu"),

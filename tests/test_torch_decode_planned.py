@@ -191,3 +191,125 @@ def test_class_plans_have_the_classes_asked_for(reads):
         kw = dict(passes=len(flags), comp_rows=comp_rows, out_rows=out_rows)
         np.testing.assert_array_equal(port_decode(comp, p_used, se, shift, **kw),
                                       jax_decode(comp, p_used, se, shift, **kw))
+
+
+# The tall route's host-side rules (planes above 1024 rows): the slices a
+# plane is cut into, and each slice's stop, the first pass at which one of
+# its rows reads an out row.  ``slice_stops`` computes the stops in closed
+# form, as the kernel classes a cell; here they are held to the lane-by-lane
+# definition, ``pass_reads_plane`` on the plan with every other slice's
+# cells emptied, one pass at a time (so the lane tensors stay small).
+
+def stops_by_definition(se, shift, p_used, *, passes, comp_rows, out_rows):
+    n, c = se.shape[0], tdp.cluster_ctas(out_rows)
+    rows = se.reshape(n, passes, out_rows)
+    nk = np.minimum(np.clip(p_used, 0, passes), tdp.MAX_CLASSED)
+    want = np.zeros((n, c), np.int32)
+    for sl in range(c):
+        mine = np.zeros_like(rows)
+        mine[..., sl * 1024:(sl + 1) * 1024] = rows[..., sl * 1024:(sl + 1) * 1024]
+        mine = mine.reshape(se.shape)
+        reads = np.concatenate([tdp.pass_reads_plane(
+            t(mine[:, k:k + 1]), t(shift[:, k:k + 1]), comp_rows=comp_rows,
+            out_rows=out_rows).numpy() for k in range(passes)], axis=1)
+        for i in range(n):
+            hit = np.flatnonzero(reads[i, :nk[i]])
+            want[i, sl] = hit[0] if hit.size else nk[i]
+    return want
+
+
+def staggered(seed, n, comp_rows, out_rows):
+    """``class_plans`` whose plane-reading passes have cells in some slices
+    only: slices stop at different passes, and the last one (partial below
+    a multiple of 1024 rows) reads the plane first."""
+    c = tdp.cluster_ctas(out_rows)
+    reads = [False, True, False, True, True, False]
+    slices = [None, [c - 1], None, [0], None, None]
+    return tdp.class_plans(seed, n, reads, comp_rows, out_rows, slices=slices), len(reads)
+
+
+@pytest.mark.parametrize("out_rows", [1152, 2048, 8192])
+@pytest.mark.parametrize("kind", ["random", "class", "staggered"])
+def test_slice_stops_hold_to_pass_reads_plane(kind, out_rows):
+    n = 3 if out_rows == 8192 else 6
+    if kind == "random":
+        passes, comp_rows = 5, 1024
+        comp, p_used, se, shift = tdp.random_plans(21, n, passes, comp_rows, out_rows)
+    elif kind == "class":
+        reads, comp_rows = [False, False, True, False, True], 512
+        comp, p_used, se, shift = tdp.class_plans(22, n, reads, comp_rows, out_rows)
+        passes = len(reads)
+    else:
+        comp_rows = 256
+        (comp, p_used, se, shift), passes = staggered(23, n, comp_rows, out_rows)
+    kw = dict(passes=passes, comp_rows=comp_rows, out_rows=out_rows)
+    got = tdp.slice_stops(t(se), t(shift), t(p_used), **kw).numpy()
+    want = stops_by_definition(se, shift, p_used, **kw)
+    np.testing.assert_array_equal(got, want)
+    # A block's least stop is its leading comp-only run: no pass before it
+    # reads an out row, and the pass at it does unless it is the last.
+    reads = tdp.pass_reads_plane(t(se), t(shift), comp_rows=comp_rows, out_rows=out_rows).numpy()
+    npass = np.clip(p_used, 0, passes)
+    for i, first in enumerate(got.min(1)):
+        assert not reads[i, :first].any()
+        assert first == npass[i] or reads[i, first]
+    if kind == "staggered":
+        live = npass >= 4
+        assert (got[live, -1] == 1).all() and (got[live, 0] == 3).all()
+        if tdp.cluster_ctas(out_rows) > 2:
+            assert (got[live, 1:-1] == 4).all()
+
+
+@pytest.mark.parametrize("corpus", ["bench", "text"])
+def test_slice_stops_on_planner_plans(corpus):
+    # 1152-row planes (blocks of 144 KiB): two slices, the second partial.
+    # The leading comp-only run is at least the planner's p0 (its first p0
+    # passes read comp rows only), and text has blocks past it.
+    block = 1152 * 128
+    src = (make_corpus if corpus == "bench" else make_text_corpus)(3)
+    datas = [src[i * block:(i + 1) * block] for i in range(2)]
+    wire = tdp.plan_blocks(datas, block, 256)
+    assert wire["fit"] == [0, 1]
+    args = [wire[k] for k in ("comp", "p_used", "se", "shift")]
+    kw = dict(passes=wire["passes"], comp_rows=wire["comp_rows"], out_rows=1152)
+    got = tdp.slice_stops(t(args[2]), t(args[3]), t(args[1]), **kw).numpy()
+    np.testing.assert_array_equal(got, stops_by_definition(*args[2:], args[1], **kw))
+    assert (got.min(1) >= wire["p0"]).all()
+    if corpus == "text":
+        assert (got.min(1) < wire["p_used"]).any()
+    stops = torch.zeros(got.shape, dtype=torch.int32)
+    out = tdp.decode_blocks_planned(*(t(a) for a in args), stops=stops, **kw)
+    assert torch.equal(stops, t(got))
+    assert [out[j].numpy().tobytes() for j in range(2)] == datas
+
+
+def test_tall_route_plans_at_1152_rows_match_jax():
+    # The last slice of a 1152-row plane holds 128 rows; its plane-reading
+    # passes come first (``staggered``).
+    (comp, p_used, se, shift), passes = staggered(24, 4, 64, 1152)
+    kw = dict(passes=passes, comp_rows=64, out_rows=1152)
+    got = port_decode(comp, p_used, se, shift, **kw)
+    np.testing.assert_array_equal(got, jax_decode(comp, p_used, se, shift, **kw))
+    assert got.any()
+
+
+def test_cluster_ctas_by_plane_height():
+    assert [tdp.cluster_ctas(r) for r in (0, 128, 1024, 1152, 2048, 2176, 5120, 8192, 8320)] \
+        == [0, 1, 1, 2, 2, 3, 5, 8, 0]
+
+
+def test_stops_are_taken_for_tall_planes_only():
+    comp, p_used, se, shift = tdp.random_plans(25, 2, 3, 32, 1024)
+    with pytest.raises(btt.StatusError, match="stops"):
+        tdp.decode_blocks_planned(t(comp), t(p_used), t(se), t(shift), passes=3, comp_rows=32,
+                                  out_rows=1024, stops=torch.zeros((2, 1), dtype=torch.int32))
+    comp, p_used, se, shift = tdp.random_plans(25, 2, 3, 32, 2048)
+    with pytest.raises(btt.StatusError, match="stops"):
+        tdp.decode_blocks_planned(t(comp), t(p_used), t(se), t(shift), passes=3, comp_rows=32,
+                                  out_rows=2048, stops=torch.zeros((2, 3), dtype=torch.int32))
+
+
+def test_slice_stops_with_no_pass():
+    z = torch.zeros((2, 0, 9, 128), dtype=torch.int32)
+    stops = tdp.slice_stops(z, z, t([3, 0]).int(), passes=0, comp_rows=32, out_rows=1152)
+    assert stops.tolist() == [[0, 0], [0, 0]]
