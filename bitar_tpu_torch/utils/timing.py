@@ -27,13 +27,21 @@ from dataclasses import dataclass, field
 import torch
 
 from ..status import Status, StatusError
+from .logging import get_logger
+
+logger = get_logger("utils.timing")
 
 NUM_BENCH_RUNS = 3  # reference kNumTests (demo_app.h:45)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 INT32_OPS_PER_S = 33.5e12     # 132 SMs x 128 lanes x 1.98 GHz, one op per lane per cycle
 PROFILE_PAD_S = 0.02          # idle host seconds at each end of a profiled window
-PROFILE_TRIES = 3             # profiled windows before kernel_time_ms gives up
+#: Profiled windows before kernel_time_ms gives up: windows lose their
+#: records for a cause not found, several running at times.
+PROFILE_TRIES = 10
+#: kernel_time_ms's profiled windows in this process, and how many of them
+#: recorded none of the kernels asked for.
+profiled_windows = {"windows": 0, "lost": 0}
 
 
 @dataclass
@@ -123,10 +131,15 @@ def kernel_time_ms(fn, reps: int, name: str, warmup: int = 1) -> float:
 
     The profiler keeps only device records that fall inside its window on
     the host's clock, and CUPTI's clock is converted to that one; so the
-    window is padded with ``PROFILE_PAD_S`` of idle host time at each end,
-    and a window that recorded none of the kernels is profiled again, up to
-    ``PROFILE_TRIES`` windows.  Raises without CUDA, and when no window saw
-    such a kernel."""
+    window is padded with ``PROFILE_PAD_S`` of idle host time at each end.
+    A window has been seen to keep no record of the kernels, several
+    windows running at times, for a cause not found: not the profiler's
+    ``acc_events`` warning (torch 2.11 gives it on the first window of every
+    process, as it tests the profiler it has just made), and not the pad
+    (windows padded 0.5 s lost theirs too).  Such a window is counted in
+    ``profiled_windows``, logged with what it did record, and profiled
+    again, up to ``PROFILE_TRIES`` windows.  Raises without CUDA, and when
+    no window saw such a kernel."""
     _need_cuda("kernel_time_ms")
     for _ in range(warmup):
         fn()
@@ -139,13 +152,19 @@ def kernel_time_ms(fn, reps: int, name: str, warmup: int = 1) -> float:
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
         mean_us, count = 0.0, 0
-        for e in prof.key_averages():
+        profiled_windows["windows"] += 1
+        averages = prof.key_averages()
+        for e in averages:
             if name in e.key and e.count:
                 t = getattr(e, "device_time_total", None)    # cuda_time_total before torch 2.4
                 mean_us += float(t if t is not None else e.cuda_time_total) / e.count
                 count += e.count
         if count:
             return mean_us / 1e3
+        profiled_windows["lost"] += 1
+        logger.warning("kernel_time_ms: no kernel named like %r in a window; it recorded %d "
+                       "records of other names %s", name, sum(e.count for e in averages),
+                       sorted(e.key[:40] for e in averages)[:4])
     raise StatusError(Status.IOError(
         f"kernel_time_ms: no kernel named like {name!r} ran under the profiler "
         f"in {PROFILE_TRIES} windows"))

@@ -27,7 +27,10 @@ Phases (any failure raises, and the script exits non-zero):
    - ``match_dyn`` (B4) on 64 x 128 KiB of it with the offsets that
      ``compress_blocks_device(seg=256)`` detects;
    - both on inputs where the choice between offsets matters: 64 x 128 KiB
-     of the text corpus with the offsets of ``detect_fft=True, fft_k=6``,
+     of the text corpus with the offsets of ``detect_fft=True, fft_k=6``
+     (B5 also on the headline bench's markdown offload: 256 x 128 KiB of it
+     in its four chunks of 64, each with its own lengths and the offsets of
+     ``detect_fft="sample", fft_k=6``),
      a batch with hand-set offsets (ties, duplicates, a 0 inside the
      first ``noff``, ``noff = 0``, runs that reach the plane end), and the
      edge batches of ``match_dyn.edge_batch`` (37 blocks at 16, 48 and 128
@@ -42,7 +45,9 @@ Phases (any failure raises, and the script exits non-zero):
      the host); at every shape a main path launches it
      (``kernel_ab.emit_shapes``: the engine's device path and
      ``match_offsets`` at 1024 x 128 KiB and the engine's width, text
-     ``detect_fft`` at 65536, ``seg=256``, and the bench row at 2048); and
+     ``detect_fft`` at 65536, ``seg=256``, and the bench row at 2048); on
+     the headline bench's markdown offload (its four chunks of 64 at width
+     49152, every compressed row decoded on the host); and
      on ``emit.edge_layouts`` (LZ4 and Snappy, wcap 8 and the worst-case
      budget) at widths that cut rows, are not a multiple of 16, hold
      every row, or take 512-byte tiles (the literal path); whole rows,
@@ -162,7 +167,13 @@ Phases (any failure raises, and the script exits non-zero):
    kernel on its grid) and B7's tall route (32 x 1 MiB), each with its
    bound and its launches on the 1 MiB paths (the kernels line carries
    them under ``large_blocks`` and, for B7, ``tall_route``);
-6. only with ``--profile``: where the time of each engine main path (host
+6. the headline bench, ``cli.bench.main(["--device", "cuda"])``, at 1024 x
+   128 KiB in this process (B1, B5 and the emitter; each launched, counted
+   from 0 just before): its JSON line logged (``bench line: ``) with the
+   phase's host-clock seconds, its keys those of the root ``bench.py``'s
+   line and every number finite and above 0 (the plan join may read 0.0:
+   ``bench.MAY_READ_ZERO``);
+7. only with ``--profile``: where the time of each engine main path (host
    compress, device compress) goes, for one warm LZ4 unit: host-clock
    phases and the ``torch.profiler`` rows with the most device time.
 
@@ -176,7 +187,11 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
+import io
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -438,26 +453,6 @@ def split_rec(rec: torch.Tensor, wcap: int = 8):
     n = rec.shape[0]
     return (*(rec[:, i * wcap:(i + 1) * wcap].transpose(1, 2).reshape(n, -1)
               for i in range(3)), (rec[:, 3 * wcap] != 0).any(dim=1))
-
-
-def check_host_decode(native_reg, out: torch.Tensor, sizes: torch.Tensor,
-                      planes: torch.Tensor, lengths: torch.Tensor, codec) -> int:
-    """Decode every compressed row (size below its length and within the
-    width) with the host codec; returns the count."""
-    out_np, sz = out.cpu().numpy(), sizes.cpu().numpy()
-    raw, lens = planes.cpu().numpy(), lengths.cpu().numpy()
-    n, w = out_np.shape
-    good = np.flatnonzero((sz < lens) & (sz <= w))
-    dst = np.zeros(good.size * BLOCK, np.uint8)
-    dl, st = native_reg.host_decompress_batch(
-        codec, np.ascontiguousarray(out_np[good]).reshape(-1),
-        np.arange(good.size, dtype=np.int64) * w, sz[good].astype(np.int32), dst,
-        np.arange(good.size, dtype=np.int64) * BLOCK, lens[good].astype(np.int32))
-    if (st != 0).any() or (dl != lens[good]).any() or any(
-            dst[i * BLOCK:i * BLOCK + lens[b]].tobytes() != raw[b, :lens[b]].tobytes()
-            for i, b in enumerate(good)):
-        raise AssertionError(f"{codec.value}: emitted rows do not decode to their blocks")
-    return int(good.size)
 
 
 def hand_batch():
@@ -1182,6 +1177,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     import bitar_tpu_torch as btt
+    from bitar_tpu_torch.cli import bench
     from bitar_tpu_torch.ops import decode_flat as df
     from bitar_tpu_torch.ops import decode_planned as dp
     from bitar_tpu_torch.ops import decode_tables as dt
@@ -1189,7 +1185,6 @@ def main() -> int:
     from bitar_tpu_torch.ops import emit as em
     from bitar_tpu_torch.ops import match as mt
     from bitar_tpu_torch.ops import match_dyn as md
-    from bitar_tpu_torch.ops import registry
     from bitar_tpu_torch.ops._build import BUILD_DIR
     from bitar_tpu_torch.ops.cpu import native
     from bitar_tpu_torch.utils import timing
@@ -1297,6 +1292,12 @@ def main() -> int:
     tnoff, toffs = dc.candidate_offsets(tplanes, detect_fft=True, fft_k=6)
     tlens = mlens[:FFT_TEXT_BLOCKS]
     hplanes, hnoff, hoffs, hlens = hand_batch()
+    # The headline bench's markdown offload (cli.bench): its chunks of 64
+    # rows, each with its own lengths, and the parse arguments it gives
+    # compress_blocks_device (detect_fft="sample" picks a chunk's offsets
+    # from the chunk's own rows).
+    ochunks = bench.text_chunks(planes_of(text, bench.OFFLOAD_BLOCKS), bench.TEXT_CHUNK)
+    oparse = {k: v for k, v in bench.OFFLOAD_TEXT.items() if k != "out_width"}
 
     def walk_kernel():
         return md.find_matches_parse_dyn(mplanes.view(-1, nrows, 128), noff, offs, mlens,
@@ -1308,6 +1309,10 @@ def main() -> int:
                     "hand-set offsets": (hplanes, hnoff, hoffs, hlens, 1024, 1024)}
     for block, seg, mm in WALK_EDGES:
         walk_batches[f"edge {block // 1024} KiB"] = (*edge_batch(md, block), seg, mm)
+    for i, (pl, ln) in enumerate(ochunks):
+        walk_batches[f"bench text offload chunk {i} (detect_fft='sample')"] = (
+            pl, *dc.candidate_offsets(pl, detect_fft=oparse["detect_fft"],
+                                      fft_k=oparse["fft_k"]), ln, oparse["seg"], 1024)
     for what, (pl, nf, of, ln, seg, mm) in walk_batches.items():
         e, got = compare_walk(md, pl, nf, of, ln, what, seg, mm)
         err = max(err, e)
@@ -1353,11 +1358,23 @@ def main() -> int:
             want = em.emit_reference(pl, lay, out_width=ow, fmt=fmt, lengths=ln)
             err = max(err, check_equal(f"emit {name} ow {ow}", got, want))
             codec = btt.Codec.SNAPPY if fmt == "snappy" else btt.Codec.LZ4
-            rows = check_host_decode(registry, got, lay["total"], pl, ln, codec)
+            rows = bench.check_offload_rows(codec, got, lay["total"], pl, ln, f"emit {name}")
             if name == "short RLE lz4" and rows == 0:
                 raise AssertionError(f"emit {name} ow {ow}: no row fits the width")
             log(f"emit == plain version: {name}, {n} x {BLOCK} B, out_width {ow}; "
                 f"{rows} compressed rows decode bit-exact on the host")
+    ow = bench.OFFLOAD_TEXT["out_width"]
+    for i, (pl, ln) in enumerate(ochunks):
+        lay = dc.match_parse_device(pl, ln, **oparse)
+        got = em.emit_blocks(pl, lay, out_width=ow, lengths=ln)
+        torch.cuda.synchronize()
+        err = max(err, check_equal(f"emit bench text offload chunk {i}", got,
+                                   em.emit_reference(pl, lay, out_width=ow, lengths=ln)))
+        rows = bench.check_offload_rows(btt.Codec.LZ4, got, lay["total"], pl, ln,
+                                        f"emit bench text offload chunk {i}")
+        log(f"emit == plain version: bench text offload chunk {i}, {pl.shape[0]} x {BLOCK} B "
+            f"(detect_fft='sample'), out_width {ow}; {rows} compressed rows decode bit-exact "
+            "on the host")
     # The shapes the main paths launch the emitter at (kernel_ab.emit_shapes),
     # whole rows against the plain version, a block of rows at a time.
     emit_at = emit_shapes(corpus, text)
@@ -1588,7 +1605,8 @@ def main() -> int:
     md.walk_launches, md.dyn_launches, em.launches = 0, 0, 0
     out, sizes = dc.compress_blocks_device(dplanes, mlens[:DYN_BLOCKS], seg=256)
     torch.cuda.synchronize()
-    rows = check_host_decode(registry, out, sizes, dplanes, mlens[:DYN_BLOCKS], btt.Codec.LZ4)
+    rows = bench.check_offload_rows(btt.Codec.LZ4, out, sizes, dplanes, mlens[:DYN_BLOCKS],
+                                    "compress_blocks_device(seg=256)")
     counts["compress_blocks_device seg 256"] = {"match_dyn": md.dyn_launches,
                                                 "emit": em.launches}
     log(f"main path compress_blocks_device(seg=256): {DYN_BLOCKS} x {BLOCK} B, width "
@@ -2002,6 +2020,10 @@ def main() -> int:
     report(f"compress_blocks_device(seg=1024, out_width=2048) {MATCH_BLOCKS} x 128 KiB "
            f"(detector, B5, layout, emitter)", card, res, ms, MATCH_BLOCKS * BLOCK)
 
+    # -- phase 6: the headline bench --------------------------------------
+    log(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s")
+    run_bench(bench, df, md, em)
+
     if args.profile:
         profile_main_path(btt, corpus, card)
         profile_device_path(btt, corpus, card)
@@ -2024,6 +2046,9 @@ def main() -> int:
         "decode_planned": ("bitar_tpu_torch/csrc/decode_planned.cu",
                            "bitar_tpu/ops/pallas/lz4_decode_planned.py:62"),
     }
+    pw = timing.profiled_windows
+    log(f"torch.profiler windows of timing.kernel_time_ms: {pw['windows']}, {pw['lost']} of "
+        "them without the kernel asked for")
     log(f"smoke wall clock {time.perf_counter() - t_start:.1f} s")
     line = []
     for name, k in kernels.items():
@@ -2041,6 +2066,38 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_bench(bench, df, md, em) -> None:
+    """Phase 6: ``cli.bench.main(["--device", "cuda"])`` at 1024 blocks in this
+    process, B1's, B5's and the emitter's launch counts set to 0 just before
+    and read just after; its line logged, its keys the reference's
+    (``bench.KEYS``) and every number in it finite and above 0, but the plan
+    join's, which may read 0.0 (``bench.MAY_READ_ZERO``)."""
+    os.environ.update(BENCH_NBLOCKS=str(NBLOCKS), BENCH_REPS="8")
+    out = io.StringIO()
+    df.launches, md.walk_launches, em.launches = 0, 0, 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--device", "cuda"])
+    secs = time.perf_counter() - t0
+    launches = {"decode_flat": df.launches, "match_walk": md.walk_launches,
+                "emit": em.launches}
+    last = out.getvalue().strip().splitlines()[-1]
+    log(f"bench line: {last}")
+    log(f"phase 6: cli.bench at {NBLOCKS} x 128 KiB took {secs:.1f} s (host clock); "
+        f"launches {launches}")
+    line = json.loads(last)
+    if rc != 0 or set(line) != set(bench.KEYS):
+        raise AssertionError(f"cli.bench: rc {rc}, keys {sorted(line)}")
+    bad = {k: v for k, v in line.items() if k not in ("metric", "unit")
+           and not (isinstance(v, (int, float)) and math.isfinite(v)
+                    and (v > 0 or (v == 0 and k in bench.MAY_READ_ZERO)))}
+    if bad:
+        raise AssertionError(f"cli.bench: values not finite and above 0: {bad}")
+    for name, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"cli.bench launched no {name} kernel")
 
 
 ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

@@ -14,7 +14,8 @@ plain versions (bench and text corpora, class-pure batches, random wires
 and tables at heights of 1152 to 8192 rows, out passes that gather across
 slices, a skewed burst, RLE tables), one B1 launch whose output passes 2^31
 bytes, the engine at 1 MiB, the CLI's skewed suite in LZ4, Snappy and Zstd,
-``configs_bench`` config 2 at 1 GiB and ``multihost_bench --launch 2``.
+``configs_bench`` config 2 at 1 GiB, ``multihost_bench --launch 2`` and the
+headline bench (``cli.bench``) at 64 blocks.
 
 They skip without CUDA.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports JAX, so on the card run this file alone:
@@ -1347,6 +1348,23 @@ def test_configs_bench_config2_at_1gib_on_card(tmp_path, cuda_device):
     assert configs_bench.main(["--configs", "2", "--gib", "1", "--out", str(out)]) == 0
     (run,) = json.loads(out.read_text())["runs"]
     assert run["bit_exact"] and run["decompress_GBps"] > 0
+
+
+def test_bench_at_64_blocks_on_card(monkeypatch, capsys, cuda_device):
+    import json
+    import math
+
+    from bitar_tpu_torch.cli import bench
+
+    monkeypatch.setenv("BENCH_NBLOCKS", "64")
+    monkeypatch.setenv("BENCH_REPS", "8")
+    assert bench.main(["--device", "cuda"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert tuple(line) == bench.KEYS
+    for key, v in line.items():
+        if key not in ("metric", "unit"):
+            assert isinstance(v, (int, float)) and math.isfinite(v), (key, v)
+            assert v > 0 or (v == 0 and key in bench.MAY_READ_ZERO), (key, v)
 
 
 def test_multihost_bench_two_ranks_on_card(tmp_path, cuda_device):

@@ -29,7 +29,8 @@ def test_import_leaves_jax_out():
             "bitar_tpu_torch.parallel.pipeline, bitar_tpu_torch.parallel.ring, "
             "bitar_tpu_torch.parallel.multihost, bitar_tpu_torch.parallel.dryrun, "
             "bitar_tpu_torch.cli.demo, bitar_tpu_torch.cli.configs_bench, "
-            "bitar_tpu_torch.cli.multihost_bench, bitar_tpu_torch.utils.profiling, chip_smoke; "
+            "bitar_tpu_torch.cli.multihost_bench, bitar_tpu_torch.cli.bench, "
+            "bitar_tpu_torch.utils.profiling, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'bitar_tpu' or m.startswith('bitar_tpu.')); print(bad)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -128,11 +129,14 @@ def test_kernel_and_host_timers_refuse_cpu(timer, monkeypatch):
 @pytest.mark.parametrize("empty_windows", [1, 3])
 def test_kernel_time_ms_profiles_again_after_a_window_without_the_kernel(
         empty_windows, monkeypatch):
-    # A profiled window whose device records were all dropped is profiled
-    # again; after PROFILE_TRIES such windows the timer raises.
+    # A profiled window whose device records were all dropped is counted as
+    # lost and profiled again; after PROFILE_TRIES such windows the timer
+    # raises.
     import torch
 
     from bitar_tpu_torch.utils import timing
+
+    pads = []
 
     class Average:
         key, device_time_total, count = "void walk_kernel(Args)", 30.0, 3
@@ -156,7 +160,10 @@ def test_kernel_time_ms_profiles_again_after_a_window_without_the_kernel(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     monkeypatch.setattr(torch.profiler, "profile", Profile)
-    monkeypatch.setattr(timing, "PROFILE_PAD_S", 0.0)
+    monkeypatch.setattr(timing, "PROFILE_PAD_S", 1e-4)
+    monkeypatch.setattr(timing, "PROFILE_TRIES", 3)
+    monkeypatch.setattr(timing.time, "sleep", pads.append)
+    monkeypatch.setattr(timing, "profiled_windows", {"windows": 0, "lost": 0})
     if empty_windows < timing.PROFILE_TRIES:
         assert timing.kernel_time_ms(lambda: None, 3, "walk_kernel") == pytest.approx(0.01)
         assert len(windows) == empty_windows + 1
@@ -164,6 +171,8 @@ def test_kernel_time_ms_profiles_again_after_a_window_without_the_kernel(
         with pytest.raises(btt.StatusError, match="no kernel named like 'walk_kernel'"):
             timing.kernel_time_ms(lambda: None, 3, "walk_kernel")
         assert len(windows) == timing.PROFILE_TRIES
+    assert pads == [1e-4] * (2 * len(windows))
+    assert timing.profiled_windows == {"windows": len(windows), "lost": empty_windows}
 
 
 def test_kernel_time_ms_sums_the_kernels_a_call_launches(monkeypatch):
