@@ -1,11 +1,11 @@
 """bitar-tpu on PyTorch and CUDA: the block compression engine's port.
 
 The second package beside ``bitar_tpu`` (JAX, the reference).  It imports
-torch and numpy, never JAX or ``bitar_tpu``; the host codec library is the
-same C++ (``bitar_tpu/ops/cpu/*.cc``), compiled by path.  Its device work
-runs hand-written CUDA kernels (``csrc/*.cu``: flat-plan and sequence-table
-decode, the match kernels, the emitter) on a CUDA device, and their plain
-PyTorch versions on the CPU.
+torch and numpy, never JAX or ``bitar_tpu``, and builds its host codec
+library from its own copy of the reference's C++ (``ops/cpu/*.cc``).  Its
+device work runs hand-written CUDA kernels (``csrc/*.cu``: flat-plan and
+sequence-table decode, the match kernels, the emitter) on a CUDA device,
+and their plain PyTorch versions on the CPU.
 
 Quick start::
 

@@ -12,12 +12,13 @@ runs of ``BENCH_REPS`` chained whole-unit decode launches
 (``Engine.prepare_device_decode``) on device-resident inputs, each run ended by
 one synchronize, on the host clock; a launch's time is the run's over the count.
 Beside it, on stderr, the same launch's CUDA-event time
-(``utils.timing.device_time_ms``) and its kernel-only time
-(``utils.timing.kernel_time_ms``), so the launch wrapper's share shows.
+(``utils.timing.device_time_ms``) and its held time
+(``utils.timing.kernel_time_ms``: launches queued behind a hold kernel, then
+run back to back), so the launch wrapper's share shows.
 
 ``--device cuda`` (the default) runs on the card and exits non-zero where there
 is none; ``--device cpu`` runs the kernels' plain PyTorch versions and leaves
-out what only the card has (``nvidia-smi``, the event and kernel-only times).
+out what only the card has (``nvidia-smi``, the event and held times).
 A phase that fails raises: nothing is skipped.
 
 ``BENCH_NBLOCKS`` (default 1024) and ``BENCH_REPS`` (default 8) are read when
@@ -44,7 +45,7 @@ import torch
 
 from ..config import Codec, EngineConfig
 from ..engine.device import CompressedUnit, Engine
-from ..ops import registry
+from ..ops import decode_flat, registry
 from ..ops.device_compress import compress_blocks_device
 from ..status import Status, StatusError
 from ..utils import timing
@@ -62,7 +63,6 @@ OFFLOAD_LZ4 = dict(seg=1024, min_match=6, out_width=2048)
 OFFLOAD_SNAPPY = dict(seg=1024, min_match=6, out_width=8192, fmt="snappy")
 OFFLOAD_TEXT = dict(seg=1024, min_match=6, out_width=49152, detect_fft="sample", fft_k=6)
 TEXT_CHUNK = 64               # planes a launch of the markdown offload
-B1_KERNEL = "decode_flat_kernel"
 #: The keys of the reference's line (``bench.py:544-573``), in its order.
 KEYS = ("metric", "value", "unit", "vs_baseline", "compress_GBps", "compress_eager_GBps",
         "combined_GBps", "decompress_cold_GBps", "plan_build_ms", "commit_upload_ms",
@@ -198,9 +198,9 @@ def headline_phase(eng: Engine, unit: CompressedUnit, data: bytes, reps: int) ->
         say(f"decompress run {run}: {dt * 1e3:.2f} ms/launch ({len(data) / dt / 1e9:.3f} GB/s)")
     if eng.device.type == "cuda":
         ev = timing.device_time_ms(launch, reps)
-        k = timing.kernel_time_ms(launch, reps, B1_KERNEL)
+        k = timing.kernel_time_ms(launch, reps, lambda: decode_flat.launches)
         say(f"decompress launch: host clock {min(runs) * 1e3:.4f} ms, CUDA events "
-            f"{ev:.4f} ms, kernel-only {k:.4f} ms ({B1_KERNEL}, torch.profiler)")
+            f"{ev:.4f} ms, held {k:.4f} ms (B1, the launch's only kernel)")
     return min(runs)
 
 

@@ -1,8 +1,8 @@
 """Build a shared library at first use, safely across processes.
 
-The port builds two kinds of library from sources in the checkout: the host
-codec library (g++, from ``bitar_tpu/ops/cpu/*.cc``) and one library per
-CUDA kernel source (nvcc, from ``csrc/*.cu``).  Several processes may ask
+The port builds two kinds of library from its own sources: the host codec
+library (g++, from ``ops/cpu/*.cc``) and one library per CUDA kernel source
+(nvcc, from ``csrc/*.cu``).  Several processes may ask
 for the same library at once (pytest workers, a server's replicas), so the
 build:
 

@@ -1,13 +1,13 @@
 """ctypes bindings to the host codec library, for the calls the port needs.
 
-The library is the JAX package's own C++ (``bitar_tpu/ops/cpu/*.cc``: the
-LZ4/Snappy/Zstd codecs, the batch engine, the batch planner
-``bt_plan_batch*``, the sequence parsers and the hint-driven emitters),
-compiled by path with g++ into the port's build
-directory.  The sources are shared, never forked, so both packages plan and
-code the same bytes; nothing of the ``bitar_tpu`` Python package is
-imported.
+The library is the port's own C++, in this directory (``*.cc`` and
+``bitar_host.h``: the LZ4/Snappy/Zstd codecs, the batch engine, the batch
+planner ``bt_plan_batch*``, the sequence parsers and the hint-driven
+emitters), compiled with g++ into the port's build directory at first use.
+It began as a copy of the JAX package's library; parity tests hold the two
+to the same streams, tables and plans.
 """
+
 
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import numpy as np
 from ...status import Status, StatusError
 from .._build import build_library
 
-SRC_DIR = Path(__file__).resolve().parents[3] / "bitar_tpu" / "ops" / "cpu"
+SRC_DIR = Path(__file__).resolve().parent
 _SOURCES = ["lz4.cc", "snappy.cc", "zstd.cc", "batch.cc", "plan.cc"]
 _ABI_VERSION = 6
 DENSE_PLANES = 64     # row_a anchor planes per block (plan.cc kDenseMax)
@@ -90,16 +90,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def sources() -> list[Path]:
+    """The files the library's build hash covers: every source and, so that
+    a header-only change rebuilds instead of loading a stale library, every
+    header."""
+    return [SRC_DIR / s for s in _SOURCES] + sorted(SRC_DIR.glob("*.h"))
+
+
 def load() -> ctypes.CDLL:
     """Load (building if needed) the host library; thread-safe, idempotent."""
     global _lib
     with _lock:
         if _lib is None:
-            # Every header joins the build hash, so a header-only change
-            # rebuilds instead of loading a stale library.
-            headers = sorted(SRC_DIR.glob("*.h"))
-            path = build_library(
-                "bitar_host", [SRC_DIR / s for s in _SOURCES] + headers, _command)
+            path = build_library("bitar_host", sources(), _command)
             lib = _bind(ctypes.CDLL(str(path)))
             got = lib.bt_abi_version()
             if got != _ABI_VERSION:

@@ -34,6 +34,8 @@ _FIELDS = ("starts", "lit_len", "lit_start", "mv", "off")
 
 #: Kernel launches made by ``emit_blocks`` on CUDA tensors, one per call.
 launches = 0
+#: Launches of the empty kernel of ``floor_kernel_ms``.
+floor_launches = 0
 
 
 def ext_bytes(v: torch.Tensor) -> torch.Tensor:
@@ -281,15 +283,17 @@ def emit_blocks(planes: torch.Tensor, layout: dict, *, out_width: int, fmt: str 
 
 
 def floor_kernel_ms(n: int, S: int, out_width: int, timing, reps: int) -> float:
-    """Kernel-only ms of an empty kernel on the grid ``emit_blocks`` launches
-    for ``n`` rows of ``S`` slots at ``out_width``: the launch's own floor
-    on the current CUDA device."""
+    """Held ms (``timing.kernel_time_ms``) of an empty kernel on the grid
+    ``emit_blocks`` launches for ``n`` rows of ``S`` slots at
+    ``out_width``: the launch's own floor on the current CUDA device."""
     lib = load_kernel()
     dev = torch.cuda.current_device()
 
     def launch():
+        global floor_launches
         rc = lib.bt_emit_floor_launch(n, S, out_width, dev,
                                       torch._C._cuda_getCurrentRawStream(dev))
         check_cuda(rc, "emit floor launch", lib)
+        floor_launches += 1
 
-    return timing.kernel_time_ms(launch, reps, "emit_floor")
+    return timing.kernel_time_ms(launch, reps, lambda: floor_launches)

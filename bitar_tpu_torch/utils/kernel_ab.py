@@ -12,14 +12,13 @@ checkout's on one card, in turns, on the same inputs.
 archive`` of the parent commit unpacked into a git-ignored directory).  Its
 package is loaded beside this one under another name and builds its kernels
 into its own ``_build/``.  Every shape is run old, new, new, old (CUDA
-events, mean ms per launch) after the two outputs are checked equal; B1,
-B2, B3, B4, B5 and B7 are also timed kernel-only (``timing.kernel_time_ms``)
-and by the host clock per call (``timing.host_us_per_call``), in the same
-turns.
+events, mean ms per launch) after the two outputs are checked equal; every
+kernel is also timed held (``timing.kernel_time_ms``: the calls queued
+behind a hold kernel, then run back to back; ``held_`` keys) and by the
+host clock per call (``timing.host_us_per_call``), in the same turns.
 B7 runs at the shapes of :func:`planned_shapes` (its shared route at the
-bench's 128 KiB, its tall route at 256 KiB and 1 MiB), each tall line with
-this checkout's slice and cluster kernels timed apart (``new_kernel_split``),
-and a last line times this checkout's two routes on the same 32 MiB.
+bench's 128 KiB, its tall route at 256 KiB and 1 MiB), and a last line
+times this checkout's two routes on the same 32 MiB.
 B1 also runs at the shapes of its cluster route (:func:`large_flat_shapes`:
 1 MiB and 256 KiB blocks, and a burst of the CLI's skewed suite on
 8192-row planes), and B2 on 1 MiB and 256 KiB tables (:func:`table_shapes`).
@@ -90,19 +89,26 @@ def planned_batch(btt, data: bytes, nblocks: int, block: int = BLOCK, sizes=None
     return batch
 
 
-def turns(timing, old, new, kernel: str | None = None, calls: int = 0) -> dict:
+def counted(old_mod, new_mod, attr: str = "launches") -> dict:
+    """The launch counter ``attr`` of the two checkouts' modules, as
+    functions that read it (``timing.kernel_time_ms``'s ``launches``)."""
+    return {"old": lambda: getattr(old_mod, attr), "new": lambda: getattr(new_mod, attr)}
+
+
+def turns(timing, old, new, counters: dict | None = None, calls: int = 0) -> dict:
     """Old, new, new, old: mean CUDA-event ms per call of each; with
-    ``kernel``, also the kernel-only ms of the kernels so named, and with
-    ``calls``, the host microseconds per call over that many calls."""
+    ``counters`` (:func:`counted`), also the held ms, and with ``calls``,
+    the host microseconds per call over that many calls."""
     res = {}
-    for key, timer in (("", lambda fn: timing.device_time_ms(fn, REPS)),
-                       ("kernel_", lambda fn: timing.kernel_time_ms(fn, REPS, kernel)),
-                       ("host_us_", lambda fn: timing.host_us_per_call(fn, calls))):
-        if (key == "kernel_" and not kernel) or (key == "host_us_" and not calls):
+    for key, timer in (("", lambda side, fn: timing.device_time_ms(fn, REPS)),
+                       ("held_", lambda side, fn: timing.kernel_time_ms(fn, REPS,
+                                                                       counters[side])),
+                       ("host_us_", lambda side, fn: timing.host_us_per_call(fn, calls))):
+        if (key == "held_" and not counters) or (key == "host_us_" and not calls):
             continue
         ms = {"old": [], "new": []}
         for name, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
-            ms[name].append(timer(fn))
+            ms[name].append(timer(name, fn))
         res |= {key + k: sum(v) / len(v) for k, v in ms.items()} | {key + "turns": ms}
     return res
 
@@ -173,7 +179,7 @@ def main() -> int:
         kw = dict(offsets=mt.DEFAULT_OFFSETS, nrows=nrows, max_match=mm, emit_values=values)
         equal = same(mt.find_matches(x, **kw), omt.find_matches(x, **kw))
         res = turns(timing, lambda x=x, kw=kw: omt.find_matches(x, **kw),
-                    lambda x=x, kw=kw: mt.find_matches(x, **kw), "match_kernel", 100)
+                    lambda x=x, kw=kw: mt.find_matches(x, **kw), counted(omt, mt), 100)
         emit({"kernel": "match", "shape": f"{n} x 128 KiB, 26 offsets, max_match {mm}, "
               f"{'values' if values else 'indices'}", "equal": equal, **res})
 
@@ -203,7 +209,7 @@ def main() -> int:
 
         equal = same(new(), prev())
         emit({"kernel": "decode_flat", "shape": name, "equal": equal,
-              **turns(timing, prev, new, "decode_flat_kernel", 100)})
+              **turns(timing, prev, new, counted(odf, df), 100)})
     return finish(args, lines)
 
 
@@ -254,7 +260,7 @@ def ab_match_routes(emit, timing, mt, corpus: bytes) -> None:
             assert plan(block, mt.DEFAULT_OFFSETS, mm)["window"] > 0
             equal = same(routed(x, kw, True), routed(x, kw, False))
             res = turns(timing, lambda x=x, kw=kw: routed(x, kw, True),
-                        lambda x=x, kw=kw: routed(x, kw, False), "match_kernel", 100)
+                        lambda x=x, kw=kw: routed(x, kw, False), counted(mt, mt), 100)
             emit({"kernel": "match", "shape": f"{x.shape[0]} x {block >> 10} KiB, 26 offsets, "
                   f"max_match {mm}, {'values' if values else 'indices'}",
                   "routes": "old: staged window, new: device memory", "equal": equal, **res})
@@ -302,7 +308,7 @@ def ab_tables(emit, timing, corpus: bytes, text: bytes) -> None:
         equal = same(new(), prev())
         emit({"kernel": "decode_tables", "shape": name, "sequences": int(nseq.sum()),
               "max_per_block": int(nseq.max()), "equal": equal,
-              **turns(timing, prev, new, "decode_tables_kernel",
+              **turns(timing, prev, new, counted(odt, dt),
                       1000 if block <= 4096 else 100)})
 
 
@@ -358,14 +364,9 @@ def ab_planned(emit, timing, corpus: bytes, text: bytes) -> None:
             return dp.decode_blocks_planned(*a, **kw)
 
         equal = same(new(), odp.decode_blocks_planned(*a, **kw))
-        rec = {"kernel": "decode_planned", "shape": name, "equal": equal,
-               **turns(timing, lambda a=a, kw=kw: odp.decode_blocks_planned(*a, **kw), new,
-                       "decode_planned_kernel", 100)}
-        if name.startswith("tall"):       # this checkout's tall route, kernel by kernel
-            rec["new_kernel_split"] = {
-                k: timing.kernel_time_ms(new, REPS, f"decode_planned_kernel_{k}")
-                for k in ("slices", "cluster")}
-        emit(rec)
+        emit({"kernel": "decode_planned", "shape": name, "equal": equal,
+              **turns(timing, lambda a=a, kw=kw: odp.decode_blocks_planned(*a, **kw), new,
+                      counted(odp, dp), 100)})
     # This checkout's two routes on the same 32 MiB of the bench corpus:
     # "old" the shared route at 128 KiB blocks, "new" the tall route at 1 MiB.
     sa, skw = next(v for k, v in shapes.items() if k.endswith("as planned"))
@@ -380,7 +381,7 @@ def ab_planned(emit, timing, corpus: bytes, text: bytes) -> None:
           "equal": all(raw.values()), "raw_bytes": {"old": sa[0].shape[0] * BLOCK,
                                                     "new": ta[0].shape[0] * LARGE},
           **turns(timing, lambda: dp.decode_blocks_planned(*sa, **skw),
-                  lambda: dp.decode_blocks_planned(*ta, **tkw), "decode_planned_kernel", 100)})
+                  lambda: dp.decode_blocks_planned(*ta, **tkw), counted(dp, dp), 100)})
 
 
 def ab_match_dyn(emit, timing, corpus: bytes, text: bytes, only: str | None) -> None:
@@ -412,7 +413,8 @@ def ab_match_dyn(emit, timing, corpus: bytes, text: bytes, only: str | None) -> 
 
             equal = same(new(), prev())
             emit({"kernel": "match_walk", "shape": f"{shape}, seg 1024, max_match 1024",
-                  "equal": equal, **turns(timing, prev, new, "match_walk_kernel", 100)})
+                  "equal": equal,
+                  **turns(timing, prev, new, counted(omd, md, "walk_launches"), 100)})
         if only in (None, "match_dyn"):
             xd = x[:DYN_BLOCKS] if name == "bench" else x
 
@@ -425,7 +427,7 @@ def ab_match_dyn(emit, timing, corpus: bytes, text: bytes, only: str | None) -> 
             equal = same(new(), prev())
             emit({"kernel": "match_dyn", "shape": f"{name} {xd.shape[0]} x 128 KiB, "
                   f"max_match 256", "equal": equal,
-                  **turns(timing, prev, new, "match_dyn_kernel", 100)})
+                  **turns(timing, prev, new, counted(omd, md, "dyn_launches"), 100)})
 
 
 def emit_shapes(corpus: bytes, text: bytes) -> dict:
@@ -489,7 +491,7 @@ def ab_emit(emit, timing, corpus: bytes, text: bytes) -> None:
                "bound_ms": timing.bound_ms(em.bound_bytes(lay, ow))[0], "equal": equal}
         rec["floor_kernel_ms"] = em.floor_kernel_ms(pl.shape[0], lay["starts"].shape[1], ow,
                                                     timing, REPS)
-        emit(rec | turns(timing, prev, new, "emit_kernel", 200))
+        emit(rec | turns(timing, prev, new, counted(oem, em), 200))
 
 
 def ab_parse_walk(emit, timing, corpus: bytes, text: bytes) -> None:
@@ -520,7 +522,7 @@ def ab_parse_walk(emit, timing, corpus: bytes, text: bytes) -> None:
         emit({"kernel": "parse_walk", "shape": f"{name}, {n} x 128 KiB, seg 1024, wcap 8",
               "sequences": int((got[0] >= 0).sum()),
               "bound_ms": timing.bound_ms(bound)[0], "equal": equal,
-              **turns(timing, prev, new, "parse_walk_kernel", 200)})
+              **turns(timing, prev, new, counted(omd, md, "parse_walk_launches"), 200)})
 
 
 def finish(args, lines: list[str]) -> int:

@@ -1,5 +1,5 @@
-"""Benchmark phase timing, device timing with CUDA events, with the profiler,
-and the host's cost of a call.
+"""Benchmark phase timing, device timing with CUDA events, held device
+timing, and the host's cost of a call.
 
 ``PhaseTiming`` and ``time_phase`` are the CLI's per-phase reporting (the
 counterparts of ``bitar_tpu/utils/timing.py``): a host clock around each
@@ -11,9 +11,10 @@ PyTorch returns before the device finishes, so a host clock around CUDA
 work measures the enqueue; ``device_time_ms`` times a run of launches with
 CUDA events on the current stream instead.  When a wrapper spends more host
 time per call than its kernel takes, back-to-back launches leave the device
-idle between them and the events time the host: ``kernel_time_ms`` reads
-the kernel's own duration from ``torch.profiler`` (CUPTI), and
-``host_us_per_call`` the host's time per call.  All three raise without
+idle between them and the events time the host: ``kernel_time_ms`` queues
+the calls behind a hold kernel (``csrc/hold.cu``) and releases them at
+once, so the events time the device running them back to back, and
+``host_us_per_call`` times the host per call.  All three raise without
 CUDA: a device time is never taken on the CPU.  ``bound_ms`` is the least
 time the card could take for a given work, the bound every timing is held
 against.
@@ -21,27 +22,26 @@ against.
 
 from __future__ import annotations
 
+import ctypes
 import time
 from dataclasses import dataclass, field
 
 import torch
 
+from ..ops._build import check_cuda, load_cuda_kernel
 from ..status import Status, StatusError
-from .logging import get_logger
-
-logger = get_logger("utils.timing")
 
 NUM_BENCH_RUNS = 3  # reference kNumTests (demo_app.h:45)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 INT32_OPS_PER_S = 33.5e12     # 132 SMs x 128 lanes x 1.98 GHz, one op per lane per cycle
-PROFILE_PAD_S = 0.02          # idle host seconds at each end of a profiled window
-#: Profiled windows before kernel_time_ms gives up: windows lose their
-#: records for a cause not found, several running at times.
-PROFILE_TRIES = 10
-#: kernel_time_ms's profiled windows in this process, and how many of them
-#: recorded none of the kernels asked for.
-profiled_windows = {"windows": 0, "lost": 0}
+#: Launches of the timed kernel that kernel_time_ms queues behind one hold.
+#: CUDA's queue of pending launches holds about a thousand entries; once it
+#: is full the host blocks while the device waits on the host.  The cap
+#: leaves room for the events and for what a wrapper enqueues beside its
+#: kernel.
+HELD_LAUNCHES = 128
+HOLD_TIMEOUT_S = 2.0          # device seconds a hold waits for its release
 
 
 @dataclass
@@ -121,53 +121,101 @@ def device_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_time_ms(fn, reps: int, name: str, warmup: int = 1) -> float:
-    """Device milliseconds of the kernels whose name contains ``name``, over
-    ``reps`` calls of ``fn`` under ``torch.profiler`` (CUDA activity only):
-    the mean duration of each such kernel, summed over the kernels of
-    different names (a call that launches two kernels, as B1's tall route
-    does, counts both), without the gaps that the host leaves between
-    launches.
+def held_rounds(reps: int, launches_per_call: int) -> list[int]:
+    """The calls of each held round of ``kernel_time_ms``: ``reps`` split
+    into rounds of at most ``HELD_LAUNCHES`` launches, one call at least."""
+    per_round = max(1, HELD_LAUNCHES // max(1, launches_per_call))
+    return [min(per_round, reps - i) for i in range(0, reps, per_round)]
 
-    The profiler keeps only device records that fall inside its window on
-    the host's clock, and CUPTI's clock is converted to that one; so the
-    window is padded with ``PROFILE_PAD_S`` of idle host time at each end.
-    A window has been seen to keep no record of the kernels, several
-    windows running at times, for a cause not found: not the profiler's
-    ``acc_events`` warning (torch 2.11 gives it on the first window of every
-    process, as it tests the profiler it has just made), and not the pad
-    (windows padded 0.5 s lost theirs too).  Such a window is counted in
-    ``profiled_windows``, logged with what it did record, and profiled
-    again, up to ``PROFILE_TRIES`` windows.  Raises without CUDA, and when
-    no window saw such a kernel."""
+
+def load_hold_kernel() -> ctypes.CDLL:
+    """Build (at first use, for sm_90a) and load ``csrc/hold.cu``."""
+    def bind(lib: ctypes.CDLL) -> None:
+        vp = ctypes.c_void_p
+        lib.bt_hold_alloc.restype = ctypes.c_int
+        lib.bt_hold_alloc.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(vp)]
+        lib.bt_hold_arm.restype = lib.bt_hold_release.restype = None
+        lib.bt_hold_arm.argtypes = lib.bt_hold_release.argtypes = [vp]
+        lib.bt_hold_gave_up.restype = ctypes.c_int
+        lib.bt_hold_gave_up.argtypes = [vp]
+        lib.bt_hold_launch.restype = ctypes.c_int
+        lib.bt_hold_launch.argtypes = [vp, ctypes.c_ulonglong, ctypes.c_int, vp]
+    return load_cuda_kernel("hold", bind)
+
+
+_hold: tuple[ctypes.CDLL, int, int] | None = None   # library, host and device flags
+
+
+def _hold_flags() -> tuple[ctypes.CDLL, int, int]:
+    global _hold
+    if _hold is None:
+        lib = load_hold_kernel()
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        check_cuda(lib.bt_hold_alloc(ctypes.byref(host), ctypes.byref(dev)), "hold flags", lib)
+        _hold = (lib, host.value, dev.value)
+    return _hold
+
+
+def _name(fn) -> str:
+    code = getattr(fn, "__code__", None)
+    where = f" ({code.co_filename}:{code.co_firstlineno})" if code else ""
+    return f"{getattr(fn, '__qualname__', repr(fn))}{where}"
+
+
+def kernel_time_ms(fn, reps: int, launches, warmup: int = 1) -> float:
+    """Device milliseconds per call of ``fn`` over ``reps`` calls that the
+    device runs back to back, with no profiler.  Each round of calls
+    (``held_rounds``) is queued on the current stream behind the hold
+    kernel, between two CUDA events, and released once queued: the events
+    then time device work without the host's gaps between launches.  Every
+    kernel a call enqueues counts: a wrapper's own fills or gathers, and
+    both kernels of B1's and B7's tall routes.
+
+    ``launches()`` reads the launch counter of the kernel that ``fn``
+    launches (its wrapper's count).  The warm-up calls must raise it, which
+    checks that ``fn`` launched that kernel, and their launches a call size
+    the rounds.  Raises without CUDA, when the warm-up calls launched no
+    such kernel, and when a hold gave up waiting for its release after
+    ``HOLD_TIMEOUT_S``: then ``fn`` waited on the host (a synchronize, an
+    ``.item()``, a pageable copy) or its launches filled CUDA's queue, and
+    the time would not be the device's."""
     _need_cuda("kernel_time_ms")
+    if reps < 1:
+        raise StatusError(Status.Invalid(f"kernel_time_ms: reps {reps} must be positive"))
+    warmup = max(1, warmup)
+    before = launches()
     for _ in range(warmup):
         fn()
+    per_call = -(-(launches() - before) // warmup)
+    if per_call <= 0:
+        raise StatusError(Status.Invalid(
+            f"kernel_time_ms: {_name(fn)} launched no kernel of its counter in "
+            f"{warmup} warm-up calls"))
+    lib, host, dev = _hold_flags()
+    stream = torch.cuda.current_stream()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_PAD_S)
-            for _ in range(reps):
+    total = 0.0
+    for calls in held_rounds(reps, per_call):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        lib.bt_hold_arm(host)
+        check_cuda(lib.bt_hold_launch(dev, int(HOLD_TIMEOUT_S * 1e9), stream.device.index,
+                                      stream.cuda_stream), "hold launch", lib)
+        try:
+            start.record(stream)
+            for _ in range(calls):
                 fn()
-            torch.cuda.synchronize()
-            time.sleep(PROFILE_PAD_S)
-        mean_us, count = 0.0, 0
-        profiled_windows["windows"] += 1
-        averages = prof.key_averages()
-        for e in averages:
-            if name in e.key and e.count:
-                t = getattr(e, "device_time_total", None)    # cuda_time_total before torch 2.4
-                mean_us += float(t if t is not None else e.cuda_time_total) / e.count
-                count += e.count
-        if count:
-            return mean_us / 1e3
-        profiled_windows["lost"] += 1
-        logger.warning("kernel_time_ms: no kernel named like %r in a window; it recorded %d "
-                       "records of other names %s", name, sum(e.count for e in averages),
-                       sorted(e.key[:40] for e in averages)[:4])
-    raise StatusError(Status.IOError(
-        f"kernel_time_ms: no kernel named like {name!r} ran under the profiler "
-        f"in {PROFILE_TRIES} windows"))
+            end.record(stream)
+        finally:
+            lib.bt_hold_release(host)
+            stream.synchronize()
+        if lib.bt_hold_gave_up(host):
+            raise StatusError(Status.IOError(
+                f"kernel_time_ms: the hold gave up after {HOLD_TIMEOUT_S} s, before its "
+                f"release: {_name(fn)} waits on the host (a synchronize, .item(), a pageable "
+                f"copy), or {calls} calls of {per_call} launches filled CUDA's queue"))
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def host_us_per_call(fn, calls: int, warmup: int = 1) -> float:

@@ -6,8 +6,9 @@ that the port still starts on the card.
 Phases (any failure raises, and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the host codec library (g++) and the eight CUDA kernels (nvcc,
-   sm_90a, one process per source, all started together), timed;
+2. build the host codec library (g++), the eight CUDA kernels and the
+   timer's hold kernel (nvcc, sm_90a, one process per source, all started
+   together), timed;
 3. every kernel against its plain PyTorch version on the card, byte for
    byte, at the shapes its path gives it:
    - ``decode_flat`` (B1) on the plans of the bench corpus (1024 x 128 KiB),
@@ -141,9 +142,11 @@ Phases (any failure raises, and the script exits non-zero):
      rounds host-staged), fused and ring steps over 256 x 128 KiB, B1 in
      every rank; every live row of (a) and (b) bit-exact;
 5. times with CUDA events, kernel and plain version in turns (plain, kernel,
-   kernel, plain), and for every kernel its kernel-only time
-   (``timing.kernel_time_ms``, ``torch.profiler``) and its wrapper's host
-   time per call (``timing.host_us_per_call``): B1 at the bench shape and
+   kernel, plain), and for every kernel its held time (``timing.kernel_time_ms``:
+   the calls queued behind the hold kernel, then run back to back; of the
+   kernel alone for B1, B2 and B7, through their launch functions, of the
+   wrapper's call for the others) and its wrapper's host time per call
+   (``timing.host_us_per_call``): B1 at the bench shape and
    on the text corpus (and, the kernel alone, on each class-pure batch);
    B3 at 64 x 128 KiB and at 1024 x 128 KiB in both modes (the kernels
    line takes 1024, indices, max_match 64); B2 at 8192 x 4 KiB (the
@@ -151,7 +154,7 @@ Phases (any failure raises, and the script exits non-zero):
    corpus and the deep text tables; B5 and B4 on their bench batches and on
    the text ``detect_fft`` batch; the emitter at every main-path shape of
    phase 3 (with its bound and an empty kernel's time on the same grid;
-   the kernels line takes the shape with the most kernel-only time over
+   the kernels line takes the shape with the most held time over
    its bound and names it); B6 on the bench and text B4 planes; the tall
    routes: B1 on the bench (128 blocks) and text (32) batches at 1 MiB, the
    text batch at 256 KiB and the skewed suite's burst, B2 on the bench
@@ -175,10 +178,12 @@ Phases (any failure raises, and the script exits non-zero):
    ``bench.MAY_READ_ZERO``);
 7. only with ``--profile``: where the time of each engine main path (host
    compress, device compress) goes, for one warm LZ4 unit: host-clock
-   phases and the ``torch.profiler`` rows with the most device time.
+   phases and the ``torch.profiler`` rows with the most device time; and
+   in phase 5, beside each held time, the profiler's kernel-only time of
+   the same call (logged, or logged as lost; nothing gates on it).
 
 The line before the last is one JSON object describing each kernel (its
-event and kernel-only times, launches on the main paths and the least time
+event and held times, launches on the main paths and the least time
 the card could take for its work); the last line is ``{"ok": true, "device": {...}}``.  Without
 CUDA the script prints no result and exits 1.  It imports nothing of JAX.
 """
@@ -241,6 +246,11 @@ RANKS = 4                     # gloo ranks sharing the one card (path b)
 WORLD_TIMEOUT = 300.0         # seconds a spawned world may take
 TIMED_REPS = (3, 20)          # (plain, kernel) launches per timed turn
 HOST_CALLS = 200              # calls per host-clock reading of a wrapper
+#: Rows whose held time is the kernel alone (their launch function); the
+#: others time the wrapper's call.
+HELD_ALONE = ("decode_flat", "decode_tables", "decode_planned")
+PROFILE_PAD_S = 0.02          # --profile: idle host seconds at each end of a profiler window
+PROFILE_KERNELS = False       # --profile: the profiler's kernel-only time beside each held time
 
 
 def log(msg: str) -> None:
@@ -270,14 +280,53 @@ def turns(timing, kernel, plain, plain_reps: int = TIMED_REPS[0]):
     return {k: sum(v) / len(v) for k, v in ms.items()}, ms
 
 
-def wrapper_times(timing, label: str, card: str, stem: str, fn) -> float:
-    """The kernel-only time of ``stem``'s kernel (``torch.profiler``) and
-    the host time per call of its wrapper ``fn``; logs both and returns the
-    kernel-only ms per launch."""
-    k = timing.kernel_time_ms(fn, TIMED_REPS[1], f"{stem}_kernel")
-    h = timing.host_us_per_call(fn, HOST_CALLS)
-    log(f"{label} [{card}] kernel-only: {k:.4f} ms/launch (torch.profiler, {TIMED_REPS[1]} "
-        f"launches); wrapper host: {h:.1f} us/call ({HOST_CALLS} calls, no synchronize)")
+def launch_counter(stem: str):
+    """The launch counter of ``stem``'s kernel, as a function that reads it."""
+    from bitar_tpu_torch.ops import (decode_flat, decode_planned, decode_tables, emit, match,
+                                     match_dyn)
+    mod, attr = {"decode_flat": (decode_flat, "launches"),
+                 "decode_tables": (decode_tables, "launches"),
+                 "decode_planned": (decode_planned, "launches"),
+                 "match": (match, "launches"), "emit": (emit, "launches"),
+                 "match_walk": (match_dyn, "walk_launches"),
+                 "match_dyn": (match_dyn, "dyn_launches"),
+                 "parse_walk": (match_dyn, "parse_walk_launches")}[stem]
+    return lambda: getattr(mod, attr)
+
+
+def profiler_kernel_ms(fn, reps: int, name: str) -> float | None:
+    """``--profile`` only: the kernel-only ms per call of the kernels named
+    like ``name`` in one ``torch.profiler`` window (CUPTI), each kernel
+    name's mean summed; None when the window kept no such record, which
+    happens for a cause not found.  Nothing gates on it."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    us = [device_us(e) / e.count for e in prof.key_averages() if name in e.key and e.count]
+    return sum(us) / 1e3 if us else None
+
+
+def wrapper_times(timing, label: str, card: str, stem: str, call, alone=None) -> float:
+    """The held time (``timing.kernel_time_ms``, counted by ``stem``'s launch
+    counter) of ``alone``, the kernel alone (its module's launch function on
+    inputs made outside the window), or else of ``call`` (the wrapper, and
+    whatever else it enqueues), and the host time per call of ``call``; with
+    ``--profile``, the profiler's kernel-only time beside them.  Logs them
+    and returns the held ms per launch."""
+    k = timing.kernel_time_ms(alone or call, TIMED_REPS[1], launch_counter(stem))
+    h = timing.host_us_per_call(call, HOST_CALLS)
+    msg = (f"{label} [{card}] held ({'kernel' if alone else 'call'}): {k:.4f} ms/launch "
+           f"({TIMED_REPS[1]} launches back to back); wrapper host: {h:.1f} us/call "
+           f"({HOST_CALLS} calls, no synchronize)")
+    if PROFILE_KERNELS:
+        p = profiler_kernel_ms(call, TIMED_REPS[1], f"{stem}_kernel")
+        msg += (f"; torch.profiler kernel-only {p:.4f} ms" if p is not None
+                else "; torch.profiler kept no kernel record")
+    log(msg)
     return k
 
 
@@ -1170,8 +1219,11 @@ def large_matcher_path(btt, data: bytes, card: str, codec, counts: dict, mods: d
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add the phase breakdown of one warm LZ4 unit per main path")
+                    help="add the phase breakdown of one warm LZ4 unit per main path, and "
+                         "the profiler's kernel-only time beside each held time")
     args = ap.parse_args()
+    global PROFILE_KERNELS
+    PROFILE_KERNELS = args.profile
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no result",
               file=sys.stderr)
@@ -1201,7 +1253,7 @@ def main() -> int:
               "match_walk.cu": md.load_walk_kernel, "match_dyn.cu": md.load_dyn_kernel,
               "emit.cu": em.load_kernel, "decode_tables.cu": dt.load_kernel,
               "match.cu": mt.load_kernel, "parse_walk.cu": md.load_parse_walk_kernel,
-              "decode_planned.cu": dp.load_kernel}
+              "decode_planned.cu": dp.load_kernel, "hold.cu": timing.load_hold_kernel}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
         futs = {name: ex.submit(lambda f=f: (f(), time.perf_counter())[1])
@@ -1210,7 +1262,7 @@ def main() -> int:
     log("build (all started together): " + ", ".join(
         f"{name} {s:.2f} s" for name, s in done.items()))
     for stem in ("decode_flat", "match_walk", "match_dyn", "emit", "decode_tables", "match",
-                 "parse_walk", "decode_planned"):
+                 "parse_walk", "decode_planned", "hold"):
         for report_file in BUILD_DIR.glob(f"lib{stem}-*.so.log"):
             for line in report_file.read_text().splitlines():
                 if "registers" in line or "spill" in line:
@@ -1747,9 +1799,10 @@ def main() -> int:
                                                           out_rows=nrows),
                     lambda: df.decode_flat_reference(rows, pt, comp_rows, nrows))
     report(f"decode_flat bench {nblk} x 128 KiB", card, res, ms, nblk * BLOCK)
-    kernels["decode_flat"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+    kernels["decode_flat"].update(ms=res["kernel"], plain_ms=res["plain"], held_ms=wrapper_times(
         timing, f"decode_flat bench {nblk} x 128 KiB", card, "decode_flat",
-        lambda: df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nrows)))
+        lambda: df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nrows),
+        lambda: df._launch_kernel(rows, pt, comp_rows, nrows)))
     kernels["decode_flat"]["bound"] = decode_bound(pt, comp_len)
     trows, tpt, tcomp, tlen, _ = batches["text"]
     res, ms = turns(timing, lambda: df.decode_blocks_flat(trows, tpt, comp_rows=tcomp,
@@ -1770,13 +1823,13 @@ def main() -> int:
     # slice kernel only), the text batch at 1 MiB and 256 KiB (out passes:
     # the cluster kernel), and one burst of the CLI's skewed suite; B2 on
     # the 1 MiB bench tables and the 256 KiB bench tables.
-    def timed_route(label, kernel, plain, stem, raw_bytes, bound, shape,
+    def timed_route(label, kernel, alone, plain, stem, raw_bytes, bound, shape,
                     plain_reps=TIMED_REPS[0]):
         res, ms = turns(timing, kernel, plain, plain_reps)
         report(label, card, res, ms, raw_bytes)
-        k_ms = wrapper_times(timing, label, card, stem, kernel)
+        k_ms = wrapper_times(timing, label, card, stem, kernel, alone)
         log(f"{label}: bound {bound}")
-        return {"shape": shape, "ms": res["kernel"], "plain_ms": res["plain"], "kernel_ms": k_ms,
+        return {"shape": shape, "ms": res["kernel"], "plain_ms": res["plain"], "held_ms": k_ms,
                 "bound_ms": bound[0], "bound_by": bound[1]}
 
     flat_shapes = {f"{name} {rows.shape[0]} x {block >> 10} KiB": (rows, pt, cr, clen, block)
@@ -1790,6 +1843,7 @@ def main() -> int:
             f"decode_flat tall route {shape}",
             lambda rows=rows, pt=pt, cr=cr, nr=nr: df.decode_blocks_flat(rows, pt, comp_rows=cr,
                                                                          out_rows=nr),
+            lambda rows=rows, pt=pt, cr=cr, nr=nr: df._launch_kernel(rows, pt, cr, nr),
             lambda rows=rows, pt=pt, cr=cr, nr=nr: df.decode_flat_reference(rows, pt, cr, nr),
             "decode_flat", rows.shape[0] * block, decode_bound(pt, clen, block), shape))
     kernels["decode_flat"]["cluster_route"] = {
@@ -1804,6 +1858,8 @@ def main() -> int:
             f"decode_tables cluster route {shape}",
             lambda r=lrows, n=lnseq, t=ltables, b=lblock: dt.decode_blocks(r, n, t,
                                                                           out_rows=b // 128),
+            lambda r=lrows, n=lnseq, t=ltables, b=lblock: dt._launch_kernel(r, n, t, b // 128,
+                                                                           None),
             lambda r=lrows, n=lnseq, t=ltables, b=lblock: dt.decode_tables_reference(
                 r, n, t, b // 128),
             "decode_tables", lrows.shape[0] * lblock, tables_bound(lrows, lnseq, lcomp, lblock),
@@ -1832,7 +1888,7 @@ def main() -> int:
         log(f"{label}: bound {bound}")
         if what == "bench":
             kernels["match_walk"].update(ms=res["kernel"], plain_ms=res["plain"],
-                                         kernel_ms=k_ms, bound=bound)
+                                         held_ms=k_ms, bound=bound)
 
     for what, (pl, nf, of) in {"bench": (dplanes, dnoff, doffs),
                                "text detect_fft": (tplanes, tnoff, toffs)}.items():
@@ -1850,11 +1906,11 @@ def main() -> int:
         bound = score_bound(pl, nf, pl.shape[0] * BLOCK * 8)
         log(f"{label}: bound {bound}")
         if what == "bench":
-            kernels["match_dyn"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=k_ms,
+            kernels["match_dyn"].update(ms=res["kernel"], plain_ms=res["plain"], held_ms=k_ms,
                                         bound=bound)
 
     # The emitter at every shape a main path launches it; the kernels line
-    # takes the main-path shape with the most kernel-only time over its bound.
+    # takes the main-path shape with the most held time over its bound.
     worst = None
     for name, (pl, lay, ow, ln) in emit_at.items():
         def kernel(pl=pl, lay=lay, ow=ow, ln=ln):
@@ -1869,11 +1925,11 @@ def main() -> int:
         k_ms = wrapper_times(timing, label, card, "emit", kernel)
         bound = emit_bound(em, lay, ow)
         floor = em.floor_kernel_ms(pl.shape[0], lay["starts"].shape[1], ow, timing, TIMED_REPS[1])
-        log(f"{label}: bound {bound}; empty kernel on the same grid {floor:.4f} ms kernel-only "
+        log(f"{label}: bound {bound}; empty kernel on the same grid {floor:.4f} ms held "
             f"[{card}]")
         if not name.startswith("bench") and (worst is None or k_ms - bound[0] > worst[0]):
             worst = (k_ms - bound[0], name, dict(ms=res["kernel"], plain_ms=res["plain"],
-                                                 kernel_ms=k_ms, bound=bound))
+                                                 held_ms=k_ms, bound=bound))
     kernels["emit"].update(worst[2], shape=worst[1])
 
     brows, bnseq, btables, bblock, bcomp, _ = tbatches["bench 4 KiB"]
@@ -1882,9 +1938,10 @@ def main() -> int:
     report(f"decode_tables bench {brows.shape[0]} x 4 KiB", card, res, ms,
            brows.shape[0] * bblock)
     kernels["decode_tables"].update(
-        ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+        ms=res["kernel"], plain_ms=res["plain"], held_ms=wrapper_times(
         timing, f"decode_tables bench {brows.shape[0]} x 4 KiB", card, "decode_tables",
-        lambda: dt.decode_blocks(brows, bnseq, btables, out_rows=bblock // 128)))
+        lambda: dt.decode_blocks(brows, bnseq, btables, out_rows=bblock // 128),
+        lambda: dt._launch_kernel(brows, bnseq, btables, bblock // 128, None)))
     kernels["decode_tables"]["bound"] = tables_bound(brows, bnseq, bcomp, bblock)
     # One burst of the tables path as the engine launches it (1024 x 4 KiB),
     # and 256 x 128 KiB of the bench corpus, the parallel tables step's shape.
@@ -1901,7 +1958,9 @@ def main() -> int:
         log(f"decode_tables {what} [{card}] kernel: {sum(turns_ms) / 2:.4f} ms/launch (turns "
             f"{', '.join(f'{x:.4f}' for x in turns_ms)}); bound "
             f"{tables_bound(trows, tnseq, tcomp, tblock)}")
-        wrapper_times(timing, f"decode_tables {what}", card, "decode_tables", call)
+        wrapper_times(timing, f"decode_tables {what}", card, "decode_tables", call,
+                      lambda r=trows, n=tnseq, t=ttables, b=tblock: dt._launch_kernel(
+                          r, n, t, b // 128, None))
     drows, dnseq, dtables, dblock, dcomp, _ = tbatches["text 128 KiB, 8-pass plan budget"]
     res, ms = turns(timing, lambda: dt.decode_blocks(drows, dnseq, dtables, out_rows=dblock // 128),
                     lambda: dt.decode_tables_reference(drows, dnseq, dtables, dblock // 128))
@@ -1910,7 +1969,8 @@ def main() -> int:
     log(f"decode_tables text bound [{card}]: {tables_bound(drows, dnseq, dcomp, dblock)}")
     wrapper_times(timing, f"decode_tables text {drows.shape[0]} x 128 KiB (deep tables)", card,
                   "decode_tables",
-                  lambda: dt.decode_blocks(drows, dnseq, dtables, out_rows=dblock // 128))
+                  lambda: dt.decode_blocks(drows, dnseq, dtables, out_rows=dblock // 128),
+                  lambda: dt._launch_kernel(drows, dnseq, dtables, dblock // 128, None))
 
     # B3 at the phase-3 batch and at the shape the main paths launch: one
     # whole unit, indices at max_match 64 (the tpu matcher; the kernels
@@ -1925,9 +1985,9 @@ def main() -> int:
                 f"{'values' if values else 'indices'}")
         report(what, card, res, ms, pl.shape[0] * BLOCK)
         log(f"match bound [{card}]: {match_bound(pl.shape[0], len(mt.DEFAULT_OFFSETS))}")
-        kernel_ms = wrapper_times(timing, what, card, "match", lambda pl=pl, mm=mm, v=values: (
+        held_ms = wrapper_times(timing, what, card, "match", lambda pl=pl, mm=mm, v=values: (
             mt.find_matches(pl.view(-1, nrows, 128), nrows=nrows, max_match=mm, emit_values=v)))
-    kernels["match"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=kernel_ms)
+    kernels["match"].update(ms=res["kernel"], plain_ms=res["plain"], held_ms=held_ms)
     kernels["match"]["bound"] = match_bound(NBLOCKS, len(mt.DEFAULT_OFFSETS))
 
     res, ms = turns(timing, lambda: md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024,
@@ -1936,7 +1996,7 @@ def main() -> int:
                                                     min_match=6, wcap=8))
     report(f"parse_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024 wcap 8", card, res, ms,
            MATCH_BLOCKS * BLOCK)
-    kernels["parse_walk"].update(ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+    kernels["parse_walk"].update(ms=res["kernel"], plain_ms=res["plain"], held_ms=wrapper_times(
         timing, f"parse_walk bench {MATCH_BLOCKS} x 128 KiB seg 1024 wcap 8", card, "parse_walk",
         lambda: md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024, min_match=6, wcap=8)))
     pw = md.parse_walk_dyn(mlen4, moff4, mlens, seg=1024, min_match=6, wcap=8)
@@ -1957,20 +2017,22 @@ def main() -> int:
     report(f"decode_planned bench {len(pfit)} x 128 KiB, {ppasses} passes", card, res, ms,
            len(pfit) * BLOCK)
     kernels["decode_planned"].update(
-        ms=res["kernel"], plain_ms=res["plain"], kernel_ms=wrapper_times(
+        ms=res["kernel"], plain_ms=res["plain"], held_ms=wrapper_times(
         timing, f"decode_planned bench {len(pfit)} x 128 KiB, {ppasses} passes", card,
-        "decode_planned", lambda: dp.decode_blocks_planned(pcomp, pused, pse, psh, **pkw)))
+        "decode_planned", lambda: dp.decode_blocks_planned(pcomp, pused, pse, psh, **pkw),
+        lambda: dp._launch_kernel(pcomp, pused, pse, psh, pkw["passes"], pkw["comp_rows"],
+                                  pkw["out_rows"], None)))
     kernels["decode_planned"]["bound"] = planned_bound(pused, pstored, ppasses)
     tpu_phases(btt, mt, native, corpus, card)
 
     # B3, the emitter and B7's tall route at the 1 MiB paths' shapes.
-    def timed_large(name, label, kernel, plain, stem, bound, shape, nbytes):
+    def timed_large(name, label, kernel, plain, stem, bound, shape, nbytes, alone=None):
         res, ms = turns(timing, kernel, plain)
         report(label, card, res, ms, nbytes)
-        k_ms = wrapper_times(timing, label, card, stem, kernel)
+        k_ms = wrapper_times(timing, label, card, stem, kernel, alone)
         log(f"{label}: bound {bound}")
         return {"shape": shape, "launches": large_launches[name], "ms": res["kernel"],
-                "plain_ms": res["plain"], "kernel_ms": k_ms, "bound_ms": bound[0],
+                "plain_ms": res["plain"], "held_ms": k_ms, "bound_ms": bound[0],
                 "bound_by": bound[1]}
 
     kernels["match"]["large_blocks"] = timed_large(
@@ -1992,7 +2054,7 @@ def main() -> int:
         MATCH_LARGE_BLOCKS * LARGE_BLOCK)
     floor = em.floor_kernel_ms(MATCH_LARGE_BLOCKS, large_lay["starts"].shape[1], large_ow,
                                timing, TIMED_REPS[1])
-    log(f"{label}: empty kernel on the same grid {floor:.4f} ms kernel-only [{card}]")
+    log(f"{label}: empty kernel on the same grid {floor:.4f} ms held [{card}]")
     nfit = len(wire["fit"])
     kernels["decode_planned"]["tall_route"] = timed_large(
         "decode_planned", f"decode_planned tall route bench {nfit} x 1 MiB, "
@@ -2000,7 +2062,9 @@ def main() -> int:
         lambda: dp.decode_blocks_planned(*pargs_l, **pkw_l),
         lambda: dp.decode_planned_reference(*pargs_l, **pkw_l), "decode_planned",
         planned_bound(pargs_l[1], wire["stored"], pkw_l["passes"], LARGE_BLOCK),
-        f"bench {nfit} x 1 MiB, {pkw_l['passes']} passes", nfit * LARGE_BLOCK)
+        f"bench {nfit} x 1 MiB, {pkw_l['passes']} passes", nfit * LARGE_BLOCK,
+        lambda: dp._launch_kernel(*pargs_l, pkw_l["passes"], pkw_l["comp_rows"],
+                                  pkw_l["out_rows"], None))
     tpu_phases(btt, mt, native, corpus, card, LARGE_BLOCK)
 
     def pipeline():
@@ -2046,16 +2110,14 @@ def main() -> int:
         "decode_planned": ("bitar_tpu_torch/csrc/decode_planned.cu",
                            "bitar_tpu/ops/pallas/lz4_decode_planned.py:62"),
     }
-    pw = timing.profiled_windows
-    log(f"torch.profiler windows of timing.kernel_time_ms: {pw['windows']}, {pw['lost']} of "
-        "them without the kernel asked for")
     log(f"smoke wall clock {time.perf_counter() - t_start:.1f} s")
     line = []
     for name, k in kernels.items():
         b_ms, b_by = k["bound"]
         line.append({"name": name, "route": "cuda", "source": sources[name][0],
                      "replaces": sources[name][1], "launches": k["launches"],
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"], "kernel_ms": k["kernel_ms"],
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"], "held_ms": k["held_ms"],
+                     "held_of": "kernel" if name in HELD_ALONE else "call",
                      "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None} | ({"shape": k["shape"]} if "shape" in k else {})
                     | {key: k[key] for key in ("cluster_route", "tall_route")

@@ -15,7 +15,9 @@ and tables at heights of 1152 to 8192 rows, out passes that gather across
 slices, a skewed burst, RLE tables), one B1 launch whose output passes 2^31
 bytes, the engine at 1 MiB, the CLI's skewed suite in LZ4, Snappy and Zstd,
 ``configs_bench`` config 2 at 1 GiB, ``multihost_bench --launch 2`` and the
-headline bench (``cli.bench``) at 64 blocks.
+headline bench (``cli.bench``) at 64 blocks.  The held timer
+(``timing.kernel_time_ms``) must read B1 within 10% of its CUDA-event time,
+and raise, within the hold's timeout, on a call that synchronizes.
 
 They skip without CUDA.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports JAX, so on the card run this file alone:
@@ -1552,3 +1554,53 @@ def test_engine_matchers_at_1mib(kw, cuda_device):
         mine = eng.compress(data[:4 * block]).to_host().to_bytes()
     with btt.Engine(cfg, device="cpu") as ref:
         assert ref.compress(data[:4 * block]).to_host().to_bytes() == mine
+
+
+def _b1_launch(cuda_device, nblocks: int):
+    """The engine's whole-unit B1 launch over ``nblocks`` x 128 KiB of the
+    text corpus (deep out-pass plans: the device, not the host, paces it)."""
+    data = make_text_corpus(nblocks)
+    cfg = btt.EngineConfig(block_size=128 * 1024, burst_size=nblocks,
+                           max_pool_slots=nblocks + 32, commit="deferred")
+    eng = btt.Engine(cfg, device=cuda_device).initialize()
+    unit = eng.compress(data)
+    launch = eng.prepare_device_decode(unit)
+    assert launch().reshape(-1).cpu().numpy().tobytes() == data
+    return eng, launch
+
+
+def test_held_time_of_b1_agrees_with_its_event_time(cuda_device):
+    # 200 launches back to back: the held time and the CUDA events over
+    # them both time the device running B1, within 10%.
+    from bitar_tpu_torch.utils import timing
+
+    eng, launch = _b1_launch(cuda_device, 256)
+    before = tflat.launches
+    held = timing.kernel_time_ms(launch, 200, lambda: tflat.launches)
+    assert tflat.launches - before == 201             # the warm-up call and 200 held
+    events = timing.device_time_ms(launch, 200)
+    assert abs(held - events) <= 0.1 * events, (held, events)
+    eng.release()
+
+
+def test_held_timer_raises_on_a_call_that_synchronizes(cuda_device):
+    # A synchronize inside the held window waits on the hold, which gives
+    # up after HOLD_TIMEOUT_S: the timer raises, naming the function, and
+    # the next held reading works.
+    import time
+
+    from bitar_tpu_torch.utils import timing
+
+    eng, launch = _b1_launch(cuda_device, 8)
+
+    def synchronizing_launch():
+        out = launch()
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    with pytest.raises(btt.StatusError, match="hold gave up.*synchronizing_launch"):
+        timing.kernel_time_ms(synchronizing_launch, 4, lambda: tflat.launches)
+    assert time.perf_counter() - t0 < timing.HOLD_TIMEOUT_S + 3.0
+    assert timing.kernel_time_ms(launch, 4, lambda: tflat.launches) > 0
+    eng.release()
