@@ -18,7 +18,8 @@ Quick start::
     engine.recycle(unit)                     # return arena slots
 """
 
-from .config import Checksum, Codec, DeviceCapabilities, EngineConfig, compress_bound
+from .config import (Checksum, Codec, DeviceCapabilities, EngineConfig, ShardingConfig,
+                     capabilities_for_device, compress_bound)
 from .engine.device import CompressedUnit, Engine, EngineState, EngineStats, prepare_batched_decode
 from .engine.driver import Driver
 from .engine.stream import (ASYNC_RETURN_OK, CompressParam, DecompressParam, Stream,
@@ -49,10 +50,12 @@ __all__ = [
     "HostMemoryPool",
     "PoolBackend",
     "Result",
+    "ShardingConfig",
     "Status",
     "StatusCode",
     "StatusError",
     "Stream",
+    "capabilities_for_device",
     "compress_bound",
     "get_memory_pool",
     "make_streams",

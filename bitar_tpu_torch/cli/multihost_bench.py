@@ -10,8 +10,9 @@ on one host (``parallel.multihost.initialize`` with a ``file://``
 rendezvous, as ``parallel.dryrun.run_world`` spawns them), each building
 the same batch from its seed, staging its share of the blocks, and driving
 ``distributed_step_flat`` (or the ring step) over the mesh; it measures
-blocks/s, the scaling-efficiency number of config 5.  With fewer cards than
-ranks the ranks share the cards and exchange over gloo.
+blocks/s, the scaling-efficiency number of config 5.  With a card a rank
+they exchange over NCCL (``--launch 4`` on four cards); with fewer cards
+than ranks they share the cards and exchange over gloo.
 
 Efficiency is weak scaling: the 1-process baseline runs ``blocks / N``
 blocks on its own, so each rank in both arms decodes the same share and the
@@ -93,7 +94,8 @@ def bench_program(mesh, spec: dict) -> dict:
     out = dict(processes=mesh.size(), devices=mesh.size(), blocks=spec["blocks"],
                step_ms=round(r["seconds"] * 1e3, 2), verified_blocks=r["live"],
                staged_blocks=[lo, hi], launches=res["launches"],
-               cores=len(os.sched_getaffinity(0)))
+               device_launches=res["device_launches"], backend=res["backend"],
+               device=res["device"], cores=len(os.sched_getaffinity(0)))
     if "exchange_seconds" in r:
         out.update(exchange_ms=round(r["exchange_seconds"] * 1e3, 2),
                    decode_ms=round(r["decode_seconds"] * 1e3, 2))
@@ -108,12 +110,25 @@ def _arm(ranks: list[dict]) -> dict:
                blocks=worst["blocks"], step_ms=worst["step_ms"],
                blocks_per_s=round(worst["blocks"] / (worst["step_ms"] / 1e3), 1),
                verified_blocks=sum(r["verified_blocks"] for r in ranks),
+               backend=worst["backend"],
                rank_step_ms=[r["step_ms"] for r in ranks],
+               rank_devices=[r["device"] for r in ranks],
+               rank_device_launches=[r["device_launches"] for r in ranks],
                rank_cores=[r["cores"] for r in ranks])
     for k in ("exchange_ms", "decode_ms"):
         if k in worst:
             arm[k] = max(r[k] for r in ranks)
     return arm
+
+
+def weak_scaling_efficiency(world: int, blocks: int, seconds: float, base_blocks: int,
+                            base_seconds: float) -> float:
+    """Weak-scaling efficiency of ``world`` ranks that decoded ``blocks`` in
+    ``seconds`` against one rank that decoded ``base_blocks`` in
+    ``base_seconds``: (blocks / seconds) / (base_blocks / base_seconds) /
+    world.  With ``blocks == world * base_blocks`` it is ``base_seconds /
+    seconds``: 1.0 when the world's step takes as long as one rank's."""
+    return (blocks / seconds) / (base_blocks / base_seconds) / world
 
 
 def core_shares(n: int) -> list[list[int]]:
@@ -158,11 +173,13 @@ def launch(args) -> int:
     round_eff = []
     for _ in range(max(1, args.rounds)):
         m, b = world(args.launch, spec), world(1, base_spec)
-        round_eff.append(round((m["blocks_per_s"] / b["blocks_per_s"]) / args.launch, 3))
+        round_eff.append(round(weak_scaling_efficiency(
+            args.launch, m["blocks"], m["step_ms"], b["blocks"], b["step_ms"]), 3))
         multi = m if multi is None or m["step_ms"] < multi["step_ms"] else multi
         base = b if base is None or b["step_ms"] < base["step_ms"] else base
-    efficiency = (multi["blocks_per_s"] / base["blocks_per_s"]) / args.launch
-    backend = dryrun.default_backend(args.launch, args.device)
+    efficiency = weak_scaling_efficiency(args.launch, multi["blocks"], multi["step_ms"],
+                                         base["blocks"], base["step_ms"])
+    backend = multi["backend"]
     artifact = dict(
         config="BASELINE config 5: multi-process fused shuffle+decode",
         multi=multi, single=base,

@@ -56,7 +56,7 @@ from ..config import (
     capabilities_for_device,
 )
 from ..manifest import BlockManifest, CompressedBuffers, checksum_of, codec_from_id, codec_id
-from ..memory.arena import CompressedBlockRef, DeviceArena
+from ..memory.arena import CompressedBlockRef, DeviceArena, named_device
 from ..memory.host_pool import PoolBackend, get_memory_pool
 from ..ops import registry
 from ..ops.cpu import native
@@ -213,13 +213,8 @@ class Engine:
             raise StatusError(Status.Invalid(
                 f"block_size {config.block_size} must be a multiple of 128 "
                 f"(plane row width)"))
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise StatusError(Status.Invalid(
-                f"Engine(device={device}): torch.cuda.is_available() is false; "
-                f"pass device='cpu' for the plain PyTorch path"))
         self.config = config
-        self.device = device
+        self.device = named_device(device, "Engine")
         self.state = EngineState.CREATED
         self.caps: DeviceCapabilities | None = None
         self.arena: DeviceArena | None = None

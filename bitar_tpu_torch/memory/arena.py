@@ -26,6 +26,23 @@ from ..utils.logging import get_logger
 logger = get_logger("memory.arena")
 
 
+def named_device(device: torch.device | str | None, what: str) -> torch.device:
+    """``device`` (None means "cuda") as a ``torch.device`` that names its
+    card: "cuda" without an index becomes the current CUDA device, so that
+    what ``what`` allocates later, on worker threads whose current device
+    is cuda:0, stays on that card.  Raises StatusError for CUDA without
+    CUDA: CPU callers pass "cpu"."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise StatusError(Status.Invalid(
+                f"{what}(device={device}): torch.cuda.is_available() is false; "
+                f"pass device='cpu' for the plain PyTorch path"))
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 @dataclass
 class ArenaStats:
     """Allocation statistics plus pool-pressure counters."""
@@ -143,11 +160,7 @@ class DeviceArena:
     def __init__(self, slot_size: int, preallocated: int, max_slots: int,
                  device: torch.device | str | None = None):
         self.slot_size = int(slot_size)
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise StatusError(Status.Invalid(
-                f"DeviceArena(device={self.device}): torch.cuda.is_available() is "
-                f"false; pass device='cpu' for a CPU arena"))
+        self.device = named_device(device, "DeviceArena")
         self.pool = SlotPool(preallocated, max_slots, slot_size)
         # The whole ceiling at once: allocation stays off the critical path
         # (the reference preallocates its memzone budget, app_common.cc:92-100).

@@ -35,6 +35,7 @@ Every source index clips to its plane; comp bytes past the row width read 0.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -57,6 +58,8 @@ launches = 0
 #: block's plane in a thread-block cluster (planes taller than
 #: ``DECODE_FLAT_MAX_ROWS`` rows).
 cluster_launches = 0
+#: ``launches`` again by CUDA device index: the card each launch ran on.
+device_launches: collections.Counter = collections.Counter()
 MAX_CLUSTER = 8       # the portable cluster size: planes of up to 8192 rows
 
 
@@ -488,6 +491,7 @@ def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
             listed.data_ptr() if tall else None, stream)
     check_cuda(rc, "decode_flat launch", lib)
     launches += 1
+    device_launches[comp.device.index] += 1
     cluster_launches += tall
     return out
 

@@ -39,6 +39,7 @@ extent undefined, where this writes zeros.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -57,6 +58,8 @@ launches = 0
 #: Those of them that took the cluster route (planes too tall to sit in one
 #: CTA's shared memory beside the windows: blocks of ~150 KiB to 1 MiB).
 cluster_launches = 0
+#: ``launches`` again by CUDA device index: the card each launch ran on.
+device_launches: collections.Counter = collections.Counter()
 
 SMEM_MAX = 232448         # an H100 CTA's shared memory (the opt-in limit)
 SLICE_BYTES = 128 * 1024  # plane bytes a CTA of the cluster route holds
@@ -354,6 +357,7 @@ def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
                     dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
     check_cuda(rc, "decode_tables launch", load_kernel())
     launches += 1
+    device_launches[dev.index] += 1
     cluster_launches += cluster_ctas(out_rows) > 1
     return out
 

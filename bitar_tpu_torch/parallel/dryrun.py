@@ -45,7 +45,7 @@ from .pipeline import (
     prepare_flat_wires_for_recv,
     prepare_ring_flat_wires_for_recv,
 )
-from .ring import distributed_step_ring_flat
+from .ring import distributed_step_ring_flat, ring_timeline
 from .sharding import (
     _TABLE_KEYS,
     make_mesh,
@@ -122,13 +122,16 @@ def make_batch(nblocks: int, block: int, seed: int = 42, data: bytes | None = No
             "plan": (se, sh, pu, p0, dq, ra, dn), "tables": tables}
 
 
-def _timed(device: torch.device, fn, reps: int = 1):
+def _timed(device: torch.device, group, fn, reps: int = 1):
     """(fn(), best host-clock seconds of ``reps`` runs) with the device
-    synchronized on both ends of each run."""
+    synchronized on both ends of each run.  Each run starts after a barrier
+    of ``group``, so that no rank's time holds a wait for a peer that
+    arrived later (ranks drift apart between runs, as their hosts do)."""
     best = float("inf")
     for _ in range(reps):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+        dist.barrier(group=group)
         t0 = time.perf_counter()
         out = fn()
         if device.type == "cuda":
@@ -145,14 +148,17 @@ def steps_program(mesh, spec: dict) -> dict:
     function of ``nblocks`` that returns the bytes to cut), optional
     ``return_rows``, ``reps`` (runs of the flat and ring steps; their
     "seconds" is the best), ``skew_bucket_log`` (above 0, the shuffle plan's
-    ``ShardingConfig.skew_bucket_log``) and ``phases`` (the flat step's
+    ``ShardingConfig.skew_bucket_log``), ``phases`` (the flat step's
     exchange alone and its decode alone, best of ``reps`` each, as
-    "exchange_seconds" and "decode_seconds").  Every live row is checked
-    against its raw (or, for "shuffle", stored) bytes.  Returns {step:
-    {"live", "exact", "seconds", "rows" (if asked)}, "ring_equals_flat",
-    "launches": {kernel: count}}."""
+    "exchange_seconds" and "decode_seconds") and ``overlap`` (on NCCL, one
+    more ring step with CUDA events: its "timeline", ``ring.ring_timeline``).
+    Every live row is checked against its raw (or, for "shuffle", stored)
+    bytes.  Returns {step: {"live", "exact", "seconds", "rows" (if asked)},
+    "ring_equals_flat", "launches": {kernel: count}, "device_launches":
+    {kernel: {card index: count}}, "backend", "device" (this rank's),
+    "contexts" (``multihost.cuda_contexts()``)}."""
     d, me = mesh.size(), mesh_rank(mesh)
-    device = mesh_device(mesh)
+    device, group = mesh_device(mesh), mesh_group(mesh)
     data = None
     if spec.get("corpus") == "bench":
         from ..utils.corpus import make_corpus
@@ -172,7 +178,8 @@ def steps_program(mesh, spec: dict) -> dict:
     kw = dict(mesh=mesh, rows_per_pair=splan.rows_per_pair, comp_rows=comp_rows,
               block_size=block)
     result: dict = {"launches": {}}
-    before = {"decode_flat": decode_flat.launches, "decode_tables": decode_tables.launches}
+    kernels = {"decode_flat": decode_flat, "decode_tables": decode_tables}
+    before = {k: (m.launches, m.device_launches.copy()) for k, m in kernels.items()}
 
     def record(step, out, seconds, ids, want):
         host = out.cpu().numpy()
@@ -186,32 +193,40 @@ def steps_program(mesh, spec: dict) -> dict:
     raw = batch["datas"]
     steps = spec.get("steps", ALL_STEPS)
     if "shuffle" in steps:
-        out, s = _timed(device, lambda: execute_shuffle(mesh, splan, local_rows))
+        out, s = _timed(device, group, lambda: execute_shuffle(mesh, splan, local_rows))
         record("shuffle", out, s, recv_ids, lambda b: rows[b].tobytes())
     flat = ring = None
     if "flat" in steps:
         wires = local_wires(prepare_flat_wires_for_recv(splan, *batch["plan"], nrows), me,
                             device)
-        out, s = _timed(device, lambda: distributed_step_flat(
+        out, s = _timed(device, group, lambda: distributed_step_flat(
             local_rows, send_idx, valid, *(wires[k] for k in WIRE_KEYS), **kw),
             spec.get("reps", 1))
         flat = record("flat", out, s, recv_ids, lambda b: raw[b])
         if spec.get("phases"):
             # The fused step's two phases alone: stage + all-to-all, then B1
             # on the rows received.
-            recv, s = _timed(device, lambda: all_to_all_rows(
-                stage_rows(local_rows, send_idx, valid), mesh_group(mesh)), spec.get("reps", 1))
+            recv, s = _timed(device, group, lambda: all_to_all_rows(
+                stage_rows(local_rows, send_idx, valid), group), spec.get("reps", 1))
             plans = dict(zip(WIRE_KEYS, (wires[k] for k in WIRE_KEYS), strict=True))
-            _, s_dec = _timed(device, lambda: decode_flat.decode_blocks_flat(
+            _, s_dec = _timed(device, group, lambda: decode_flat.decode_blocks_flat(
                 recv, plans, comp_rows=comp_rows, out_rows=nrows), spec.get("reps", 1))
             result["flat"].update(exchange_seconds=s, decode_seconds=s_dec)
     if "ring" in steps:
         wires = local_wires(prepare_ring_flat_wires_for_recv(splan, *batch["plan"], nrows), me,
                             device)
-        out, s = _timed(device, lambda: distributed_step_ring_flat(
+        out, s = _timed(device, group, lambda: distributed_step_ring_flat(
             local_rows, send_idx, valid, *(wires[k] for k in WIRE_KEYS), **kw),
             spec.get("reps", 1))
         ring = record("ring", out, s, recv_ids, lambda b: raw[b])
+        if spec.get("overlap") and device.type == "cuda":
+            events: dict = {}
+            dist.barrier(group=group)
+            distributed_step_ring_flat(local_rows, send_idx, valid,
+                                       *(wires[k] for k in WIRE_KEYS), **kw, events=events)
+            torch.cuda.synchronize(device)
+            if events:                               # NCCL only
+                result["ring"]["timeline"] = ring_timeline(events)
     if flat is not None and ring is not None:
         live = recv_ids >= 0
         result["ring_equals_flat"] = bool((flat[live] == ring[live]).all())
@@ -222,7 +237,7 @@ def steps_program(mesh, spec: dict) -> dict:
                                                    rows.shape[1], d)
         args = shard_blocks(mesh, full["comp"], full["nseq"],
                             *(full[k] for k in _TABLE_KEYS), device=device)
-        out, s = _timed(device, lambda: sharded_decode(
+        out, s = _timed(device, group, lambda: sharded_decode(
             *args, mesh=mesh, out_rows=meta["out_rows"], block_size=block))
         ids = np.arange(me * (nt // d), (me + 1) * (nt // d))
         record("sharded", out, s, np.where(ids < real_n, ids, -1), lambda b: raw[b])
@@ -230,11 +245,19 @@ def steps_program(mesh, spec: dict) -> dict:
         padded, nseq = decode_tables.pad_tables(batch["tables"], _TABLE_KEYS)
         args, tkw = prepare_distributed_step_tables_fallback(
             mesh, splan, rows, padded, nseq, block, device=device)
-        out, s = _timed(device, lambda: distributed_step_tables_fallback(*args, **tkw))
+        out, s = _timed(device, group, lambda: distributed_step_tables_fallback(*args, **tkw))
         record("tables", out, s, recv_ids, lambda b: raw[b])
-    result["launches"] = {"decode_flat": decode_flat.launches - before["decode_flat"],
-                          "decode_tables": decode_tables.launches - before["decode_tables"]}
+    result["launches"] = {k: m.launches - before[k][0] for k, m in kernels.items()}
+    result["device_launches"] = {k: dict(m.device_launches - before[k][1])
+                                 for k, m in kernels.items()}
+    result.update(backend=dist.get_backend(group), device=str(device),
+                  contexts=multihost.cuda_contexts())
     return result
+
+
+def steps_in_turn(mesh, specs: list) -> list:
+    """:func:`steps_program` for each spec in turn, in one world."""
+    return [steps_program(mesh, spec) for spec in specs]
 
 
 def _rank_main(rank: int, world: int, init: str, backend: str, device_type: str, program,
@@ -276,9 +299,15 @@ def run_world(n_ranks: int, program, payload, *, backend: str | None = None,
     module-level function) on a 1-D mesh of ``device_type`` over the world.
     Returns each rank's result in rank order.  Raises StatusError when a
     rank fails, dies or the world outlives ``timeout`` seconds (also each
-    rank's group timeout); every child is killed before it returns."""
+    rank's group timeout), and before spawning when ``backend="nccl"`` has
+    fewer cards than ranks; every child is killed before it returns."""
     default = default_backend(n_ranks, device_type)      # refuses "cuda" without CUDA
     backend = default if backend is None else backend
+    if backend == "nccl" and (device_type != "cuda" or torch.cuda.device_count() < n_ranks):
+        # NCCL puts one rank on a card; it never turns into gloo here.
+        raise StatusError(Status.Invalid(
+            f"an NCCL world of {n_ranks} needs {n_ranks} CUDA devices, one a rank; "
+            f"device_type {device_type!r}, {torch.cuda.device_count()} visible"))
     ctx = mp.get_context("spawn")
     results: dict = {}
     with tempfile.TemporaryDirectory(prefix="bitar-rdv-") as tmp:

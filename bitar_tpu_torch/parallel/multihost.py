@@ -13,6 +13,7 @@ topology degrades to one process.
 
 from __future__ import annotations
 
+import ctypes
 import os
 from datetime import timedelta
 
@@ -57,7 +58,12 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
             raise StatusError(Status.Invalid(f"backend {backend!r} not in (nccl, gloo)"))
         kw = {} if timeout is None else {"timeout": timedelta(seconds=timeout)}
         if backend == "nccl":
-            local = process_id % max(1, torch.cuda.device_count())
+            if not torch.cuda.is_available():
+                raise StatusError(Status.Invalid(
+                    "backend 'nccl' needs a CUDA device; torch.cuda.is_available() is false"))
+            # One rank a card: the card is set before the group exists, and
+            # device_id binds the communicator to it.
+            local = process_id % torch.cuda.device_count()
             torch.cuda.set_device(local)
             kw["device_id"] = torch.device("cuda", local)
         dist.init_process_group(backend, init_method=coordinator_address or "env://",
@@ -66,6 +72,28 @@ def initialize(coordinator_address: str | None = None, num_processes: int | None
     topo = describe()
     logger.info("multihost topology: %s", topo)
     return topo
+
+
+def cuda_contexts() -> list[int]:
+    """The CUDA devices on which this process holds an active primary
+    context (the CUDA driver's ``cuDevicePrimaryCtxGetState``, which creates
+    none).  A rank of an NCCL world holds one, on its own card; [] without
+    the CUDA driver."""
+    try:
+        cu = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return []
+    count = ctypes.c_int()
+    if cu.cuInit(0) != 0 or cu.cuDeviceGetCount(ctypes.byref(count)) != 0:
+        return []
+    active = []
+    for i in range(count.value):
+        dev, flags, on = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+        if (cu.cuDeviceGet(ctypes.byref(dev), i) == 0
+                and cu.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags),
+                                                  ctypes.byref(on)) == 0 and on.value):
+            active.append(i)
+    return active
 
 
 def describe() -> dict:

@@ -80,10 +80,13 @@ def mesh_rank(mesh: DeviceMesh) -> int:
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:
-    """The device this rank decodes on: its current CUDA device on a "cuda"
-    mesh, else the CPU."""
+    """The device this rank decodes on: on a "cuda" mesh the card its
+    process group is bound to (``multihost.initialize`` binds an NCCL group
+    to the rank's card), else its current CUDA device; the CPU otherwise.
+    The bound card does not depend on the calling thread's current device."""
     if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
+        bound = dist.group.WORLD.bound_device_id
+        return bound if bound is not None else torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
 
 

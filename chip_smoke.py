@@ -2,6 +2,7 @@
 that the port still starts on the card.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --world 4      # four cards: the multi-card phase alone
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -186,6 +187,25 @@ The line before the last is one JSON object describing each kernel (its
 event and held times, launches on the main paths and the least time
 the card could take for its work); the last line is ``{"ok": true, "device": {...}}``.  Without
 CUDA the script prints no result and exits 1.  It imports nothing of JAX.
+
+``--world N`` builds the host library, B1 and B2, and runs only the
+N-card phase (``world_main``): an NCCL world of N spawned ranks, one card
+each, over the bench corpus in 128 KiB blocks: the shuffle, fused and ring
+steps at 1024 blocks a rank (best of ``WORLD_REPS`` on the host clock,
+device synchronized; the fused step's exchange alone and decode alone; the
+ring's CUDA-event timeline of rounds and decodes), the fused step under a
+skewed plan, and ``sharded_decode`` and the tables step at 256 blocks a
+rank.  Every rank must decode every live row bit-exactly, match the ring
+to the fused step, report NCCL, launch B1 and B2 on its own card only and
+hold a CUDA context on no other card.  An NCCL world of 1 on the same
+1024 blocks gives the weak-scaling efficiency of both steps.  The log
+holds ``nvidia-smi topo -m`` and ``nvlink --status``, and the transport
+and links NCCL names (``NCCL_DEBUG=INFO``, subsystems INIT and GRAPH).  Then the
+Driver's engines, one a card, in this process: each round-trips its share
+of 1024 blocks bit-exactly on its own card, and the demo's async suite
+runs 8 streams round-robin over them.  The line before the last is
+``{"world": {...}}``; with fewer than N cards the script prints no result
+and exits 1.
 """
 
 from __future__ import annotations
@@ -244,6 +264,9 @@ PLANNED_MAX_PASSES = 64       # B7's plan budget per 128 KiB block
 TABLE_STEP_BLOCKS = 256       # blocks of the multi-device B2 steps
 RANKS = 4                     # gloo ranks sharing the one card (path b)
 WORLD_TIMEOUT = 300.0         # seconds a spawned world may take
+WORLD_REPS = 10               # --world: runs of each timed step; the best is kept
+WORLD_SKEW = 2                # --world: skew_bucket_log of the skewed flat-step run
+WORLD_ENGINE_STREAMS = 8      # --world: streams of the async suite over the Driver's engines
 TIMED_REPS = (3, 20)          # (plain, kernel) launches per timed turn
 HOST_CALLS = 200              # calls per host-clock reading of a wrapper
 #: Rows whose held time is the kernel alone (their launch function); the
@@ -746,6 +769,266 @@ def log_steps(what: str, result: dict, card: str) -> None:
         + f" (host clock, device synchronized) [{card}]")
 
 
+def world_refusal(n: int) -> str | None:
+    """Why ``--world n`` cannot run on this machine, or None: it needs CUDA
+    and ``n`` cards, one a rank (NCCL puts no two ranks on one card)."""
+    if not torch.cuda.is_available():
+        return "torch.cuda.is_available() is false"
+    if torch.cuda.device_count() < n:
+        return (f"--world {n} needs {n} CUDA devices, one a rank; "
+                f"{torch.cuda.device_count()} visible")
+    return None
+
+
+def world_specs(n: int) -> list[dict]:
+    """The runs of the ``n``-card phase, in one world of ``n`` ranks: the
+    shuffle, fused and ring steps at NBLOCKS blocks a rank (timed, with the
+    fused step's phases and the ring's CUDA-event timeline), the fused step
+    under a skewed plan, and the sharded and tables steps at
+    TABLE_STEP_BLOCKS a rank; all of the bench corpus in 128 KiB blocks."""
+    return [{"corpus": "bench", "nblocks": n * NBLOCKS, "block": BLOCK,
+             "steps": ("shuffle", "flat", "ring"), "reps": WORLD_REPS, "phases": True,
+             "overlap": True},
+            {"corpus": "bench", "nblocks": n * NBLOCKS, "block": BLOCK, "steps": ("flat",),
+             "skew_bucket_log": WORLD_SKEW},
+            {"corpus": "bench", "nblocks": n * TABLE_STEP_BLOCKS, "block": BLOCK,
+             "steps": ("sharded", "tables")}]
+
+
+def check_world(res: list, kernels: tuple[str, ...] = ("decode_flat", "decode_tables")
+                ) -> None:
+    """Every rank of an NCCL world (``res[rank]``: its runs' results): each
+    run's rows bit-exact, the ring equal to the fused step, the backend
+    NCCL, the rank's device its own card, each of ``kernels`` launched on
+    that card and nowhere else, and a CUDA context on no other card."""
+    for rank, runs in enumerate(res):
+        for i, r in enumerate(runs):
+            check_steps(r, f"rank {rank}, run {i}")
+            if r["backend"] != "nccl" or r["device"] != f"cuda:{rank}":
+                raise AssertionError(f"rank {rank}: backend {r['backend']}, device {r['device']}")
+            if r["contexts"] != [rank]:
+                raise AssertionError(f"rank {rank}: CUDA contexts on cards {r['contexts']}")
+        for k in kernels:
+            cards: dict = {}
+            for r in runs:
+                for c, count in r["device_launches"][k].items():
+                    cards[c] = cards.get(c, 0) + count
+            if set(cards) != {rank}:
+                raise AssertionError(f"rank {rank}: {k} launched on cards {cards}")
+
+
+def nccl_transports(log_dir: str) -> tuple[dict, list[str]]:
+    """The transports that NCCL's INFO lines in ``log_dir`` name for its
+    connections ("via P2P/CUMEM", "via SHM", "via NET/..."), each with its
+    count of lines over every rank; and one rank's first few such lines, of
+    the links NCCL's topology search found (its GRAPH lines: "NVL" for
+    NVLink, "PCI") and of the patterns it chose."""
+    import glob
+    import re
+
+    counts: dict[str, int] = {}
+    lines: dict[str, list] = {"via": [], "link": [], "pattern": []}
+    for i, path in enumerate(sorted(glob.glob(os.path.join(log_dir, "nccl.*")))):
+        with open(path, errors="replace") as f:
+            for line in f:
+                m = re.search(r" via (\S+)", line)
+                kind = ("via" if m else "link" if re.search(r"NVL\[|PCI\[|NVS/", line)
+                        else "pattern" if "Pattern" in line else None)
+                if m:
+                    counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+                if kind and i == 0 and len(lines[kind]) < 6:
+                    lines[kind].append(line.strip())
+    return counts, [x for v in lines.values() for x in v]
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """``os.environ`` with ``env`` set inside the block (spawned children
+    inherit it), as it was after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def world_phase(n: int, card: str) -> dict:
+    """``--world n``: an NCCL world of ``n`` spawned ranks, one card each
+    (``world_specs``, held to ``check_world``), then an NCCL world of 1 on
+    NBLOCKS blocks, the weak-scaling baseline of the fused and ring steps.
+    Logs the topology, NCCL's transport, every rank's times and the ring's
+    timeline; returns the numbers of the world line."""
+    import tempfile
+
+    from bitar_tpu_torch.cli.multihost_bench import weak_scaling_efficiency
+    from bitar_tpu_torch.parallel import dryrun, multihost
+
+    for cmd in (["topo", "-m"], ["nvlink", "--status", "-i", "0"]):
+        out = subprocess.run(["nvidia-smi", *cmd], capture_output=True, text=True)
+        for line in (out.stdout + out.stderr).strip().splitlines()[:24]:
+            log(f"nvidia-smi {' '.join(cmd)}: {line}")
+    log(f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}; this process's CUDA "
+        f"contexts before the world: {multihost.cuda_contexts()}")
+    specs = world_specs(n)
+    with tempfile.TemporaryDirectory(prefix="bitar-nccl-") as logs:
+        t0 = time.perf_counter()
+        with environ(NCCL_DEBUG="INFO", NCCL_DEBUG_SUBSYS="INIT,GRAPH",
+                     NCCL_DEBUG_FILE=os.path.join(logs, "nccl.%h.%p.log")):
+            res = dryrun.run_world(n, dryrun.steps_in_turn, specs, backend="nccl",
+                                   timeout=WORLD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        transports, lines = nccl_transports(logs)
+    check_world(res)
+    log(f"world of {n}: NCCL on cards {[runs[0]['device'] for runs in res]}, every run's "
+        f"rows bit-exact, ring == fused step, B1 and B2 on each rank's own card only, "
+        f"CUDA contexts by rank {[runs[0]['contexts'] for runs in res]}; wall clock "
+        f"incl. spawn and batch builds {wall:.1f} s")
+    for line in lines:
+        log(f"NCCL_DEBUG=INFO: {line}")
+    log(f"NCCL transports (connection lines by kind): {transports or 'no via line in the log'}")
+    for rank, runs in enumerate(res):
+        for what, r in zip(("steps", "skewed plan", "tables"), runs, strict=True):
+            log_steps(f"world of {n}, rank {rank}, {what}", r, card)
+        flat, ring = runs[0]["flat"], runs[0]["ring"]
+        log(f"world of {n}, rank {rank}: fused step {1e3 * flat['seconds']:.4f} ms; exchange "
+            f"alone {1e3 * flat['exchange_seconds']:.4f} ms, decode alone "
+            f"{1e3 * flat['decode_seconds']:.4f} ms; ring {1e3 * ring['seconds']:.4f} ms "
+            f"(best of {WORLD_REPS}, host clock, device synchronized) [{card}]")
+        log(f"world of {n}, rank {rank}: ring timeline (CUDA events, ms after the rounds are "
+            f"posted) {json.dumps(ring['timeline'])} [{card}]")
+    t0 = time.perf_counter()
+    (base,) = dryrun.run_world(1, dryrun.steps_in_turn,
+                               [dict(specs[0], nblocks=NBLOCKS, steps=("flat", "ring"))],
+                               backend="nccl", timeout=WORLD_TIMEOUT)
+    check_world([base], ("decode_flat",))
+    log_steps(f"NCCL world of 1 (spawned), {NBLOCKS} x 128 KiB", base[0], card)
+    log(f"NCCL world of 1: {time.perf_counter() - t0:.1f} s wall clock")
+
+    def worst(run: int, step: str, key: str = "seconds") -> float:
+        return 1e3 * max(runs[run][step][key] for runs in res)
+
+    line = {"ranks": n, "blocks_per_rank": NBLOCKS, "block": BLOCK, "backend": "nccl",
+            "card": card, "transports": transports,
+            "flat_ms": worst(0, "flat"), "ring_ms": worst(0, "ring"),
+            "exchange_ms": worst(0, "flat", "exchange_seconds"),
+            "decode_ms": worst(0, "flat", "decode_seconds"),
+            "base_flat_ms": 1e3 * base[0]["flat"]["seconds"],
+            "base_ring_ms": 1e3 * base[0]["ring"]["seconds"],
+            "skew_flat_ms": worst(1, "flat"), "sharded_ms": worst(2, "sharded"),
+            "tables_ms": worst(2, "tables"),
+            "ring_overlap_ms": [runs[0]["ring"]["timeline"]["overlap_ms"] for runs in res],
+            "launches_by_rank": {k: [sum(r["launches"][k] for r in runs) for runs in res]
+                                 for k in ("decode_flat", "decode_tables")}}
+    for step in ("flat", "ring"):
+        line[f"{step}_efficiency"] = weak_scaling_efficiency(
+            n, n * NBLOCKS, line[f"{step}_ms"], NBLOCKS, line[f"base_{step}_ms"])
+    log(f"weak scaling, {n} cards against 1 at {NBLOCKS} x 128 KiB a card: fused step "
+        f"{line['flat_efficiency']:.4f} ({line['base_flat_ms']:.4f} -> {line['flat_ms']:.4f} "
+        f"ms), ring step {line['ring_efficiency']:.4f} ({line['base_ring_ms']:.4f} -> "
+        f"{line['ring_ms']:.4f} ms), slowest rank [{card}]")
+    return line
+
+
+def engines_on_every_card(btt, df, data: bytes, card: str) -> dict:
+    """``--world``: the Driver's engines, one a card, in this process.  Each
+    round-trips its share of ``data`` (compress -> ensure_plans ->
+    decompress, bit-exact, no block decoded on the host) with its arena,
+    its device decode and its B1 launches on its own card; then the demo's
+    async suite runs WORLD_ENGINE_STREAMS streams round-robin over them,
+    every stream bit-exact.  Returns B1's launches by card in the suite."""
+    from bitar_tpu_torch.cli import demo
+
+    n = torch.cuda.device_count()
+    cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=BLOCK, burst_size=1024,
+                           max_pool_slots=NBLOCKS + 32, commit="deferred")
+    engines = btt.Driver.instance().get_engines(cfg)
+    if [e.device for e in engines] != [torch.device("cuda", k) for k in range(n)]:
+        raise AssertionError(f"Driver engines on {[str(e.device) for e in engines]}")
+    share = len(data) // n
+    for k, eng in enumerate(engines):
+        part = data[k * share:(k + 1) * share]
+        before = df.device_launches.copy()
+        unit, phases = roundtrip(eng, part, f"engine on cuda:{k}")
+        got = eng.prepare_device_decode(unit)()
+        if eng.arena._buf.device != eng.device or got.device != eng.device:
+            raise AssertionError(f"engine on cuda:{k}: arena on {eng.arena._buf.device}, "
+                                 f"device decode on {got.device}")
+        if got.reshape(-1).cpu().numpy().tobytes() != part:
+            raise AssertionError(f"engine on cuda:{k}: device decode not bit-exact")
+        cards = dict(df.device_launches - before)
+        if set(cards) != {k}:
+            raise AssertionError(f"engine on cuda:{k}: decode_flat launched on cards {cards}")
+        log_path(f"Driver engine on cuda:{k}", unit, card, phases,
+                 f", decode_flat launches by card {cards}")
+        eng.recycle(unit)
+    before = df.device_launches.copy()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        demo.evaluate_async(engines, data, WORLD_ENGINE_STREAMS)
+    wall = time.perf_counter() - t0
+    for line in out.getvalue().splitlines():
+        log(f"async suite over {n} engines: {line}")
+    cards = dict(df.device_launches - before)
+    if f"async verify OK ({WORLD_ENGINE_STREAMS} segments bit-exact)" not in out.getvalue():
+        raise AssertionError(f"async suite over {n} engines: not verified")
+    if set(cards) != set(range(n)) or any(e.stats.host_decode_bursts for e in engines):
+        raise AssertionError(f"async suite over {n} engines: decode_flat on cards {cards}, "
+                             "or blocks decoded on the host")
+    for eng in engines:
+        eng.release()
+    log(f"async suite: {WORLD_ENGINE_STREAMS} streams round-robin over {n} engines, "
+        f"{len(data)} B, every stream bit-exact, decode_flat launches by card {cards}, "
+        f"{wall:.1f} s wall clock [{card}]")
+    return cards
+
+
+def world_main(n: int) -> int:
+    """``--world n``: the build of the host library, B1 and B2, then the
+    ``n``-card phase alone; no result on a machine with fewer cards."""
+    refusal = world_refusal(n)
+    if refusal:
+        print(f"chip_smoke --world {n}: {refusal}; no result", file=sys.stderr)
+        return 1
+    import bitar_tpu_torch as btt
+    from bitar_tpu_torch.ops import decode_flat as df
+    from bitar_tpu_torch.ops import decode_tables as dt
+    from bitar_tpu_torch.ops.cpu import native
+    from bitar_tpu_torch.utils.corpus import make_corpus
+
+    t_start = time.perf_counter()
+    card = card_line()
+    for line in subprocess.run(
+            ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.splitlines():
+        log(f"card {line}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}, {torch.cuda.device_count()} "
+        f"devices")
+    builds = {"host library (g++)": native.load, "decode_flat.cu": df.load_kernel,
+              "decode_tables.cu": dt.load_kernel}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as ex:
+        futs = {name: ex.submit(lambda f=f: (f(), time.perf_counter())[1])
+                for name, f in builds.items()}
+        done = {name: fut.result() - t0 for name, fut in futs.items()}
+    log("build (all started together): " + ", ".join(
+        f"{name} {s:.2f} s" for name, s in done.items()))
+    line = world_phase(n, card)
+    line["engines_decode_flat_by_card"] = engines_on_every_card(btt, df, make_corpus(NBLOCKS),
+                                                                card)
+    log(f"smoke --world {n} wall clock {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    log(json.dumps({"world": line}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
 def nccl_world_of_one(df, dt, card: str, counts: dict) -> None:
     """Path (a): an NCCL world of 1 in this process, ``file://`` rendezvous:
     make_mesh(1) -> plan_shuffle -> execute_shuffle, distributed_step_flat,
@@ -814,7 +1097,7 @@ def roundtrip(eng, data: bytes, what: str):
     block decoded on the host.  Returns the unit and host-clock phases."""
     t0 = time.perf_counter()
     unit = eng.compress(data)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(eng.device)
     t1 = time.perf_counter()
     eng.ensure_plans(unit)
     t2 = time.perf_counter()
@@ -1221,7 +1504,12 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add the phase breakdown of one warm LZ4 unit per main path, and "
                          "the profiler's kernel-only time beside each held time")
+    ap.add_argument("--world", type=int, default=0, metavar="N",
+                    help="build B1 and B2, then run only the N-card phase: an NCCL world "
+                         "of N ranks, one card each, and the Driver's engine on every card")
     args = ap.parse_args()
+    if args.world:
+        return world_main(args.world)
     global PROFILE_KERNELS
     PROFILE_KERNELS = args.profile
     if not torch.cuda.is_available():

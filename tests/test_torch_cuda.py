@@ -19,6 +19,13 @@ headline bench (``cli.bench``) at 64 blocks.  The held timer
 (``timing.kernel_time_ms``) must read B1 within 10% of its CUDA-event time,
 and raise, within the hold's timeout, on a call that synchronizes.
 
+Four tests need several cards and count them inside themselves, skipping
+below the count: an NCCL world of four ranks, one card each, runs every
+step bit-exactly with each rank's B1 and B2 on its own card; the Driver's
+engine on each card (two or more) round-trips there; the demo's async
+suite runs over four engines.  One more runs on any card: an NCCL world
+of more ranks than cards raises.
+
 They skip without CUDA.  The machine with the card has no JAX, and
 ``tests/conftest.py`` imports JAX, so on the card run this file alone:
 
@@ -1604,3 +1611,99 @@ def test_held_timer_raises_on_a_call_that_synchronizes(cuda_device):
     assert time.perf_counter() - t0 < timing.HOLD_TIMEOUT_S + 3.0
     assert timing.kernel_time_ms(launch, 4, lambda: tflat.launches) > 0
     eng.release()
+
+
+# ---------------------------------------------------------------------------
+# The multi-card path: an NCCL world of four ranks, one card each, and the
+# Driver's engine on every card in one process.  Each test counts the cards
+# it needs inside itself and skips below that count.
+
+
+def need_cards(n: int) -> None:
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
+        pytest.skip(f"needs {n} CUDA devices, one a rank or engine; {have} visible")
+
+
+def test_nccl_world_of_four_runs_every_step_on_its_own_card():
+    need_cards(4)
+    from bitar_tpu_torch.parallel import dryrun
+
+    res = dryrun.run_world(4, dryrun.steps_program,
+                           {"corpus": "bench", "nblocks": 32, "block": 128 * 1024,
+                            "steps": dryrun.ALL_STEPS, "overlap": True},
+                           backend="nccl", timeout=240.0)
+    for rank, r in enumerate(res):
+        assert all(r[step]["exact"] for step in dryrun.ALL_STEPS), rank
+        assert r["ring_equals_flat"] and r["backend"] == "nccl"
+        assert r["device"] == f"cuda:{rank}" and r["contexts"] == [rank]
+        assert set(r["device_launches"]["decode_flat"]) == {rank}
+        assert set(r["device_launches"]["decode_tables"]) == {rank}
+        timeline = r["ring"]["timeline"]
+        assert len(timeline["decode_spans_ms"]) == 4 and timeline["exchange_ms"] > 0
+    assert sum(r["flat"]["live"] for r in res) == 32
+
+
+def test_nccl_world_refuses_more_ranks_than_cards(cuda_device):
+    from bitar_tpu_torch.parallel import dryrun
+
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(btt.StatusError, match=f"NCCL world of {n} needs {n} CUDA devices"):
+        dryrun.run_world(n, dryrun.steps_program, {"nblocks": 2 * n, "block": 16 * 1024},
+                         backend="nccl", timeout=60.0)
+
+
+def test_an_engine_on_each_card_round_trips_on_it():
+    # The Driver's engines, one a card; each compresses and decodes from a
+    # stream's worker thread (whose current device is cuda:0), and its
+    # arena, device decode and B1 launches stay on its card.  An engine
+    # made with plain "cuda" under another current card stays on that card.
+    need_cards(2)
+    n = torch.cuda.device_count()
+    cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=128 * 1024, burst_size=64,
+                           max_pool_slots=96, commit="deferred")
+    engines = btt.Driver.instance().get_engines(cfg)
+    with torch.cuda.device(n - 1):
+        engines.append(btt.Engine(cfg, device="cuda").initialize())
+    assert [e.device.index for e in engines] == [*range(n), n - 1]
+    data = make_corpus(16)
+    for k, eng in enumerate(engines):
+        before = tflat.device_launches.copy()
+        (stream,) = btt.make_streams([eng], 1)
+        units = {}
+
+        def keep(s, result):
+            units["unit"] = result.value_or_raise()
+            return btt.ASYNC_RETURN_OK
+
+        assert stream.compress_async(btt.CompressParam(eng, data, keep)).ok()
+        assert stream.wait() == btt.ASYNC_RETURN_OK
+        unit = units["unit"]
+        eng.ensure_plans(unit)
+        got = eng.prepare_device_decode(unit)()
+        assert eng.arena._buf.device == eng.device and got.device == eng.device
+        assert got.reshape(-1).cpu().numpy().tobytes() == data
+        assert stream.decompress_async(btt.DecompressParam(eng, unit, result_callback=keep)).ok()
+        assert stream.wait() == btt.ASYNC_RETURN_OK
+        assert units["unit"].tobytes() == data
+        assert set(tflat.device_launches - before) == {eng.device.index}, k
+        assert eng.stats.host_decode_bursts == 0
+        stream.close()
+        eng.recycle(unit)
+        eng.release()
+
+
+def test_async_suite_over_four_engines(capsys):
+    need_cards(4)
+    from bitar_tpu_torch.cli import demo
+
+    cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=128 * 1024, burst_size=64,
+                           max_pool_slots=96, commit="deferred")
+    engines = btt.Driver.instance().get_engines(cfg, device_ids=[0, 1, 2, 3])
+    before = tflat.device_launches.copy()
+    demo.evaluate_async(engines, make_corpus(64), 8)
+    assert "async verify OK (8 segments bit-exact)" in capsys.readouterr().out
+    assert set(tflat.device_launches - before) == {0, 1, 2, 3}
+    assert all(e.stats.host_decode_bursts == 0 for e in engines)
+    for e in engines:
+        e.release()

@@ -28,6 +28,7 @@ from bitar_tpu_torch import parallel as tpar
 from bitar_tpu_torch.ops import decode_tables as tdt
 from bitar_tpu_torch.parallel import dryrun, multihost
 from bitar_tpu_torch.parallel import pipeline as tpipe
+from bitar_tpu_torch.utils.corpus import make_corpus
 
 torch.set_num_threads(1)
 
@@ -117,9 +118,10 @@ def test_prepare_sharded_batch_keeps_the_jax_bytes(batch8):
     assert meta["seq_cap"] == jmeta["seq_cap"] and meta["out_rows"] == NROWS
 
 
-def jax_steps(batch, d):
+def jax_steps(batch, d, block=BLOCK):
     """The JAX package's steps at D = d on the virtual CPU mesh: global
     [D * D*rpp, ...] outputs by destination."""
+    nrows = block // 128
     mesh = jshd.make_mesh(d)
     rows, comp_rows, n = batch["rows"], batch["comp_rows"], len(batch["datas"])
     plan = jshf.plan_shuffle(n, d, sizes=batch["lens"].astype(np.int64))
@@ -128,33 +130,35 @@ def jax_steps(batch, d):
               jnp.asarray((plan.send_order % per_src).reshape(d, 1, -1).astype(np.int32)),
               jnp.asarray((plan.send_order >= 0).reshape(d, 1, -1)))
     kw = dict(mesh=mesh, rows_per_pair=plan.rows_per_pair, comp_rows=comp_rows,
-              block_size=BLOCK, interpret=True)
+              block_size=block, interpret=True)
     out = {"shuffle": np.asarray(jshf.execute_shuffle(mesh, plan, jnp.asarray(rows)))}
-    w = jpipe.prepare_flat_wires_for_recv(plan, *batch["plan"], NROWS)
+    w = jpipe.prepare_flat_wires_for_recv(plan, *batch["plan"], nrows)
     out["flat"] = np.asarray(jpipe.distributed_step_flat(
         *common, *(jnp.asarray(w[k]) for k in tpipe.WIRE_KEYS), **kw))
-    w = jpipe.prepare_ring_flat_wires_for_recv(plan, *batch["plan"], NROWS)
+    w = jpipe.prepare_ring_flat_wires_for_recv(plan, *batch["plan"], nrows)
     out["ring"] = np.asarray(jring.distributed_step_ring_flat(
         *common, *(jnp.asarray(w[k]) for k in tpipe.WIRE_KEYS), **kw))
-    full, _, meta = jshd.prepare_sharded_batch(batch["comps"], batch["tables"], BLOCK,
+    full, _, meta = jshd.prepare_sharded_batch(batch["comps"], batch["tables"], block,
                                                rows.shape[1], d)
     out["sharded"] = np.asarray(jshd.sharded_decode(
         full["comp"], full["nseq"], *(full[k] for k in tpipe._TABLE_KEYS), mesh=mesh,
         comp_rows=meta["comp_rows"], out_rows=meta["out_rows"], seq_cap=meta["seq_cap"],
-        block_size=BLOCK, interpret=True))
+        block_size=block, interpret=True))
     padded, nseq = layout.pad_tables(batch["tables"], tpipe._TABLE_KEYS)
     args, tkw = jpipe.prepare_distributed_step_tables_fallback(mesh, plan, rows, padded, nseq,
-                                                               BLOCK)
+                                                               block)
     out["tables"] = np.asarray(jpipe.distributed_step_tables_fallback(*args, **tkw,
                                                                       interpret=True))
     return plan, out
 
 
-@pytest.mark.parametrize("d", [1, 2, 4])
-def test_steps_in_a_gloo_world_match_jax(batch8, d):
-    plan, want = jax_steps(batch8, d)
-    res = dryrun.run_world(d, dryrun.steps_program,
-                           {"nblocks": 8, "block": BLOCK, "seed": 1, "return_rows": True},
+def world_held_to_jax(batch, d: int, spec: dict) -> list:
+    """Run every step of ``spec`` (the batch's) in a gloo world of ``d``
+    and hold each live row to the JAX step's at the same D and to the raw
+    bytes; returns each rank's result."""
+    block = spec["block"]
+    plan, want = jax_steps(batch, d, block)
+    res = dryrun.run_world(d, dryrun.steps_program, dict(spec, return_rows=True),
                            device_type="cpu", timeout=WORLD_TIMEOUT)
     live = plan.recv_block.reshape(-1) >= 0
     for step in dryrun.ALL_STEPS:
@@ -163,14 +167,29 @@ def test_steps_in_a_gloo_world_match_jax(batch8, d):
         if step == "shuffle":
             np.testing.assert_array_equal(got, want[step])
         elif step == "sharded":
-            np.testing.assert_array_equal(got, want[step][:, :BLOCK])
-            assert got.tobytes() == b"".join(batch8["datas"])
+            np.testing.assert_array_equal(got, want[step][:, :block])
+            assert got.tobytes() == b"".join(batch["datas"])
         else:
             np.testing.assert_array_equal(got[live], want[step][live], step)
             for pos in np.flatnonzero(live):
-                assert got[pos].tobytes() == batch8["datas"][plan.recv_block.reshape(-1)[pos]]
+                assert got[pos].tobytes() == batch["datas"][plan.recv_block.reshape(-1)[pos]]
     assert all(r["ring_equals_flat"] for r in res)
-    assert sum(r["flat"]["live"] for r in res) == 8
+    assert sum(r["flat"]["live"] for r in res) == len(batch["datas"])
+    return res
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_steps_in_a_gloo_world_match_jax(batch8, d):
+    world_held_to_jax(batch8, d, {"nblocks": 8, "block": BLOCK, "seed": 1})
+
+
+def test_steps_at_the_bench_block_in_a_gloo_world_of_4_match_jax():
+    # The four-card phase's block shape: the bench corpus in 128 KiB blocks
+    # (8 here), four ranks; each reports its backend and device.
+    block = 128 * 1024
+    batch = dryrun.make_batch(8, block, data=make_corpus(8))
+    res = world_held_to_jax(batch, 4, {"corpus": "bench", "nblocks": 8, "block": block})
+    assert [(r["backend"], r["device"], r["contexts"]) for r in res] == [("gloo", "cpu", [])] * 4
 
 
 @pytest.mark.parametrize("n", [2, 4])
