@@ -46,6 +46,7 @@ import torch
 from ..config import Codec, EngineConfig
 from ..engine.device import CompressedUnit, Engine
 from ..ops import decode_flat, registry
+from ..ops.cpu import native
 from ..ops.device_compress import compress_blocks_device
 from ..status import Status, StatusError
 from ..utils import timing
@@ -79,6 +80,13 @@ MAY_READ_ZERO = ("plan_build_ms",)
 
 def say(msg: str) -> None:
     print(f"bench: {msg}", file=sys.stderr, flush=True)
+
+
+def say_split(what: str, split: dict[str, float]) -> None:
+    """The planner's time by phase (``native.plan_prof``): ms summed over
+    its worker threads, so a phase may exceed the wall time it ran in."""
+    say(f"{what} split (planner ms, thread-summed): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
 
 
 def check(ok: bool, what: str) -> None:
@@ -133,11 +141,13 @@ def round_trip(eng: Engine, unit: CompressedUnit, data: bytes, what: str) -> Non
 
 def compress_phase(eng: Engine, data: bytes) -> tuple[CompressedUnit, float]:
     """Best of three ``Engine.compress`` runs (host matcher), host clock.
-    Returns the last unit and the best seconds."""
+    Returns the last unit and the best seconds.  The planner's counters
+    start from 0 at the last run's compress (its background build)."""
     best, unit = float("inf"), None
     for run in range(timing.NUM_BENCH_RUNS):
         if unit is not None:
             eng.recycle(unit)
+        native.plan_prof(reset=True)
         with annotate("bench.compress"):
             t0 = time.perf_counter()
             unit = eng.compress(data)
@@ -160,6 +170,7 @@ def commit_plan_phase(eng: Engine, unit: CompressedUnit) -> tuple[float, float]:
     # the sum is the steady quantity.
     say(f"commit upload {commit_ms:.1f} ms; plan join {plan_ms:.1f} ms (background build); "
         f"together {commit_ms + plan_ms:.1f} ms")
+    say_split("plan build", native.plan_prof())
     require_planned(unit, "lz4")
     pf = unit.plan_flat
     dn = pf["dense"]
@@ -218,10 +229,12 @@ def cold_phase(cfg: EngineConfig, nblocks: int, device: str) -> tuple[float, flo
     say(f"h2d bandwidth {h2d:.3f} GB/s (64 MiB probe)")
     cdata = make_corpus(nblocks + 1)[BLOCK:]
     eng = Engine(cfg, device=device).initialize()
+    native.plan_prof(reset=True)
     unit = eng.compress(cdata)
     t0 = time.perf_counter()
     eng.ensure_plans(unit)
     plan_ms = (time.perf_counter() - t0) * 1e3
+    say_split("cold plan build", native.plan_prof())
     eng.prepare_device_decode(unit)()
     sync(dev)
     dt = time.perf_counter() - t0

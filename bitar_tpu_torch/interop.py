@@ -19,10 +19,12 @@ from .manifest import CompressedBuffers
 from .ops.decode_flat import LANES, plan_tensors
 from .status import Status, StatusError
 
-#: TPU-only entries of the JAX plan dict: banded-gather tables, the VMEM
-#: gather height and the plan-buffer pool grant.  The CUDA kernel reads
-#: the same wire without them.
-TPU_ONLY_PLAN_KEYS = ("bands", "bands_static", "gather_rows", "_pooled")
+#: TPU-only entries of the JAX plan dict: banded-gather tables and the VMEM
+#: gather height.  The CUDA kernel reads the same wire without them.
+TPU_ONLY_PLAN_KEYS = ("bands", "bands_static", "gather_rows")
+#: The unit's host scratch in both packages' plan dicts, not plan data: the
+#: pooled grant that holds the wire's arrays (returned by ``recycle``).
+SCRATCH_PLAN_KEYS = ("_pooled",)
 
 
 def plans_from_reference(plan_flat: dict, device) -> dict[str, torch.Tensor]:
@@ -35,7 +37,8 @@ def plans_from_reference(plan_flat: dict, device) -> dict[str, torch.Tensor]:
             "plan carries zstd literal planes, which replace those blocks' comp "
             "rows; decode such a unit through an engine (unit_from_reference)"))
     plan = {k: v for k, v in plan_flat.items()
-            if k not in TPU_ONLY_PLAN_KEYS and k not in ("lit_planes", "host_blocks")}
+            if k not in TPU_ONLY_PLAN_KEYS + SCRATCH_PLAN_KEYS
+            and k not in ("lit_planes", "host_blocks")}
     p_used = plan["p_used"].astype(np.int64)
     p_off = plan["p_off"].astype(np.int64)
     rows = plan["se"].shape[0]

@@ -44,8 +44,19 @@ def _command(out: Path) -> list[str]:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     c_int = ctypes.c_int
-    lib.bt_lz4_compress_mm.restype = c_int
-    lib.bt_lz4_compress_mm.argtypes = [_u8p, c_int, _u8p, c_int, c_int]
+    for name in ("bt_lz4_decompress", "bt_snappy_decompress", "bt_zstd_compress",
+                 "bt_zstd_decompress"):
+        fn = getattr(lib, name)
+        fn.restype = c_int
+        fn.argtypes = [_u8p, c_int, _u8p, c_int]
+    for name in ("bt_lz4_compress_mm", "bt_snappy_compress_mm"):
+        fn = getattr(lib, name)
+        fn.restype = c_int
+        fn.argtypes = [_u8p, c_int, _u8p, c_int, c_int]
+    lib.bt_snappy_uncompressed_len.restype = c_int
+    lib.bt_snappy_uncompressed_len.argtypes = [_u8p, c_int]
+    lib.bt_zstd_parse.restype = c_int
+    lib.bt_zstd_parse.argtypes = [_u8p, c_int, c_int, _u8p, c_int, _i32p] + [_i32p] * 5
     lib.bt_batch_compress.restype = None
     lib.bt_batch_compress.argtypes = [
         c_int, _i32p, c_int, c_int,
@@ -85,6 +96,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = [_u8p, c_int, _i32p, _i32p, _i32p, c_int, _u8p, c_int]
     lib.bt_set_emit_min_match.restype = None
     lib.bt_set_emit_min_match.argtypes = [c_int]
+    lib.bt_set_split_limit.restype = None
+    lib.bt_set_split_limit.argtypes = [c_int]
+    lib.bt_plan_frags.restype = c_int
+    lib.bt_plan_frags.argtypes = [c_int, _u8p, c_int, c_int, c_int, c_int] + [_i32p] * 5
+    lib.bt_plan_prof_get.restype = None
+    lib.bt_plan_prof_get.argtypes = [_i64p, c_int]
     lib.bt_abi_version.restype = c_int
     lib.bt_abi_version.argtypes = []
     return lib
@@ -155,6 +172,72 @@ def lz4_compress(data, dst_cap: int | None = None, min_match: int = 4) -> np.nda
     rc = _check(load().bt_lz4_compress_mm(_u8ptr(src), len(src), _u8ptr(dst),
                                           cap, min_match), "lz4_compress")
     return dst[:rc]
+
+
+def lz4_decompress(data, dst_cap: int) -> np.ndarray:
+    src = _as_u8(data)
+    dst = np.empty(dst_cap, dtype=np.uint8)
+    rc = _check(load().bt_lz4_decompress(_u8ptr(src), len(src), _u8ptr(dst), dst_cap),
+                "lz4_decompress")
+    return dst[:rc]
+
+
+def snappy_compress(data, dst_cap: int | None = None, min_match: int = 4) -> np.ndarray:
+    src = _as_u8(data)
+    cap = dst_cap if dst_cap is not None else 32 + len(src) + len(src) // 6
+    dst = np.empty(cap, dtype=np.uint8)
+    rc = _check(load().bt_snappy_compress_mm(_u8ptr(src), len(src), _u8ptr(dst),
+                                             cap, min_match), "snappy_compress")
+    return dst[:rc]
+
+
+def snappy_decompress(data, dst_cap: int | None = None) -> np.ndarray:
+    """``dst_cap`` None: the length the stream's preamble names."""
+    src = _as_u8(data)
+    if dst_cap is None:
+        dst_cap = _check(load().bt_snappy_uncompressed_len(_u8ptr(src), len(src)),
+                         "snappy_uncompressed_len")
+    dst = np.empty(max(1, dst_cap), dtype=np.uint8)
+    rc = _check(load().bt_snappy_decompress(_u8ptr(src), len(src), _u8ptr(dst), dst_cap),
+                "snappy_decompress")
+    return dst[:rc]
+
+
+def zstd_compress(data, dst_cap: int | None = None) -> np.ndarray:
+    """A zstd frame (``zstd.cc``: greedy matching, raw literals, predefined
+    FSE tables; an incompressible block is stored raw)."""
+    src = _as_u8(data)
+    cap = dst_cap if dst_cap is not None else len(src) + len(src) // 255 + 64
+    dst = np.empty(max(1, cap), dtype=np.uint8)
+    rc = _check(load().bt_zstd_compress(_u8ptr(src), len(src), _u8ptr(dst), cap),
+                "zstd_compress")
+    return dst[:rc]
+
+
+def zstd_decompress(data, dst_cap: int) -> np.ndarray:
+    src = _as_u8(data)
+    dst = np.empty(max(1, dst_cap), dtype=np.uint8)
+    rc = _check(load().bt_zstd_decompress(_u8ptr(src), len(src), _u8ptr(dst), dst_cap),
+                "zstd_decompress")
+    return dst[:rc]
+
+
+def zstd_parse(data, max_seq: int | None = None, lit_cap: int | None = None):
+    """The sequence table of a zstd frame and its entropy-decoded literals:
+    (columns as :func:`parse_sequences` gives them, literals uint8).  Here
+    ``lit_ptr`` indexes the literals, not the compressed stream."""
+    src = _as_u8(data)
+    if max_seq is None:
+        max_seq = max(16, len(src) * 2 + 16)
+    if lit_cap is None:
+        lit_cap = max(64, len(src) * 16 + 1024)
+    cols = {k: np.zeros(max_seq, dtype=np.int32) for k in SEQUENCE_KEYS}
+    lit_buf = np.empty(lit_cap, dtype=np.uint8)
+    lit_used = np.zeros(1, dtype=np.int32)
+    rc = _check(load().bt_zstd_parse(
+        _u8ptr(src), len(src), max_seq, _u8ptr(lit_buf), lit_cap, _i32ptr(lit_used),
+        *(_i32ptr(cols[k]) for k in SEQUENCE_KEYS)), "zstd_parse")
+    return {k: v[:rc] for k, v in cols.items()}, lit_buf[:int(lit_used[0])]
 
 
 def batch_run(compress: bool, src: np.ndarray, src_off: np.ndarray,
@@ -249,6 +332,44 @@ def plan_block(data, out_len: int, nrows: int, max_passes: int = 32, codec: str 
         return None, None, None
     _check(rc, "plan_block")
     return rc, int(p0[0]), cols
+
+
+def plan_frags(data, out_len: int, codec: str = "lz4",
+               split_limit: int = 2) -> dict[str, np.ndarray]:
+    """The planner's fragment list of one block, for analysis: int32
+    columns dst, len, shift, space (0 comp, 1 out, 2 row fill) and aux."""
+    src = _as_u8(data)
+    cap = out_len + 64
+    names = ("dst", "len", "shift", "space", "aux")
+    cols = {k: np.zeros(cap, np.int32) for k in names}
+    n = _check(load().bt_plan_frags(_CODEC_INT[codec], _u8ptr(src), len(src), out_len,
+                                    split_limit, cap, *(_i32ptr(cols[k]) for k in names)),
+               "plan_frags")
+    if n > cap:
+        raise StatusError(Status.CapacityError(f"fragment count {n} > cap {cap}"))
+    return {k: v[:n] for k, v in cols.items()}
+
+
+def set_split_limit(v: int) -> None:
+    """The planner's comp-resolution split limit (at least 1; default 2).
+    Thread-local: it applies to the calling thread's later
+    :func:`plan_block` calls; the batch planners take ``split_limit`` per
+    call."""
+    load().bt_set_split_limit(int(v))
+
+
+#: The planner's phases, in the order ``bt_plan_prof_get`` writes them;
+#: d_collect and d_write are parts of densify.
+PLAN_PHASES = ("parse", "build", "densify", "schedule", "emit", "pack",
+               "d_collect", "d_write")
+
+
+def plan_prof(reset: bool = True) -> dict[str, float]:
+    """The planner's time by phase in ms since the last reset, summed over
+    its worker threads (so a phase may exceed the wall time)."""
+    buf = np.zeros(len(PLAN_PHASES), np.int64)
+    load().bt_plan_prof_get(_i64ptr(buf), 1 if reset else 0)
+    return {k: int(v) / 1e6 for k, v in zip(PLAN_PHASES, buf, strict=True)}
 
 
 def plan_batch_begin(src: np.ndarray, src_off: np.ndarray, src_len: np.ndarray,

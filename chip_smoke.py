@@ -102,9 +102,15 @@ Phases (any failure raises, and the script exits non-zero):
    before it and read just after:
    - host compress -> decode, LZ4 then Snappy, at the bench's size:
      ``Engine(EngineConfig(block_size=128 KiB, burst_size=1024,
-     max_pool_slots=1056, commit="deferred"))`` -> ``compress`` ->
+     max_pool_slots=1056, commit="deferred"))`` (the planner's chunk
+     scratch for 1024 rows present after ``initialize``) -> ``compress`` ->
      ``ensure_plans`` -> ``decompress`` (bit-exact, no block decoded on the
-     host) -> ``prepare_device_decode`` (same bytes) -> ``recycle``;
+     host) -> ``prepare_device_decode`` (same bytes) -> ``recycle``, then a
+     second unit (the data turned by a quarter) the same way, planned into
+     the first unit's recycled grant; every plan join logged with the
+     planner's split (``native.plan_prof``) and the engine's ``initialize``
+     ms (the first 1024 x 128 KiB engine's, with the prefault, at the start
+     of phase 3);
    - device compress: the same engine with ``compress_matcher="device"``
      (commit eager): ``compress`` of the bench corpus (B5 + emitter) ->
      ``decompress`` (B1, bit-exact) -> ``recycle``;
@@ -120,6 +126,9 @@ Phases (any failure raises, and the script exits non-zero):
    - ``prepare_batched_decode`` over an LZ4, a Zstd and a Snappy unit (one
      B1 launch);
    - four streams on one engine (``make_streams``/``wait_all``);
+   - 1024 blocks in bursts of 128 (8 bursts, each read back on a worker and
+     copied in as it lands) through the planned path at 128 KiB (B1) and
+     the tables path at 4 KiB (B2);
    - 128 x 1 MiB of the bench corpus through the same host path (B1's
      tall route);
    - the CLI: ``cli.demo.main(["--mode", "skewed", "--block-size",
@@ -220,6 +229,7 @@ import os
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -274,6 +284,10 @@ HOST_CALLS = 200              # calls per host-clock reading of a wrapper
 HELD_ALONE = ("decode_flat", "decode_tables", "decode_planned")
 PROFILE_PAD_S = 0.02          # --profile: idle host seconds at each end of a profiler window
 PROFILE_KERNELS = False       # --profile: the profiler's kernel-only time beside each held time
+MULTI_BURST = 128             # burst size of the multi-burst paths (8 bursts a unit)
+#: Host-clock seconds of each smoke engine's ``initialize``, where the
+#: planner's scratch is prefaulted; logged with its path's phases.
+INITIALIZE_S: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def log(msg: str) -> None:
@@ -288,9 +302,18 @@ def card_line() -> str:
 
 def engine(btt, codec, block=BLOCK, nblocks=NBLOCKS, **kw):
     kw.setdefault("commit", "deferred")
-    cfg = btt.EngineConfig(codec=codec, block_size=block, burst_size=min(nblocks, 1024),
-                           max_pool_slots=nblocks + 32, **kw)
-    return btt.Engine(cfg, device="cuda").initialize()
+    kw.setdefault("burst_size", min(nblocks, 1024))
+    cfg = btt.EngineConfig(codec=codec, block_size=block, max_pool_slots=nblocks + 32, **kw)
+    eng = btt.Engine(cfg, device="cuda")
+    t0 = time.perf_counter()
+    eng.initialize()
+    INITIALIZE_S[eng] = time.perf_counter() - t0
+    return eng
+
+
+def split_text(split: dict) -> str:
+    """The planner's split (``native.plan_prof``), ms summed over its threads."""
+    return "planner ms, thread-summed: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
 
 
 def turns(timing, kernel, plain, plain_reps: int = TIMED_REPS[0]):
@@ -448,32 +471,55 @@ def decode_bound(pt, comp_len, block: int = BLOCK) -> tuple[float, str]:
 
 
 def host_path(btt, codec, data: bytes, block: int = BLOCK) -> None:
+    """compress -> ensure_plans -> decompress -> prepare_device_decode ->
+    recycle, twice on one engine: the second unit (the data turned by a
+    quarter) is compressed after the first was recycled and must be planned
+    into the first unit's grant.  An arena that holds a prefault's unit must
+    have the planner's chunk scratch for its rows after ``initialize``."""
+    from bitar_tpu_torch.ops.cpu import native
+
     eng = engine(btt, codec, block=block, nblocks=len(data) // block)
-    t0 = time.perf_counter()
-    unit = eng.compress(data)
-    t1 = time.perf_counter()
-    eng.ensure_plans(unit)
-    t2 = time.perf_counter()
-    out = eng.decompress(unit)
-    t3 = time.perf_counter()
-    if out.tobytes() != data:
-        raise AssertionError(f"{codec.value}: round trip not bit-exact")
-    host = unit.plan_flat["host_blocks"]
-    if host.size:
-        raise AssertionError(f"{codec.value}: {host.size} blocks decoded on the host")
-    planes = eng.prepare_device_decode(unit)()
-    got = planes.reshape(unit.nblocks, -1)[:, :block].cpu().numpy().tobytes()
-    if got != data:
-        raise AssertionError(f"{codec.value}: prepare_device_decode bytes differ")
-    n = eng.recycle(unit)
+    nb, sets = btt.Engine._PLAN_CHUNK_BLOCKS, btt.Engine._PLAN_PREWARM_CHUNKS
+    if eng.config.max_pool_slots >= nb * sets:
+        missing = [ci for ci in range(sets)
+                   if (ci, nb, block // 128) not in btt.Engine._PLAN_CHUNK_SCRATCH]
+        if missing:
+            raise AssertionError(f"{codec.value}: no chunk scratch {missing} after initialize")
+    q = len(data) // 4 // block * block
+    grant = None
+    for k, part in enumerate((data, data[q:] + data[:q])):
+        native.plan_prof(reset=True)
+        t0 = time.perf_counter()
+        unit = eng.compress(part)
+        t1 = time.perf_counter()
+        eng.ensure_plans(unit)
+        t2 = time.perf_counter()
+        split = native.plan_prof()
+        out = eng.decompress(unit)
+        t3 = time.perf_counter()
+        what = f"{codec.value} unit {k}"
+        if out.tobytes() != part:
+            raise AssertionError(f"{what}: round trip not bit-exact")
+        host = unit.plan_flat["host_blocks"]
+        if host.size:
+            raise AssertionError(f"{what}: {host.size} blocks decoded on the host")
+        if grant is not None and not np.shares_memory(unit.plan_flat["se"], grant["se"]):
+            raise AssertionError(f"{what}: not planned into the recycled unit's grant")
+        grant = unit.plan_flat["_pooled"]
+        planes = eng.prepare_device_decode(unit)()
+        got = planes.reshape(unit.nblocks, -1)[:, :block].cpu().numpy().tobytes()
+        if got != part:
+            raise AssertionError(f"{what}: prepare_device_decode bytes differ")
+        n = eng.recycle(unit)
+        if n != unit.nblocks:
+            raise AssertionError(f"{what}: recycled {n} of {unit.nblocks} slots")
+        log(f"main path host compress {codec.value}, unit {k}: {unit.nblocks} x {block} B "
+            f"bit-exact, ratio {unit.manifest.ratio():.3f}, host-decoded blocks 0"
+            + (", in unit 0's grant" if k else "") + "; host clock: "
+            + (f"initialize {1e3 * INITIALIZE_S[eng]:.1f} ms, " if k == 0 else "")
+            + f"compress {1e3 * (t1 - t0):.1f} ms, plan join {1e3 * (t2 - t1):.1f} ms "
+            f"({split_text(split)}), decompress incl. readback {1e3 * (t3 - t2):.1f} ms")
     eng.release()
-    if n != unit.nblocks:
-        raise AssertionError(f"{codec.value}: recycled {n} of {unit.nblocks} slots")
-    log(f"main path host compress {codec.value}: {unit.nblocks} x {block} B bit-exact, "
-        f"ratio {unit.manifest.ratio():.3f}, host-decoded blocks 0; "
-        f"host clock: compress {1e3 * (t1 - t0):.1f} ms, plan join "
-        f"{1e3 * (t2 - t1):.1f} ms, decompress incl. readback "
-        f"{1e3 * (t3 - t2):.1f} ms")
 
 
 def device_path(btt, data: bytes) -> None:
@@ -1094,13 +1140,19 @@ def gloo_ranks_on_one_card(card: str, counts: dict) -> None:
 
 def roundtrip(eng, data: bytes, what: str):
     """compress -> ensure_plans -> decompress on ``eng``: bit-exact, no
-    block decoded on the host.  Returns the unit and host-clock phases."""
+    block decoded on the host.  Returns the unit and its phases: the
+    engine's ``initialize`` where ``engine`` made it, the host clock of each
+    step, and the planner's split of the plan join."""
+    from bitar_tpu_torch.ops.cpu import native
+
+    native.plan_prof(reset=True)
     t0 = time.perf_counter()
     unit = eng.compress(data)
     torch.cuda.synchronize(eng.device)
     t1 = time.perf_counter()
     eng.ensure_plans(unit)
     t2 = time.perf_counter()
+    split = native.plan_prof()
     out = eng.decompress(unit)
     t3 = time.perf_counter()
     if out.tobytes() != data:
@@ -1108,13 +1160,43 @@ def roundtrip(eng, data: bytes, what: str):
     if eng.stats.host_decode_bursts or (
             unit.plan_flat is not None and unit.plan_flat["host_blocks"].size):
         raise AssertionError(f"{what}: blocks decoded on the host")
-    return unit, {"compress": t1 - t0, "ensure_plans": t2 - t1, "decompress": t3 - t2}
+    phases = {"initialize": INITIALIZE_S[eng]} if eng in INITIALIZE_S else {}
+    return unit, phases | {"compress": t1 - t0, "ensure_plans": t2 - t1, "planner": split,
+                           "decompress": t3 - t2}
 
 
 def log_path(what: str, unit, card: str, phases: dict, extra: str = "") -> None:
+    """One line: the unit, then its phases (a dict phase, the planner's
+    split, in brackets after the phase before it)."""
+    parts = []
+    for k, v in phases.items():
+        if isinstance(v, dict):
+            parts[-1] += f" ({split_text(v)})"
+        else:
+            parts.append(f"{k} {1e3 * v:.1f} ms")
     log(f"main path {what}: {unit.nblocks} x {unit.manifest.block_size} B bit-exact, ratio "
         f"{unit.manifest.ratio():.3f}, host-decoded blocks 0{extra}; host clock [{card}]: "
-        + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in phases.items()))
+        + ", ".join(parts))
+
+
+def multi_burst_paths(btt, df, dt, data: bytes, card: str, counts: dict) -> None:
+    """Units of NBLOCKS blocks in bursts of MULTI_BURST, each burst read back
+    on a worker thread and copied into the output as it lands: the planned
+    path at 128 KiB (B1) and the tables path at 4 KiB (B2), bit-exact."""
+    for what, block, kernel, name in (("planned", BLOCK, df, "decode_flat"),
+                                      ("tables", TABLE_BLOCK, dt, "decode_tables")):
+        eng = engine(btt, btt.Codec.LZ4, block=block, burst_size=MULTI_BURST)
+        df.launches = dt.launches = 0
+        unit, phases = roundtrip(eng, data[:NBLOCKS * block], f"{what}, bursts of {MULTI_BURST}")
+        counts[f"multi-burst {what} path"] = {name: kernel.launches}
+        bursts = eng.stats.device_decode_bursts
+        if bursts != NBLOCKS // MULTI_BURST or (unit.tables is not None) != (what == "tables"):
+            raise AssertionError(f"multi-burst {what}: {bursts} bursts, tables "
+                                 f"{unit.tables is not None}")
+        log_path(f"{what}, {bursts} bursts of {MULTI_BURST} read back out of order", unit, card,
+                 phases)
+        eng.recycle(unit)
+        eng.release()
 
 
 def tables_path(btt, data: bytes, card: str) -> None:
@@ -1567,6 +1649,10 @@ def main() -> int:
 
     # -- phase 3: every kernel against its plain version -------------------
     log(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s")
+    first = engine(btt, btt.Codec.LZ4)
+    log(f"Engine.initialize of this process's first {NBLOCKS} x {BLOCK} B engine (the "
+        f"planner's prefault): {1e3 * INITIALIZE_S[first]:.1f} ms host clock [{card}]")
+    first.release()
     batches = {"bench": planned_batch(btt, corpus), "text": planned_batch(btt, text),
                "raw_heavy": planned_batch(btt, raw_heavy)}
     err = 0
@@ -1988,6 +2074,8 @@ def main() -> int:
     df.launches = 0
     streams_path(btt, corpus)
     counts["streams path"] = {"decode_flat": df.launches}
+
+    multi_burst_paths(btt, df, dt, corpus, card, counts)
 
     # The paths of blocks up to 1 MiB: each decode launch must take the
     # tall (cluster) route.

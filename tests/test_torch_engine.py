@@ -19,7 +19,7 @@ import torch
 import bitar_tpu as bt
 import bitar_tpu_torch as btt
 from bitar_tpu.engine.device import prepare_batched_decode as jax_batched
-from bitar_tpu_torch.interop import TPU_ONLY_PLAN_KEYS
+from bitar_tpu_torch.interop import SCRATCH_PLAN_KEYS, TPU_ONLY_PLAN_KEYS
 from bitar_tpu_torch.ops.cpu.native import SEQUENCE_KEYS
 
 # Test files run in several worker processes at once: a single intra-op
@@ -75,8 +75,9 @@ def test_engine_parity(codec, commit):
     jax_eng.ensure_plans(ju)
     port.ensure_plans(tu)
     assert tu.plan_comp_rows == ju.plan_comp_rows
-    want = {k: v for k, v in ju.plan_flat.items() if k not in TPU_ONLY_PLAN_KEYS}
-    assert tu.plan_flat.keys() == want.keys()
+    want = {k: v for k, v in ju.plan_flat.items()
+            if k not in TPU_ONLY_PLAN_KEYS + SCRATCH_PLAN_KEYS}
+    assert tu.plan_flat.keys() - set(SCRATCH_PLAN_KEYS) == want.keys()
     for k, v in want.items():
         np.testing.assert_array_equal(tu.plan_flat[k], v, err_msg=k)
     assert (tu.plan_flat["p_used"] > tu.plan_flat["p0"]).any(), "expected out passes"
@@ -316,7 +317,7 @@ def test_zstd_device_decode_is_not_implemented():
         port.ensure_plans(tu)
         assert tu.plan_comp_rows == ju.plan_comp_rows
         want = {k: v for k, v in ju.plan_flat.items()
-                if k not in TPU_ONLY_PLAN_KEYS and k != "lit_planes"}
+                if k not in TPU_ONLY_PLAN_KEYS + SCRATCH_PLAN_KEYS and k != "lit_planes"}
         for k, v in want.items():
             np.testing.assert_array_equal(tu.plan_flat[k], v, err_msg=k)
         jl, tl = ju.plan_flat["lit_planes"], tu.plan_flat["lit_planes"]

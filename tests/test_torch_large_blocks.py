@@ -23,7 +23,7 @@ from bitar_tpu.ops.pallas import lz4_decode_flat as jflat
 from bitar_tpu.ops.pallas.lz4_decode import decode_blocks as jax_decode_blocks
 import bitar_tpu_torch as btt
 from bitar_tpu_torch import config as tconfig
-from bitar_tpu_torch.interop import TPU_ONLY_PLAN_KEYS
+from bitar_tpu_torch.interop import SCRATCH_PLAN_KEYS, TPU_ONLY_PLAN_KEYS
 from bitar_tpu_torch.ops import decode_flat as df
 from bitar_tpu_torch.ops import decode_tables as dt
 from bitar_tpu_torch.ops.cpu.native import SEQUENCE_KEYS
@@ -65,7 +65,7 @@ def test_flat_reference_equals_jax_oracle_on_the_banded_wire(corpus, block):
     assert pf is not None and pf["host_blocks"].size == 0
     assert tu.plan_comp_rows == ju.plan_comp_rows
     for k, v in ju.plan_flat.items():
-        if k not in TPU_ONLY_PLAN_KEYS:
+        if k not in TPU_ONLY_PLAN_KEYS + SCRATCH_PLAN_KEYS:
             np.testing.assert_array_equal(pf[k], v, err_msg=k)
     if corpus == "text":
         assert (pf["p_used"] > pf["p0"]).all(), "expected out passes in every block"

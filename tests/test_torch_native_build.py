@@ -141,3 +141,104 @@ def test_both_builds_plan_alike_and_the_port_wire_decodes(codec):
                                       comp_rows, nrows).numpy()
     for i, d in enumerate(datas):
         assert got[i].reshape(-1).tobytes() == d, f"{codec} block {i}"
+
+
+def codes(fn, *args):
+    """``fn(*args)``'s output, or the status code it raised."""
+    try:
+        return np.asarray(fn(*args))
+    except Exception as e:               # both packages' StatusError
+        if type(e).__name__ != "StatusError":
+            raise
+        return e.status.to_int()
+
+
+def assert_same_result(got, want, what: str) -> None:
+    if isinstance(want, int):
+        assert got == want, f"{what}: status {got} != {want}"
+    else:
+        assert not isinstance(got, int), f"{what}: raised {got}"
+        np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+@pytest.mark.parametrize("codec", ["lz4", "snappy", "zstd"])
+def test_single_block_codecs_match_the_jax_modules(codec):
+    # Each block of the corpus (and an empty one) through both modules'
+    # one-block compress and decompress: the same stream, the same bytes.
+    for i, d in enumerate(corpus() + [b""]):
+        comp = getattr(tnative, f"{codec}_compress")
+        got, want = comp(d), getattr(jnative, f"{codec}_compress")(d)
+        np.testing.assert_array_equal(got, want, err_msg=f"{codec} block {i}")
+        args = (got,) if codec == "snappy" else (got, len(d) + 1)
+        back = codes(getattr(tnative, f"{codec}_decompress"), *args)
+        assert_same_result(back, codes(getattr(jnative, f"{codec}_decompress"), *args),
+                           f"{codec} block {i}")
+        assert back.tobytes() == d
+    if codec != "zstd":
+        d = corpus()[0]
+        np.testing.assert_array_equal(getattr(tnative, f"{codec}_compress")(d, min_match=6),
+                                      getattr(jnative, f"{codec}_compress")(d, min_match=6))
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("lz4_decompress", (np.array([0xFF, 0xFF], np.uint8), 100)),
+    ("lz4_decompress", (np.array([0x10, 0x41, 0xFF, 0x00], np.uint8), 100)),
+    ("lz4_decompress", (jnative.lz4_compress(b"x" * 1000), 10)),
+    ("snappy_decompress", (np.array([0xFF] * 6, np.uint8),)),
+    ("snappy_decompress", (np.array([0x80], np.uint8),)),
+    ("snappy_decompress", (jnative.snappy_compress(b"y" * 1000), 10)),
+    ("zstd_decompress", (np.array([0x28, 0xB5, 0x2F, 0xFD, 0xFF], np.uint8), 100)),
+    ("zstd_decompress", (jnative.zstd_compress(b"z" * 1000), 10)),
+    ("zstd_parse", (np.array([1, 2, 3, 4, 5], np.uint8),)),
+])
+def test_malformed_and_short_inputs_raise_as_in_the_jax_module(fn, args):
+    got, want = codes(getattr(tnative, fn), *args), codes(getattr(jnative, fn), *args)
+    assert isinstance(want, int) and want < 0
+    assert got == want
+
+
+def test_zstd_parse_matches_the_jax_module():
+    for i, d in enumerate(corpus()):
+        c = jnative.zstd_compress(d)
+        (got, glit), (want, wlit) = tnative.zstd_parse(c), jnative.zstd_parse(c)
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=f"block {i} {k}")
+        np.testing.assert_array_equal(glit, wlit, err_msg=f"block {i} literals")
+
+
+@pytest.mark.parametrize("codec", ["lz4", "snappy"])
+def test_plan_frags_and_split_limit_match_the_jax_module(codec):
+    # The fragment list at several split limits, and plan_block under the
+    # thread-local split limit each module sets.
+    try:
+        for i, (d, c) in enumerate(zip(corpus(), compressed(jnative, codec, corpus()))):
+            for limit in (1, 2, 8):
+                got = tnative.plan_frags(c, len(d), codec, split_limit=limit)
+                want = jnative.plan_frags(c, len(d), codec, split_limit=limit)
+                assert got.keys() == want.keys()
+                for k in want:
+                    np.testing.assert_array_equal(got[k], want[k], err_msg=f"{i} {limit} {k}")
+                tnative.set_split_limit(limit)
+                jnative.set_split_limit(limit)
+                tp = tnative.plan_block(c, len(d), BLOCK // 128, 32, codec)
+                jp = jnative.plan_block(c, len(d), BLOCK // 128, 32, codec)
+                assert tp[:2] == jp[:2], f"block {i} split limit {limit}"
+                if tp[2] is not None:
+                    for k in jp[2]:
+                        np.testing.assert_array_equal(tp[2][k], jp[2][k], err_msg=k)
+    finally:
+        tnative.set_split_limit(2)
+        jnative.set_split_limit(2)
+
+
+def test_plan_prof_reports_the_jax_modules_phases():
+    comps = compressed(jnative, "lz4", corpus())
+    src, off, lens = packed(comps)
+    tnative.plan_prof(reset=True)
+    tnative.plan_batch_flat(src, off, lens, np.full(len(comps), BLOCK, np.int32),
+                            np.zeros(len(comps), np.int32), BLOCK // 128, 160, cb=4)
+    prof = tnative.plan_prof(reset=True)
+    assert list(prof) == list(jnative.plan_prof(reset=False))
+    assert all(v >= 0 for v in prof.values()) and prof["parse"] > 0, prof
+    assert not any(tnative.plan_prof(reset=False).values())
