@@ -44,6 +44,7 @@ PyTorch versions on CPU tensors (the test path).
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import enum
 import os
 import threading
@@ -72,6 +73,7 @@ from ..ops.device_compress import _emit, engine_width, match_parse_device
 from ..ops.match import DEFAULT_OFFSETS, find_matches
 from ..ops.match_sort import find_matches_sorted
 from ..status import Status, StatusError
+from ..utils import profiling
 from ..utils.logging import get_logger
 
 logger = get_logger("engine.device")
@@ -515,15 +517,28 @@ class Engine:
             raise StatusError(Status.Invalid("uncommitted unit has no staging bytes"))
         m, cfg = unit.manifest, self.config
         wstep = max(128, cfg.slot_size // 8)
-        for s in range(0, m.nblocks, cfg.burst_size):
-            e = min(m.nblocks, s + cfg.burst_size)
-            w = int(m.comp_len[s:e].max(initial=1))
-            w = min(cfg.slot_size, -(-w // wstep) * wstep)
-            self.arena.write_burst([r.slot for r in unit.refs[s:e]],
-                                   unit._staging[s:e, :w])
+        with profiling.annotate("bitar.engine.commit_upload"):
+            for s in range(0, m.nblocks, cfg.burst_size):
+                e = min(m.nblocks, s + cfg.burst_size)
+                w = int(m.comp_len[s:e].max(initial=1))
+                w = min(cfg.slot_size, -(-w // wstep) * wstep)
+                self.arena.write_burst([r.slot for r in unit.refs[s:e]],
+                                       unit._staging[s:e, :w])
+                profiling.count("engine.commit_bytes", (e - s) * w)
         unit._committed = True
 
     # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _plans_locked(self):
+        """Hold ``_plan_lock``.  Traced, the wait for it is the span
+        ``bitar.engine.plan_lock_wait``."""
+        with profiling.annotate("bitar.engine.plan_lock_wait"):
+            self._plan_lock.acquire()
+        try:
+            yield
+        finally:
+            self._plan_lock.release()
+
     def _pool_take(self, need_wire: int) -> dict[str, np.ndarray]:
         """The best-fitting grant of the free list whose wire holds
         ``need_wire`` cells, or a fresh one (caller holds ``_plan_lock``).
@@ -549,7 +564,7 @@ class Engine:
         """Return the grant of a plan dict to the free list."""
         grant = plans.pop("_pooled", None) if plans is not None else None
         if grant is not None:
-            with self._plan_lock:
+            with self._plans_locked():
                 self._PLAN_FREE.append(grant)
 
     def _prewarm_plan_scratch(self) -> None:
@@ -565,7 +580,7 @@ class Engine:
         nblk = nb * self._PLAN_PREWARM_CHUNKS
         if self.config.max_pool_slots < nblk:
             return
-        with self._plan_lock:
+        with self._plans_locked():
             fresh = []
             for ci in range(self._PLAN_PREWARM_CHUNKS):
                 key = (ci, nb, nrows)
@@ -784,7 +799,7 @@ class Engine:
                 1, thread_name_prefix="btt-plan")
 
         def build():
-            with self._plan_lock:
+            with self._plans_locked(), profiling.annotate("bitar.engine.plan_build"):
                 return self._build_plans(manifest, staging)
 
         return self._plan_executor.submit(build)
@@ -797,7 +812,8 @@ class Engine:
         unit._plan_future = None
         if cancel and fut.cancel():
             return None
-        return fut.result()
+        with profiling.annotate("bitar.engine.plan_join"):
+            return fut.result()
 
     def ensure_plans(self, unit: CompressedUnit) -> None:
         """Build the unit's decode sidecar on demand (once).
@@ -811,19 +827,20 @@ class Engine:
         unit._check_live()
         if unit._planned:
             return
-        staging = self._staging_rows(unit)
-        self._ensure_committed(unit)
-        if unit._plan_future is not None:
-            plans = self._join_plan_build(unit)
-        else:
-            with self._plan_lock:
-                plans = self._build_plans(unit.manifest, staging)
-        if plans is not None:
-            unit.plan_flat, unit.plan_comp_rows = plans
-        elif unit.tables is None:
-            unit.tables, unit.nseq = self._build_tables(unit.manifest, staging)
-        unit._planned = True
-        unit._drop_staging()
+        with profiling.annotate("bitar.engine.ensure_plans"):
+            staging = self._staging_rows(unit)
+            self._ensure_committed(unit)
+            if unit._plan_future is not None:
+                plans = self._join_plan_build(unit)
+            else:
+                with self._plans_locked(), profiling.annotate("bitar.engine.plan_build"):
+                    plans = self._build_plans(unit.manifest, staging)
+            if plans is not None:
+                unit.plan_flat, unit.plan_comp_rows = plans
+            elif unit.tables is None:
+                unit.tables, unit.nseq = self._build_tables(unit.manifest, staging)
+            unit._planned = True
+            unit._drop_staging()
 
     def ensure_tables(self, unit: CompressedUnit) -> None:
         """Build the unit's sequence tables on demand, from its staging copy
@@ -860,42 +877,43 @@ class Engine:
 
         Returns ``(out_view, status)``; ``status[i]`` is 0 for a good block
         and a negative StatusCode for a failed one."""
-        self._entry_guard()
-        unit._check_live()
-        if unit.engine is not self:
-            raise StatusError(Status.Invalid("unit was produced by a different engine"))
-        m = unit.manifest
-        if out is None:
-            out = np.empty(m.total_raw, dtype=np.uint8)
-        elif out.shape[0] < m.total_raw:
-            raise StatusError(Status.CapacityError(
-                f"output buffer {out.shape[0]} < total_raw {m.total_raw}"))
+        with profiling.annotate("bitar.engine.decompress"):
+            self._entry_guard()
+            unit._check_live()
+            if unit.engine is not self:
+                raise StatusError(Status.Invalid("unit was produced by a different engine"))
+            m = unit.manifest
+            if out is None:
+                out = np.empty(m.total_raw, dtype=np.uint8)
+            elif out.shape[0] < m.total_raw:
+                raise StatusError(Status.CapacityError(
+                    f"output buffer {out.shape[0]} < total_raw {m.total_raw}"))
 
-        kernels = self.config.use_tpu_kernels
-        if kernels:
-            self.ensure_plans(unit)
-        if kernels and unit.plan_flat is not None:
-            status = self._decompress_gpu_planned(unit, out)
-        elif kernels and unit.tables is not None:
-            status = self._decompress_gpu_tables(unit, out)
-        else:
-            status = self._decompress_host(unit, out)
+            kernels = self.config.use_tpu_kernels
+            if kernels:
+                self.ensure_plans(unit)
+            if kernels and unit.plan_flat is not None:
+                status = self._decompress_gpu_planned(unit, out)
+            elif kernels and unit.tables is not None:
+                status = self._decompress_gpu_tables(unit, out)
+            else:
+                status = self._decompress_host(unit, out)
 
-        if m.checksum_kind != Checksum.NONE:
-            raw_off = m.raw_off
-            for i in range(m.nblocks):
-                if status[i] < 0:
-                    continue
-                o, ln = int(raw_off[i]), int(m.raw_len[i])
-                if checksum_of(m.checksum_kind, out[o:o + ln]) != int(m.checksums[i]):
-                    status[i] = Status.IOError("").to_int()
-        bad = int((status < 0).sum())
-        if bad:
-            self.stats.dequeue_err_blocks += bad
-            logger.warning("decompress: %d/%d blocks failed (engine error count "
-                           "now %d)", bad, m.nblocks, self.error_count())
-        self.stats.bytes_decompressed += int(m.total_raw)
-        return out[:m.total_raw], status
+            if m.checksum_kind != Checksum.NONE:
+                raw_off = m.raw_off
+                for i in range(m.nblocks):
+                    if status[i] < 0:
+                        continue
+                    o, ln = int(raw_off[i]), int(m.raw_len[i])
+                    if checksum_of(m.checksum_kind, out[o:o + ln]) != int(m.checksums[i]):
+                        status[i] = Status.IOError("").to_int()
+            bad = int((status < 0).sum())
+            if bad:
+                self.stats.dequeue_err_blocks += bad
+                logger.warning("decompress: %d/%d blocks failed (engine error count "
+                               "now %d)", bad, m.nblocks, self.error_count())
+            self.stats.bytes_decompressed += int(m.total_raw)
+            return out[:m.total_raw], status
 
     def error_count(self) -> int:
         """Accumulated per-block error counters."""
@@ -907,19 +925,20 @@ class Engine:
         are zero planes here).  ``on_burst(k)``, when given, is called right
         after burst k's launch is queued (to record a CUDA event behind
         it)."""
-        self._entry_guard()
-        unit._check_live()
-        self.ensure_plans(unit)
-        if unit.plan_flat is not None:
-            results = [r for _, _, r in self._planned_bursts(unit, on_burst)]
-        elif unit.tables is not None:
-            results = [r for _, _, r in self._decode_bursts(unit, on_burst)]
-        else:
-            raise StatusError(Status.NotImplemented(
-                "device-resident decompress requires a device-decodable unit "
-                "(lz4/snappy/raw with sequence tables, or a plan)"))
-        self.stats.device_decode_bursts += len(results)
-        return results
+        with profiling.annotate("bitar.engine.decompress_device"):
+            self._entry_guard()
+            unit._check_live()
+            self.ensure_plans(unit)
+            if unit.plan_flat is not None:
+                results = [r for _, _, r in self._planned_bursts(unit, on_burst)]
+            elif unit.tables is not None:
+                results = [r for _, _, r in self._decode_bursts(unit, on_burst)]
+            else:
+                raise StatusError(Status.NotImplemented(
+                    "device-resident decompress requires a device-decodable unit "
+                    "(lz4/snappy/raw with sequence tables, or a plan)"))
+            self.stats.device_decode_bursts += len(results)
+            return results
 
     def _decode_bursts(self, unit: CompressedUnit, on_burst=None):
         """Launch the sequence-table decode kernel burst by burst.
@@ -933,7 +952,7 @@ class Engine:
         launches = []
         for start in range(0, unit.nblocks, cfg.burst_size):
             stop = min(unit.nblocks, start + cfg.burst_size)
-            rows = self.arena.gather_burst([r.slot for r in unit.refs[start:stop]])
+            rows = self._gather(unit, range(start, stop))
             result = decode_blocks(rows, nseq[start:stop],
                                    {k: v[start:stop] for k, v in cols.items()},
                                    out_rows=nrows)
@@ -943,10 +962,25 @@ class Engine:
                 on_burst(len(launches) - 1)
         return launches
 
-    def _unit_rows(self, unit: CompressedUnit, idx: list[int]) -> torch.Tensor:
+    def _gather(self, unit: CompressedUnit, idx: range) -> torch.Tensor:
+        """The arena slots of blocks ``idx`` (``DeviceArena.gather_burst``).
+        Traced, the span ``bitar.arena.gather_burst`` and the counters
+        ``arena.gather_bytes`` (whole slots) and
+        ``arena.gather_stored_bytes`` (the blocks' stored bytes, summed over
+        a slice of ``comp_len``: indexing it by the range's ints instead
+        costs ~0.1 ms a 1024-block burst)."""
+        with profiling.annotate("bitar.arena.gather_burst"):
+            rows = self.arena.gather_burst([unit.refs[i].slot for i in idx])
+        if profiling.enabled():
+            profiling.count("arena.gather_bytes", rows.numel())
+            profiling.count("arena.gather_stored_bytes",
+                            int(unit.manifest.comp_len[idx.start:idx.stop].sum()))
+        return rows
+
+    def _unit_rows(self, unit: CompressedUnit, idx: range) -> torch.Tensor:
         """The arena rows of blocks ``idx``, with Zstd blocks' literal
         planes in place of their compressed bytes."""
-        rows = self.arena.gather_burst([unit.refs[i].slot for i in idx])
+        rows = self._gather(unit, idx)
         lit_dev, lit_pos = unit.lit_device_arrays(rows.shape[1])
         js = [j for j, i in enumerate(idx) if i in lit_pos]
         if js:
@@ -967,7 +1001,7 @@ class Engine:
         launches = []
         for start in range(0, unit.nblocks, cfg.burst_size):
             stop = min(unit.nblocks, start + cfg.burst_size)
-            rows = self._unit_rows(unit, list(range(start, stop)))
+            rows = self._unit_rows(unit, range(start, stop))
             burst = dict(pt)
             for k in _BLOCK_KEYS:
                 burst[k] = pt[k][start:stop]
@@ -994,7 +1028,7 @@ class Engine:
         self._ensure_committed(unit)
         nrows = self.config.block_size // LANES
         comp_rows = unit.plan_comp_rows
-        rows = self._unit_rows(unit, list(range(unit.nblocks)))
+        rows = self._unit_rows(unit, range(unit.nblocks))
         pt = unit.plan_device_arrays()
 
         def launch() -> torch.Tensor:
@@ -1022,11 +1056,16 @@ class Engine:
             for done in concurrent.futures.as_completed(pending):
                 start, stop = pending[done]
                 host = done.result().reshape(stop - start, -1)
-                for i in range(start, stop):
-                    if i in host_set:
-                        continue
-                    o, ln = int(raw_off[i]), int(raw_len[i])
-                    out[o:o + ln] = host[i - start, :ln]
+                with profiling.annotate("bitar.engine.copy_out"):
+                    for i in range(start, stop):
+                        if i in host_set:
+                            continue
+                        o, ln = int(raw_off[i]), int(raw_len[i])
+                        out[o:o + ln] = host[i - start, :ln]
+                if profiling.enabled():
+                    skipped = sum(int(raw_len[i]) for i in host_set if start <= i < stop)
+                    profiling.count("engine.copy_out_bytes",
+                                    int(raw_len[start:stop].sum()) - skipped)
                 self.stats.dequeued_blocks += stop - start
         return status
 
@@ -1046,9 +1085,12 @@ class Engine:
             for done in concurrent.futures.as_completed(pending):
                 start, stop = pending[done]
                 host = done.result().reshape(stop - start, -1)
-                for i in range(start, stop):
-                    o, ln = int(raw_off[i]), int(m.raw_len[i])
-                    out[o:o + ln] = host[i - start, :ln]
+                with profiling.annotate("bitar.engine.copy_out"):
+                    for i in range(start, stop):
+                        o, ln = int(raw_off[i]), int(m.raw_len[i])
+                        out[o:o + ln] = host[i - start, :ln]
+                if profiling.enabled():
+                    profiling.count("engine.copy_out_bytes", int(m.raw_len[start:stop].sum()))
                 self.stats.dequeued_blocks += stop - start
             vfut.result()
         return status
@@ -1064,11 +1106,17 @@ class Engine:
 
     @staticmethod
     def _readback(result: torch.Tensor, stream) -> np.ndarray:
-        """A burst's decoded planes on the host."""
-        if stream is None:
-            return result.numpy()
-        with torch.cuda.stream(stream):
-            return result.cpu().numpy()
+        """A burst's decoded planes on the host.  Traced, the span
+        ``bitar.engine.readback`` (on the pool thread that runs it) and the
+        counter ``engine.readback_bytes``."""
+        with profiling.annotate("bitar.engine.readback"):
+            if stream is None:
+                host = result.numpy()
+            else:
+                with torch.cuda.stream(stream):
+                    host = result.cpu().numpy()
+        profiling.count("engine.readback_bytes", host.nbytes)
+        return host
 
     def _validate_table_unit(self, unit: CompressedUnit, status: np.ndarray) -> None:
         """Re-parse the current slot bytes of every block whose slot was
@@ -1268,7 +1316,7 @@ def prepare_batched_decode(items):
     row_parts, slices = [], []
     start = 0
     for eng, unit in items:
-        row_parts.append(eng._unit_rows(unit, list(range(unit.nblocks))))
+        row_parts.append(eng._unit_rows(unit, range(unit.nblocks)))
         slices.append((start, start + unit.nblocks))
         start += unit.nblocks
     width = max(r.shape[1] for r in row_parts)

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..config import DECODE_FLAT_MAX_ROWS
+from ..utils import profiling
 from ._build import block_queue, check_cuda, load_cuda_kernel, require
 
 LANES = 128
@@ -504,13 +505,16 @@ def decode_blocks_flat(comp: torch.Tensor, plans: dict, *, comp_rows: int,
     ``plans``: the wire tensors of :func:`plan_tensors`, on ``comp``'s
     device.  Returns [N, out_rows, 128] uint8 decoded planes.  A CPU
     ``comp`` runs :func:`decode_flat_reference`; a CUDA one launches the
-    kernel or raises StatusError."""
-    require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
-            lambda: f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
-    require(out_rows % LANES == 0 and comp_rows % LANES == 0,
-            "comp_rows and out_rows must be multiples of 128")
-    if comp.device.type == "cpu":
-        return decode_flat_reference(comp, plans, comp_rows, out_rows)
-    require(comp.device.type == "cuda",
-            lambda: f"decode_blocks_flat: no kernel for device {comp.device}")
-    return _launch_kernel(comp, plans, comp_rows, out_rows)
+    kernel or raises StatusError.  Traced, the span ``bitar.ops.decode_flat``
+    (to the launch) and the counter ``decode_flat.blocks``."""
+    with profiling.annotate("bitar.ops.decode_flat"):
+        require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
+                lambda: f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
+        require(out_rows % LANES == 0 and comp_rows % LANES == 0,
+                "comp_rows and out_rows must be multiples of 128")
+        profiling.count("decode_flat.blocks", comp.shape[0])
+        if comp.device.type == "cpu":
+            return decode_flat_reference(comp, plans, comp_rows, out_rows)
+        require(comp.device.type == "cuda",
+                lambda: f"decode_blocks_flat: no kernel for device {comp.device}")
+        return _launch_kernel(comp, plans, comp_rows, out_rows)

@@ -25,6 +25,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.decode_flat import DCHUNK, LANES, _S_QUANTUM, decode_blocks_flat, pack_row_a_planes
 from ..ops.decode_tables import decode_blocks
+from ..utils import profiling
 from .sharding import _TABLE_KEYS, mesh_device, mesh_group, mesh_rank
 from .shuffle import ShufflePlan, all_to_all_rows, stage_rows
 
@@ -198,11 +199,13 @@ def distributed_step_flat(slot_rows, send_idx, valid, p_used, p_off, p0, dense, 
     """Fused shuffle + FLAT-PLAN decode: one all-to-all of the staged slot
     rows, then kernel B1 (``decode_blocks_flat``) on everything this rank
     received.  Wire arguments are this rank's slice of
-    :func:`prepare_flat_wires_for_recv`'s arrays."""
+    :func:`prepare_flat_wires_for_recv`'s arrays.  Traced, the span
+    ``bitar.parallel.distributed_step_flat``."""
     del rows_per_pair             # the staging metadata carries it
-    staged = stage_rows(slot_rows, send_idx, valid)
-    recv = all_to_all_rows(staged, mesh_group(mesh))
-    plans = dict(zip(WIRE_KEYS, (p_used, p_off, p0, dense, dq_idx, se, shift, dq, row_a),
-                     strict=True))
-    out = decode_blocks_flat(recv, plans, comp_rows=comp_rows, out_rows=block_size // LANES)
-    return out.reshape(recv.shape[0], block_size)
+    with profiling.annotate("bitar.parallel.distributed_step_flat"):
+        staged = stage_rows(slot_rows, send_idx, valid)
+        recv = all_to_all_rows(staged, mesh_group(mesh))
+        plans = dict(zip(WIRE_KEYS, (p_used, p_off, p0, dense, dq_idx, se, shift, dq, row_a),
+                         strict=True))
+        out = decode_blocks_flat(recv, plans, comp_rows=comp_rows, out_rows=block_size // LANES)
+        return out.reshape(recv.shape[0], block_size)

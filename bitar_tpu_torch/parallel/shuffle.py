@@ -26,6 +26,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..status import Status, StatusError
+from ..utils import profiling
 from .sharding import mesh_group, mesh_rank
 
 
@@ -127,16 +128,22 @@ def plan_shuffle(nblocks: int, num_devices: int, sizes: np.ndarray | None = None
 def stage_rows(rows: torch.Tensor, send_idx: torch.Tensor, valid: torch.Tensor
                ) -> torch.Tensor:
     """The wire rows a source sends: ``rows[send_idx]`` with invalid (idle)
-    rows zeroed; [D * rpp, slot]."""
-    staged = rows.index_select(0, send_idx.to(rows.device, torch.long))
-    return staged * valid.to(rows.device).view(-1, 1).to(rows.dtype)
+    rows zeroed; [D * rpp, slot].  Traced, the span
+    ``bitar.shuffle.stage_rows`` and the counter ``shuffle.staged_bytes``."""
+    with profiling.annotate("bitar.shuffle.stage_rows"):
+        staged = rows.index_select(0, send_idx.to(rows.device, torch.long))
+        staged = staged * valid.to(rows.device).view(-1, 1).to(rows.dtype)
+    profiling.count("shuffle.staged_bytes", staged.numel())
+    return staged
 
 
 def all_to_all_rows(staged: torch.Tensor, group) -> torch.Tensor:
     """One all-to-all of ``staged`` [D * rpp, slot]: chunk ``d`` goes to
-    rank ``d``; returns the received chunks in source order."""
-    recv = torch.empty_like(staged)
-    dist.all_to_all_single(recv, staged, group=group)
+    rank ``d``; returns the received chunks in source order.  Traced, the
+    span ``bitar.shuffle.all_to_all_rows``."""
+    with profiling.annotate("bitar.shuffle.all_to_all_rows"):
+        recv = torch.empty_like(staged)
+        dist.all_to_all_single(recv, staged, group=group)
     return recv
 
 
