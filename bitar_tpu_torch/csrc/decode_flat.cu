@@ -53,6 +53,9 @@
 // The comp plane is read through L1/L2 (not staged): the kernel knows only
 // the unit's widest plane, so staging would copy comp_rows * 128 bytes a
 // block where the bench's decoded blocks store ~550 (they stay in L1).
+// A launch may name each block's comp row through a table (src_row), so
+// blocks resident in the engine's slot arena decode where they lie: the
+// scan then copies no slot, and a block still reads one contiguous row.
 //
 // Planes taller than 1024 rows (blocks of 256 KiB to 1 MiB: up to 8192
 // rows) take the tall route.  What held its first version (one CTA a block,
@@ -117,8 +120,10 @@ constexpr int kMaxCluster = 8;    // the portable cluster size: planes of up to 
 static_assert(kSliceRows * kLanes == 1 << kSliceShift, "a slice is 2^17 bytes");
 
 struct Args {
-  const uint8_t* comp;            // [n] rows of comp_stride bytes
+  const uint8_t* comp;            // rows of comp_stride bytes: block b's is row b, or src_row[b]
   long long comp_stride;
+  const int32_t* src_row;         // [n] or null: block b reads comp row src_row[b]
+  int comp_n;                     // rows of comp: src_row entries clip to [0, comp_n)
   int comp_width;                 // bytes per row that hold data
   int comp_len;                   // comp plane length: comp_rows * 128
   const int32_t* p_used;
@@ -492,8 +497,12 @@ __device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc, int byt
 
 // Block b's plan into k (the same in every thread); false for a RAW block.
 __device__ __forceinline__ bool load_block(int b, Block& k, const Args& a) {
-  k.cp = a.comp + static_cast<long long>(b) * a.comp_stride;
   k.dn = __ldg(a.dense + b);
+  // A table of rows: resident blocks read in place.  (Clipped in 32 bits: a
+  // 64-bit clip made the bench's launch 1.5% slower.)
+  int row = b;
+  if (a.src_row != nullptr) row = min(max(__ldg(a.src_row + b), 0), a.comp_n - 1);
+  k.cp = a.comp + static_cast<long long>(row) * a.comp_stride;
   if (k.dn < 0) return false;
   // Pass bounds, clamped to the wire so a malformed plan cannot read past it.
   k.base = __ldg(a.p_off + b);
@@ -721,30 +730,36 @@ extern "C" int bt_decode_flat_resident_clusters(int out_rows) {
 }
 
 // Launches the kernels on `stream`; returns the CUDA error code (0 on
-// success), also when the card refuses the cluster launch.  Planes of up to
-// 1024 rows: the shared route's persistent CTAs, as many as can be resident,
-// at most n.  Taller planes: the slice kernel on every SM, then the cluster
-// kernel, as many clusters as can be resident, at most n.  Pointers are
-// device pointers; the caller allocates `out`, on the tall route `list` (n
-// ints), and `queue` (three ints), which must be 0 and is 0 again when the
-// launch ends (so launches that share a queue must run in turn, as on one
-// stream).
+// success), also when the card refuses the cluster launch.  Block b reads
+// comp row b, or with `src_row` (n ints) row src_row[b] of the comp_n rows
+// (clipped to them), so blocks resident in a larger buffer decode where
+// they lie.  Planes of up to 1024 rows: the shared route's persistent CTAs,
+// as many as can be resident, at most n.  Taller planes: the slice kernel on
+// every SM, then the cluster kernel, as many clusters as can be resident, at
+// most n.  Pointers are device pointers; the caller allocates `out`, on the
+// tall route `list` (n ints), and `queue` (three ints), which must be 0 and
+// is 0 again when the launch ends (so launches that share a queue must run
+// in turn, as on one stream).
 extern "C" int bt_decode_flat_launch(
     const void* comp, long long comp_stride, int comp_width, int comp_rows,
     const void* p_used, const void* p_off, const void* p0, const void* dense,
     const void* dq_idx, const void* se, const void* shift, long long s_rows,
     const void* dq, int dq_rows, const void* row_a, int dcap, void* out, int n,
-    int out_rows, void* queue, void* list, void* stream) {
+    int out_rows, void* queue, void* list, const void* src_row, long long comp_n,
+    void* stream) {
   const int ctas = bt_decode_flat_cluster_ctas(out_rows);
   if (ctas == 0 || out_rows % kLanes != 0 ||
       comp_rows <= 0 || comp_rows > (1 << 24) || dcap <= 0 || n < 0 ||
       (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(dq) & 7) != 0 || (ctas > 1 && list == nullptr))
+      (reinterpret_cast<uintptr_t>(dq) & 7) != 0 || (ctas > 1 && list == nullptr) ||
+      (src_row != nullptr && (comp_n <= 0 || comp_n > INT32_MAX)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   Args a;
   a.comp = static_cast<const uint8_t*>(comp);
   a.comp_stride = comp_stride;
+  a.src_row = static_cast<const int32_t*>(src_row);
+  a.comp_n = static_cast<int>(comp_n);
   a.comp_width = comp_width;
   a.comp_len = comp_rows * kLanes;
   a.p_used = static_cast<const int32_t*>(p_used);

@@ -26,9 +26,12 @@ The paths, as in the reference package:
   process-wide, as in the reference engine: per-chunk scratch reused by
   every build, and the unit's plan wire in a grant from a free list that
   ``recycle`` refills; ``initialize`` prefaults both.
-* ``decompress`` gathers each burst's slots from the arena and launches the
-  flat decode kernel (``ops/decode_flat.py``; blocks the planner rejected
-  decode on the host meanwhile) or the sequence-table kernel
+* ``decompress`` and ``decompress_device`` launch the flat decode kernel
+  burst by burst (``ops/decode_flat.py``; blocks the planner rejected
+  decode on the host meanwhile).  On the card it reads each block in its
+  arena slot, through the unit's slot table (``CompressedUnit.slot_table``);
+  the CPU and Zstd units gather each burst's slots first.  Units with
+  sequence tables gather and launch the sequence-table kernel
   (``ops/decode_tables.py``; the host re-walks the framing of slots written
   since it last looked, meanwhile).  Bursts are read back on a small thread
   pool and land in the output as each completes.  A unit with neither
@@ -86,6 +89,14 @@ _BLOCK_KEYS = ("p_used", "p_off", "p0", "dense", "dq_idx")
 _PARSERS = {Codec.LZ4: "lz4", Codec.SNAPPY: "snappy"}
 
 
+def _reads_in_place(device: torch.device) -> bool:
+    """Whether the flat decode reads resident blocks where they lie in the
+    arena on ``device``: on the card.  The CPU gathers them first, under the
+    gather's span and counters; its plain decode would select the rows
+    anyway."""
+    return device.type == "cuda"
+
+
 class EngineState(enum.Enum):
     """Reference device state machine (``device.h:64-68``)."""
 
@@ -134,6 +145,10 @@ class CompressedUnit:
     _plan_dev: dict | None = field(default=None, repr=False)
     _table_dev: tuple | None = field(default=None, repr=False)
     _lit_dev: tuple | None = field(default=None, repr=False)
+    #: ``slot_table()``: the unit's arena slots as an int32 tensor on the
+    #: engine's device.  Built at the unit's first decode, dropped by
+    #: ``recycle`` with the other device caches.
+    _slots_dev: tuple | None = field(default=None, repr=False)
     #: Host copy of the staged slot rows (compress/import), dropped once
     #: plans exist.
     _staging: np.ndarray | None = field(default=None, repr=False)
@@ -180,6 +195,22 @@ class CompressedUnit:
                     pos[i] = k
                 self._lit_dev = (torch.from_numpy(stack).to(self.engine.device), pos)
         return self._lit_dev
+
+    def slot_table(self) -> torch.Tensor:
+        """The unit's arena slots in block order, a contiguous int32 tensor
+        on the engine's device: B1's source-row table over
+        ``arena.buffer``, each slot checked to lie in it.  Built once and
+        shared by every decode of the unit: the arena never moves, and the
+        slots are the unit's until ``recycle``."""
+        if self._slots_dev is None:
+            slots = np.fromiter((r.slot for r in self.refs), np.int64, len(self.refs))
+            rows = self.engine.arena.buffer.shape[0]
+            if slots.size and not (0 <= int(slots.min()) and int(slots.max()) < rows):
+                raise StatusError(Status.Invalid(
+                    f"unit slots {int(slots.min())}..{int(slots.max())} outside the "
+                    f"arena's {rows} rows"))
+            self._slots_dev = torch.from_numpy(slots.astype(np.int32)).to(self.engine.device)
+        return self._slots_dev
 
     @property
     def nblocks(self) -> int:
@@ -963,14 +994,14 @@ class Engine:
         return launches
 
     def _gather(self, unit: CompressedUnit, idx: range) -> torch.Tensor:
-        """The arena slots of blocks ``idx`` (``DeviceArena.gather_burst``).
-        Traced, the span ``bitar.arena.gather_burst`` and the counters
-        ``arena.gather_bytes`` (whole slots) and
-        ``arena.gather_stored_bytes`` (the blocks' stored bytes, summed over
-        a slice of ``comp_len``: indexing it by the range's ints instead
-        costs ~0.1 ms a 1024-block burst)."""
+        """The arena slots of blocks ``idx`` (``DeviceArena.gather_burst``,
+        through the unit's slot table).  Traced, the span
+        ``bitar.arena.gather_burst`` and the counters ``arena.gather_bytes``
+        (whole slots) and ``arena.gather_stored_bytes`` (the blocks' stored
+        bytes, summed over a slice of ``comp_len``: indexing it by the
+        range's ints instead costs ~0.1 ms a 1024-block burst)."""
         with profiling.annotate("bitar.arena.gather_burst"):
-            rows = self.arena.gather_burst([unit.refs[i].slot for i in idx])
+            rows = self.arena.gather_burst(unit.slot_table()[idx.start:idx.stop])
         if profiling.enabled():
             profiling.count("arena.gather_bytes", rows.numel())
             profiling.count("arena.gather_stored_bytes",
@@ -982,6 +1013,8 @@ class Engine:
         planes in place of their compressed bytes."""
         rows = self._gather(unit, idx)
         lit_dev, lit_pos = unit.lit_device_arrays(rows.shape[1])
+        if not lit_pos:
+            return rows
         js = [j for j, i in enumerate(idx) if i in lit_pos]
         if js:
             ks = torch.tensor([lit_pos[idx[j]] for j in js], device=rows.device)
@@ -992,21 +1025,35 @@ class Engine:
         """Launch the flat decode kernel burst by burst.
 
         Returns [(start, stop, device result [stop - start, nrows, 128])],
-        launches already queued on the device.  The unit's plan uploads
-        once; per burst only the arena gather runs before the launch."""
+        launches already queued on the device.  The unit's plan and slot
+        table upload once.  On the card (:func:`_reads_in_place`), for a
+        unit without Zstd literal planes (those replace rows), each burst's
+        launch reads its blocks where they lie in the arena, through its
+        slice of the slot table (traced, the counter
+        ``arena.inplace_blocks``); otherwise the burst's slots are gathered
+        first (:meth:`_unit_rows`).
+        Either way the launch is queued on the current stream behind the
+        unit's commit."""
         cfg = self.config
         self._ensure_committed(unit)
         nrows = cfg.block_size // LANES
         pt = unit.plan_device_arrays()
+        slots = unit.slot_table()
+        in_place = _reads_in_place(self.device) and not unit.plan_flat.get("lit_planes")
         launches = []
         for start in range(0, unit.nblocks, cfg.burst_size):
             stop = min(unit.nblocks, start + cfg.burst_size)
-            rows = self._unit_rows(unit, range(start, stop))
             burst = dict(pt)
             for k in _BLOCK_KEYS:
                 burst[k] = pt[k][start:stop]
-            result = decode_blocks_flat(rows, burst, comp_rows=unit.plan_comp_rows,
-                                        out_rows=nrows)
+            if in_place:
+                profiling.count("arena.inplace_blocks", stop - start)
+                result = decode_blocks_flat(self.arena.buffer, burst,
+                                            comp_rows=unit.plan_comp_rows, out_rows=nrows,
+                                            src_rows=slots[start:stop])
+            else:
+                result = decode_blocks_flat(self._unit_rows(unit, range(start, stop)), burst,
+                                            comp_rows=unit.plan_comp_rows, out_rows=nrows)
             launches.append((start, stop, result))
             self.stats.enqueued_blocks += stop - start
             if on_burst is not None:
@@ -1247,7 +1294,7 @@ class Engine:
         count = self.arena.recycle(unit.refs)
         self._pool_put(unit.plan_flat)
         # On the CPU the plan tensors alias the grant just returned.
-        unit._plan_dev = unit._table_dev = unit._lit_dev = None
+        unit._plan_dev = unit._table_dev = unit._lit_dev = unit._slots_dev = None
         unit._drop_staging()
         unit.recycled = True
         return count

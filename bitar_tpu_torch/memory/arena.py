@@ -152,9 +152,13 @@ class DeviceArena:
 
     Holds one ``[max_slots, slot_size]`` uint8 tensor on ``device``
     (default: CUDA, as ``Engine``; StatusError without it, so CPU callers
-    pass ``device="cpu"``).  ``write_burst`` stores a burst of compressed
-    rows into taken slots and bumps their write generation;
-    ``gather_burst`` pulls slot rows back out for decode or host readout.
+    pass ``device="cpu"``), allocated once and never moved: :attr:`buffer`.
+    ``write_burst`` stores a burst of compressed rows into taken slots and
+    bumps their write generation.  On the card the engine's flat decode
+    reads a resident unit's slots in place, through a table of slot
+    indices over :attr:`buffer`; ``gather_burst`` copies slot rows out for
+    host readout, the CPU path, Zstd units (whose literal planes replace
+    rows) and the table decode.
     """
 
     def __init__(self, slot_size: int, preallocated: int, max_slots: int,
@@ -173,8 +177,19 @@ class DeviceArena:
         self._buf_lock = threading.Lock()
 
     def _index(self, slot_ids) -> torch.Tensor:
+        if isinstance(slot_ids, torch.Tensor):
+            return slot_ids.to(self.device)
         return torch.as_tensor(np.asarray(slot_ids, dtype=np.int64),
                                device=self.device)
+
+    @property
+    def buffer(self) -> torch.Tensor:
+        """The ``[max_slots, slot_size]`` uint8 slot tensor itself, for a
+        kernel that reads slots in place (row = slot).  Allocated at init
+        and never reallocated, so a table of a unit's slots over it stays
+        valid until the unit is recycled.  Write only through
+        :meth:`write_burst`."""
+        return self._buf
 
     # -- data plane ----------------------------------------------------
     def write_burst(self, slot_ids: list[int], rows) -> None:
@@ -204,8 +219,11 @@ class DeviceArena:
         with self._buf_lock:
             return self._slot_gen[np.asarray(slot_ids, dtype=np.int64)].copy()
 
-    def gather_burst(self, slot_ids: list[int]) -> torch.Tensor:
-        """``[len(slot_ids), slot_size]`` uint8 copy of the slots, on device."""
+    def gather_burst(self, slot_ids) -> torch.Tensor:
+        """``[len(slot_ids), slot_size]`` uint8 copy of the slots, on device
+        (``slot_ids``: ints, or an integer tensor of slots).  For host
+        readout, the CPU path, Zstd units and the table decode; the card's
+        flat decode of a resident unit reads :attr:`buffer` in place."""
         idx = self._index(slot_ids)
         with self._buf_lock:
             return self._buf.index_select(0, idx)

@@ -15,7 +15,10 @@ planner (``plan.cc``) turns every compressed block into a schedule over its
   CTA a block), taller ones (blocks of 256 KiB to 1 MiB) its tall route: a
   kernel on every SM for the blocks without out passes, then a
   thread-block cluster for each block with out passes, each CTA holding
-  1024 rows of its plane in shared memory (:func:`cluster_ctas`).
+  1024 rows of its plane in shared memory (:func:`cluster_ctas`).  With a
+  source-row table it reads each block's comp row where it lies in a
+  larger buffer (the engine's slot arena), so a resident unit decodes with
+  no gathered copy.
 
 Plan wire, per block ``i`` (see ``decode_flat_reference`` for the order):
 
@@ -417,7 +420,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, vp, c_ll,                     # se, shift, wire rows
         vp, c_int, vp, c_int,             # dq, dq rows, row_a, dcap
         vp, c_int, c_int, vp,             # out, n, out_rows, queue
-        vp, vp]                           # list (tall route), stream
+        vp, vp, c_ll,                     # list (tall route), source rows, comp rows
+        vp]                               # stream
     lib.bt_decode_flat_resident_clusters.restype = c_int
     lib.bt_decode_flat_resident_clusters.argtypes = [c_int]
     lib.bt_decode_flat_cluster_ctas.restype = c_int
@@ -445,9 +449,9 @@ def resident_clusters(out_rows: int) -> int:
 
 
 def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
-                   out_rows: int) -> torch.Tensor:
+                   out_rows: int, src_rows: torch.Tensor | None = None) -> torch.Tensor:
     global launches, cluster_launches
-    n = comp.shape[0]
+    n = comp.shape[0] if src_rows is None else src_rows.numel()
     for k in ("p_used", "p_off", "p0", "dense", "dq_idx"):
         t = pt[k]
         require(t.device == comp.device and t.dtype == torch.int32
@@ -489,7 +493,8 @@ def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
             pt["se"].data_ptr(), pt["shift"].data_ptr(), s_rows,
             dq.data_ptr(), dq_rows, ra.data_ptr(), ra.shape[1],
             out.data_ptr(), n, out_rows, block_queue(comp.device, stream).data_ptr(),
-            listed.data_ptr() if tall else None, stream)
+            listed.data_ptr() if tall else None,
+            None if src_rows is None else src_rows.data_ptr(), comp.shape[0], stream)
     check_cuda(rc, "decode_flat launch", lib)
     launches += 1
     device_launches[comp.device.index] += 1
@@ -497,24 +502,47 @@ def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
     return out
 
 
+def _check_src_rows(comp: torch.Tensor, plans: dict, src_rows: torch.Tensor) -> int:
+    """The number of blocks a source-row table names; StatusError unless it
+    is a contiguous int32 ``[n]`` tensor on ``comp``'s device and the plan's
+    per-block fields have ``n`` entries."""
+    require(isinstance(src_rows, torch.Tensor) and src_rows.dtype == torch.int32
+            and src_rows.ndim == 1 and src_rows.is_contiguous()
+            and src_rows.device == comp.device,
+            lambda: f"src_rows: want a contiguous int32 [n] tensor on {comp.device}")
+    n = src_rows.numel()
+    require(tuple(plans["p_used"].shape) == (n,),
+            lambda: f"src_rows names {n} blocks, the plan {tuple(plans['p_used'].shape)}")
+    return n
+
+
 def decode_blocks_flat(comp: torch.Tensor, plans: dict, *, comp_rows: int,
-                       out_rows: int) -> torch.Tensor:
+                       out_rows: int, src_rows: torch.Tensor | None = None) -> torch.Tensor:
     """Decode a batch of blocks via flat scheduled plans.
 
     ``comp``: [N, W] uint8 compressed rows (row stride may exceed W).
     ``plans``: the wire tensors of :func:`plan_tensors`, on ``comp``'s
-    device.  Returns [N, out_rows, 128] uint8 decoded planes.  A CPU
-    ``comp`` runs :func:`decode_flat_reference`; a CUDA one launches the
-    kernel or raises StatusError.  Traced, the span ``bitar.ops.decode_flat``
-    (to the launch) and the counter ``decode_flat.blocks``."""
+    device.  Returns [N, out_rows, 128] uint8 decoded planes.  With
+    ``src_rows`` (contiguous int32 ``[n]`` on ``comp``'s device), block ``b``
+    reads comp row ``src_rows[b]``: ``comp`` is then a buffer of resident
+    rows (the engine's whole arena), ``plans`` describes the ``n`` blocks
+    and the result is ``[n, out_rows, 128]``.  Rows must lie in ``[0, N)``:
+    the plain version raises past them, the kernel clips to them.  A CPU
+    ``comp`` runs :func:`decode_flat_reference` (on the rows the table
+    selects); a CUDA one launches the kernel or raises StatusError.  Traced,
+    the span ``bitar.ops.decode_flat`` (to the launch) and the counter
+    ``decode_flat.blocks``."""
     with profiling.annotate("bitar.ops.decode_flat"):
         require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
                 lambda: f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
         require(out_rows % LANES == 0 and comp_rows % LANES == 0,
                 "comp_rows and out_rows must be multiples of 128")
-        profiling.count("decode_flat.blocks", comp.shape[0])
+        n = comp.shape[0] if src_rows is None else _check_src_rows(comp, plans, src_rows)
+        profiling.count("decode_flat.blocks", n)
         if comp.device.type == "cpu":
+            if src_rows is not None:
+                comp = comp.index_select(0, src_rows)
             return decode_flat_reference(comp, plans, comp_rows, out_rows)
         require(comp.device.type == "cuda",
                 lambda: f"decode_blocks_flat: no kernel for device {comp.device}")
-        return _launch_kernel(comp, plans, comp_rows, out_rows)
+        return _launch_kernel(comp, plans, comp_rows, out_rows, src_rows)

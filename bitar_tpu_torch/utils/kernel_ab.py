@@ -6,7 +6,7 @@ checkout's on one card, in turns, on the same inputs.
     python -m bitar_tpu_torch.utils.kernel_ab --old DIR [--out FILE]
         [--only match|match_walk|match_dyn|parse_walk|emit|decode_flat|decode_tables|
                 decode_planned]
-    python -m bitar_tpu_torch.utils.kernel_ab --only match_routes [--out FILE]
+    python -m bitar_tpu_torch.utils.kernel_ab --only match_routes|flat_sources [--out FILE]
 
 ``DIR`` is the root of another checkout of the repo (for example a ``git
 archive`` of the parent commit unpacked into a git-ignored directory).  Its
@@ -33,6 +33,10 @@ emitter line carries its bound (``bound_ms``, device memory at 3.35 TB/s).
 in this one, tiles that stage their window in shared memory ("old") against
 tiles that read the plane from device memory ("new", ``tile_plan``'s
 window 0), at the shapes the main paths launch (:func:`ab_match_routes`).
+``--only flat_sources`` needs none either: it times B1 on a unit's slots
+gathered into contiguous rows ("old") against B1 reading them in the arena
+through the unit's slot table ("new", the scan's launch), and the gather
+and B1 together against B1 in place (:func:`ab_flat_sources`).
 The plain
 versions are not timed here (``chip_smoke.py`` does that).  Prints one JSON
 object per shape and the card's name and power limit.  Needs CUDA.
@@ -126,10 +130,10 @@ def main() -> int:
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
     ap.add_argument("--only", choices=("match", "match_walk", "match_dyn", "parse_walk", "emit",
                                        "decode_flat", "decode_tables", "decode_planned",
-                                       "match_routes"),
+                                       "match_routes", "flat_sources"),
                     help="time one kernel only")
     args = ap.parse_args()
-    if args.old is None and args.only != "match_routes":
+    if args.old is None and args.only not in ("match_routes", "flat_sources"):
         ap.error("--old is required")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -152,6 +156,9 @@ def main() -> int:
     corpus = make_corpus(1024)
     if args.only == "match_routes":
         ab_match_routes(emit, timing, mt, corpus)
+        return finish(args, lines)
+    if args.only == "flat_sources":
+        ab_flat_sources(emit, timing, btt, df, corpus)
         return finish(args, lines)
     old = load_package(args.old.resolve(), "bitar_tpu_torch_old")
     from bitar_tpu_torch_old.ops import decode_flat as odf
@@ -264,6 +271,61 @@ def ab_match_routes(emit, timing, mt, corpus: bytes) -> None:
             emit({"kernel": "match", "shape": f"{x.shape[0]} x {block >> 10} KiB, 26 offsets, "
                   f"max_match {mm}, {'values' if values else 'indices'}",
                   "routes": "old: staged window, new: device memory", "equal": equal, **res})
+
+
+def ab_flat_sources(emit, timing, btt, df, corpus: bytes) -> None:
+    """B1 on a resident unit's slots gathered into contiguous rows ("old")
+    against B1 reading the same slots where they lie, through the unit's
+    slot table over the arena ("new"): the bench corpus as 1024 x 128 KiB
+    (the engine's slot order, and the slots scattered in a random order over
+    a buffer twice as tall) and as 128 x 1 MiB (the slice kernel).  A last
+    line per engine times the arena gather and B1 together against B1 in
+    place (CUDA events and host clock): what a scan's copy cost the card."""
+    for name, nblocks, block in (("bench 1024 x 128 KiB", 1024, BLOCK),
+                                 ("bench 128 x 1 MiB", 128, LARGE)):
+        cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=block, burst_size=nblocks,
+                               max_pool_slots=nblocks + 32, commit="deferred")
+        eng = btt.Engine(cfg, device="cuda").initialize()
+        unit = eng.compress(corpus[:nblocks * block])
+        eng.ensure_plans(unit)
+        pt, cr, nr = unit.plan_device_arrays(), unit.plan_comp_rows, block // 128
+        buf, table = eng.arena.buffer, unit.slot_table()
+        sources = {name: (buf, table)}
+        if block == BLOCK:
+            g = torch.Generator().manual_seed(7)
+            rows = torch.randperm(2 * nblocks, generator=g)[:nblocks].cuda()
+            scattered = torch.zeros((2 * nblocks, buf.shape[1]), dtype=torch.uint8,
+                                    device=buf.device)
+            scattered[rows] = buf[table.long()]
+            sources[f"{name}, slots permuted over {2 * nblocks} rows"] = (scattered, rows.int())
+        for shape, (b, t) in sources.items():
+            gathered = b.index_select(0, t)
+
+            def prev(g=gathered):
+                return df.decode_blocks_flat(g, pt, comp_rows=cr, out_rows=nr)
+
+            def new(b=b, t=t):
+                return df.decode_blocks_flat(b, pt, comp_rows=cr, out_rows=nr, src_rows=t)
+
+            equal = same(new(), prev())
+            emit({"kernel": "decode_flat", "shape": shape,
+                  "routes": "old: gathered rows, new: slot table over the arena",
+                  "equal": equal, **turns(timing, prev, new, counted(df, df), 100)})
+            del gathered
+
+        def gather_then_b1():
+            return df.decode_blocks_flat(buf.index_select(0, table), pt, comp_rows=cr,
+                                         out_rows=nr)
+
+        def in_place():
+            return df.decode_blocks_flat(buf, pt, comp_rows=cr, out_rows=nr, src_rows=table)
+
+        equal = same(in_place(), gather_then_b1())
+        emit({"kernel": "decode_flat", "shape": name,
+              "routes": "old: arena gather then B1, new: B1 in place",
+              "equal": equal, **turns(timing, gather_then_b1, in_place, calls=100)})
+        eng.recycle(unit)
+        eng.release()
 
 
 def table_shapes(corpus: bytes, text: bytes) -> dict:

@@ -12,7 +12,10 @@ Phases (any failure raises, and the script exits non-zero):
    together), timed;
 3. every kernel against its plain PyTorch version on the card, byte for
    byte, at the shapes its path gives it:
-   - ``decode_flat`` (B1) on the plans of the bench corpus (1024 x 128 KiB),
+   - ``decode_flat`` (B1), on the planner's batches as the engine launches
+     it on a resident unit: each block read in its arena slot through the
+     unit's slot table (the plain version on the rows the table selects),
+     on the plans of the bench corpus (1024 x 128 KiB),
      of the markdown text corpus (256 x 128 KiB) and of a RAW-heavy batch,
      and on the class-pure batches of the first two (``block_classes``: the
      RAW blocks, the blocks with no out pass, those with out passes); its
@@ -156,7 +159,8 @@ Phases (any failure raises, and the script exits non-zero):
    the calls queued behind the hold kernel, then run back to back; of the
    kernel alone for B1, B2 and B7, through their launch functions, of the
    wrapper's call for the others) and its wrapper's host time per call
-   (``timing.host_us_per_call``): B1 at the bench shape and
+   (``timing.host_us_per_call``): B1 in place at the bench shape (and its
+   held time on the same rows gathered, beside it) and
    on the text corpus (and, the kernel alone, on each class-pure batch);
    B3 at 64 x 128 KiB and at 1024 x 128 KiB in both modes (the kernels
    line takes 1024, indices, max_match 64); B2 at 8192 x 4 KiB (the
@@ -388,37 +392,41 @@ def report(label, card, res, ms, raw_bytes):
 
 
 def planned_batch(btt, data: bytes, block: int = BLOCK):
-    """Compress ``data`` through a fresh engine; return the unit's gathered
-    comp rows, plan tensors and comp_rows (the kernel's real inputs)."""
+    """Compress ``data`` through a fresh engine; return the arena's slot
+    buffer and the unit's slot table, plan tensors and comp_rows (the
+    kernel's real inputs: the engine's decode reads each block in its slot,
+    through the table)."""
     eng = engine(btt, btt.Codec.LZ4, block=block, nblocks=len(data) // block)
     unit = eng.compress(data)
     eng.ensure_plans(unit)
     pf = unit.plan_flat
-    rows = eng.arena.gather_burst([r.slot for r in unit.refs])
     comp_len = unit.manifest.comp_len.astype(np.int64)
     stats = (f"blocks={unit.nblocks} ratio={unit.manifest.ratio():.3f} "
              f"passes={int(pf['p_used'].sum())} "
              f"dense_passes={int(np.maximum(pf['dense'], 0).sum())} "
              f"raw_blocks={int((pf['dense'] < 0).sum())} "
              f"host_blocks={pf['host_blocks'].size}")
-    batch = (rows, unit.plan_device_arrays(), unit.plan_comp_rows, comp_len, stats)
+    batch = (eng.arena.buffer, unit.slot_table(), unit.plan_device_arrays(),
+             unit.plan_comp_rows, comp_len, stats)
     eng.recycle(unit)
     eng.release()
     return batch
 
 
-def compare_decode(df, rows, pt, comp_rows, block: int = BLOCK) -> int:
+def compare_decode(df, rows, table, pt, comp_rows, block: int = BLOCK) -> int:
     """Kernel vs plain version on the same inputs; returns max |diff|."""
-    got = df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=block // 128)
-    torch.cuda.synchronize()
-    want = df.decode_flat_reference(rows, pt, comp_rows, block // 128)
-    return check_equal("decode_flat", got, want)
+    return compare_flat(df, rows, table, pt, comp_rows, block // 128)
 
 
-def compare_flat(df, rows, pt, comp_rows, out_rows: int) -> int:
-    """B1 against its plain version at any plane height; max |diff|."""
-    got = df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=out_rows)
+def compare_flat(df, rows, table, pt, comp_rows, out_rows: int) -> int:
+    """B1 against its plain version at any plane height; max |diff|.  With
+    ``table`` the kernel reads block b at row ``table[b]`` of ``rows`` (the
+    arena) and the plain version decodes the rows the table selects."""
+    got = df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=out_rows,
+                                src_rows=table)
     torch.cuda.synchronize()
+    if table is not None:
+        rows = rows.index_select(0, table)
     return check_equal("decode_flat", got, df.decode_flat_reference(rows, pt, comp_rows,
                                                                     out_rows))
 
@@ -426,8 +434,9 @@ def compare_flat(df, rows, pt, comp_rows, out_rows: int) -> int:
 def skewed_burst(btt, df):
     """One burst of the CLI's skewed suite (BASELINE config 4): the first
     SKEWED_BURST of its 256 LZ4 blocks of 4 KiB-1 MiB on 8192-row planes, as
-    the engine launches B1 on them.  Returns (rows, plan tensors, comp_rows,
-    stored bytes a block, stats)."""
+    the engine launches B1 on them.  Returns (the arena's slot buffer, the
+    burst's slot table, plan tensors, comp_rows, stored bytes a block,
+    stats)."""
     from bitar_tpu_torch.cli.demo import make_skewed_input
 
     data, sizes = make_skewed_input(LARGE_BLOCK, SKEWED_BLOCKS)
@@ -436,7 +445,6 @@ def skewed_burst(btt, df):
     eng = btt.Engine(cfg, device="cuda").initialize()
     unit = eng.compress(data, sizes=sizes)
     eng.ensure_plans(unit)
-    rows = eng.arena.gather_burst([r.slot for r in unit.refs[:SKEWED_BURST]])
     pt = unit.plan_device_arrays()
     pt = {k: v[:SKEWED_BURST] if k in ("p_used", "p_off", "p0", "dense", "dq_idx") else v
           for k, v in pt.items()}
@@ -444,7 +452,8 @@ def skewed_burst(btt, df):
     stats = (f"{SKEWED_BURST} blocks of {min(sizes[:SKEWED_BURST]):,}-"
              f"{max(sizes[:SKEWED_BURST]):,} B, classes "
              + ", ".join(f"{k} {v.numel()}" for k, v in df.block_classes(pt).items()))
-    batch = (rows, pt, unit.plan_comp_rows, comp_len, stats)
+    batch = (eng.arena.buffer, unit.slot_table()[:SKEWED_BURST], pt, unit.plan_comp_rows,
+             comp_len, stats)
     eng.recycle(unit)
     eng.release()
     return batch
@@ -1656,21 +1665,23 @@ def main() -> int:
     batches = {"bench": planned_batch(btt, corpus), "text": planned_batch(btt, text),
                "raw_heavy": planned_batch(btt, raw_heavy)}
     err = 0
-    for name, (rows, pt, comp_rows, _, stats) in batches.items():
-        err = max(err, compare_decode(df, rows, pt, comp_rows))
-        log(f"decode_flat == plain version, byte for byte: {name} ({stats})")
+    for name, (rows, table, pt, comp_rows, _, stats) in batches.items():
+        err = max(err, compare_decode(df, rows, table, pt, comp_rows))
+        log(f"decode_flat == plain version, byte for byte: {name} ({stats}; in place through "
+            "the slot table)")
     # Class-pure batches: each class of block (RAW copy, no out pass, out
-    # passes) of the bench and text batches as a batch of its own.
+    # passes) of the bench and text batches as a batch of its own (the
+    # class's entries of the slot table).
     class_batches = {}
     for whole in ("bench", "text"):
-        rows, pt, comp_rows, comp_len, _ = batches[whole]
+        rows, table, pt, comp_rows, comp_len, _ = batches[whole]
         for cls, idx in df.block_classes(pt).items():
             if idx.numel():
-                class_batches[f"{whole}, {cls}"] = (*df.select_blocks(rows, pt, idx), comp_rows,
-                                                    comp_len[idx.cpu().numpy()])
-    for name, (rows, pt, comp_rows, _) in class_batches.items():
-        err = max(err, compare_decode(df, rows, pt, comp_rows))
-        log(f"decode_flat == plain version, byte for byte: {name}, {rows.shape[0]} blocks")
+                class_batches[f"{whole}, {cls}"] = (rows, *df.select_blocks(table, pt, idx),
+                                                    comp_rows, comp_len[idx.cpu().numpy()])
+    for name, (rows, table, pt, comp_rows, _) in class_batches.items():
+        err = max(err, compare_decode(df, rows, table, pt, comp_rows))
+        log(f"decode_flat == plain version, byte for byte: {name}, {table.numel()} blocks")
     # The tall route: planes of 2048 and 8192 rows, whole batches and their
     # class-pure batches.
     large = {("bench", MID_BLOCK): corpus[:128 * MID_BLOCK], ("bench", LARGE_BLOCK): corpus,
@@ -1678,13 +1689,13 @@ def main() -> int:
     large_batches = {}
     df.launches = df.cluster_launches = 0
     for (name, block), data in large.items():
-        rows, pt, comp_rows, comp_len, stats = planned_batch(btt, data, block)
-        large_batches[(name, block)] = (rows, pt, comp_rows, comp_len)
-        err = max(err, compare_decode(df, rows, pt, comp_rows, block))
+        rows, table, pt, comp_rows, comp_len, stats = planned_batch(btt, data, block)
+        large_batches[(name, block)] = (rows, table, pt, comp_rows, comp_len)
+        err = max(err, compare_decode(df, rows, table, pt, comp_rows, block))
         for cls, idx in df.block_classes(pt).items():
             if idx.numel():
-                sr, sp = df.select_blocks(rows, pt, idx)
-                err = max(err, compare_decode(df, sr, sp, comp_rows, block))
+                st, sp = df.select_blocks(table, pt, idx)
+                err = max(err, compare_decode(df, rows, st, sp, comp_rows, block))
                 log(f"decode_flat == plain version, byte for byte: {name} {block // 1024} KiB, "
                     f"{cls}, {idx.numel()} blocks")
         log(f"decode_flat == plain version, byte for byte: {name}, {block // 1024} KiB blocks "
@@ -1694,16 +1705,16 @@ def main() -> int:
     # malformed random wires, and on one burst of the CLI's skewed suite.
     for out_rows in TALL_ROWS:
         comp, plans = df.slice_crossing_wire(out_rows, 64 + out_rows // 128)
-        err = max(err, compare_flat(df, torch.from_numpy(comp).cuda(),
+        err = max(err, compare_flat(df, torch.from_numpy(comp).cuda(), None,
                                     df.plan_tensors(plans, "cuda"), out_rows, out_rows))
         comp, plans = df.random_wire(59 + out_rows // 128, 16, out_rows, 2 * out_rows, 16)
-        err = max(err, compare_flat(df, torch.from_numpy(comp).cuda(),
+        err = max(err, compare_flat(df, torch.from_numpy(comp).cuda(), None,
                                     df.plan_tensors(plans, "cuda"), 2 * out_rows, out_rows))
         log(f"decode_flat == plain version, byte for byte: {out_rows} rows, out passes across "
             "slices and clipped at both ends; random malformed wires (16 blocks)")
     skewed = skewed_burst(btt, df)
-    err = max(err, compare_flat(df, *skewed[:3], LARGE_BLOCK // 128))
-    log(f"decode_flat == plain version, byte for byte: skewed suite burst ({skewed[4]})")
+    err = max(err, compare_flat(df, *skewed[:4], LARGE_BLOCK // 128))
+    log(f"decode_flat == plain version, byte for byte: skewed suite burst ({skewed[5]})")
     if df.cluster_launches != df.launches:
         raise AssertionError(f"decode_flat: {df.cluster_launches} of {df.launches} launches above "
                              "1024 rows took the tall route")
@@ -2169,28 +2180,43 @@ def main() -> int:
 
     # -- phase 5: times ----------------------------------------------------
     log(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s")
-    rows, pt, comp_rows, comp_len, _ = batches["bench"]
-    nblk = rows.shape[0]
+    # B1 as the engine launches it on a resident unit: in place, through
+    # the slot table over the arena; the plain version on the rows the table
+    # selects, gathered outside its window.  The held time of the launch on
+    # those gathered rows (as the shuffle's and prepare_device_decode's)
+    # beside it.
+    rows, table, pt, comp_rows, comp_len, _ = batches["bench"]
+    nblk = table.numel()
+    gathered = rows.index_select(0, table)
     res, ms = turns(timing, lambda: df.decode_blocks_flat(rows, pt, comp_rows=comp_rows,
-                                                          out_rows=nrows),
-                    lambda: df.decode_flat_reference(rows, pt, comp_rows, nrows))
-    report(f"decode_flat bench {nblk} x 128 KiB", card, res, ms, nblk * BLOCK)
+                                                          out_rows=nrows, src_rows=table),
+                    lambda: df.decode_flat_reference(gathered, pt, comp_rows, nrows))
+    report(f"decode_flat bench {nblk} x 128 KiB, in place", card, res, ms, nblk * BLOCK)
     kernels["decode_flat"].update(ms=res["kernel"], plain_ms=res["plain"], held_ms=wrapper_times(
-        timing, f"decode_flat bench {nblk} x 128 KiB", card, "decode_flat",
-        lambda: df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nrows),
-        lambda: df._launch_kernel(rows, pt, comp_rows, nrows)))
+        timing, f"decode_flat bench {nblk} x 128 KiB, in place", card, "decode_flat",
+        lambda: df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nrows,
+                                      src_rows=table),
+        lambda: df._launch_kernel(rows, pt, comp_rows, nrows, table)))
+    kernels["decode_flat"]["gathered_held_ms"] = wrapper_times(
+        timing, f"decode_flat bench {nblk} x 128 KiB, gathered rows", card, "decode_flat",
+        lambda: df.decode_blocks_flat(gathered, pt, comp_rows=comp_rows, out_rows=nrows),
+        lambda: df._launch_kernel(gathered, pt, comp_rows, nrows))
+    del gathered
     kernels["decode_flat"]["bound"] = decode_bound(pt, comp_len)
-    trows, tpt, tcomp, tlen, _ = batches["text"]
+    trows, ttable, tpt, tcomp, tlen, _ = batches["text"]
+    tgathered = trows.index_select(0, ttable)
     res, ms = turns(timing, lambda: df.decode_blocks_flat(trows, tpt, comp_rows=tcomp,
-                                                          out_rows=nrows),
-                    lambda: df.decode_flat_reference(trows, tpt, tcomp, nrows))
-    report(f"decode_flat text {trows.shape[0]} x 128 KiB", card, res, ms,
-           trows.shape[0] * BLOCK)
-    log(f"decode_flat text {trows.shape[0]} x 128 KiB: bound {decode_bound(tpt, tlen)}")
-    for name, (crows, cpt, ccomp, clen) in class_batches.items():
+                                                          out_rows=nrows, src_rows=ttable),
+                    lambda: df.decode_flat_reference(tgathered, tpt, tcomp, nrows))
+    report(f"decode_flat text {ttable.numel()} x 128 KiB, in place", card, res, ms,
+           ttable.numel() * BLOCK)
+    del tgathered
+    log(f"decode_flat text {ttable.numel()} x 128 KiB: bound {decode_bound(tpt, tlen)}")
+    for name, (crows, ctable, cpt, ccomp, clen) in class_batches.items():
         turns_ms = [timing.device_time_ms(lambda: df.decode_blocks_flat(
-            crows, cpt, comp_rows=ccomp, out_rows=nrows), TIMED_REPS[1]) for _ in range(2)]
-        log(f"decode_flat {name} {crows.shape[0]} x 128 KiB [{card}] kernel: "
+            crows, cpt, comp_rows=ccomp, out_rows=nrows, src_rows=ctable), TIMED_REPS[1])
+            for _ in range(2)]
+        log(f"decode_flat {name} {ctable.numel()} x 128 KiB [{card}] kernel: "
             f"{sum(turns_ms) / 2:.4f} ms/launch (turns {', '.join(f'{x:.4f}' for x in turns_ms)}); "
             f"stored bytes a block {clen.mean():.1f} (at most {clen.max()}); "
             f"bound {decode_bound(cpt, clen)}")
@@ -2208,20 +2234,22 @@ def main() -> int:
         return {"shape": shape, "ms": res["kernel"], "plain_ms": res["plain"], "held_ms": k_ms,
                 "bound_ms": bound[0], "bound_by": bound[1]}
 
-    flat_shapes = {f"{name} {rows.shape[0]} x {block >> 10} KiB": (rows, pt, cr, clen, block)
-                   for (name, block), (rows, pt, cr, clen) in large_batches.items()
+    flat_shapes = {f"{name} {t.numel()} x {block >> 10} KiB": (rows, t, pt, cr, clen, block)
+                   for (name, block), (rows, t, pt, cr, clen) in large_batches.items()
                    if (name, block) != ("bench", MID_BLOCK)}
-    flat_shapes[f"skewed burst {SKEWED_BURST} x 4 KiB-1 MiB"] = (*skewed[:4], LARGE_BLOCK)
+    flat_shapes[f"skewed burst {SKEWED_BURST} x 4 KiB-1 MiB"] = (*skewed[:5], LARGE_BLOCK)
     timed = []
-    for shape, (rows, pt, cr, clen, block) in flat_shapes.items():
+    for shape, (rows, t, pt, cr, clen, block) in flat_shapes.items():
         nr = block // 128
+        g = rows.index_select(0, t)              # the plain version's input
         timed.append(timed_route(
-            f"decode_flat tall route {shape}",
-            lambda rows=rows, pt=pt, cr=cr, nr=nr: df.decode_blocks_flat(rows, pt, comp_rows=cr,
-                                                                         out_rows=nr),
-            lambda rows=rows, pt=pt, cr=cr, nr=nr: df._launch_kernel(rows, pt, cr, nr),
-            lambda rows=rows, pt=pt, cr=cr, nr=nr: df.decode_flat_reference(rows, pt, cr, nr),
-            "decode_flat", rows.shape[0] * block, decode_bound(pt, clen, block), shape))
+            f"decode_flat tall route {shape}, in place",
+            lambda rows=rows, t=t, pt=pt, cr=cr, nr=nr: df.decode_blocks_flat(
+                rows, pt, comp_rows=cr, out_rows=nr, src_rows=t),
+            lambda rows=rows, t=t, pt=pt, cr=cr, nr=nr: df._launch_kernel(rows, pt, cr, nr, t),
+            lambda g=g, pt=pt, cr=cr, nr=nr: df.decode_flat_reference(g, pt, cr, nr),
+            "decode_flat", t.numel() * block, decode_bound(pt, clen, block), shape))
+        del g
     kernels["decode_flat"]["cluster_route"] = {
         "launches": sum(v for k, v in tall.items() if counts[k].get("decode_flat")),
         "resident_clusters": {str(r): df.resident_clusters(r) for r in TALL_ROWS},

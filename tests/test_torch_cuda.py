@@ -1207,6 +1207,91 @@ def test_decode_flat_cluster_route_on_a_skewed_burst(cuda_device):
     eng.release()
 
 
+@pytest.mark.parametrize("shape", ["bench 1024 x 128 KiB", "bench permuted slots",
+                                   "bench 128 x 1 MiB"])
+def test_decode_flat_in_place_equals_gathered(shape, cuda_device):
+    # B1 through a table of slots over the arena (the scan's launch) against
+    # B1 on the same slots gathered into contiguous rows, byte for byte: the
+    # engine's own slot order, slots scattered over a larger buffer in a
+    # random order, and 1 MiB planes (the slice and cluster kernels).
+    block = 1 << 20 if "1 MiB" in shape else 128 * 1024
+    data = make_corpus(1024)[:(128 if "1 MiB" in shape else 1024) * block]
+    eng, unit = large_unit(cuda_device, data, block)
+    assert unit.plan_flat["host_blocks"].size == 0
+    pt, comp_rows, nrows = unit.plan_device_arrays(), unit.plan_comp_rows, block // 128
+    n = unit.nblocks
+    table = unit.slot_table()
+    buf = eng.arena.buffer
+    assert not unit.plan_flat.get("lit_planes") and table.device == buf.device
+    if shape == "bench permuted slots":
+        g = torch.Generator().manual_seed(61)
+        rows = torch.randperm(2 * n, generator=g)[:n].to(cuda_device)
+        scattered = torch.zeros((2 * n, buf.shape[1]), dtype=torch.uint8, device=cuda_device)
+        scattered[rows] = buf[table.long()]
+        buf, table = scattered, rows.int()
+    before = (tflat.launches, tflat.cluster_launches)
+    got = tflat.decode_blocks_flat(buf, pt, comp_rows=comp_rows, out_rows=nrows, src_rows=table)
+    want = tflat.decode_blocks_flat(buf.index_select(0, table), pt, comp_rows=comp_rows,
+                                    out_rows=nrows)
+    torch.cuda.synchronize()
+    tall = int(nrows > 1024)
+    assert (tflat.launches, tflat.cluster_launches) == (before[0] + 2, before[1] + 2 * tall)
+    assert torch.equal(got, want)
+    assert got.reshape(-1).cpu().numpy().tobytes() == data
+    if shape != "bench permuted slots":          # the engine's own launch reads in place
+        planes = torch.cat(eng.decompress_device(unit))
+        assert torch.equal(planes, want)
+    eng.recycle(unit)
+    eng.release()
+
+
+def test_decode_flat_source_rows_clip_to_the_buffer(cuda_device):
+    # A table entry outside the buffer's rows reads the nearest row (the
+    # plain version raises there): no launch reads past the buffer.
+    comp, plans = tflat.random_wire(62, 40, 1024, 256, 8)
+    rows = torch.from_numpy(comp).to(cuda_device)
+    table = torch.randint(0, 40, (40,), dtype=torch.int32, device=cuda_device)
+    table[:4] = torch.tensor([-1, -2**31, 40, 2**31 - 1], dtype=torch.int32)
+    pt = tflat.plan_tensors(plans, cuda_device)
+    got = tflat.decode_blocks_flat(rows, pt, comp_rows=256, out_rows=1024, src_rows=table)
+    clipped = rows.index_select(0, table.clamp(0, 39))
+    torch.cuda.synchronize()
+    assert torch.equal(got, tflat.decode_flat_reference(clipped, pt, 256, 1024))
+
+
+@pytest.mark.parametrize("codec", ["lz4", "zstd"])
+def test_traced_decompress_device_reads_in_place_on_card(codec, cuda_device):
+    # Traced, a resident LZ4 unit's decode counts every block read in place
+    # and gathers nothing; a Zstd unit (literal planes replace its rows)
+    # still gathers.
+    from bitar_tpu_torch.utils import profiling
+
+    data = make_corpus(5)[:40 * 16 * 1024]
+    cfg = btt.EngineConfig(codec=btt.Codec(codec), block_size=16 * 1024, burst_size=16,
+                           max_pool_slots=64)
+    with btt.Engine(cfg, device=cuda_device) as eng:
+        unit = eng.compress(data)
+        eng.ensure_plans(unit)
+        assert unit.plan_flat is not None
+        profiling.snapshot(reset=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]):
+            planes = torch.cat(eng.decompress_device(unit))
+            torch.cuda.synchronize()
+        counted = profiling.snapshot(reset=True)
+        host = planes.reshape(unit.nblocks, -1).cpu().numpy()
+        assert b"".join(host[i, :int(n)].tobytes()
+                        for i, n in enumerate(unit.manifest.raw_len)) == data
+        assert counted["decode_flat.blocks"] == unit.nblocks
+        if codec == "lz4":
+            assert counted["arena.inplace_blocks"] == unit.nblocks
+            assert "arena.gather_bytes" not in counted
+        else:
+            assert unit.plan_flat["lit_planes"] and "arena.inplace_blocks" not in counted
+            assert counted["arena.gather_bytes"] == unit.nblocks * cfg.slot_size
+        eng.recycle(unit)
+
+
 def test_decode_flat_launch_past_2gib_of_output(cuda_device):
     # ~2100 x 1 MiB of RLE and RAW blocks in one launch: 2.2 GB of output,
     # so every block base past 2^31 bytes must be 64-bit.

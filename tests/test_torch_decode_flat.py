@@ -282,3 +282,66 @@ def test_reference_matches_numpy_oracle_on_random_wires(out_rows, dcap):
     got = tflat.decode_flat_reference(torch.from_numpy(comp), tflat.plan_tensors(plans, "cpu"),
                                       comp_rows, out_rows)
     np.testing.assert_array_equal(got.numpy(), oracle)
+
+
+def _arena_case(case: str):
+    """(comp rows [n, W] uint8 numpy, wire dict, comp_rows, out_rows, table
+    [n] of arena rows, arena rows, burst (start, stop)) for the source-row
+    cases: a table over an arena of resident rows."""
+    rng = np.random.default_rng(19)
+    if case == "tall":                       # the slices and cluster route's planes
+        comp, plans = tflat.slice_crossing_wire(1152, 19)
+        comp_rows = out_rows = 1152
+    elif case == "burst slice":
+        comp_rows, out_rows = 256, 128
+        comp, plans = tflat.random_wire(19, 6, out_rows, comp_rows, 4)
+    else:
+        datas, comps, plans, comp_rows, out_rows = text(rng)
+        comp = _comp_rows_u8(comps, comp_rows * 128 + 256)
+    n = comp.shape[0]
+    if case == "identity":
+        rows, table = n, np.arange(n)
+    elif case == "permutation":
+        rows, table = n, np.arange(n)[::-1].copy()
+    else:                                    # slots with gaps between them
+        rows = 3 * n + 5
+        table = np.sort(rng.choice(np.arange(0, rows, 2), n, replace=False))
+    burst = (2, 5) if case == "burst slice" else (0, n)
+    return comp, plans, comp_rows, out_rows, table, rows, burst
+
+
+@pytest.mark.parametrize("case", ["identity", "permutation", "gaps", "burst slice", "tall"])
+def test_source_rows_read_blocks_where_they_lie(case):
+    # B1 through a table of rows over a buffer of resident rows (the
+    # engine's arena: other rows hold other bytes) decodes what it decodes
+    # on the gathered rows, and what it decodes on the blocks' own rows.
+    comp, plans, comp_rows, out_rows, table, rows, (s, e) = _arena_case(case)
+    rng = np.random.default_rng(20)
+    arena = torch.from_numpy(rng.integers(0, 256, (rows, comp.shape[1]), np.uint8))
+    arena[torch.from_numpy(table)] = torch.from_numpy(comp)
+    t = torch.from_numpy(table.astype(np.int32))[s:e]
+    pt = tflat.plan_tensors(plans, "cpu")
+    burst = dict(pt)
+    for k in ("p_used", "p_off", "p0", "dense", "dq_idx"):
+        burst[k] = pt[k][s:e]
+    got = tflat.decode_blocks_flat(arena, burst, comp_rows=comp_rows, out_rows=out_rows,
+                                   src_rows=t)
+    gathered = tflat.decode_blocks_flat(arena.index_select(0, t), burst, comp_rows=comp_rows,
+                                        out_rows=out_rows)
+    own = tflat.decode_blocks_flat(torch.from_numpy(comp), pt, comp_rows=comp_rows,
+                                   out_rows=out_rows)
+    assert got.shape == (e - s, out_rows, 128)
+    assert torch.equal(got, gathered)
+    assert torch.equal(got, own[s:e])
+
+
+@pytest.mark.parametrize("bad", ["int64", "device", "length", "2-D"])
+def test_malformed_source_rows_are_refused(bad):
+    comp, plans, comp_rows, out_rows, table, rows, _ = _arena_case("gaps")
+    arena = torch.zeros((rows, comp.shape[1]), dtype=torch.uint8)
+    t = torch.from_numpy(table.astype(np.int32))
+    t = {"int64": t.long(), "device": t.to("meta"), "length": torch.cat([t, t[:1]]),
+         "2-D": t[None]}[bad]
+    with pytest.raises(StatusError, match="src_rows"):
+        tflat.decode_blocks_flat(arena, tflat.plan_tensors(plans, "cpu"), comp_rows=comp_rows,
+                                 out_rows=out_rows, src_rows=t)

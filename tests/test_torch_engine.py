@@ -19,6 +19,7 @@ import torch
 import bitar_tpu as bt
 import bitar_tpu_torch as btt
 from bitar_tpu.engine.device import prepare_batched_decode as jax_batched
+from bitar_tpu_torch.engine import device as device_mod
 from bitar_tpu_torch.interop import SCRATCH_PLAN_KEYS, TPU_ONLY_PLAN_KEYS
 from bitar_tpu_torch.ops.cpu.native import SEQUENCE_KEYS
 
@@ -520,3 +521,98 @@ def test_pool_exhaustion_is_capacity_error():
             eng.compress(data)
         assert ei.value.status.code == btt.StatusCode.CAPACITY_ERROR
         assert eng.arena.pool.in_use() == 0
+
+
+# ---------------------------------------------------------------------------
+# Resident units read in place: the unit's slot table, and B1 reading the
+# arena through it.  The CPU gathers by default; ``read_in_place_on_cpu``
+# runs the in-place path through the plain version.
+
+
+def read_in_place_on_cpu(monkeypatch):
+    """Let engines on the CPU read resident units in place, as on the card."""
+    monkeypatch.setattr(device_mod, "_reads_in_place", lambda device: True)
+
+
+def planes_bytes(bursts, unit) -> bytes:
+    planes = torch.cat(bursts).reshape(unit.nblocks, -1)
+    return b"".join(planes[i, :int(n)].numpy().tobytes()
+                    for i, n in enumerate(unit.manifest.raw_len))
+
+
+def traced_decode(eng, unit):
+    """``decompress_device`` under a CPU profiler: (bursts, counters)."""
+    from bitar_tpu_torch.utils import profiling
+
+    profiling.snapshot(reset=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        bursts = eng.decompress_device(unit)
+    return bursts, profiling.snapshot(reset=True)
+
+
+def test_slot_table_is_built_once_and_dropped_by_recycle():
+    with btt.Engine(btt.EngineConfig(**cfg_kw()), device="cpu") as eng:
+        unit = eng.compress(make_data(40))
+        eng.decompress_device(unit)
+        table = unit.slot_table()
+        assert table.dtype == torch.int32 and table.is_contiguous()
+        assert table.tolist() == [r.slot for r in unit.refs]
+        eng.decompress_device(unit)
+        assert unit.slot_table() is table
+        eng.recycle(unit)
+        assert unit._slots_dev is None
+
+
+@pytest.mark.parametrize("read", ["gathered", "in place"])
+@pytest.mark.parametrize("case", ["recycled slots", "deferred first call", "bursts"])
+def test_resident_units_decode_in_place_or_gathered(case, read, monkeypatch):
+    kw = {"deferred first call": dict(commit="deferred"),
+          "bursts": dict(burst_size=3)}.get(case, {})
+    if read == "in place":
+        read_in_place_on_cpu(monkeypatch)
+    with btt.Engine(btt.EngineConfig(**cfg_kw(**kw)), device="cpu") as eng:
+        data = make_data(41)
+        if case == "recycled slots":            # a unit decoded, recycled, its slots retaken
+            old = eng.compress(make_data(42)[::-1])
+            eng.decompress_device(old)
+            old_slots = {r.slot for r in old.refs}
+            eng.recycle(old)
+        unit = eng.compress(data)
+        if case == "recycled slots":
+            assert {r.slot for r in unit.refs} & old_slots
+        bursts, counted = traced_decode(eng, unit)
+        assert len(bursts) == -(-unit.nblocks // eng.config.burst_size) > 1
+        assert planes_bytes(bursts, unit) == data
+        assert counted["decode_flat.blocks"] == unit.nblocks
+        if read == "in place":
+            assert counted["arena.inplace_blocks"] == unit.nblocks
+            assert "arena.gather_bytes" not in counted
+        else:
+            assert "arena.inplace_blocks" not in counted
+            assert counted["arena.gather_bytes"] == unit.nblocks * eng.config.slot_size
+        assert eng.decompress(unit).tobytes() == data
+        eng.recycle(unit)
+
+
+def test_zstd_unit_with_literal_planes_gathers_where_others_read_in_place(monkeypatch):
+    data = make_data(43)
+    with btt.Engine(btt.EngineConfig(**cfg_kw(), codec=btt.Codec.ZSTD), device="cpu") as zeng, \
+            btt.Engine(btt.EngineConfig(**cfg_kw()), device="cpu") as leng:
+        read_in_place_on_cpu(monkeypatch)
+        rows_calls = []
+        for eng in (zeng, leng):
+            unit_rows = eng._unit_rows
+            monkeypatch.setattr(eng, "_unit_rows", lambda u, idx, f=unit_rows: (
+                rows_calls.append(u.engine), f(u, idx))[1])
+        zu, lu = zeng.compress(data), leng.compress(data)
+        zeng.ensure_plans(zu)
+        assert zu.plan_flat["lit_planes"]
+        bursts, counted = traced_decode(zeng, zu)
+        assert planes_bytes(bursts, zu) == data
+        assert rows_calls == [zeng] * len(bursts) and "arena.inplace_blocks" not in counted
+        bursts, counted = traced_decode(leng, lu)
+        assert planes_bytes(bursts, lu) == data
+        assert rows_calls == [zeng] * len(bursts)                 # the LZ4 unit gathered nothing
+        assert counted["arena.inplace_blocks"] == lu.nblocks
+        zeng.recycle(zu)
+        leng.recycle(lu)
