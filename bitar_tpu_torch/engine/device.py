@@ -149,6 +149,11 @@ class CompressedUnit:
     #: engine's device.  Built at the unit's first decode, dropped by
     #: ``recycle`` with the other device caches.
     _slots_dev: tuple | None = field(default=None, repr=False)
+    #: Zstd blocks' rows of ``lit_device_arrays`` by block (-1: none), an
+    #: int64 tensor on the device, for picks (``decompress_blocks_device``).
+    _lit_map_dev: torch.Tensor | None = field(default=None, repr=False)
+    #: True while the unit's sequence tables sit in the engine's table store.
+    _in_table_store: bool = field(default=False, repr=False)
     #: Host copy of the staged slot rows (compress/import), dropped once
     #: plans exist.
     _staging: np.ndarray | None = field(default=None, repr=False)
@@ -211,6 +216,19 @@ class CompressedUnit:
                     f"arena's {rows} rows"))
             self._slots_dev = torch.from_numpy(slots.astype(np.int32)).to(self.engine.device)
         return self._slots_dev
+
+    def lit_row_map(self, width: int) -> torch.Tensor | None:
+        """Each block's row of :meth:`lit_device_arrays` (-1 for a block
+        without a literal plane) as an int64 tensor on the device, built
+        once; None for a unit without literal planes."""
+        lit_dev, lit_pos = self.lit_device_arrays(width)
+        if not lit_pos:
+            return None
+        if self._lit_map_dev is None:
+            rows = np.full(self.nblocks, -1, np.int64)
+            rows[list(lit_pos)] = list(lit_pos.values())
+            self._lit_map_dev = torch.from_numpy(rows).to(self.engine.device)
+        return self._lit_map_dev
 
     @property
     def nblocks(self) -> int:
@@ -281,6 +299,9 @@ class Engine:
         # the synchronous path.
         self._plan_lock = Engine._PLAN_LOCK
         self._plan_executor: concurrent.futures.ThreadPoolExecutor | None = None
+        #: The table store (:meth:`_table_store_enter`): (nseq [slots] int32,
+        #: tables [5, slots, S] int32) on the device, one row an arena slot.
+        self._table_store: tuple[torch.Tensor, torch.Tensor] | None = None
 
     # ------------------------------------------------------------------
     def initialize(self) -> "Engine":
@@ -314,6 +335,7 @@ class Engine:
             self._plan_executor.shutdown(wait=True, cancel_futures=True)
             self._plan_executor = None
         self.arena = None
+        self._table_store = None
         self.state = EngineState.RELEASED
 
     def __enter__(self) -> "Engine":
@@ -971,6 +993,173 @@ class Engine:
             self.stats.device_decode_bursts += len(results)
             return results
 
+    def decompress_blocks_device(self, units, unit_idx, block_idx) -> torch.Tensor:
+        """Decompress chosen blocks of resident units on the device.
+
+        Pick ``j`` is block ``block_idx[j]`` of ``units[unit_idx[j]]``
+        (``unit_idx``, ``block_idx``: integer arrays of one length k; a block
+        may be picked more than once).  Returns ``[k, nrows, 128]`` uint8
+        planes in pick order, on the device, with no host readout; a block
+        the planner left to the host is a zero plane, as in
+        :meth:`decompress_device`.  The host's work grows with the units
+        touched, not with k:
+
+        * the picks of sequence-table units decode together, in ceil(picks /
+          ``burst_size``) launches of the table kernel over their gathered
+          slots and the engine's table store (:meth:`_table_store_enter`);
+        * each planned unit touched is one launch of the flat kernel over
+          its picks' plan entries, reading the picked slots in place on the
+          card; the CPU and Zstd units (whose literal planes replace rows)
+          gather them.
+
+        Raises StatusError for picks that are not two integer arrays of one
+        length, a unit or block index out of range, a recycled unit or one
+        of another engine, and a unit that cannot decode on the device.
+        Traced, the span ``bitar.engine.decompress_blocks_device`` and the
+        counters ``engine.picked_blocks`` and ``engine.picked_units``."""
+        with profiling.annotate("bitar.engine.decompress_blocks_device"):
+            self._entry_guard()
+            ui, bi = np.asarray(unit_idx), np.asarray(block_idx)
+            k = ui.size
+            if ui.ndim != 1 or ui.shape != bi.shape or (k and not (
+                    ui.dtype.kind in "iu" and bi.dtype.kind in "iu")):
+                raise StatusError(Status.Invalid(
+                    f"picks: want two integer arrays of one length, got "
+                    f"{ui.dtype} {list(ui.shape)} and {bi.dtype} {list(bi.shape)}"))
+            nrows = self.config.block_size // LANES
+            if not k:
+                return torch.empty((0, nrows, LANES), dtype=torch.uint8, device=self.device)
+            ui, bi = ui.astype(np.int64, copy=False), bi.astype(np.int64, copy=False)
+            lo, hi = int(ui.min()), int(ui.max())
+            if lo < 0 or hi >= len(units):
+                raise StatusError(Status.Invalid(
+                    f"unit index {lo}..{hi} outside the {len(units)} units given"))
+            # The touched units, and each pick's index among them.
+            counts = np.bincount(ui - lo)
+            touched = np.flatnonzero(counts)
+            of = (np.cumsum(counts > 0) - 1)[ui - lo]
+            picked = [units[lo + u] for u in touched.tolist()]
+            for unit in picked:
+                unit._check_live()
+                if unit.engine is not self:
+                    raise StatusError(Status.Invalid("unit was produced by a different engine"))
+                self.ensure_plans(unit)
+                if unit.plan_flat is None and unit.tables is None:
+                    raise StatusError(Status.NotImplemented(
+                        "device-resident decompress requires a device-decodable unit "
+                        "(lz4/snappy/raw with sequence tables, or a plan)"))
+            nb = np.array([unit.nblocks for unit in picked])
+            bad = np.flatnonzero((bi < 0) | (bi >= nb[of]))
+            if bad.size:
+                j = int(bad[0])
+                raise StatusError(Status.Invalid(
+                    f"block index {bi[j]} outside unit {ui[j]}'s {nb[of[j]]} blocks"))
+            profiling.count("engine.picked_blocks", k)
+            profiling.count("engine.picked_units", len(picked))
+            table = np.array([unit.plan_flat is None for unit in picked])
+            launches = self._table_picks(picked, table, of, bi, nrows) if table.any() else []
+            if not table.all():
+                order = np.argsort(of, kind="stable")       # each unit's picks, in pick order
+                ends = np.cumsum(counts[touched])
+                for j, unit in enumerate(picked):
+                    if not table[j]:
+                        pos = order[ends[j] - counts[touched[j]]:ends[j]]
+                        launches.append(self._planned_picks(unit, pos, bi[pos], nrows))
+            self.stats.device_decode_bursts += len(launches)
+            self.stats.enqueued_blocks += k
+            if len(launches) == 1:           # its positions are the picks, in order
+                return launches[0][1]
+            out = torch.empty((k, nrows, LANES), dtype=torch.uint8, device=self.device)
+            for pos, planes in launches:
+                out.index_copy_(0, torch.from_numpy(pos).to(self.device), planes)
+            return out
+
+    def _table_picks(self, picked: list, table: np.ndarray, of: np.ndarray, bi: np.ndarray,
+                     nrows: int) -> list[tuple[np.ndarray, torch.Tensor]]:
+        """Launch the table kernel over the picks of sequence-table units,
+        ``burst_size`` picks a launch in pick order: [(pick positions,
+        planes)].  ``picked``: the touched units, ``table``: which of them
+        have sequence tables, ``of``: each pick's touched unit, ``bi``: its
+        block.  A pick's slot comes from the units' slot tables laid end to
+        end on the device, so the host indexes no unit's blocks."""
+        units = [unit for unit, t in zip(picked, table, strict=True) if t]
+        for unit in units:
+            self._table_store_enter(unit)
+        pos = np.arange(bi.size) if table.all() else np.flatnonzero(table[of])
+        nb = np.array([unit.nblocks if t else 0 for unit, t in zip(picked, table, strict=True)])
+        rows = (np.cumsum(nb) - nb)[of[pos]] + bi[pos]
+        slots_dev = torch.cat([unit.slot_table() for unit in units]).index_select(
+            0, torch.from_numpy(rows).to(self.device))
+        nseq, cols = self._table_store
+        burst = self.config.burst_size
+
+        def stored_bytes(at: slice) -> int:
+            """The stored bytes of the picks ``pos[at]`` (asked while tracing)."""
+            return int(np.concatenate([unit.manifest.comp_len for unit in units])[rows[at]].sum())
+
+        launches = []
+        for s in range(0, pos.size, burst):
+            sl = slots_dev[s:s + burst]
+            comp = self._gather_slots(sl, lambda: stored_bytes(slice(s, s + burst)))
+            tables = dict(zip(SEQUENCE_KEYS, cols.index_select(1, sl).unbind(0), strict=True))
+            launches.append((pos[s:s + burst],
+                             decode_blocks(comp, nseq.index_select(0, sl), tables,
+                                           out_rows=nrows)))
+        return launches
+
+    def _planned_picks(self, unit: CompressedUnit, pos: np.ndarray, blocks: np.ndarray,
+                       nrows: int) -> tuple[np.ndarray, torch.Tensor]:
+        """One flat-kernel launch over a planned unit's picks ``blocks``:
+        (pick positions, planes).  As in :meth:`_planned_bursts`, on the card
+        it reads the slots in place (the counter ``arena.inplace_blocks``),
+        elsewhere and for Zstd units it gathers them first."""
+        idx = torch.from_numpy(blocks).to(self.device)
+        pt = unit.plan_device_arrays()
+        plans = dict(pt)
+        for key in _BLOCK_KEYS:
+            plans[key] = pt[key].index_select(0, idx)
+        src = unit.slot_table().index_select(0, idx)
+        kw = dict(comp_rows=unit.plan_comp_rows, out_rows=nrows)
+        if _reads_in_place(self.device) and not unit.plan_flat.get("lit_planes"):
+            profiling.count("arena.inplace_blocks", blocks.size)
+            return pos, decode_blocks_flat(self.arena.buffer, plans, src_rows=src, **kw)
+        rows = self._gather_slots(src, lambda: int(unit.manifest.comp_len[blocks].sum()))
+        lit_rows = unit.lit_row_map(rows.shape[1])
+        if lit_rows is not None:
+            lit = lit_rows.index_select(0, idx)
+            lit_dev = unit.lit_device_arrays(rows.shape[1])[0]
+            rows = torch.where((lit >= 0)[:, None], lit_dev.index_select(0, lit.clamp(min=0)),
+                               rows)
+        return pos, decode_blocks_flat(rows, plans, **kw)
+
+    def _table_store_enter(self, unit: CompressedUnit) -> None:
+        """Put a sequence-table unit's tables into the engine's table store,
+        once: the store's row ``r`` holds the table of the block in arena
+        slot ``r``, so the picks of any units index one store.  It is as
+        wide as its widest unit (zero columns past a narrower table decode
+        alike) and widens when a wider unit enters; :meth:`recycle` zeroes a
+        unit's rows."""
+        if unit._in_table_store:
+            return
+        tables = torch.from_numpy(np.stack([unit.tables[k] for k in SEQUENCE_KEYS]))
+        width = tables.shape[2]
+        if self._table_store is None or self._table_store[1].shape[2] < width:
+            nslots = self.arena.buffer.shape[0]
+            cols = torch.zeros((len(SEQUENCE_KEYS), nslots, width), dtype=torch.int32,
+                               device=self.device)
+            if self._table_store is None:
+                nseq = torch.zeros(nslots, dtype=torch.int32, device=self.device)
+            else:
+                nseq, old = self._table_store
+                cols[:, :, :old.shape[2]] = old
+            self._table_store = (nseq, cols)
+        nseq, cols = self._table_store
+        slots = unit.slot_table().long()
+        tables = torch.nn.functional.pad(tables.to(self.device), (0, cols.shape[2] - width))
+        cols.index_copy_(1, slots, tables)
+        nseq.index_copy_(0, slots, torch.from_numpy(unit.nseq.astype(np.int32)).to(self.device))
+        unit._in_table_store = True
+
     def _decode_bursts(self, unit: CompressedUnit, on_burst=None):
         """Launch the sequence-table decode kernel burst by burst.
 
@@ -1000,12 +1189,18 @@ class Engine:
         (whole slots) and ``arena.gather_stored_bytes`` (the blocks' stored
         bytes, summed over a slice of ``comp_len``: indexing it by the
         range's ints instead costs ~0.1 ms a 1024-block burst)."""
+        return self._gather_slots(unit.slot_table()[idx.start:idx.stop],
+                                  lambda: int(unit.manifest.comp_len[idx.start:idx.stop].sum()))
+
+    def _gather_slots(self, slots: torch.Tensor, stored_bytes) -> torch.Tensor:
+        """The arena rows of ``slots`` (an integer tensor on the device), under
+        the gather's span and counters; ``stored_bytes()`` gives the blocks'
+        stored bytes, asked only while tracing."""
         with profiling.annotate("bitar.arena.gather_burst"):
-            rows = self.arena.gather_burst(unit.slot_table()[idx.start:idx.stop])
+            rows = self.arena.gather_burst(slots)
         if profiling.enabled():
             profiling.count("arena.gather_bytes", rows.numel())
-            profiling.count("arena.gather_stored_bytes",
-                            int(unit.manifest.comp_len[idx.start:idx.stop].sum()))
+            profiling.count("arena.gather_stored_bytes", stored_bytes())
         return rows
 
     def _unit_rows(self, unit: CompressedUnit, idx: range) -> torch.Tensor:
@@ -1293,8 +1488,15 @@ class Engine:
                 self._pool_put(built[0])
         count = self.arena.recycle(unit.refs)
         self._pool_put(unit.plan_flat)
+        if unit._in_table_store:
+            nseq, cols = self._table_store
+            slots = unit.slot_table().long()
+            nseq.index_fill_(0, slots, 0)
+            cols.index_fill_(1, slots, 0)
+            unit._in_table_store = False
         # On the CPU the plan tensors alias the grant just returned.
         unit._plan_dev = unit._table_dev = unit._lit_dev = unit._slots_dev = None
+        unit._lit_map_dev = None
         unit._drop_staging()
         unit.recycled = True
         return count

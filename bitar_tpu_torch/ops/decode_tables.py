@@ -47,6 +47,7 @@ import torch
 
 from ..config import Codec
 from ..manifest import codec_id
+from ..utils import profiling
 from ._build import check_cuda, load_cuda_kernel, require
 from .cpu import native
 from .cpu.native import SEQUENCE_KEYS
@@ -373,15 +374,18 @@ def decode_blocks(comp: torch.Tensor, nseq: torch.Tensor, tables: dict[str, torc
     the call's blocks added: [0] those decoded in parallel
     (:func:`well_formed` tables), [1] those walked serially.  A CPU ``comp``
     runs :func:`decode_tables_reference`; a CUDA one launches the kernel or
-    raises StatusError."""
-    require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
-            lambda: f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
-    require(out_rows >= 1, lambda: f"out_rows {out_rows} must be positive")
-    if comp.device.type == "cpu":
-        if path_counts is not None:
-            wf = well_formed(nseq, tables)
-            path_counts += torch.stack([wf.sum(), (~wf).sum()]).to(path_counts.dtype)
-        return decode_tables_reference(comp, nseq, tables, out_rows)
-    require(comp.device.type == "cuda",
-            lambda: f"decode_blocks: no kernel for device {comp.device}")
-    return _launch_kernel(comp, nseq, tables, out_rows, path_counts)
+    raises StatusError.  Traced, the span ``bitar.ops.decode_tables`` (to
+    the launch) and the counter ``decode_tables.blocks``."""
+    with profiling.annotate("bitar.ops.decode_tables"):
+        require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
+                lambda: f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
+        require(out_rows >= 1, lambda: f"out_rows {out_rows} must be positive")
+        profiling.count("decode_tables.blocks", comp.shape[0])
+        if comp.device.type == "cpu":
+            if path_counts is not None:
+                wf = well_formed(nseq, tables)
+                path_counts += torch.stack([wf.sum(), (~wf).sum()]).to(path_counts.dtype)
+            return decode_tables_reference(comp, nseq, tables, out_rows)
+        require(comp.device.type == "cuda",
+                lambda: f"decode_blocks: no kernel for device {comp.device}")
+        return _launch_kernel(comp, nseq, tables, out_rows, path_counts)

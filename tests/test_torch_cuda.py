@@ -187,6 +187,45 @@ def test_unit_over_plan_budget_decodes_through_b2_on_card(cuda_device):
         assert eng.recycle(unit) == unit.nblocks
 
 
+def test_picks_of_sixteen_table_units_match_the_plain_version(cuda_device):
+    # Block-granular decode across resident 4 KiB LZ4 units (the table path):
+    # picks over 16 units in bursts of 64, duplicates included, decode in
+    # ceil(k / 64) B2 launches on the card and equal the CPU engine's plain
+    # version of the same picks and the raw blocks.
+    block, nunits, nblocks = 4096, 16, 48
+    src = (ROOT / "SURVEY.md").read_bytes()
+    rng = np.random.default_rng(61)
+    datas = []
+    for u in range(nunits):
+        parts = [src[o:o + block] for o in rng.integers(0, len(src) - block, nblocks // 2)]
+        parts += [rng.integers(0, 256, block, np.uint8).tobytes(), bytes([u]) * block]
+        parts += [rng.integers(0, 8, block, np.uint8).tobytes()] * (nblocks // 2 - 2)
+        datas.append(b"".join(parts))
+    kw = dict(block_size=block, burst_size=64, max_pool_slots=nunits * nblocks + 64,
+              commit="deferred", min_match=4)
+    ui = rng.integers(0, nunits, 300)
+    bi = rng.integers(0, nblocks, 300)
+    bi[-40:] = bi[:40]
+    ui[-40:] = ui[:40]
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        with btt.Engine(btt.EngineConfig(**kw), device=dev) as eng:
+            units = [eng.compress(d) for d in datas]
+            for unit in units:
+                eng.ensure_plans(unit)
+            assert all(unit.plan_flat is None for unit in units)
+            before = tdt.launches
+            got[str(dev)] = eng.decompress_blocks_device(units, ui, bi).cpu()
+            if dev != "cpu":
+                assert tdt.launches == before + 5           # 300 picks, bursts of 64
+            for unit in units:
+                eng.recycle(unit)
+    assert torch.equal(got[str(cuda_device)], got["cpu"])
+    flat = got["cpu"].reshape(len(ui), -1).numpy()
+    for j, (u, b) in enumerate(zip(ui.tolist(), bi.tolist(), strict=True)):
+        assert flat[j].tobytes() == datas[u][b * block:(b + 1) * block], (j, u, b)
+
+
 def lz4_tables(datas, min_match=4):
     """Rows, nseq and padded tables of the LZ4 blocks of ``datas``."""
     comps = [native.lz4_compress(d, min_match=min_match) for d in datas]
