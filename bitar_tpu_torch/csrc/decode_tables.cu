@@ -104,13 +104,19 @@
 
 // A launch optionally adds its blocks to paths[0] (well-formed, decoded in
 // parallel) and paths[1] (serial walk), so a caller can show which path its
-// tables took.
+// tables took.  It may name each block's row through a table (src_row): the
+// row of the comp buffer, of nseq and of the sequence tables.  Blocks
+// resident in the engine's slot arena, whose tables sit in the engine's
+// table store at the same rows, then decode where they lie: a MultiGet's
+// picks copy no slot and no table row, and a block reads what it read
+// before, one more load a block.
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include "cuda_util.cuh"
 
@@ -153,6 +159,15 @@ struct Args {
   int span;                       // a window's starts lie within this many bytes of its first
   int map_len;                    // min(out_len, kMaxMap); 0 on the cluster route (no map)
   int* paths;                     // [2] or null
+};
+
+// A launch through source rows: block b reads row src_row[b] of comp, nseq
+// and the tables, which then have `rows` rows; its plane is still row b of
+// out.  A type of its own, so a launch without a table runs the kernels on
+// Args as they were before there was one.
+struct SrcArgs : Args {
+  const int32_t* src_row;         // [n]
+  int rows;                       // src_row clips to [0, rows)
 };
 
 // Where a block's plane lives, and which threads share it.  CtaPlane: the
@@ -706,14 +721,18 @@ __device__ void decode_serial(const Args& a, const uint8_t* cp, long long row, i
 
 // One block: classify, decode into the plane, store this CTA's bytes of it
 // (zeros past a well-formed block's extent).  `flags`: the cluster route's
-// verdict slots.
-template <class Plane>
-__device__ void decode_block(const Args& a, const Plane& plane, uint8_t* windows, int* flags) {
+// verdict slots.  Through SrcArgs the block's rows are row src_row[b]
+// (resident blocks and their tables read in place), clipped in 32 bits as
+// B1's are (a 64-bit clip cost its scan 1.5%).
+template <class A, class Plane>
+__device__ void decode_block(const A& a, const Plane& plane, uint8_t* windows, int* flags) {
   const int b = plane.block();
   uint8_t* out = a.out + static_cast<long long>(b) * a.out_len;
-  const uint8_t* cp = a.comp + static_cast<long long>(b) * a.comp_stride;
-  const long long row = static_cast<long long>(b) * a.S;
-  int ns = a.nseq[b];
+  int src = b;                      // the row of comp, nseq and the tables
+  if constexpr (std::is_same_v<A, SrcArgs>) src = min(max(__ldg(a.src_row + b), 0), a.rows - 1);
+  const uint8_t* cp = a.comp + static_cast<long long>(src) * a.comp_stride;
+  const long long row = static_cast<long long>(src) * a.S;
+  int ns = a.nseq[src];
   ns = ns < 0 ? 0 : (ns > a.S ? a.S : ns);
 
   bool ok = true;
@@ -776,13 +795,16 @@ __device__ void decode_block(const Args& a, const Plane& plane, uint8_t* windows
 
 // Shared memory: the plane (shared route) or the CTA's slice of it
 // (cluster route), two windows of entries, the window's map (shared route
-// only), the cluster's verdict slots (cluster route only).
-__global__ void __launch_bounds__(kMaxThreads) decode_tables_kernel_shared(Args a) {
+// only), the cluster's verdict slots (cluster route only).  Each kernel
+// has an overload on SrcArgs, the launch through source rows.
+template <class A>
+__device__ __forceinline__ void decode_in_cta(const A& a) {
   extern __shared__ __align__(16) uint8_t smem[];
   decode_block(a, CtaPlane{smem}, smem + a.out_len, nullptr);
 }
 
-__global__ void __launch_bounds__(kMaxThreads, 1) decode_tables_kernel_cluster(Args a) {
+template <class A>
+__device__ __forceinline__ void decode_in_cluster(const A& a) {
   extern __shared__ __align__(16) uint8_t smem[];
   const ClusterPlane plane{smem, static_cast<int>(cg::cluster_group::block_rank()),
                            __ffs(static_cast<int>(cg::cluster_group::num_blocks())) - 1};
@@ -791,9 +813,25 @@ __global__ void __launch_bounds__(kMaxThreads, 1) decode_tables_kernel_cluster(A
                reinterpret_cast<int*>(windows + 2 * a.window * kEntryBytes + 2 * kBuckets));
 }
 
+__global__ void __launch_bounds__(kMaxThreads) decode_tables_kernel_shared(Args a) {
+  decode_in_cta(a);
+}
+
+__global__ void __launch_bounds__(kMaxThreads) decode_tables_kernel_shared(SrcArgs a) {
+  decode_in_cta(a);
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1) decode_tables_kernel_cluster(Args a) {
+  decode_in_cluster(a);
+}
+
+__global__ void __launch_bounds__(kMaxThreads, 1) decode_tables_kernel_cluster(SrcArgs a) {
+  decode_in_cluster(a);
+}
+
 // Devices whose shared-memory opt-in is done (bit d for device d < 64),
-// per route.
-std::atomic<unsigned long long> g_opted[2] = {0, 0};
+// per kernel: 2 * cluster route + source rows.
+std::atomic<unsigned long long> g_opted[4] = {0, 0, 0, 0};
 
 // Bytes of shared memory the shared route needs for a plane of out_len.
 long long shared_route_bytes(long long out_len, int* threads, int* window, int* map_len) {
@@ -801,6 +839,42 @@ long long shared_route_bytes(long long out_len, int* threads, int* window, int* 
   *window = std::min(*threads, kMaxWindow);
   *map_len = static_cast<int>(std::min<long long>(out_len, kMaxMap));
   return out_len + 2LL * *window * kEntryBytes + *map_len;
+}
+
+// Launches `a` (on the card's kernels of its type): one CTA per block
+// (shared route) or one cluster of `ctas` per block (cluster route).
+template <class A>
+cudaError_t launch(const A& a, int ctas, int threads, long long smem, int device, void* stream) {
+  const bool cluster = ctas > 1;
+  void (*kernel)(A) = decode_tables_kernel_shared;
+  if (cluster) kernel = decode_tables_kernel_cluster;
+  // The whole opt-in range, once per device: a launch with a larger plane
+  // from another thread then never meets a smaller limit set for this one.
+  const int k = 2 * cluster + std::is_same_v<A, SrcArgs>;
+  cudaError_t err = cudaSuccess;
+  if (device >= 64 || !(g_opted[k].load() & (1ULL << device))) {
+    err = bt::smem_opt_in(kernel, bt::kSmemMax);
+    if (err == cudaSuccess && device < 64) g_opted[k].fetch_or(1ULL << device);
+  }
+  if (err != cudaSuccess) return err;
+  if (cluster) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(static_cast<unsigned>(a.n) * ctas);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, a);
+    return err == cudaSuccess ? cudaGetLastError() : err;
+  }
+  kernel<<<a.n, threads, static_cast<int>(smem), static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -821,17 +895,21 @@ extern "C" int bt_decode_tables_cluster_ctas(int out_rows) {
 
 // Launches one CTA (shared route) or one cluster (cluster route) per block
 // on `stream` of `device`; returns the CUDA error code (0 on success), also
-// when the card refuses the cluster launch.  Pointers are device pointers;
-// the caller allocates `out` (16-byte aligned) and, if not null, `paths`
-// (two ints).
+// when the card refuses the cluster launch.  Block b reads row b of comp,
+// nseq and the tables, or with `src_row` (n ints) row src_row[b] of their
+// `rows` rows (clipped to them), so blocks resident in a larger buffer
+// decode where they lie; its plane is row b of `out`.  Pointers are device
+// pointers; the caller allocates `out` (16-byte aligned) and, if not null,
+// `paths` (two ints).
 extern "C" int bt_decode_tables_launch(
     const void* comp, long long comp_stride, int comp_width, const void* nseq,
     const void* lit_ptr, const void* lit_len, const void* off, const void* mlen,
-    const void* out_pos, int S, void* out, int n, int out_rows, void* paths, int device,
-    void* stream) {
+    const void* out_pos, int S, void* out, int n, int out_rows, const void* src_row,
+    long long rows, void* paths, int device, void* stream) {
   const int ctas = bt_decode_tables_cluster_ctas(out_rows);
   if (n < 0 || S < 1 || ctas == 0 || comp_width < 0 ||
-      (reinterpret_cast<uintptr_t>(out) & 15) != 0 || device < 0)
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0 || device < 0 ||
+      (src_row != nullptr && (rows <= 0 || rows > INT32_MAX)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const long long out_len = static_cast<long long>(out_rows) * 128;
@@ -848,51 +926,32 @@ extern "C" int bt_decode_tables_launch(
   cudaError_t err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // The whole opt-in range, once per device: a launch with a larger plane
-  // from another thread then never meets a smaller limit set for this one.
-  auto* kernel = cluster ? decode_tables_kernel_cluster : decode_tables_kernel_shared;
-  if (device >= 64 || !(g_opted[cluster].load() & (1ULL << device))) {
-    err = bt::smem_opt_in(kernel, bt::kSmemMax);
-    if (err == cudaSuccess && device < 64) g_opted[cluster].fetch_or(1ULL << device);
-  }
-  if (err == cudaSuccess) {
-    Args a;
-    a.comp = static_cast<const uint8_t*>(comp);
-    a.comp_stride = comp_stride;
-    a.comp_width = comp_width;
-    a.nseq = static_cast<const int32_t*>(nseq);
-    a.lit_ptr = static_cast<const int32_t*>(lit_ptr);
-    a.lit_len = static_cast<const int32_t*>(lit_len);
-    a.off = static_cast<const int32_t*>(off);
-    a.mlen = static_cast<const int32_t*>(mlen);
-    a.out_pos = static_cast<const int32_t*>(out_pos);
-    a.S = S;
-    a.out = static_cast<uint8_t*>(out);
-    a.n = n;
-    a.out_len = static_cast<int>(out_len);
-    a.window = window;
-    a.span = cluster ? kMaxMap : map_len;
-    a.map_len = map_len;
-    a.paths = static_cast<int*>(paths);
-    if (cluster) {
-      cudaLaunchConfig_t cfg = {};
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = ctas;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      cfg.gridDim = dim3(static_cast<unsigned>(n) * ctas);
-      cfg.blockDim = dim3(threads);
-      cfg.dynamicSmemBytes = static_cast<size_t>(smem);
-      cfg.stream = static_cast<cudaStream_t>(stream);
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      err = cudaLaunchKernelEx(&cfg, kernel, a);
-      if (err == cudaSuccess) err = cudaGetLastError();
-    } else {
-      kernel<<<n, threads, static_cast<int>(smem), static_cast<cudaStream_t>(stream)>>>(a);
-      err = cudaGetLastError();
-    }
+  Args a;
+  a.comp = static_cast<const uint8_t*>(comp);
+  a.comp_stride = comp_stride;
+  a.comp_width = comp_width;
+  a.nseq = static_cast<const int32_t*>(nseq);
+  a.lit_ptr = static_cast<const int32_t*>(lit_ptr);
+  a.lit_len = static_cast<const int32_t*>(lit_len);
+  a.off = static_cast<const int32_t*>(off);
+  a.mlen = static_cast<const int32_t*>(mlen);
+  a.out_pos = static_cast<const int32_t*>(out_pos);
+  a.S = S;
+  a.out = static_cast<uint8_t*>(out);
+  a.n = n;
+  a.out_len = static_cast<int>(out_len);
+  a.window = window;
+  a.span = cluster ? kMaxMap : map_len;
+  a.map_len = map_len;
+  a.paths = static_cast<int*>(paths);
+  if (src_row == nullptr) {
+    err = launch(a, ctas, threads, smem, device, stream);
+  } else {
+    SrcArgs r;
+    static_cast<Args&>(r) = a;
+    r.src_row = static_cast<const int32_t*>(src_row);
+    r.rows = static_cast<int>(rows);
+    err = launch(r, ctas, threads, smem, device, stream);
   }
   if (current != device) cudaSetDevice(current);
   return static_cast<int>(err);

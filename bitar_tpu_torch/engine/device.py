@@ -146,9 +146,11 @@ class CompressedUnit:
     _table_dev: tuple | None = field(default=None, repr=False)
     _lit_dev: tuple | None = field(default=None, repr=False)
     #: ``slot_table()``: the unit's arena slots as an int32 tensor on the
-    #: engine's device.  Built at the unit's first decode, dropped by
-    #: ``recycle`` with the other device caches.
-    _slots_dev: tuple | None = field(default=None, repr=False)
+    #: engine's device, and its host copy (``host_slot_table()``).  Built at
+    #: the unit's first decode, dropped by ``recycle`` with the other device
+    #: caches.
+    _slots_dev: torch.Tensor | None = field(default=None, repr=False)
+    _slots_host: np.ndarray | None = field(default=None, repr=False)
     #: Zstd blocks' rows of ``lit_device_arrays`` by block (-1: none), an
     #: int64 tensor on the device, for picks (``decompress_blocks_device``).
     _lit_map_dev: torch.Tensor | None = field(default=None, repr=False)
@@ -214,8 +216,16 @@ class CompressedUnit:
                 raise StatusError(Status.Invalid(
                     f"unit slots {int(slots.min())}..{int(slots.max())} outside the "
                     f"arena's {rows} rows"))
-            self._slots_dev = torch.from_numpy(slots.astype(np.int32)).to(self.engine.device)
+            self._slots_host = slots.astype(np.int32)
+            self._slots_dev = torch.from_numpy(self._slots_host).to(self.engine.device)
         return self._slots_dev
+
+    def host_slot_table(self) -> np.ndarray:
+        """:meth:`slot_table` on the host (int32 numpy, not to be written),
+        built with it: where block picks find their slots."""
+        if self._slots_host is None:
+            self.slot_table()
+        return self._slots_host
 
     def lit_row_map(self, width: int) -> torch.Tensor | None:
         """Each block's row of :meth:`lit_device_arrays` (-1 for a block
@@ -300,8 +310,14 @@ class Engine:
         self._plan_lock = Engine._PLAN_LOCK
         self._plan_executor: concurrent.futures.ThreadPoolExecutor | None = None
         #: The table store (:meth:`_table_store_enter`): (nseq [slots] int32,
-        #: tables [5, slots, S] int32) on the device, one row an arena slot.
+        #: tables [5, slots, S] int32) on the device, one row an arena slot,
+        #: and its five tables by key, as views.
         self._table_store: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._table_views: dict[str, torch.Tensor] | None = None
+        #: The last call's table units, each one's first row in the host
+        #: slots below, and their host slot tables laid end to end
+        #: (:meth:`_pick_slot_map`); dropped by ``recycle``.
+        self._pick_slots: tuple[list, np.ndarray, np.ndarray] | None = None
 
     # ------------------------------------------------------------------
     def initialize(self) -> "Engine":
@@ -335,7 +351,7 @@ class Engine:
             self._plan_executor.shutdown(wait=True, cancel_futures=True)
             self._plan_executor = None
         self.arena = None
-        self._table_store = None
+        self._table_store = self._table_views = self._pick_slots = None
         self.state = EngineState.RELEASED
 
     def __enter__(self) -> "Engine":
@@ -1005,8 +1021,10 @@ class Engine:
         touched, not with k:
 
         * the picks of sequence-table units decode together, in ceil(picks /
-          ``burst_size``) launches of the table kernel over their gathered
-          slots and the engine's table store (:meth:`_table_store_enter`);
+          ``burst_size``) launches of the table kernel over their slots and
+          the engine's table store (:meth:`_table_store_enter`), read in
+          place on the card through one upload of the picks' slots, gathered
+          on the CPU;
         * each planned unit touched is one launch of the flat kernel over
           its picks' plan entries, reading the picked slots in place on the
           card; the CPU and Zstd units (whose literal planes replace rows)
@@ -1080,32 +1098,65 @@ class Engine:
         ``burst_size`` picks a launch in pick order: [(pick positions,
         planes)].  ``picked``: the touched units, ``table``: which of them
         have sequence tables, ``of``: each pick's touched unit, ``bi``: its
-        block.  A pick's slot comes from the units' slot tables laid end to
-        end on the device, so the host indexes no unit's blocks."""
-        units = [unit for unit, t in zip(picked, table, strict=True) if t]
+        block.  Each pick's slot comes from the units' host slot tables
+        (:meth:`_pick_slot_map`), uploaded once a call.  On the card
+        (:func:`_reads_in_place`) each launch reads the picks' slots and
+        table-store rows where they lie, through those slots (traced, the
+        counter ``arena.inplace_blocks``); elsewhere it gathers both first."""
+        every = table.all()
+        units = picked if every else [unit for unit, t in zip(picked, table, strict=True) if t]
         for unit in units:
             self._table_store_enter(unit)
-        pos = np.arange(bi.size) if table.all() else np.flatnonzero(table[of])
-        nb = np.array([unit.nblocks if t else 0 for unit, t in zip(picked, table, strict=True)])
-        rows = (np.cumsum(nb) - nb)[of[pos]] + bi[pos]
-        slots_dev = torch.cat([unit.slot_table() for unit in units]).index_select(
-            0, torch.from_numpy(rows).to(self.device))
+        starts, slots = self._pick_slot_map(units)
+        if every:                       # the common case: no pick to leave out
+            k = bi.size
+            rows = starts[of] + bi
+        else:
+            pos = np.flatnonzero(table[of])
+            k = pos.size
+            rows = starts[(np.cumsum(table) - 1)[of[pos]]] + bi[pos]
+        src = torch.from_numpy(slots[rows]).to(self.device)
         nseq, cols = self._table_store
         burst = self.config.burst_size
 
-        def stored_bytes(at: slice) -> int:
-            """The stored bytes of the picks ``pos[at]`` (asked while tracing)."""
-            return int(np.concatenate([unit.manifest.comp_len for unit in units])[rows[at]].sum())
+        def at(s: int) -> np.ndarray:
+            """The pick positions of the launch from pick ``s`` on."""
+            return np.arange(s, min(k, s + burst)) if every else pos[s:s + burst]
+
+        if _reads_in_place(self.device):
+            profiling.count("arena.inplace_blocks", k)
+            return [(at(s), decode_blocks(self.arena.buffer, nseq, self._table_views,
+                                          out_rows=nrows, src_rows=src[s:s + burst]))
+                    for s in range(0, k, burst)]
+
+        def stored_bytes(span: slice) -> int:
+            """The stored bytes of the picks ``span`` (asked while tracing)."""
+            return int(np.concatenate([unit.manifest.comp_len for unit in units])[rows[span]].sum())
 
         launches = []
-        for s in range(0, pos.size, burst):
-            sl = slots_dev[s:s + burst]
+        for s in range(0, k, burst):
+            sl = src[s:s + burst]
             comp = self._gather_slots(sl, lambda: stored_bytes(slice(s, s + burst)))
             tables = dict(zip(SEQUENCE_KEYS, cols.index_select(1, sl).unbind(0), strict=True))
-            launches.append((pos[s:s + burst],
-                             decode_blocks(comp, nseq.index_select(0, sl), tables,
-                                           out_rows=nrows)))
+            launches.append((at(s), decode_blocks(comp, nseq.index_select(0, sl), tables,
+                                                  out_rows=nrows)))
         return launches
+
+    def _pick_slot_map(self, units: list) -> tuple[np.ndarray, np.ndarray]:
+        """The host slot tables of ``units`` laid end to end, and each
+        unit's first row there: block ``b`` of ``units[i]`` lies in slot
+        ``slots[starts[i] + b]``.  Kept for the next call that touches the
+        same units (a MultiGet's batches touch the same SSTs), so such a
+        call copies no unit's table; a call over other units builds it anew
+        (about what looking each pick up in its own unit's table costs).
+        It holds the units until then, ``recycle`` or ``release``."""
+        kept = self._pick_slots
+        if kept is None or len(kept[0]) != len(units) or any(
+                a is not b for a, b in zip(kept[0], units)):
+            tables = [unit.host_slot_table() for unit in units]
+            nb = np.array([t.size for t in tables], np.int64)
+            kept = self._pick_slots = (units, np.cumsum(nb) - nb, np.concatenate(tables))
+        return kept[1], kept[2]
 
     def _planned_picks(self, unit: CompressedUnit, pos: np.ndarray, blocks: np.ndarray,
                        nrows: int) -> tuple[np.ndarray, torch.Tensor]:
@@ -1153,6 +1204,7 @@ class Engine:
                 nseq, old = self._table_store
                 cols[:, :, :old.shape[2]] = old
             self._table_store = (nseq, cols)
+            self._table_views = dict(zip(SEQUENCE_KEYS, cols.unbind(0), strict=True))
         nseq, cols = self._table_store
         slots = unit.slot_table().long()
         tables = torch.nn.functional.pad(tables.to(self.device), (0, cols.shape[2] - width))
@@ -1494,9 +1546,10 @@ class Engine:
             nseq.index_fill_(0, slots, 0)
             cols.index_fill_(1, slots, 0)
             unit._in_table_store = False
+        self._pick_slots = None
         # On the CPU the plan tensors alias the grant just returned.
         unit._plan_dev = unit._table_dev = unit._lit_dev = unit._slots_dev = None
-        unit._lit_map_dev = None
+        unit._slots_host = unit._lit_map_dev = None
         unit._drop_staging()
         unit.recycled = True
         return count

@@ -155,10 +155,10 @@ class DeviceArena:
     pass ``device="cpu"``), allocated once and never moved: :attr:`buffer`.
     ``write_burst`` stores a burst of compressed rows into taken slots and
     bumps their write generation.  On the card the engine's flat decode
-    reads a resident unit's slots in place, through a table of slot
-    indices over :attr:`buffer`; ``gather_burst`` copies slot rows out for
-    host readout, the CPU path, Zstd units (whose literal planes replace
-    rows) and the table decode.
+    and its table decode of block picks read slots in place, through a
+    table of slot indices over :attr:`buffer`; ``gather_burst`` copies slot
+    rows out for host readout, the CPU path, Zstd units (whose literal
+    planes replace rows) and the table decode of whole units.
     """
 
     def __init__(self, slot_size: int, preallocated: int, max_slots: int,
@@ -222,8 +222,9 @@ class DeviceArena:
     def gather_burst(self, slot_ids) -> torch.Tensor:
         """``[len(slot_ids), slot_size]`` uint8 copy of the slots, on device
         (``slot_ids``: ints, or an integer tensor of slots).  For host
-        readout, the CPU path, Zstd units and the table decode; the card's
-        flat decode of a resident unit reads :attr:`buffer` in place."""
+        readout, the CPU path, Zstd units and the table decode of whole
+        units; on the card the flat decode of a resident unit and the table
+        decode of block picks read :attr:`buffer` in place."""
         idx = self._index(slot_ids)
         with self._buf_lock:
             return self._buf.index_select(0, idx)

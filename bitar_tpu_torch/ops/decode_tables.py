@@ -12,7 +12,9 @@ literal run.  This module holds
 * ``well_formed``: the kernel's classifier (the tables the parser emits
   take its parallel paths, any other table its serial walk), and the
   tables that hold the kernel to its plain version: ``parser_tables`` (the
-  host codec's, as the engine stores them) and ``random_tables``;
+  host codec's, as the engine stores them) and ``random_tables``, and
+  ``resident_layout``, blocks scattered over a taller buffer and table
+  store as the engine holds them;
 * ``decode_tables_reference``: the plain PyTorch decode;
 * ``decode_blocks``: the wrapper.  On CPU tensors it runs the plain version;
   on CUDA tensors it launches ``csrc/decode_tables.cu`` or raises.  The
@@ -242,6 +244,29 @@ def random_tables(seed: int, n: int, S: int, block: int, *, well_formed: bool = 
     return rows, tables, nseq.astype(np.int32)
 
 
+def resident_layout(rows: np.ndarray, tables: dict[str, np.ndarray], nseq: np.ndarray,
+                    seed: int, *, taller: int = 2):
+    """Blocks as the engine holds them resident, to hold a launch through
+    source rows to one on the blocks themselves: ``rows`` ([n, W] uint8),
+    ``tables`` ([n, S] each) and ``nseq`` put at seeded random rows of a
+    buffer and a table store ``taller`` times as tall; the other rows hold
+    random bytes and random tables.  Returns numpy (buffer [N, W] uint8,
+    nseq [N] int32, store [5, N, S] int32 in ``SEQUENCE_KEYS`` order, source
+    rows [n] int32): block ``b`` lies at row ``src[b]``."""
+    n, w = rows.shape
+    S, N = tables[SEQUENCE_KEYS[0]].shape[1], taller * n
+    rng = np.random.default_rng(seed)
+    src = rng.permutation(N)[:n].astype(np.int32)
+    buf = rng.integers(0, 256, (N, w), np.uint8)
+    buf[src] = rows
+    store = rng.integers(-2 * w, 2 * w, (len(SEQUENCE_KEYS), N, S)).astype(np.int32)
+    for i, k in enumerate(SEQUENCE_KEYS):
+        store[i, src] = tables[k]
+    ns = rng.integers(0, S + 1, N).astype(np.int32)
+    ns[src] = nseq
+    return buf, ns, store, src
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch decode
 
@@ -309,8 +334,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.bt_decode_tables_launch.argtypes = [
         vp, c_ll, c_int,                  # comp, row stride, width
         vp, vp, vp, vp, vp, vp, c_int,    # nseq, lit_ptr, lit_len, off, mlen, out_pos, S
-        vp, c_int, c_int, vp,             # out, n, out_rows, paths
-        c_int, vp]                        # device, stream
+        vp, c_int, c_int,                 # out, n, out_rows
+        vp, c_ll,                         # source rows, rows they may name
+        vp, c_int, vp]                    # paths, device, stream
     lib.bt_decode_tables_cluster_ctas.restype = c_int
     lib.bt_decode_tables_cluster_ctas.argtypes = [c_int]
     bad = [r for r in range(1, 8194) if lib.bt_decode_tables_cluster_ctas(r) != cluster_ctas(r)]
@@ -326,19 +352,31 @@ def load_kernel() -> ctypes.CDLL:
 _launch_fn = None     # the library's bound launch function, once loaded
 
 
+def _check_src_rows(comp: torch.Tensor, src_rows: torch.Tensor) -> int:
+    """The number of blocks a source-row table names; StatusError unless it
+    is a contiguous int32 ``[n]`` tensor on ``comp``'s device."""
+    require(isinstance(src_rows, torch.Tensor) and src_rows.dtype == torch.int32
+            and src_rows.ndim == 1 and src_rows.is_contiguous()
+            and src_rows.device == comp.device,
+            lambda: f"src_rows: want a contiguous int32 [n] tensor on {comp.device}")
+    return src_rows.numel()
+
+
 def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
-                   out_rows: int, path_counts: torch.Tensor | None) -> torch.Tensor:
+                   out_rows: int, path_counts: torch.Tensor | None,
+                   src_rows: torch.Tensor | None = None) -> torch.Tensor:
     global launches, cluster_launches, _launch_fn
-    n = comp.shape[0]
-    dev = comp.device
+    dev, rows = comp.device, comp.shape[0]
+    n = rows if src_rows is None else src_rows.numel()
     cols = [tables[k] for k in SEQUENCE_KEYS]
-    S = cols[0].shape[1]
-    # What the kernel reads: int32, contiguous, on comp's device, [n] and [n, S].
+    S = cols[0].shape[-1]
+    # What the kernel reads: int32, contiguous, on comp's device, [rows] and
+    # [rows, S] (rows: n, or through source rows the rows they name).
     for t in (nseq, *cols):
         require(t.device == dev and t.dtype == torch.int32 and t.is_contiguous(),
                 lambda: f"nseq and tables: want contiguous int32 tensors on {dev}")
-    require(nseq.shape == (n,) and all(t.shape == (n, S) for t in cols),
-            lambda: f"nseq and tables: want [{n}] and [{n}, {S}]")
+    require(nseq.shape == (rows,) and all(t.shape == (rows, S) for t in cols),
+            lambda: f"nseq and tables: want [{rows}] and [{rows}, {S}]")
     paths = 0
     if path_counts is not None:
         require(path_counts.device == dev and path_counts.dtype == torch.int32
@@ -354,9 +392,11 @@ def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
     # gives it, without building a Stream object (0.14 us a call against 5.4
     # on an H100 host).
     rc = _launch_fn(comp.data_ptr(), comp.stride(0), comp.shape[1], nseq.data_ptr(),
-                    *(t.data_ptr() for t in cols), S, out.data_ptr(), n, out_rows, paths,
-                    dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
-    check_cuda(rc, "decode_tables launch", load_kernel())
+                    *(t.data_ptr() for t in cols), S, out.data_ptr(), n, out_rows,
+                    None if src_rows is None else src_rows.data_ptr(), rows,
+                    paths, dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc:
+        check_cuda(rc, "decode_tables launch", load_kernel())
     launches += 1
     device_launches[dev.index] += 1
     cluster_launches += cluster_ctas(out_rows) > 1
@@ -364,28 +404,43 @@ def _launch_kernel(comp: torch.Tensor, nseq: torch.Tensor, tables: dict,
 
 
 def decode_blocks(comp: torch.Tensor, nseq: torch.Tensor, tables: dict[str, torch.Tensor],
-                  *, out_rows: int, path_counts: torch.Tensor | None = None) -> torch.Tensor:
+                  *, out_rows: int, path_counts: torch.Tensor | None = None,
+                  src_rows: torch.Tensor | None = None) -> torch.Tensor:
     """Decode a batch of blocks from their sequence tables.
 
     ``comp``: [N, W] uint8 compressed rows (arena slots; the row stride may
     exceed W).  ``nseq`` [N] and ``tables`` {key: [N, S]} int32 on
     ``comp``'s device (:func:`table_tensors`).  Returns [N, out_rows, 128]
-    uint8.  ``path_counts``, an int32 [2] tensor on the same device, gets
-    the call's blocks added: [0] those decoded in parallel
-    (:func:`well_formed` tables), [1] those walked serially.  A CPU ``comp``
-    runs :func:`decode_tables_reference`; a CUDA one launches the kernel or
-    raises StatusError.  Traced, the span ``bitar.ops.decode_tables`` (to
-    the launch) and the counter ``decode_tables.blocks``."""
+    uint8.  With ``src_rows`` (contiguous int32 ``[n]`` on ``comp``'s
+    device), block ``b`` reads row ``src_rows[b]`` of ``comp``, ``nseq``
+    and every table: they are then resident rows (the engine's whole arena
+    and its table store, one row a slot) and the result is ``[n, out_rows,
+    128]``.  Rows must lie in ``[0, N)``: the plain version raises past
+    them, the kernel clips to them.  ``path_counts``, an int32 [2] tensor
+    on the same device, gets the call's blocks added: [0] those decoded in
+    parallel (:func:`well_formed` tables), [1] those walked serially.  A
+    CPU ``comp`` runs :func:`decode_tables_reference` (on the rows the
+    table selects); a CUDA one launches the kernel or raises StatusError.
+    Traced, the span ``bitar.ops.decode_tables`` (to the launch) and the
+    counter ``decode_tables.blocks``."""
     with profiling.annotate("bitar.ops.decode_tables"):
         require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
                 lambda: f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
         require(out_rows >= 1, lambda: f"out_rows {out_rows} must be positive")
-        profiling.count("decode_tables.blocks", comp.shape[0])
+        n = comp.shape[0] if src_rows is None else _check_src_rows(comp, src_rows)
+        profiling.count("decode_tables.blocks", n)
         if comp.device.type == "cpu":
+            if src_rows is not None:      # the kernel's wrapper checks the rows on the card
+                rows, cols = comp.shape[0], [tables[k] for k in SEQUENCE_KEYS]
+                require(nseq.shape[:1] == (rows,) and all(t.shape[:1] == (rows,) for t in cols),
+                        lambda: f"src_rows: nseq and the tables want comp's {rows} rows, got "
+                                f"{nseq.shape[0]} and {[t.shape[0] for t in cols]}")
+                comp, nseq = comp.index_select(0, src_rows), nseq.index_select(0, src_rows)
+                tables = {k: t.index_select(0, src_rows) for k, t in zip(SEQUENCE_KEYS, cols)}
             if path_counts is not None:
                 wf = well_formed(nseq, tables)
                 path_counts += torch.stack([wf.sum(), (~wf).sum()]).to(path_counts.dtype)
             return decode_tables_reference(comp, nseq, tables, out_rows)
         require(comp.device.type == "cuda",
                 lambda: f"decode_blocks: no kernel for device {comp.device}")
-        return _launch_kernel(comp, nseq, tables, out_rows, path_counts)
+        return _launch_kernel(comp, nseq, tables, out_rows, path_counts, src_rows)

@@ -6,7 +6,8 @@ checkout's on one card, in turns, on the same inputs.
     python -m bitar_tpu_torch.utils.kernel_ab --old DIR [--out FILE]
         [--only match|match_walk|match_dyn|parse_walk|emit|decode_flat|decode_tables|
                 decode_planned]
-    python -m bitar_tpu_torch.utils.kernel_ab --only match_routes|flat_sources [--out FILE]
+    python -m bitar_tpu_torch.utils.kernel_ab --only match_routes|flat_sources|tables_sources
+        [--out FILE]
 
 ``DIR`` is the root of another checkout of the repo (for example a ``git
 archive`` of the parent commit unpacked into a git-ignored directory).  Its
@@ -37,7 +38,11 @@ window 0), at the shapes the main paths launch (:func:`ab_match_routes`).
 gathered into contiguous rows ("old") against B1 reading them in the arena
 through the unit's slot table ("new", the scan's launch), and the gather
 and B1 together against B1 in place (:func:`ab_flat_sources`).
-The plain
+``--only tables_sources`` does the same for B2 on a MultiGet's picks of
+RocksDB blocks of YCSB records (the generator of ``benchmark/reference/kv.py``,
+so it runs from the repository's root): the picks' slots and table-store
+rows gathered, then B2, against B2 reading them in place
+(:func:`ab_table_sources`).  The plain
 versions are not timed here (``chip_smoke.py`` does that).  Prints one JSON
 object per shape and the card's name and power limit.  Needs CUDA.
 """
@@ -130,10 +135,10 @@ def main() -> int:
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
     ap.add_argument("--only", choices=("match", "match_walk", "match_dyn", "parse_walk", "emit",
                                        "decode_flat", "decode_tables", "decode_planned",
-                                       "match_routes", "flat_sources"),
+                                       "match_routes", "flat_sources", "tables_sources"),
                     help="time one kernel only")
     args = ap.parse_args()
-    if args.old is None and args.only not in ("match_routes", "flat_sources"):
+    if args.old is None and args.only not in ("match_routes", "flat_sources", "tables_sources"):
         ap.error("--old is required")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -153,6 +158,9 @@ def main() -> int:
         lines.append(json.dumps(rec))
         print(lines[-1], flush=True)
 
+    if args.only == "tables_sources":
+        ab_table_sources(emit, timing)
+        return finish(args, lines)
     corpus = make_corpus(1024)
     if args.only == "match_routes":
         ab_match_routes(emit, timing, mt, corpus)
@@ -326,6 +334,79 @@ def ab_flat_sources(emit, timing, btt, df, corpus: bytes) -> None:
               "equal": equal, **turns(timing, gather_then_b1, in_place, calls=100)})
         eng.recycle(unit)
         eng.release()
+
+
+def resident_picks(units: int = 16, unit_blocks: int = 1024, picks: int = 1884,
+                   seed: int = 22) -> dict:
+    """A MultiGet step's B2 picks as the engine holds them: ``units`` x
+    ``unit_blocks`` RocksDB data blocks of YCSB records (4 KiB, LZ4, the
+    ``rocksdb-4k`` cell's generator, so it runs from the repository's root)
+    resident in 8 KiB slots scattered over an arena twice as tall, their
+    tables in a store one row a slot, and ``picks`` distinct blocks picked
+    at random (a step's ~1,884).  On the card: ``buf`` [N, 8192] uint8,
+    ``nseq`` [N] and ``tables`` {key: [N, S]} int32 (views of ``store``
+    [5, N, S]), ``src`` the picks' rows [picks] int32; on the host
+    ``comp_len`` (the picks' stored bytes) and ``shape``, a label."""
+    from benchmark.reference import kv
+    from bitar_tpu_torch.ops import decode_tables as dt
+    from bitar_tpu_torch.ops.cpu.native import SEQUENCE_KEYS
+
+    block, slot = 4096, 8192
+    t = kv.make({"generator": "rocksdb_ycsb", "units": units, "unit_blocks": unit_blocks},
+                2**31 + seed, block)
+    ends = np.concatenate([[0], np.cumsum(t.sizes)])
+    rows, tables, nseq, lens = dt.parser_tables(
+        [t.raw[ends[i]:ends[i + 1]].tobytes() for i in range(t.sizes.size)], min_match=4)
+    slots = np.zeros((rows.shape[0], slot), np.uint8)
+    slots[:, :rows.shape[1]] = rows
+    buf, ns, store, at = dt.resident_layout(slots, tables, nseq, seed)
+    pick = np.random.default_rng(seed).choice(at.size, picks, replace=False)
+    buf, ns, store = (torch.from_numpy(a).cuda() for a in (buf, ns, store))
+    return {"buf": buf, "nseq": ns, "store": store,
+            "tables": dict(zip(SEQUENCE_KEYS, store.unbind(0), strict=True)),
+            "src": torch.from_numpy(at[pick]).cuda(), "comp_len": np.asarray(lens)[pick],
+            "sequences": int(nseq[pick].sum()), "max_per_block": int(nseq[pick].max()),
+            "shape": f"{picks} YCSB 4 KiB picks of {units} x {unit_blocks} blocks, 8 KiB "
+                     f"slots permuted over {buf.shape[0]} rows"}
+
+
+def ab_table_sources(emit, timing) -> None:
+    """B2 on a MultiGet step's picks as the engine holds them
+    (:func:`resident_picks`).  First line: B2 on the picks' rows and tables
+    gathered ("old") against B2 through the picks' slots ("new"), kernel
+    only (events, held, host clock).  Second: the arena gather, the two
+    table-store gathers and B2 against B2 in place, as
+    ``Engine.decompress_blocks_device`` ran them before and now (events,
+    host clock)."""
+    from bitar_tpu_torch.ops import decode_tables as dt
+    from bitar_tpu_torch.ops.cpu.native import SEQUENCE_KEYS
+
+    r = resident_picks()
+    buf, ns, store, views, src = r["buf"], r["nseq"], r["store"], r["tables"], r["src"]
+    kw = dict(out_rows=4096 // 128)
+    g_rows, g_ns = buf.index_select(0, src), ns.index_select(0, src)
+    g_tables = {k: v.index_select(0, src) for k, v in views.items()}
+
+    def gathered():
+        return dt.decode_blocks(g_rows, g_ns, g_tables, **kw)
+
+    def in_place():
+        return dt.decode_blocks(buf, ns, views, src_rows=src, **kw)
+
+    def gather_then_b2():
+        cols = store.index_select(1, src)
+        return dt.decode_blocks(buf.index_select(0, src), ns.index_select(0, src),
+                                dict(zip(SEQUENCE_KEYS, cols.unbind(0), strict=True)), **kw)
+
+    extra = {"sequences": r["sequences"], "max_per_block": r["max_per_block"]}
+    equal = same(in_place(), gathered())
+    emit({"kernel": "decode_tables", "shape": r["shape"], **extra,
+          "routes": "old: gathered rows and tables, new: slot table over the arena and store",
+          "equal": equal, **turns(timing, gathered, in_place, counted(dt, dt), 1000)})
+    equal = same(in_place(), gather_then_b2())
+    emit({"kernel": "decode_tables", "shape": r["shape"],
+          "routes": "old: arena and table-store gathers then B2, new: B2 in place",
+          "equal": equal, **turns(timing, gather_then_b2, in_place, calls=1000)})
 
 
 def table_shapes(corpus: bytes, text: bytes) -> dict:

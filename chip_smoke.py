@@ -67,8 +67,11 @@ Phases (any failure raises, and the script exits non-zero):
      MiB under a 4-pass plan budget and its parser tables at 256 KiB, the
      markdown's parser tables at 1 MiB (32 blocks), random well-formed and
      malformed tables at 1 MiB and at 1300 and 4096 rows,
-     and RLE offsets 1-130 over 1 MiB planes; each batch logs its
-     blocks by path (parallel,
+     and RLE offsets 1-130 over 1 MiB planes; and as the engine launches it
+     on a MultiGet's picks (``kernel_ab.resident_picks``: 1,884 YCSB 4 KiB
+     blocks read through their slots over a permuted 8 KiB-slot arena and
+     table store, the plain version on the rows and tables they select);
+     each batch logs its blocks by path (parallel,
      serial walk), which must be the classifier's
      (``well_formed``): 0 serial blocks on every parser batch;
    - ``match`` (B3) on 64 and on 1024 x 128 KiB (the shape the main paths
@@ -121,6 +124,10 @@ Phases (any failure raises, and the script exits non-zero):
      every compressed row decoded by the host codec, bit-exact;
    - the sequence-table path: ``EngineConfig(block_size=4096,
      burst_size=1024)`` over the bench corpus (32768 blocks; B2 only);
+   - block picks: 1,884 blocks picked across four 4 KiB LZ4 units of the
+     bench corpus (``decompress_blocks_device``, B2 only), each its raw
+     block, traced: every pick read in place, no slot gathered; the call's
+     host clock logged;
    - a Zstd unit of 1024 x 128 KiB (B1 over the literal planes);
    - ``compress_matcher="tpu"`` (B3 hints, host emitter), LZ4 and Snappy,
      and ``"tpu-sort"``, each decoded through B1;
@@ -163,8 +170,10 @@ Phases (any failure raises, and the script exits non-zero):
    held time on the same rows gathered, beside it) and
    on the text corpus (and, the kernel alone, on each class-pure batch);
    B3 at 64 x 128 KiB and at 1024 x 128 KiB in both modes (the kernels
-   line takes 1024, indices, max_match 64); B2 at 8192 x 4 KiB (the
-   kernels line), its 1024 x 4 KiB burst, 256 x 128 KiB of the bench
+   line takes 1024, indices, max_match 64); B2 in place on the MultiGet's
+   picks of phase 3 (the kernels line; its held time on the same rows
+   gathered beside it), at 8192 x 4 KiB (the kernels line's
+   ``bench_4k``), its 1024 x 4 KiB burst, 256 x 128 KiB of the bench
    corpus and the deep text tables; B5 and B4 on their bench batches and on
    the text ``detect_fft`` batch; the emitter at every main-path shape of
    phase 3 (with its bound and an empty kernel's time on the same grid;
@@ -720,12 +729,19 @@ def rle_table_batch(dt, block: int = TABLE_BLOCK, step: int = 1):
     return torch.from_numpy(rows).cuda(), nseq, tt, block, np.full(n, 256), want
 
 
-def compare_tables(dt, rows, nseq, tables, block: int) -> tuple[int, torch.Tensor, list]:
+def compare_tables(dt, rows, nseq, tables, block: int,
+                   src_rows=None) -> tuple[int, torch.Tensor, list]:
     """B2 against its plain version; also the blocks the kernel decoded in
-    parallel and serially, which must be the classifier's counts."""
+    parallel and serially, which must be the classifier's counts.  With
+    ``src_rows``, B2 through them, and the plain version on the rows and
+    tables they select."""
     paths = torch.zeros(2, dtype=torch.int32, device=rows.device)
-    got = dt.decode_blocks(rows, nseq, tables, out_rows=block // 128, path_counts=paths)
+    got = dt.decode_blocks(rows, nseq, tables, out_rows=block // 128, path_counts=paths,
+                           src_rows=src_rows)
     torch.cuda.synchronize()
+    if src_rows is not None:
+        rows, nseq = rows.index_select(0, src_rows), nseq.index_select(0, src_rows)
+        tables = {k: v.index_select(0, src_rows) for k, v in tables.items()}
     want = dt.decode_tables_reference(rows, nseq, tables, block // 128)
     wf = int(dt.well_formed(nseq, tables).sum())
     paths = paths.tolist()
@@ -1225,6 +1241,43 @@ def tables_path(btt, data: bytes, card: str) -> None:
     eng.release()
 
 
+def block_picks_path(btt, data: bytes, card: str, units: int = 4, picks: int = 1884) -> None:
+    """Blocks picked across ``units`` 4 KiB LZ4 units of ``data``
+    (``Engine.decompress_blocks_device``, the MultiGet's call): each plane
+    its raw block; traced, every pick read in place and no slot gathered."""
+    from bitar_tpu_torch.utils import profiling
+
+    per = len(data) // units // TABLE_BLOCK * TABLE_BLOCK
+    eng = engine(btt, btt.Codec.LZ4, block=TABLE_BLOCK, nblocks=units * per // TABLE_BLOCK)
+    us = [eng.compress(data[i * per:(i + 1) * per]) for i in range(units)]
+    rng = np.random.default_rng(11)
+    ui = rng.integers(0, units, picks)
+    bi = rng.integers(0, per // TABLE_BLOCK, picks)
+    profiling.snapshot(reset=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = eng.decompress_blocks_device(us, ui, bi)
+    counted = profiling.snapshot(reset=True)
+    if any(u.tables is None or u.plan_flat is not None for u in us):
+        raise AssertionError("block picks path: a unit did not decode from its tables")
+    if counted.get("arena.inplace_blocks") != picks or counted.get("arena.gather_bytes"):
+        raise AssertionError(f"block picks path: counters {counted}")
+    want = np.frombuffer(data, np.uint8)[:units * per].reshape(units, -1, TABLE_BLOCK)[ui, bi]
+    if not np.array_equal(got.reshape(picks, -1).cpu().numpy(), want):
+        raise AssertionError("block picks path: picks differ from their raw blocks")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        eng.decompress_blocks_device(us, ui, bi)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    log(f"main path block picks: {picks} of {units} x {per // TABLE_BLOCK} x {TABLE_BLOCK} B "
+        f"bit-exact, all read in place; host clock [{card}]: "
+        f"{1e6 * (t1 - t0) / HOST_CALLS:.1f} us/call ({HOST_CALLS} calls, no synchronize)")
+    for u in us:
+        eng.recycle(u)
+    eng.release()
+
+
 def zstd_path(btt, data: bytes, card: str) -> None:
     eng = engine(btt, btt.Codec.ZSTD)
     unit, phases = roundtrip(eng, data, "zstd")
@@ -1620,7 +1673,7 @@ def main() -> int:
     from bitar_tpu_torch.ops.cpu import native
     from bitar_tpu_torch.utils import timing
     from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
-    from bitar_tpu_torch.utils.kernel_ab import emit_shapes
+    from bitar_tpu_torch.utils.kernel_ab import emit_shapes, resident_picks
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1929,6 +1982,18 @@ def main() -> int:
     if dt.cluster_launches != len(large_tables) + 1:
         raise AssertionError(f"decode_tables: {dt.cluster_launches} of {len(large_tables) + 1} "
                              "launches above 1224 rows took the cluster route")
+    # B2 as the engine launches it on a MultiGet's picks: through the
+    # picks' slots over the arena and the table store, against the plain
+    # version on the rows and tables those slots select.
+    picks = resident_picks()
+    e, got, paths = compare_tables(dt, picks["buf"], picks["nseq"], picks["tables"], TABLE_BLOCK,
+                                   src_rows=picks["src"])
+    err = max(err, e)
+    if paths[1]:
+        raise AssertionError(f"decode_tables in place: {paths[1]} parser blocks walked serially")
+    log(f"decode_tables == plain version, byte for byte: in place, {picks['shape']} "
+        f"(sequences {picks['sequences']}, max {picks['max_per_block']} per block); blocks by "
+        f"path: parallel {paths[0]}, serial {paths[1]}")
     kernels["decode_tables"] = {"max_abs_err": err}
 
     err = 0
@@ -2054,6 +2119,12 @@ def main() -> int:
     counts["tables path"] = {"decode_tables": dt.launches}
     if df.launches:
         raise AssertionError("the tables path launched decode_flat")
+
+    df.launches, dt.launches = 0, 0
+    block_picks_path(btt, corpus, card)
+    counts["block picks path"] = {"decode_tables": dt.launches}
+    if df.launches:
+        raise AssertionError("the block picks path launched decode_flat")
 
     df.launches = 0
     zstd_path(btt, corpus, card)
@@ -2336,17 +2407,41 @@ def main() -> int:
                                                  held_ms=k_ms, bound=bound))
     kernels["emit"].update(worst[2], shape=worst[1])
 
+    # B2 as the engine launches it on a MultiGet's picks (the kernels
+    # line's row): in place, through the picks' slots over the arena and
+    # the table store; the plain version on the rows and tables they
+    # select, gathered outside its window.  The held time of the launch on
+    # those gathered rows (as the tables path's) beside it.
+    prow, pns, ptab, psrc = (picks[k] for k in ("buf", "nseq", "tables", "src"))
+    grow, gns = prow.index_select(0, psrc), pns.index_select(0, psrc)
+    gtab = {k: v.index_select(0, psrc) for k, v in ptab.items()}
+    pout = TABLE_BLOCK // 128
+    res, ms = turns(timing, lambda: dt.decode_blocks(prow, pns, ptab, out_rows=pout,
+                                                     src_rows=psrc),
+                    lambda: dt.decode_tables_reference(grow, gns, gtab, pout))
+    report(f"decode_tables {picks['shape']}, in place", card, res, ms, psrc.numel() * TABLE_BLOCK)
+    kernels["decode_tables"].update(shape=f"{picks['shape']}, in place", ms=res["kernel"],
+                                    plain_ms=res["plain"], held_ms=wrapper_times(
+        timing, f"decode_tables {psrc.numel()} YCSB picks, in place", card, "decode_tables",
+        lambda: dt.decode_blocks(prow, pns, ptab, out_rows=pout, src_rows=psrc),
+        lambda: dt._launch_kernel(prow, pns, ptab, pout, None, psrc)))
+    kernels["decode_tables"]["gathered_held_ms"] = wrapper_times(
+        timing, f"decode_tables {psrc.numel()} YCSB picks, gathered rows", card, "decode_tables",
+        lambda: dt.decode_blocks(grow, gns, gtab, out_rows=pout),
+        lambda: dt._launch_kernel(grow, gns, gtab, pout, None))
+    kernels["decode_tables"]["bound"] = tables_bound(grow, gns, picks["comp_len"], TABLE_BLOCK)
+    del picks, prow, pns, ptab, grow, gns, gtab
     brows, bnseq, btables, bblock, bcomp, _ = tbatches["bench 4 KiB"]
     res, ms = turns(timing, lambda: dt.decode_blocks(brows, bnseq, btables, out_rows=bblock // 128),
                     lambda: dt.decode_tables_reference(brows, bnseq, btables, bblock // 128))
     report(f"decode_tables bench {brows.shape[0]} x 4 KiB", card, res, ms,
            brows.shape[0] * bblock)
-    kernels["decode_tables"].update(
+    kernels["decode_tables"]["bench_4k"] = dict(
         ms=res["kernel"], plain_ms=res["plain"], held_ms=wrapper_times(
-        timing, f"decode_tables bench {brows.shape[0]} x 4 KiB", card, "decode_tables",
-        lambda: dt.decode_blocks(brows, bnseq, btables, out_rows=bblock // 128),
-        lambda: dt._launch_kernel(brows, bnseq, btables, bblock // 128, None)))
-    kernels["decode_tables"]["bound"] = tables_bound(brows, bnseq, bcomp, bblock)
+            timing, f"decode_tables bench {brows.shape[0]} x 4 KiB", card, "decode_tables",
+            lambda: dt.decode_blocks(brows, bnseq, btables, out_rows=bblock // 128),
+            lambda: dt._launch_kernel(brows, bnseq, btables, bblock // 128, None)),
+        bound=tables_bound(brows, bnseq, bcomp, bblock))
     # One burst of the tables path as the engine launches it (1024 x 4 KiB),
     # and 256 x 128 KiB of the bench corpus, the parallel tables step's shape.
     for what, (trows, tnseq, ttables, tblock, tcomp) in {
@@ -2524,8 +2619,8 @@ def main() -> int:
                      "held_of": "kernel" if name in HELD_ALONE else "call",
                      "plain_ms": k["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": None} | ({"shape": k["shape"]} if "shape" in k else {})
-                    | {key: k[key] for key in ("cluster_route", "tall_route")
-                       if key in k}
+                    | {key: k[key] for key in ("cluster_route", "tall_route", "gathered_held_ms",
+                                              "bench_4k") if key in k}
                     | ({"large_blocks": k["large_blocks"]} if "large_blocks" in k else {}))
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA device: every kernel (flat decode B1,
-table decode B2 on parser, random well-formed and malformed tables,
+table decode B2 on parser, random well-formed and malformed tables, and
+through source rows over a permuted buffer and table store,
 static-offset match B3, B5 match walk, B4 match scoring, B6 parse walk on
 B4's planes and ``walk_edge_batch``, B7 dense-plan decode on planner,
 random and pass-class plans, the emitter on parser layouts and
@@ -187,22 +188,29 @@ def test_unit_over_plan_budget_decodes_through_b2_on_card(cuda_device):
         assert eng.recycle(unit) == unit.nblocks
 
 
-def test_picks_of_sixteen_table_units_match_the_plain_version(cuda_device):
-    # Block-granular decode across resident 4 KiB LZ4 units (the table path):
-    # picks over 16 units in bursts of 64, duplicates included, decode in
-    # ceil(k / 64) B2 launches on the card and equal the CPU engine's plain
-    # version of the same picks and the raw blocks.
-    block, nunits, nblocks = 4096, 16, 48
+def sixteen_table_units(rng, block: int = 4096, nunits: int = 16, nblocks: int = 48):
+    """The data of ``nunits`` units of ``nblocks`` 4 KiB blocks each (markdown,
+    random, RLE and low-entropy blocks), and an engine configuration that
+    holds them all: units the planner leaves to the table path."""
     src = (ROOT / "SURVEY.md").read_bytes()
-    rng = np.random.default_rng(61)
     datas = []
     for u in range(nunits):
         parts = [src[o:o + block] for o in rng.integers(0, len(src) - block, nblocks // 2)]
         parts += [rng.integers(0, 256, block, np.uint8).tobytes(), bytes([u]) * block]
         parts += [rng.integers(0, 8, block, np.uint8).tobytes()] * (nblocks // 2 - 2)
         datas.append(b"".join(parts))
-    kw = dict(block_size=block, burst_size=64, max_pool_slots=nunits * nblocks + 64,
-              commit="deferred", min_match=4)
+    return datas, dict(block_size=block, burst_size=64, max_pool_slots=nunits * nblocks + 64,
+                       commit="deferred", min_match=4)
+
+
+def test_picks_of_sixteen_table_units_match_the_plain_version(cuda_device):
+    # Block-granular decode across resident 4 KiB LZ4 units (the table path):
+    # picks over 16 units in bursts of 64, duplicates included, decode in
+    # ceil(k / 64) B2 launches on the card and equal the CPU engine's plain
+    # version of the same picks and the raw blocks.
+    block, nunits, nblocks = 4096, 16, 48
+    rng = np.random.default_rng(61)
+    datas, kw = sixteen_table_units(rng, block, nunits, nblocks)
     ui = rng.integers(0, nunits, 300)
     bi = rng.integers(0, nblocks, 300)
     bi[-40:] = bi[:40]
@@ -224,6 +232,37 @@ def test_picks_of_sixteen_table_units_match_the_plain_version(cuda_device):
     flat = got["cpu"].reshape(len(ui), -1).numpy()
     for j, (u, b) in enumerate(zip(ui.tolist(), bi.tolist(), strict=True)):
         assert flat[j].tobytes() == datas[u][b * block:(b + 1) * block], (j, u, b)
+
+
+def test_traced_picks_of_sixteen_table_units_read_in_place(cuda_device):
+    # Traced, a MultiGet-like call over 16 resident table units reads every
+    # pick's slot and table-store row in place: no gather span or counter,
+    # arena.inplace_blocks and decode_tables.blocks both the picks, and the
+    # planes the raw blocks.
+    from bitar_tpu_torch.utils import profiling
+
+    block, nunits, nblocks = 4096, 16, 48
+    rng = np.random.default_rng(62)
+    datas, kw = sixteen_table_units(rng, block, nunits, nblocks)
+    ui, bi = rng.integers(0, nunits, 200), rng.integers(0, nblocks, 200)
+    with btt.Engine(btt.EngineConfig(**kw), device=cuda_device) as eng:
+        units = [eng.compress(d) for d in datas]
+        eng.decompress_blocks_device(units, ui[:20], bi[:20])          # builds the store
+        profiling.snapshot(reset=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = eng.decompress_blocks_device(units, ui, bi)
+            torch.cuda.synchronize()
+        counted = profiling.snapshot(reset=True)
+        names = {e.key for e in prof.key_averages()}
+        assert "bitar.ops.decode_tables" in names and "bitar.arena.gather_burst" not in names
+        assert counted["arena.inplace_blocks"] == counted["decode_tables.blocks"] == len(ui)
+        assert not {"arena.gather_bytes", "arena.gather_stored_bytes"} & set(counted)
+        host = got.reshape(len(ui), -1).cpu().numpy()
+        for j, (u, b) in enumerate(zip(ui.tolist(), bi.tolist(), strict=True)):
+            assert host[j].tobytes() == datas[u][b * block:(b + 1) * block], (j, u, b)
+        for unit in units:
+            eng.recycle(unit)
 
 
 def lz4_tables(datas, min_match=4):
@@ -280,6 +319,84 @@ def deep_table_batch(block=128 * 1024):
     rows, tables, nseq = lz4_tables([text[:block], text[block:]])
     assert int(nseq.max()) > 2000
     return rows, tables, nseq, block
+
+
+def ycsb_table_batch(block=4096):
+    """RocksDB data blocks of YCSB records (the MultiGet cell's generator,
+    ``benchmark/reference/kv.py``), parsed as the engine stores them."""
+    from benchmark.reference import kv
+
+    t = kv.make({"generator": "rocksdb_ycsb", "units": 2, "unit_blocks": 96}, 2**31 + 7, block)
+    ends = np.concatenate([[0], np.cumsum(t.sizes)])
+    datas = [t.raw[ends[i]:ends[i + 1]].tobytes() for i in range(t.sizes.size)]
+    return (*tdt.parser_tables(datas, min_match=4)[:3], block)
+
+
+def single_literal_batch(block=4096):
+    """One literal run and no match a block (RAW blocks): aligned and
+    unaligned lit_ptr, runs past the row and past the plane, a negative
+    lit_ptr, an empty run."""
+    rng = np.random.default_rng(58)
+    n = 8
+    rows = rng.integers(0, 256, (n, 3 * block), np.uint8)
+    tables = {k: np.zeros((n, 128), np.int32) for k in native.SEQUENCE_KEYS}
+    tables["lit_ptr"][:, 0] = [0, 3, 16, 3 * block - 100, -5, 0, 17, 2 * block]
+    tables["lit_len"][:, 0] = [block, block, block - 9, block, 300, 0, 2 * block, block]
+    return rows, tables, np.ones(n, np.int32), block
+
+
+def cluster_text_batch(block=256 * 1024):
+    text = make_text_corpus(12)
+    return (*tdt.parser_tables([text[i * block:(i + 1) * block] for i in range(6)])[:3], block)
+
+
+SOURCE_BATCHES = {
+    "ycsb 4k": ycsb_table_batch,
+    "ycsb 4k, rows past the buffer": ycsb_table_batch,
+    "random well-formed": lambda: (*tdt.random_tables(71, 24, 640, 4096), 4096),
+    "random malformed": lambda: (*tdt.random_tables(72, 24, 640, 4096, well_formed=False),
+                                 4096),
+    "single literal": single_literal_batch,
+    "cluster 256 KiB text": cluster_text_batch,
+}
+
+
+@pytest.mark.parametrize("batch", sorted(SOURCE_BATCHES))
+def test_decode_tables_through_source_rows_equals_gathered(batch, cuda_device):
+    # B2 through a table of source rows, over a permuted buffer and table
+    # store twice as tall, against B2 on the same rows and tables gathered
+    # first, byte for byte and path for path: YCSB blocks (the MultiGet's),
+    # random well-formed and malformed tables, single-literal blocks, and
+    # the cluster route.  Entries past the buffer read the nearest row (the
+    # plain version raises there).  Unclipped, both equal B2 on the blocks
+    # where they were made.
+    rows, tables, nseq, block = SOURCE_BATCHES[batch]()
+    buf, ns, store, src = tdt.resident_layout(rows, tables, nseq, 74)
+    N = buf.shape[0]
+    buf, ns, store, src = (torch.from_numpy(a).to(cuda_device) for a in (buf, ns, store, src))
+    views = dict(zip(native.SEQUENCE_KEYS, store.unbind(0), strict=True))
+    clipped = batch.endswith("past the buffer")
+    if clipped:
+        src[:4] = torch.tensor([-1, -2**31, N, 2**31 - 1], dtype=torch.int32)
+    at = src.clamp(0, N - 1)
+    paths = torch.zeros((2, 2), dtype=torch.int32, device=cuda_device)
+    out_rows = block // 128
+    before = (tdt.launches, tdt.cluster_launches)
+    got = tdt.decode_blocks(buf, ns, views, out_rows=out_rows, src_rows=src, path_counts=paths[0])
+    want = tdt.decode_blocks(buf.index_select(0, at), ns.index_select(0, at),
+                             {k: v.index_select(0, at) for k, v in views.items()},
+                             out_rows=out_rows, path_counts=paths[1])
+    torch.cuda.synchronize()
+    tall = int(tdt.cluster_ctas(out_rows) > 1)
+    assert (tdt.launches, tdt.cluster_launches) == (before[0] + 2, before[1] + 2 * tall)
+    assert tall == (batch == "cluster 256 KiB text")
+    assert torch.equal(got, want)
+    assert paths[0].tolist() == paths[1].tolist()
+    if not clipped:
+        tn, tt = tdt.table_tensors(tables, nseq, cuda_device)
+        made = tdt.decode_blocks(torch.from_numpy(rows).to(cuda_device), tn, tt,
+                                 out_rows=out_rows)
+        assert torch.equal(got, made)
 
 
 TABLE_BATCHES = {"corpus 4k": corpus_table_batch, "rle": rle_table_batch,

@@ -25,6 +25,7 @@ from bitar_tpu.ops.pallas.lz4_decode import decode_blocks as jax_decode_blocks
 from bitar_tpu_torch.ops import decode_tables as dt
 from bitar_tpu_torch.ops.cpu import native
 from bitar_tpu_torch.ops.cpu.native import SEQUENCE_KEYS
+from bitar_tpu_torch.status import StatusCode, StatusError
 from bitar_tpu_torch.utils.corpus import make_corpus, make_text_corpus
 
 torch.set_num_threads(1)
@@ -241,3 +242,69 @@ def test_path_counts_on_the_cpu_follow_the_classifier():
     dt.decode_blocks(*as_tensors(rows, tables, np.concatenate([n1, n2])), out_rows=8,
                      path_counts=paths)
     assert paths.tolist() == [6, 4]
+
+
+def source_row_batch(kind: str):
+    """numpy (rows, tables, nseq, block) for the source-row tests."""
+    if kind == "parser 4k":
+        datas = [d for seed in (3, 4) for d in blocks_of(4096, seed)]
+        return (*dt.parser_tables(datas, min_match=4)[:3], 4096)
+    rows, tables, nseq = dt.random_tables(70 + len(kind), 9, 96, 1024,
+                                          well_formed=kind == "random well-formed")
+    return rows, tables, nseq, 1024
+
+
+def resident(rows, tables, nseq, seed: int):
+    """Tensors of :func:`dt.resident_layout`: (buffer, nseq, the store's
+    tables, source rows)."""
+    buf, ns, store, src = dt.resident_layout(rows, tables, nseq, seed)
+    views = {k: torch.from_numpy(store[i]) for i, k in enumerate(SEQUENCE_KEYS)}
+    return torch.from_numpy(buf), torch.from_numpy(ns), views, torch.from_numpy(src)
+
+
+@pytest.mark.parametrize("kind", ["parser 4k", "random well-formed", "random malformed"])
+def test_plain_decode_through_source_rows_equals_gathered(kind):
+    # Blocks read through source rows, where they lie in a taller buffer
+    # and table store, equal the same rows and tables selected
+    # first and the blocks decoded where they were made; the path counts
+    # and the traced count of blocks are the picks'.
+    from bitar_tpu_torch.utils import profiling
+
+    rows, tables, nseq, block = source_row_batch(kind)
+    buf, ns, views, src = resident(rows, tables, nseq, 5)
+    paths = torch.zeros(2, dtype=torch.int32)
+    profiling.snapshot(reset=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = dt.decode_blocks(buf, ns, views, out_rows=block // 128, src_rows=src,
+                               path_counts=paths)
+    assert profiling.snapshot(reset=True) == {"decode_tables.blocks": len(src)}
+    want = dt.decode_blocks(buf.index_select(0, src), ns.index_select(0, src),
+                            {k: v.index_select(0, src) for k, v in views.items()},
+                            out_rows=block // 128)
+    assert torch.equal(got, want)
+    assert torch.equal(got, dt.decode_blocks(*as_tensors(rows, tables, nseq),
+                                             out_rows=block // 128))
+    wf = int(dt.well_formed(*as_tensors(rows, tables, nseq)[1:]).sum())
+    assert paths.tolist() == [wf, len(src) - wf]
+    if kind == "parser 4k":
+        assert wf == len(src)
+
+
+def test_source_rows_the_kernel_cannot_take_raise():
+    rows, tables, nseq, block = source_row_batch("random well-formed")
+    buf, ns, views, src = resident(rows, tables, nseq, 6)
+    bad = {
+        "not int32": dict(src_rows=src.long()),
+        "not contiguous": dict(src_rows=torch.stack([src, src], 1)[:, 0]),
+        "two dimensions": dict(src_rows=src[:, None]),
+        "another device": dict(src_rows=src.to("meta")),
+        "nseq of other rows": dict(src_rows=src, nseq=ns[:-1]),
+        "tables of other rows": dict(src_rows=src,
+                                     tables={k: v[:-1] for k, v in views.items()}),
+    }
+    for name, kw in bad.items():
+        args = dict(nseq=ns, tables=views) | kw
+        with pytest.raises(StatusError) as ei:
+            dt.decode_blocks(buf, args.pop("nseq"), args.pop("tables"),
+                             out_rows=block // 128, **args)
+        assert ei.value.status.code == StatusCode.INVALID, name

@@ -557,10 +557,12 @@ def test_slot_table_is_built_once_and_dropped_by_recycle():
         table = unit.slot_table()
         assert table.dtype == torch.int32 and table.is_contiguous()
         assert table.tolist() == [r.slot for r in unit.refs]
+        host = unit.host_slot_table()
+        assert host.dtype == np.int32 and host.tolist() == table.tolist()
         eng.decompress_device(unit)
-        assert unit.slot_table() is table
+        assert unit.slot_table() is table and unit.host_slot_table() is host
         eng.recycle(unit)
-        assert unit._slots_dev is None
+        assert unit._slots_dev is None and unit._slots_host is None
 
 
 @pytest.mark.parametrize("read", ["gathered", "in place"])

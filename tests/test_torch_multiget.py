@@ -7,10 +7,12 @@ whole-unit ``decompress_device`` planes at those rows: 4 KiB LZ4 units (the
 sequence-table path, one table store for every unit), 16 KiB units (planned,
 one flat launch a unit, read in place as on the card or gathered), a unit of
 RAW and LZ4 blocks, Zstd units (literal planes), planned and table units in
-one call, repeated picks and picks across ``burst_size`` boundaries.  Also:
-the JAX engine's whole-unit device decode at the picked rows, the errors,
-the table store's life (a recycled unit's rows go, a wider unit widens it),
-and the spans and counters.  Tolerance 0.
+one call, repeated picks and picks across ``burst_size`` boundaries; table
+units gathered (the CPU's path) and read in place through the picks' slots
+(the card's, run here through the plain version).  Also: the JAX engine's
+whole-unit device decode at the picked rows, the errors, the table store's
+life (a recycled unit's rows go, a wider unit widens it), and the spans and
+counters, gathered and in place.  Tolerance 0.
 """
 
 from pathlib import Path
@@ -92,6 +94,9 @@ CASES = {
     "zstd literal planes": (16384, btt.Codec.ZSTD, "tlrm", 12, {}),
     "duplicate picks": (4096, btt.Codec.LZ4, "tlrm", 0, {}),
     "across bursts": (4096, btt.Codec.LZ4, "tlm", 19, {"burst_size": 8}),
+    "lz4 4k tables in place": (4096, btt.Codec.LZ4, "tlrm", 24, {}),
+    "raw and lz4 unit in place": (4096, btt.Codec.LZ4, "rtrl", 16, {}),
+    "across bursts in place": (4096, btt.Codec.LZ4, "tlm", 19, {"burst_size": 8}),
 }
 
 
@@ -109,7 +114,7 @@ def test_picks_equal_raw_blocks_and_whole_unit_decode(case, monkeypatch):
     assert all((u.plan_flat is not None) == planned for u in units)
     if codec == btt.Codec.ZSTD:
         assert all(u.plan_flat["lit_planes"] for u in units)
-    if case == "raw and lz4 unit":
+    if case.startswith("raw and lz4 unit"):
         ids = units[0].manifest.codec_ids
         assert len(set(ids.tolist())) == 2
     if case == "duplicate picks":
@@ -117,7 +122,7 @@ def test_picks_equal_raw_blocks_and_whole_unit_decode(case, monkeypatch):
         bi = np.array([3, 1, 3, 0, 5, 1, 1, 3])
     else:
         ui, bi = spread_picks(units, k, 5)
-    if case == "across bursts":
+    if case.startswith("across bursts"):
         assert len(ui) > 2 * eng.config.burst_size
     check_picks(eng, units, datas, ui, bi)
     for u in units:
@@ -256,6 +261,103 @@ def test_spans_and_counters_of_a_pick(counters):
         "engine.picked_blocks": len(ui), "engine.picked_units": 2,
         "decode_tables.blocks": len(ui), "arena.gather_stored_bytes": stored,
         "arena.gather_bytes": len(ui) * eng.config.slot_size}
+    for u in units:
+        eng.recycle(u)
+    eng.release()
+
+
+def mixed_units(eng):
+    """Two planned 16 KiB units and, between them, one over the plan budget
+    (the table path): (units, their data)."""
+    datas = [unit_data(16384, 5, 1), (ROOT / "SURVEY.md").read_bytes()[:3 * 16384],
+             unit_data(16384, 5, 3)]
+    units = [eng.compress(d) for d in datas]
+    eng.ensure_plans(units[0])
+    eng._PLAN_MAX_PASSES = 8                         # the markdown blocks' plans fail
+    eng.ensure_plans(units[1])
+    eng._PLAN_MAX_PASSES = btt.Engine._PLAN_MAX_PASSES
+    eng.ensure_plans(units[2])
+    assert units[1].plan_flat is None and units[1].tables is not None
+    return units, datas
+
+
+@pytest.mark.parametrize("kind", ["table units", "planned and table units"])
+def test_picks_read_in_place_gather_nothing(kind, monkeypatch, counters):
+    # As on the card: every pick, of a table unit or a planned one, decodes
+    # where its slot lies (and a table unit's table where its store row
+    # lies); traced, no gather span or counter, and arena.inplace_blocks
+    # counts every pick.
+    monkeypatch.setattr(device_mod, "_reads_in_place", lambda device: True)
+    if kind == "table units":
+        eng = engine(4096)
+        datas = [unit_data(4096, 6 + u, 30 + u) for u in range(3)]
+        units = [eng.compress(d) for d in datas]
+    else:
+        eng = engine(16384)
+        units, datas = mixed_units(eng)
+    ui, bi = spread_picks(units, 21, 11)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        got = eng.decompress_blocks_device(units, ui, bi)
+    names = {e.name for e in prof.events() if e.name.startswith("bitar.")}
+    counted = profiling.snapshot(reset=True)
+    assert "bitar.arena.gather_burst" not in names
+    assert counted["arena.inplace_blocks"] == len(ui) == counted["engine.picked_blocks"]
+    assert not {"arena.gather_bytes", "arena.gather_stored_bytes"} & set(counted)
+    assert torch.equal(got, check_picks(eng, units, datas, ui, bi))
+    for u in units:
+        eng.recycle(u)
+    eng.release()
+
+
+def test_pick_slots_are_kept_for_the_same_units_and_dropped_by_recycle(monkeypatch):
+    # The host slot tables laid end to end are built once for a set of
+    # table units, rebuilt for another set, dropped by recycle; each unit's
+    # host slot table is its slot table's copy, dropped with it.
+    monkeypatch.setattr(device_mod, "_reads_in_place", lambda device: True)
+    eng = engine(4096)
+    datas = [unit_data(4096, 5, 40 + u, "tlm") for u in range(3)]
+    units = [eng.compress(d) for d in datas]
+    check_picks(eng, units, datas, *spread_picks(units, 9, 1))
+    kept = eng._pick_slots
+    nb = [u.nblocks for u in units]
+    assert all(a is b for a, b in zip(kept[0], units, strict=True))
+    assert kept[1].tolist() == [0, nb[0], nb[0] + nb[1]]
+    assert kept[2].tolist() == [r.slot for u in units for r in u.refs]
+    for u in units:
+        assert u.host_slot_table().tolist() == u.slot_table().tolist()
+    check_picks(eng, units, datas, *spread_picks(units, 9, 2))
+    assert eng._pick_slots is kept
+    check_picks(eng, units[1:], datas[1:], *spread_picks(units[1:], 7, 3))
+    assert eng._pick_slots is not kept
+    assert all(a is b for a, b in zip(eng._pick_slots[0], units[1:], strict=True))
+    eng.recycle(units[0])
+    assert eng._pick_slots is None and units[0]._slots_host is None
+    for u in units[1:]:
+        eng.recycle(u)
+    eng.release()
+
+
+def test_picks_find_their_slots_as_the_units_touched_change(monkeypatch):
+    # Picks find their slots whatever units a call touches: all of them, a
+    # subset in another order (the kept map built anew), and a unit made
+    # after another was recycled (in the slots that one left); each unit's
+    # host slot table is its slot table's copy, and recycle drops it.
+    monkeypatch.setattr(device_mod, "_reads_in_place", lambda device: True)
+    eng = engine(4096)
+    datas = [unit_data(4096, 5, 40 + u, "tlm") for u in range(3)]
+    units = [eng.compress(d) for d in datas]
+    check_picks(eng, units, datas, *spread_picks(units, 9, 1))
+    for u in units:
+        assert u.host_slot_table().tolist() == u.slot_table().tolist()
+        assert u.host_slot_table().tolist() == [r.slot for r in u.refs]
+    check_picks(eng, units[:0:-1], datas[:0:-1], *spread_picks(units[:0:-1], 7, 2))
+    freed = set(units[0].host_slot_table().tolist())
+    eng.recycle(units[0])
+    assert units[0]._slots_host is None and units[0]._slots_dev is None
+    datas[0] = unit_data(4096, 5, 50, "tml")
+    units[0] = eng.compress(datas[0])
+    assert set(units[0].host_slot_table().tolist()) & freed
+    check_picks(eng, units, datas, *spread_picks(units, 11, 3))
     for u in units:
         eng.recycle(u)
     eng.release()
