@@ -28,16 +28,19 @@ The paths, as in the reference package:
   ``recycle`` refills; ``initialize`` prefaults both.
 * ``decompress`` and ``decompress_device`` launch the flat decode kernel
   burst by burst (``ops/decode_flat.py``; blocks the planner rejected
-  decode on the host meanwhile).  On the card it reads each block in its
-  arena slot, through the unit's slot table (``CompressedUnit.slot_table``);
-  the CPU and Zstd units gather each burst's slots first.  Units with
+  decode on the host meanwhile).  Every flat launch of an engine (bursts,
+  block picks, ``prepare_device_decode``) takes its source from one method,
+  ``Engine._flat_source``: on the card each block where it lies in its arena
+  slot, through the unit's slot table (``CompressedUnit.slot_table``); on
+  the CPU, and for Zstd units, whose literal planes replace rows, the
+  blocks' slots gathered first (``Engine._unit_rows``).  Units with
   sequence tables gather and launch the sequence-table kernel
   (``ops/decode_tables.py``; the host re-walks the framing of slots written
   since it last looked, meanwhile).  Bursts are read back on a small thread
-  pool and land in the output as each completes.  A unit with neither
-  decodes on the host.
+  pool and land in the output as each completes (``Engine._land_bursts``).
+  A unit with neither decodes on the host.
 * ``prepare_batched_decode`` merges several planned units into one flat
-  decode launch.
+  decode launch over a copy of their rows.
 
 On a CUDA device a kernel or build failure raises: nothing falls back to the
 host or to a plain PyTorch version.  ``Engine(device="cpu")`` runs the plain
@@ -90,11 +93,17 @@ _PARSERS = {Codec.LZ4: "lz4", Codec.SNAPPY: "snappy"}
 
 
 def _reads_in_place(device: torch.device) -> bool:
-    """Whether the flat decode reads resident blocks where they lie in the
+    """Whether decode launches read resident blocks where they lie in the
     arena on ``device``: on the card.  The CPU gathers them first, under the
     gather's span and counters; its plain decode would select the rows
-    anyway."""
+    anyway.  Read only by :meth:`Engine._in_place`."""
     return device.type == "cuda"
+
+
+def _select(t: torch.Tensor, blocks: slice | torch.Tensor) -> torch.Tensor:
+    """The rows of ``t`` for ``blocks``: a slice (a view), or an int64 index
+    tensor on ``t``'s device (``index_select``)."""
+    return t[blocks] if isinstance(blocks, slice) else t.index_select(0, blocks)
 
 
 class EngineState(enum.Enum):
@@ -123,7 +132,8 @@ class EngineStats:
 class CompressedUnit:
     """A compressed buffer set: manifest + device-resident arena slots +
     the decode sidecar once ``ensure_plans`` built it: a flat plan, or
-    sequence tables when the unit cannot be planned."""
+    sequence tables when the unit cannot be planned.  Its device caches are
+    built at first use and dropped together (:meth:`_drop_device_caches`)."""
 
     manifest: BlockManifest
     refs: list[CompressedBlockRef]
@@ -144,16 +154,14 @@ class CompressedUnit:
     recycled: bool = field(default=False)
     _plan_dev: dict | None = field(default=None, repr=False)
     _table_dev: tuple | None = field(default=None, repr=False)
+    #: ``lit_device_arrays()``: (planes, block -> row map), or () for a
+    #: unit without literal planes.
     _lit_dev: tuple | None = field(default=None, repr=False)
     #: ``slot_table()``: the unit's arena slots as an int32 tensor on the
     #: engine's device, and its host copy (``host_slot_table()``).  Built at
-    #: the unit's first decode, dropped by ``recycle`` with the other device
-    #: caches.
+    #: the unit's first decode.
     _slots_dev: torch.Tensor | None = field(default=None, repr=False)
     _slots_host: np.ndarray | None = field(default=None, repr=False)
-    #: Zstd blocks' rows of ``lit_device_arrays`` by block (-1: none), an
-    #: int64 tensor on the device, for picks (``decompress_blocks_device``).
-    _lit_map_dev: torch.Tensor | None = field(default=None, repr=False)
     #: True while the unit's sequence tables sit in the engine's table store.
     _in_table_store: bool = field(default=False, repr=False)
     #: Host copy of the staged slot rows (compress/import), dropped once
@@ -183,25 +191,29 @@ class CompressedUnit:
             self._table_dev = table_tensors(self.tables, self.nseq, self.engine.device)
         return self._table_dev
 
-    def lit_device_arrays(self, width: int) -> tuple[torch.Tensor | None, dict[int, int]]:
+    def lit_device_arrays(self, width: int) -> tuple[torch.Tensor, torch.Tensor] | None:
         """The Zstd blocks' literal planes as ``[k, width]`` uint8 rows on
-        the device (zero past each plane) and the {block: row} map; they
-        replace those blocks' comp rows in every decode launch.  Uploaded
-        once, but never cached before plans exist: the planner makes them."""
+        the device (zero past each plane) and each block's row among them
+        (int64 ``[nblocks]``, -1 for a block without one); they replace
+        those blocks' comp rows in every gathered decode launch
+        (``Engine._unit_rows``).  None for a unit without literal planes.
+        Uploaded once, but never cached before plans exist: the planner
+        makes them."""
         if self._lit_dev is None:
             if self.plan_flat is None:
-                return None, {}
-            lit_planes = self.plan_flat.get("lit_planes") or {}
+                return None
+            lit_planes = self.plan_flat.get("lit_planes")
             if not lit_planes:
-                self._lit_dev = (None, {})
+                self._lit_dev = ()
             else:
                 stack = np.zeros((len(lit_planes), width), np.uint8)
-                pos = {}
+                at = np.full(self.nblocks, -1, np.int64)
                 for k, (i, lit) in enumerate(sorted(lit_planes.items())):
                     stack[k, :lit.shape[0]] = lit
-                    pos[i] = k
-                self._lit_dev = (torch.from_numpy(stack).to(self.engine.device), pos)
-        return self._lit_dev
+                    at[i] = k
+                self._lit_dev = tuple(torch.from_numpy(a).to(self.engine.device)
+                                      for a in (stack, at))
+        return self._lit_dev or None
 
     def slot_table(self) -> torch.Tensor:
         """The unit's arena slots in block order, a contiguous int32 tensor
@@ -227,19 +239,6 @@ class CompressedUnit:
             self.slot_table()
         return self._slots_host
 
-    def lit_row_map(self, width: int) -> torch.Tensor | None:
-        """Each block's row of :meth:`lit_device_arrays` (-1 for a block
-        without a literal plane) as an int64 tensor on the device, built
-        once; None for a unit without literal planes."""
-        lit_dev, lit_pos = self.lit_device_arrays(width)
-        if not lit_pos:
-            return None
-        if self._lit_map_dev is None:
-            rows = np.full(self.nblocks, -1, np.int64)
-            rows[list(lit_pos)] = list(lit_pos.values())
-            self._lit_map_dev = torch.from_numpy(rows).to(self.engine.device)
-        return self._lit_map_dev
-
     @property
     def nblocks(self) -> int:
         return self.manifest.nblocks
@@ -259,6 +258,12 @@ class CompressedUnit:
             self._staging_buf.free()
             self._staging_buf = None
 
+    def _drop_device_caches(self) -> None:
+        """Drop every cache built for decode launches: on the CPU the plan
+        tensors alias the plan grant, and the slots become another unit's."""
+        self._plan_dev = self._table_dev = self._lit_dev = None
+        self._slots_dev = self._slots_host = None
+
     def _check_live(self) -> None:
         if self.recycled:
             raise StatusError(Status.Invalid("compressed unit already recycled"))
@@ -270,6 +275,10 @@ class Engine:
     ``device``: a ``torch.device`` or string; None means ``"cuda"``.  A CUDA
     device without CUDA raises StatusError here: pass ``device="cpu"`` for
     the plain PyTorch path.
+
+    Whether a decode launch reads a unit's blocks in place or gathered is
+    decided by :meth:`_in_place` alone; every flat launch takes its source
+    from :meth:`_flat_source` and its plan rows from :meth:`_plan_rows`.
 
     The planner's host memory is process-wide, shared by every engine (the
     reference engine's discipline): ``_PLAN_CHUNK_SCRATCH`` holds each
@@ -1099,10 +1108,11 @@ class Engine:
         planes)].  ``picked``: the touched units, ``table``: which of them
         have sequence tables, ``of``: each pick's touched unit, ``bi``: its
         block.  Each pick's slot comes from the units' host slot tables
-        (:meth:`_pick_slot_map`), uploaded once a call.  On the card
-        (:func:`_reads_in_place`) each launch reads the picks' slots and
-        table-store rows where they lie, through those slots (traced, the
-        counter ``arena.inplace_blocks``); elsewhere it gathers both first."""
+        (:meth:`_pick_slot_map`), uploaded once a call.  In place
+        (:meth:`_in_place`: table units have no literal planes) each launch
+        reads the picks' slots and table-store rows where they lie, through
+        those slots (traced, the counter ``arena.inplace_blocks``);
+        elsewhere it gathers both first."""
         every = table.all()
         units = picked if every else [unit for unit, t in zip(picked, table, strict=True) if t]
         for unit in units:
@@ -1123,7 +1133,7 @@ class Engine:
             """The pick positions of the launch from pick ``s`` on."""
             return np.arange(s, min(k, s + burst)) if every else pos[s:s + burst]
 
-        if _reads_in_place(self.device):
+        if self._in_place(units[0]):
             profiling.count("arena.inplace_blocks", k)
             return [(at(s), decode_blocks(self.arena.buffer, nseq, self._table_views,
                                           out_rows=nrows, src_rows=src[s:s + burst]))
@@ -1161,27 +1171,12 @@ class Engine:
     def _planned_picks(self, unit: CompressedUnit, pos: np.ndarray, blocks: np.ndarray,
                        nrows: int) -> tuple[np.ndarray, torch.Tensor]:
         """One flat-kernel launch over a planned unit's picks ``blocks``:
-        (pick positions, planes).  As in :meth:`_planned_bursts`, on the card
-        it reads the slots in place (the counter ``arena.inplace_blocks``),
-        elsewhere and for Zstd units it gathers them first."""
+        (pick positions, planes), its source from :meth:`_flat_source`."""
         idx = torch.from_numpy(blocks).to(self.device)
-        pt = unit.plan_device_arrays()
-        plans = dict(pt)
-        for key in _BLOCK_KEYS:
-            plans[key] = pt[key].index_select(0, idx)
-        src = unit.slot_table().index_select(0, idx)
-        kw = dict(comp_rows=unit.plan_comp_rows, out_rows=nrows)
-        if _reads_in_place(self.device) and not unit.plan_flat.get("lit_planes"):
-            profiling.count("arena.inplace_blocks", blocks.size)
-            return pos, decode_blocks_flat(self.arena.buffer, plans, src_rows=src, **kw)
-        rows = self._gather_slots(src, lambda: int(unit.manifest.comp_len[blocks].sum()))
-        lit_rows = unit.lit_row_map(rows.shape[1])
-        if lit_rows is not None:
-            lit = lit_rows.index_select(0, idx)
-            lit_dev = unit.lit_device_arrays(rows.shape[1])[0]
-            rows = torch.where((lit >= 0)[:, None], lit_dev.index_select(0, lit.clamp(min=0)),
-                               rows)
-        return pos, decode_blocks_flat(rows, plans, **kw)
+        comp, src = self._flat_source(unit, idx)
+        return pos, decode_blocks_flat(comp, self._plan_rows(unit.plan_device_arrays(), idx),
+                                       comp_rows=unit.plan_comp_rows, out_rows=nrows,
+                                       src_rows=src)
 
     def _table_store_enter(self, unit: CompressedUnit) -> None:
         """Put a sequence-table unit's tables into the engine's table store,
@@ -1213,41 +1208,36 @@ class Engine:
         unit._in_table_store = True
 
     def _decode_bursts(self, unit: CompressedUnit, on_burst=None):
-        """Launch the sequence-table decode kernel burst by burst.
-
-        Returns [(start, stop, device result [stop - start, nrows, 128])],
-        launches already queued.  The tables upload once per unit."""
-        cfg = self.config
-        self._ensure_committed(unit)
-        nrows = cfg.block_size // LANES
+        """Launch the sequence-table decode kernel burst by burst
+        (:meth:`_launch_bursts`) over gathered rows.  The tables upload
+        once per unit."""
+        nrows = self.config.block_size // LANES
         nseq, cols = unit.table_device_arrays()
+        return self._launch_bursts(unit, on_burst, lambda blocks: decode_blocks(
+            self._unit_rows(unit, blocks), nseq[blocks],
+            {k: v[blocks] for k, v in cols.items()}, out_rows=nrows))
+
+    def _launch_bursts(self, unit: CompressedUnit, on_burst, launch):
+        """Queue ``launch(blocks)`` for each burst of ``unit`` (a slice of up
+        to ``burst_size`` blocks) on the current stream, behind the unit's
+        commit: [(start, stop, device result [stop - start, nrows, 128])].
+        ``on_burst(k)``, when given, is called right after burst k's launch."""
+        self._ensure_committed(unit)
         launches = []
-        for start in range(0, unit.nblocks, cfg.burst_size):
-            stop = min(unit.nblocks, start + cfg.burst_size)
-            rows = self._gather(unit, range(start, stop))
-            result = decode_blocks(rows, nseq[start:stop],
-                                   {k: v[start:stop] for k, v in cols.items()},
-                                   out_rows=nrows)
-            launches.append((start, stop, result))
+        for start in range(0, unit.nblocks, self.config.burst_size):
+            stop = min(unit.nblocks, start + self.config.burst_size)
+            launches.append((start, stop, launch(slice(start, stop))))
             self.stats.enqueued_blocks += stop - start
             if on_burst is not None:
                 on_burst(len(launches) - 1)
         return launches
 
-    def _gather(self, unit: CompressedUnit, idx: range) -> torch.Tensor:
-        """The arena slots of blocks ``idx`` (``DeviceArena.gather_burst``,
-        through the unit's slot table).  Traced, the span
+    def _gather_slots(self, slots: torch.Tensor, stored_bytes) -> torch.Tensor:
+        """The arena rows of ``slots`` (an integer tensor on the device),
+        ``DeviceArena.gather_burst``.  Traced, the span
         ``bitar.arena.gather_burst`` and the counters ``arena.gather_bytes``
         (whole slots) and ``arena.gather_stored_bytes`` (the blocks' stored
-        bytes, summed over a slice of ``comp_len``: indexing it by the
-        range's ints instead costs ~0.1 ms a 1024-block burst)."""
-        return self._gather_slots(unit.slot_table()[idx.start:idx.stop],
-                                  lambda: int(unit.manifest.comp_len[idx.start:idx.stop].sum()))
-
-    def _gather_slots(self, slots: torch.Tensor, stored_bytes) -> torch.Tensor:
-        """The arena rows of ``slots`` (an integer tensor on the device), under
-        the gather's span and counters; ``stored_bytes()`` gives the blocks'
-        stored bytes, asked only while tracing."""
+        bytes: ``stored_bytes()``, asked only while tracing)."""
         with profiling.annotate("bitar.arena.gather_burst"):
             rows = self.arena.gather_burst(slots)
         if profiling.enabled():
@@ -1255,64 +1245,73 @@ class Engine:
             profiling.count("arena.gather_stored_bytes", stored_bytes())
         return rows
 
-    def _unit_rows(self, unit: CompressedUnit, idx: range) -> torch.Tensor:
-        """The arena rows of blocks ``idx``, with Zstd blocks' literal
-        planes in place of their compressed bytes."""
-        rows = self._gather(unit, idx)
-        lit_dev, lit_pos = unit.lit_device_arrays(rows.shape[1])
-        if not lit_pos:
+    def _in_place(self, unit: CompressedUnit) -> bool:
+        """Whether decode launches read ``unit``'s blocks where they lie in
+        the arena (:func:`_reads_in_place`: on the card) rather than
+        gathered: not when Zstd literal planes replace some of its rows."""
+        return _reads_in_place(self.device) and not (unit.plan_flat or {}).get("lit_planes")
+
+    def _flat_source(self, unit: CompressedUnit, blocks: slice | torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """``(comp, src_rows)`` of a flat-kernel launch over ``blocks`` of
+        ``unit`` (see :func:`_select`).  In place (:meth:`_in_place`): the
+        arena's buffer and the blocks' rows of the unit's slot table (a view
+        for a slice), traced as the counter ``arena.inplace_blocks``.
+        Otherwise the gathered rows of :meth:`_unit_rows`, and None."""
+        if self._in_place(unit):
+            src = _select(unit.slot_table(), blocks)
+            profiling.count("arena.inplace_blocks", src.shape[0])
+            return self.arena.buffer, src
+        return self._unit_rows(unit, blocks), None
+
+    def _unit_rows(self, unit: CompressedUnit, blocks: slice | torch.Tensor) -> torch.Tensor:
+        """The arena rows of ``blocks`` of ``unit`` (see :func:`_select`),
+        gathered through its slot table (:meth:`_gather_slots`), with Zstd
+        blocks' literal planes in place of their compressed bytes."""
+        def stored_bytes() -> int:
+            # A slice of comp_len: indexing it by a burst's ints instead
+            # costs ~0.1 ms a 1024-block burst.
+            at = blocks if isinstance(blocks, slice) else blocks.cpu().numpy()
+            return int(unit.manifest.comp_len[at].sum())
+
+        rows = self._gather_slots(_select(unit.slot_table(), blocks), stored_bytes)
+        lit = unit.lit_device_arrays(rows.shape[1])
+        if lit is None:
             return rows
-        js = [j for j, i in enumerate(idx) if i in lit_pos]
-        if js:
-            ks = torch.tensor([lit_pos[idx[j]] for j in js], device=rows.device)
-            rows[torch.tensor(js, device=rows.device)] = lit_dev[ks]
-        return rows
+        planes, at = lit[0], _select(lit[1], blocks)
+        return torch.where((at >= 0)[:, None], planes.index_select(0, at.clamp(min=0)), rows)
+
+    @staticmethod
+    def _plan_rows(pt: dict[str, torch.Tensor], blocks: slice | torch.Tensor) -> dict:
+        """A unit's plan wire ``pt`` narrowed to ``blocks`` (see :func:`_select`)."""
+        plans = dict(pt)
+        for key in _BLOCK_KEYS:
+            plans[key] = _select(pt[key], blocks)
+        return plans
 
     def _planned_bursts(self, unit: CompressedUnit, on_burst=None):
-        """Launch the flat decode kernel burst by burst.
-
-        Returns [(start, stop, device result [stop - start, nrows, 128])],
-        launches already queued on the device.  The unit's plan and slot
-        table upload once.  On the card (:func:`_reads_in_place`), for a
-        unit without Zstd literal planes (those replace rows), each burst's
-        launch reads its blocks where they lie in the arena, through its
-        slice of the slot table (traced, the counter
-        ``arena.inplace_blocks``); otherwise the burst's slots are gathered
-        first (:meth:`_unit_rows`).
-        Either way the launch is queued on the current stream behind the
-        unit's commit."""
-        cfg = self.config
-        self._ensure_committed(unit)
-        nrows = cfg.block_size // LANES
+        """Launch the flat decode kernel burst by burst
+        (:meth:`_launch_bursts`), each launch's source from
+        :meth:`_flat_source`.  The unit's plan and slot table upload once."""
+        nrows = self.config.block_size // LANES
         pt = unit.plan_device_arrays()
-        slots = unit.slot_table()
-        in_place = _reads_in_place(self.device) and not unit.plan_flat.get("lit_planes")
-        launches = []
-        for start in range(0, unit.nblocks, cfg.burst_size):
-            stop = min(unit.nblocks, start + cfg.burst_size)
-            burst = dict(pt)
-            for k in _BLOCK_KEYS:
-                burst[k] = pt[k][start:stop]
-            if in_place:
-                profiling.count("arena.inplace_blocks", stop - start)
-                result = decode_blocks_flat(self.arena.buffer, burst,
-                                            comp_rows=unit.plan_comp_rows, out_rows=nrows,
-                                            src_rows=slots[start:stop])
-            else:
-                result = decode_blocks_flat(self._unit_rows(unit, range(start, stop)), burst,
-                                            comp_rows=unit.plan_comp_rows, out_rows=nrows)
-            launches.append((start, stop, result))
-            self.stats.enqueued_blocks += stop - start
-            if on_burst is not None:
-                on_burst(len(launches) - 1)
-        return launches
+
+        def launch(blocks: slice) -> torch.Tensor:
+            comp, src = self._flat_source(unit, blocks)
+            return decode_blocks_flat(comp, self._plan_rows(pt, blocks),
+                                      comp_rows=unit.plan_comp_rows, out_rows=nrows,
+                                      src_rows=src)
+
+        return self._launch_bursts(unit, on_burst, launch)
 
     def prepare_device_decode(self, unit: CompressedUnit):
         """Stage a fully-planned unit for repeated device-resident decode.
 
         Returns a zero-argument ``launch``: each call runs ONE whole-unit
         decode on inputs staged here and returns the [nblocks, nrows, 128]
-        uint8 device tensor, with no host transfer."""
+        uint8 device tensor, with no host transfer.  Its source comes from
+        :meth:`_flat_source`: in place, each launch reads the unit's slots
+        in the arena as they are then; otherwise from rows gathered here."""
         self._entry_guard()
         unit._check_live()
         self.ensure_plans(unit)
@@ -1322,11 +1321,12 @@ class Engine:
         self._ensure_committed(unit)
         nrows = self.config.block_size // LANES
         comp_rows = unit.plan_comp_rows
-        rows = self._unit_rows(unit, range(unit.nblocks))
+        comp, src = self._flat_source(unit, slice(0, unit.nblocks))
         pt = unit.plan_device_arrays()
 
         def launch() -> torch.Tensor:
-            return decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nrows)
+            return decode_blocks_flat(comp, pt, comp_rows=comp_rows, out_rows=nrows,
+                                      src_rows=src)
 
         return launch
 
@@ -1339,55 +1339,50 @@ class Engine:
         launches = self._planned_bursts(unit)
         self.stats.device_decode_bursts += len(launches)
         host_blocks = unit.plan_flat["host_blocks"]
-        host_set = set(host_blocks.tolist())
-        if host_set:
+        if host_blocks.size:
             self._decompress_host_subset(unit, out, host_blocks.astype(np.int64), status)
-        raw_off, raw_len = m.raw_off, m.raw_len
-        # Out-of-order completion (the reference engine's): each burst lands
-        # in ``out`` as its readback completes; the regions are disjoint.
-        with concurrent.futures.ThreadPoolExecutor(2) as ex:
-            pending = self._read_bursts(ex, launches)
-            for done in concurrent.futures.as_completed(pending):
-                start, stop = pending[done]
-                host = done.result().reshape(stop - start, -1)
-                with profiling.annotate("bitar.engine.copy_out"):
-                    for i in range(start, stop):
-                        if i in host_set:
-                            continue
-                        o, ln = int(raw_off[i]), int(raw_len[i])
-                        out[o:o + ln] = host[i - start, :ln]
-                if profiling.enabled():
-                    skipped = sum(int(raw_len[i]) for i in host_set if start <= i < stop)
-                    profiling.count("engine.copy_out_bytes",
-                                    int(raw_len[start:stop].sum()) - skipped)
-                self.stats.dequeued_blocks += stop - start
+        self._land_bursts(unit, out, launches, skip=set(host_blocks.tolist()))
         return status
 
     def _decompress_gpu_tables(self, unit: CompressedUnit, out: np.ndarray) -> np.ndarray:
         """Sequence-table device decode.  While the launches run, the host
         re-walks the framing of every slot written since the last walk
         (``_validate_table_unit``), so the status stays real per block."""
-        m = unit.manifest
-        status = np.zeros(m.nblocks, np.int32)
+        status = np.zeros(unit.nblocks, np.int32)
         launches = self._decode_bursts(unit)
         self.stats.device_decode_bursts += len(launches)
-        raw_off = m.raw_off
-        # The validator and two readbacks; bursts land as they complete.
-        with concurrent.futures.ThreadPoolExecutor(3) as ex:
-            vfut = ex.submit(self._validate_table_unit, unit, status)
+        self._land_bursts(unit, out, launches,
+                          validate=lambda: self._validate_table_unit(unit, status))
+        return status
+
+    def _land_bursts(self, unit: CompressedUnit, out: np.ndarray, launches,
+                     skip: set = frozenset(), validate=None) -> None:
+        """Read the launched bursts back on a pool of two threads and land
+        each in ``out`` as its readback completes (out of order, as the
+        reference engine: the regions are disjoint), leaving the blocks in
+        ``skip`` as they are.  ``validate``, when given, runs on a third
+        thread meanwhile and is joined last.  Traced, the span
+        ``bitar.engine.copy_out`` and the counter ``engine.copy_out_bytes``
+        for each burst."""
+        raw_off, raw_len = unit.manifest.raw_off, unit.manifest.raw_len
+        with concurrent.futures.ThreadPoolExecutor(2 + (validate is not None)) as ex:
+            vfut = ex.submit(validate) if validate is not None else None
             pending = self._read_bursts(ex, launches)
             for done in concurrent.futures.as_completed(pending):
                 start, stop = pending[done]
                 host = done.result().reshape(stop - start, -1)
                 with profiling.annotate("bitar.engine.copy_out"):
                     for i in range(start, stop):
-                        o, ln = int(raw_off[i]), int(m.raw_len[i])
-                        out[o:o + ln] = host[i - start, :ln]
+                        if i not in skip:
+                            o, ln = int(raw_off[i]), int(raw_len[i])
+                            out[o:o + ln] = host[i - start, :ln]
                 if profiling.enabled():
-                    profiling.count("engine.copy_out_bytes", int(m.raw_len[start:stop].sum()))
+                    skipped = sum(int(raw_len[i]) for i in skip if start <= i < stop)
+                    profiling.count("engine.copy_out_bytes",
+                                    int(raw_len[start:stop].sum()) - skipped)
                 self.stats.dequeued_blocks += stop - start
-            vfut.result()
-        return status
+            if vfut is not None:
+                vfut.result()
 
     def _read_bursts(self, pool: concurrent.futures.Executor, launches
                      ) -> dict[concurrent.futures.Future, tuple[int, int]]:
@@ -1547,9 +1542,7 @@ class Engine:
             cols.index_fill_(1, slots, 0)
             unit._in_table_store = False
         self._pick_slots = None
-        # On the CPU the plan tensors alias the grant just returned.
-        unit._plan_dev = unit._table_dev = unit._lit_dev = unit._slots_dev = None
-        unit._slots_host = unit._lit_map_dev = None
+        unit._drop_device_caches()
         unit._drop_staging()
         unit.recycled = True
         return count
@@ -1614,11 +1607,12 @@ def prepare_batched_decode(items):
     merged.update(se=se, shift=sh)
     pt = plan_tensors(merged, eng0.device)
 
-    # Every unit's rows once, Zstd literal planes in place, padded to one width.
+    # Every unit's rows once, Zstd literal planes in place, padded to one
+    # width: a copy, since the units may lie in several engines' arenas.
     row_parts, slices = [], []
     start = 0
     for eng, unit in items:
-        row_parts.append(eng._unit_rows(unit, range(unit.nblocks)))
+        row_parts.append(eng._unit_rows(unit, slice(0, unit.nblocks)))
         slices.append((start, start + unit.nblocks))
         start += unit.nblocks
     width = max(r.shape[1] for r in row_parts)

@@ -2254,7 +2254,7 @@ def main() -> int:
     # B1 as the engine launches it on a resident unit: in place, through
     # the slot table over the arena; the plain version on the rows the table
     # selects, gathered outside its window.  The held time of the launch on
-    # those gathered rows (as the shuffle's and prepare_device_decode's)
+    # those gathered rows (as the shuffle's and prepare_batched_decode's)
     # beside it.
     rows, table, pt, comp_rows, comp_len, _ = batches["bench"]
     nblk = table.numel()

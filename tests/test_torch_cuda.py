@@ -1448,6 +1448,33 @@ def test_traced_decompress_device_reads_in_place_on_card(codec, cuda_device):
         eng.recycle(unit)
 
 
+def test_prepare_device_decode_reads_in_place_on_card(cuda_device):
+    # prepare_device_decode takes its source where the bursts do: the
+    # unit's slots in the arena, read in place; traced, nothing gathered.
+    from bitar_tpu_torch.utils import profiling
+
+    data = make_corpus(5)[:40 * 16 * 1024]
+    cfg = btt.EngineConfig(codec=btt.Codec.LZ4, block_size=16 * 1024, burst_size=16,
+                           max_pool_slots=64)
+    with btt.Engine(cfg, device=cuda_device) as eng:
+        unit = eng.compress(data)
+        eng.ensure_plans(unit)
+        assert unit.plan_flat["host_blocks"].size == 0
+        profiling.snapshot(reset=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]):
+            planes = eng.prepare_device_decode(unit)()
+            torch.cuda.synchronize()
+        counted = profiling.snapshot(reset=True)
+        assert counted["arena.inplace_blocks"] == counted["decode_flat.blocks"] == unit.nblocks
+        assert not {"arena.gather_bytes", "arena.gather_stored_bytes"} & set(counted)
+        assert torch.equal(planes, torch.cat(eng.decompress_device(unit)))
+        host = planes.reshape(unit.nblocks, -1).cpu().numpy()
+        assert b"".join(host[i, :int(n)].tobytes()
+                        for i, n in enumerate(unit.manifest.raw_len)) == data
+        eng.recycle(unit)
+
+
 def test_decode_flat_launch_past_2gib_of_output(cuda_device):
     # ~2100 x 1 MiB of RLE and RAW blocks in one launch: 2.2 GB of output,
     # so every block base past 2^31 bytes must be 64-bit.

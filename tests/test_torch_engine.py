@@ -22,6 +22,7 @@ from bitar_tpu.engine.device import prepare_batched_decode as jax_batched
 from bitar_tpu_torch.engine import device as device_mod
 from bitar_tpu_torch.interop import SCRATCH_PLAN_KEYS, TPU_ONLY_PLAN_KEYS
 from bitar_tpu_torch.ops.cpu.native import SEQUENCE_KEYS
+from bitar_tpu_torch.utils import profiling
 
 # Test files run in several worker processes at once: a single intra-op
 # thread keeps torch's CPU pool from oversubscribing the cores (the
@@ -601,20 +602,84 @@ def test_zstd_unit_with_literal_planes_gathers_where_others_read_in_place(monkey
     with btt.Engine(btt.EngineConfig(**cfg_kw(), codec=btt.Codec.ZSTD), device="cpu") as zeng, \
             btt.Engine(btt.EngineConfig(**cfg_kw()), device="cpu") as leng:
         read_in_place_on_cpu(monkeypatch)
-        rows_calls = []
-        for eng in (zeng, leng):
-            unit_rows = eng._unit_rows
-            monkeypatch.setattr(eng, "_unit_rows", lambda u, idx, f=unit_rows: (
-                rows_calls.append(u.engine), f(u, idx))[1])
         zu, lu = zeng.compress(data), leng.compress(data)
         zeng.ensure_plans(zu)
         assert zu.plan_flat["lit_planes"]
         bursts, counted = traced_decode(zeng, zu)
         assert planes_bytes(bursts, zu) == data
-        assert rows_calls == [zeng] * len(bursts) and "arena.inplace_blocks" not in counted
+        assert "arena.inplace_blocks" not in counted
+        assert counted["arena.gather_bytes"] == zu.nblocks * zeng.config.slot_size
         bursts, counted = traced_decode(leng, lu)
         assert planes_bytes(bursts, lu) == data
-        assert rows_calls == [zeng] * len(bursts)                 # the LZ4 unit gathered nothing
         assert counted["arena.inplace_blocks"] == lu.nblocks
+        assert "arena.gather_bytes" not in counted                # the LZ4 unit gathered nothing
         zeng.recycle(zu)
         leng.recycle(lu)
+
+
+#: Every caller of the flat kernel: the unit's planes in block order.
+FLAT_CALLERS = {
+    "decompress_device": lambda eng, unit: torch.cat(eng.decompress_device(unit)),
+    "decompress_blocks_device": lambda eng, unit: eng.decompress_blocks_device(
+        [unit], np.zeros(unit.nblocks, np.int64), np.arange(unit.nblocks)[::-1].copy()).flip(0),
+    "prepare_device_decode": lambda eng, unit: eng.prepare_device_decode(unit)(),
+}
+
+
+@pytest.mark.parametrize("codec", ["lz4", "zstd"])
+@pytest.mark.parametrize("caller", sorted(FLAT_CALLERS))
+def test_every_flat_launch_reads_through_one_source(caller, codec, monkeypatch):
+    # Read in place as on the card, each caller's launches read an LZ4
+    # unit's every block in place and gather nothing; a Zstd unit, whose
+    # literal planes replace rows, is gathered whole.
+    read_in_place_on_cpu(monkeypatch)
+    data = make_data(44)
+    with btt.Engine(btt.EngineConfig(**cfg_kw(), codec=btt.Codec(codec)), device="cpu") as eng:
+        unit = eng.compress(data)
+        eng.ensure_plans(unit)
+        assert bool(unit.plan_flat.get("lit_planes")) == (codec == "zstd")
+        profiling.snapshot(reset=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            planes = FLAT_CALLERS[caller](eng, unit)
+        counted = profiling.snapshot(reset=True)
+        assert planes_bytes([planes], unit) == data
+        assert counted["decode_flat.blocks"] == unit.nblocks
+        gathered = {"arena.gather_bytes", "arena.gather_stored_bytes"} & set(counted)
+        if codec == "lz4":
+            assert counted["arena.inplace_blocks"] == unit.nblocks and not gathered
+        else:
+            assert "arena.inplace_blocks" not in counted
+            assert counted["arena.gather_bytes"] == unit.nblocks * eng.config.slot_size
+            assert counted["arena.gather_stored_bytes"] == int(unit.manifest.comp_len.sum())
+        eng.recycle(unit)
+
+
+def test_literal_plane_substitution_agrees_across_paths():
+    # A Zstd unit with RAW blocks among its Zstd blocks (rows of -1 in the
+    # literal-plane map), a burst of RAW blocks alone among them: bursts,
+    # duplicate and reversed picks and prepare_device_decode give the same
+    # planes, and each plane holds what decompress gives for its block.
+    rng = np.random.default_rng(45)
+    text = make_data(45)
+    blocks = [text[i * BLOCK:(i + 1) * BLOCK] for i in range(6)]
+    rand = [rng.integers(0, 256, BLOCK, np.uint8).tobytes() for _ in range(5)]
+    data = b"".join([blocks[0], rand[0], blocks[1], *rand[1:4], blocks[4], blocks[5], rand[4],
+                     b"tail " * 40])
+    cfg = btt.EngineConfig(**cfg_kw(burst_size=3), codec=btt.Codec.ZSTD)
+    with btt.Engine(cfg, device="cpu") as eng:
+        unit = eng.compress(data)
+        eng.ensure_plans(unit)
+        at = unit.lit_device_arrays(eng.arena.buffer.shape[1])[1]
+        assert at[[1, 3, 4, 5, 8]].tolist() == [-1] * 5 and (at >= 0).sum() >= 4
+        raw = eng.decompress(unit).tobytes()
+        assert raw == data
+        planes = torch.cat(eng.decompress_device(unit))
+        off, lens = unit.manifest.raw_off, unit.manifest.raw_len
+        for i in range(unit.nblocks):
+            assert planes[i].reshape(-1)[:int(lens[i])].numpy().tobytes() == \
+                raw[int(off[i]):int(off[i]) + int(lens[i])], i
+        bi = np.concatenate([np.arange(unit.nblocks)[::-1], [1, 6, 6, 3, 0, 1]])
+        picked = eng.decompress_blocks_device([unit], np.zeros(bi.size, np.int64), bi)
+        assert torch.equal(picked, planes[torch.from_numpy(bi)])
+        assert torch.equal(eng.prepare_device_decode(unit)(), planes)
+        eng.recycle(unit)
