@@ -101,6 +101,7 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cstdint>
 
 #include "cuda_util.cuh"
@@ -693,14 +694,47 @@ extern "C" int bt_decode_flat_cluster_ctas(int out_rows) {
 
 namespace {
 
-// The launch of the cluster kernel for planes of out_rows: its grid, block,
-// shared memory and cluster size (ctas > 1); `clusters` gets how many such
-// clusters can be resident at once.  Returns the CUDA error code.
-cudaError_t cluster_config(int out_rows, cudaStream_t stream, cudaLaunchConfig_t* cfg,
-                           cudaLaunchAttribute* attr, int* clusters) {
-  const int smem = kSliceRows * kLanes + 16 + 2 * kSliceRows * 6;
-  cudaError_t err = bt::smem_opt_in(decode_flat_kernel_cluster, bt::kSmemMax);
-  if (err != cudaSuccess) return err;
+constexpr int kHeights = kSliceRows / kLanes;   // plane heights of the shared route: 8
+constexpr int kCachedDevices = 64;
+
+// Dynamic shared memory of the shared kernel for planes of out_rows (the
+// plane, the queue slots, two passes' cells: int32 shift, int16 se) and of
+// the cluster kernel (a 1024-row slice of the plane, the same).
+constexpr int shared_smem(int out_rows) { return out_rows * kLanes + 16 + 2 * out_rows * 6; }
+constexpr int kClusterSmem = shared_smem(kSliceRows);
+
+// What the card answers the same on every launch of the process, per
+// device: its SM count, the resident CTAs per SM of the shared kernel at
+// each plane height and of the slice kernel, and the cluster kernel's
+// resident clusters at each cluster size.  Each is asked once (with the
+// kernel's shared-memory opt-in before it) and kept as value + 1, so 0 is
+// "not asked yet"; two threads that ask at once keep the same answer.
+struct DeviceShape {
+  std::atomic<int> sms;
+  std::atomic<int> shared_per_sm[kHeights + 1];     // by out_rows / 128
+  std::atomic<int> slices_per_sm;
+  std::atomic<int> clusters[kMaxCluster + 1];       // by cluster CTAs
+};
+DeviceShape g_shapes[kCachedDevices];               // static: zero, nothing asked
+
+// The kept answer of `slot`, else `ask(&value)`'s (a CUDA call on the
+// current device), kept when it succeeds.
+template <typename Ask>
+cudaError_t kept(std::atomic<int>& slot, int* value, Ask ask) {
+  const int v = slot.load(std::memory_order_relaxed);
+  if (v > 0) {
+    *value = v - 1;
+    return cudaSuccess;
+  }
+  const cudaError_t err = ask(value);
+  if (err == cudaSuccess) slot.store(*value + 1, std::memory_order_relaxed);
+  return err;
+}
+
+// The cluster kernel's launch for planes of out_rows on `stream`: grid (one
+// cluster; the caller sets how many), block, shared memory, cluster size.
+void cluster_launch(int out_rows, cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                    cudaLaunchAttribute* attr) {
   *cfg = {};
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = bt_decode_flat_cluster_ctas(out_rows);
@@ -708,12 +742,35 @@ cudaError_t cluster_config(int out_rows, cudaStream_t stream, cudaLaunchConfig_t
   attr->val.clusterDim.z = 1;
   cfg->gridDim = dim3(attr->val.clusterDim.x);
   cfg->blockDim = dim3(kThreads);
-  cfg->dynamicSmemBytes = smem;
+  cfg->dynamicSmemBytes = kClusterSmem;
   cfg->stream = stream;
   cfg->attrs = attr;
   cfg->numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(clusters, decode_flat_kernel_cluster, cfg);
 }
+
+// Clusters of the cluster kernel for planes of out_rows (2 or more CTAs)
+// that can be resident at once on the current device, `shape`'s.
+cudaError_t resident_clusters(DeviceShape& shape, int out_rows, int* clusters) {
+  return kept(shape.clusters[bt_decode_flat_cluster_ctas(out_rows)], clusters, [&](int* v) {
+    cudaError_t err = bt::smem_opt_in(decode_flat_kernel_cluster, bt::kSmemMax);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_launch(out_rows, nullptr, &cfg, &attr);
+    return cudaOccupancyMaxActiveClusters(v, decode_flat_kernel_cluster, &cfg);
+  });
+}
+
+// A launch settled but for its output, block queue, list and stream: the
+// kernels' arguments and grids, on one device.  Made by
+// bt_decode_flat_prepare into a buffer of bt_decode_flat_launch_bytes()
+// that the caller owns, launched by bt_decode_flat_run as often as wanted.
+struct Launch {
+  Args a;                 // out, queue and list are the run's
+  int device;
+  int grid;               // the shared kernel's CTAs, or the slice kernel's
+  int cluster_grid;       // the cluster kernel's CTAs (tall route)
+};
 
 }  // namespace
 
@@ -722,40 +779,41 @@ cudaError_t cluster_config(int out_rows, cudaStream_t stream, cudaLaunchConfig_t
 // negative CUDA error code.
 extern "C" int bt_decode_flat_resident_clusters(int out_rows) {
   if (bt_decode_flat_cluster_ctas(out_rows) < 2) return -static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  int clusters = 0;
-  const cudaError_t err = cluster_config(out_rows, nullptr, &cfg, &attr, &clusters);
+  int dev = 0, clusters = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  DeviceShape scratch{};
+  if (err == cudaSuccess)
+    err = resident_clusters(dev < kCachedDevices ? g_shapes[dev] : scratch, out_rows, &clusters);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
-// Launches the kernels on `stream`; returns the CUDA error code (0 on
-// success), also when the card refuses the cluster launch.  Block b reads
+extern "C" int bt_decode_flat_launch_bytes() { return static_cast<int>(sizeof(Launch)); }
+
+// Settles a launch on `device` into `record` (bt_decode_flat_launch_bytes()
+// bytes, 8-byte aligned): checks the arguments, fills the kernels'
+// arguments and sizes the grids from the device's kept shape.  Block b reads
 // comp row b, or with `src_row` (n ints) row src_row[b] of the comp_n rows
 // (clipped to them), so blocks resident in a larger buffer decode where
 // they lie.  Planes of up to 1024 rows: the shared route's persistent CTAs,
 // as many as can be resident, at most n.  Taller planes: the slice kernel on
 // every SM, then the cluster kernel, as many clusters as can be resident, at
-// most n.  Pointers are device pointers; the caller allocates `out`, on the
-// tall route `list` (n ints), and `queue` (three ints), which must be 0 and
-// is 0 again when the launch ends (so launches that share a queue must run
-// in turn, as on one stream).
-extern "C" int bt_decode_flat_launch(
-    const void* comp, long long comp_stride, int comp_width, int comp_rows,
+// most n.  Pointers are device pointers; `dq` is 8-byte aligned.  Returns
+// the CUDA error code (0 on success).
+extern "C" int bt_decode_flat_prepare(
+    void* record, const void* comp, long long comp_stride, int comp_width, int comp_rows,
     const void* p_used, const void* p_off, const void* p0, const void* dense,
     const void* dq_idx, const void* se, const void* shift, long long s_rows,
-    const void* dq, int dq_rows, const void* row_a, int dcap, void* out, int n,
-    int out_rows, void* queue, void* list, const void* src_row, long long comp_n,
-    void* stream) {
+    const void* dq, int dq_rows, const void* row_a, int dcap, int n, int out_rows,
+    const void* src_row, long long comp_n, int device) {
   const int ctas = bt_decode_flat_cluster_ctas(out_rows);
-  if (ctas == 0 || out_rows % kLanes != 0 ||
+  if (ctas == 0 || out_rows % kLanes != 0 || device < 0 ||
       comp_rows <= 0 || comp_rows > (1 << 24) || dcap <= 0 || n < 0 ||
-      (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
-      (reinterpret_cast<uintptr_t>(dq) & 7) != 0 || (ctas > 1 && list == nullptr) ||
+      (reinterpret_cast<uintptr_t>(dq) & 7) != 0 ||
       (src_row != nullptr && (comp_n <= 0 || comp_n > INT32_MAX)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  Args a;
+  Launch& l = *static_cast<Launch*>(record);
+  l = {};
+  Args& a = l.a;
   a.comp = static_cast<const uint8_t*>(comp);
   a.comp_stride = comp_stride;
   a.src_row = static_cast<const int32_t*>(src_row);
@@ -774,46 +832,101 @@ extern "C" int bt_decode_flat_launch(
   a.dq_rows = dq_rows;
   a.row_a = static_cast<const int32_t*>(row_a);
   a.dcap = dcap;
-  a.out = static_cast<uint8_t*>(out);
   a.out_rows = out_rows;
   a.n = n;
+  a.parts = 1;
+  l.device = device;
+  if (n == 0) return 0;
+  int previous = 0, sms = 0, per_sm = 0;
+  cudaError_t err = bt::enter_device(device, &previous);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  DeviceShape scratch{};
+  DeviceShape& shape = device < kCachedDevices ? g_shapes[device] : scratch;
+  err = kept(shape.sms, &sms, [&](int* v) {
+    return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, device);
+  });
+  if (err == cudaSuccess && ctas == 1) {
+    err = kept(shape.shared_per_sm[out_rows / kLanes], &per_sm, [&](int* v) {
+      const cudaError_t e = bt::smem_opt_in(decode_flat_kernel_shared, bt::kSmemMax);
+      return e != cudaSuccess ? e : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          v, decode_flat_kernel_shared, kThreads, shared_smem(out_rows));
+    });
+    l.grid = per_sm < 1 ? 1 : (n < per_sm * sms ? n : per_sm * sms);
+  } else if (err == cudaSuccess) {
+    int clusters = 0;
+    err = kept(shape.slices_per_sm, &per_sm, [&](int* v) {
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(v, decode_flat_kernel_slices,
+                                                           kThreads, 0);
+    });
+    if (err == cudaSuccess) err = resident_clusters(shape, out_rows, &clusters);
+    if (err == cudaSuccess && clusters < 1) err = cudaErrorLaunchOutOfResources;
+    const int ctas_on_card = per_sm < 1 ? 1 : per_sm * sms;
+    a.parts = std::max(1, std::min(ctas, ctas_on_card / n));
+    l.grid = static_cast<int>(std::min<long long>(static_cast<long long>(n) * a.parts,
+                                                  ctas_on_card));
+    l.cluster_grid = ctas * (n < clusters ? n : clusters);
+  }
+  if (previous != device) cudaSetDevice(previous);
+  return static_cast<int>(err);
+}
+
+// Launches a prepared `record` on `stream` into `out` (n * out_rows * 128
+// bytes, 16-byte aligned), reading `comp` in place of the prepared rows
+// when not null (rows laid out as those: width, stride, count).  `queue`
+// (three ints) must be 0 and is 0 again when the launch ends, so launches
+// that share a queue must run in turn, as on one stream; the tall route
+// takes `list` (n ints).  Returns the CUDA error code (0 on success), also
+// when the card refuses the cluster launch.
+extern "C" int bt_decode_flat_run(const void* record, const void* comp, void* out, void* queue,
+                                  void* list, void* stream) {
+  const Launch& l = *static_cast<const Launch*>(record);
+  const bool tall = bt_decode_flat_cluster_ctas(l.a.out_rows) > 1;
+  if ((reinterpret_cast<uintptr_t>(out) & 15) != 0 || (tall && list == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (l.a.n == 0) return 0;
+  Args a = l.a;
+  if (comp != nullptr) a.comp = static_cast<const uint8_t*>(comp);
+  a.out = static_cast<uint8_t*>(out);
   a.queue = static_cast<int*>(queue);
   a.list = static_cast<int*>(list);
-  a.parts = 1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (ctas == 1) {
-    // The plane, the queue slots, two passes' cells (int32 shift, int16 se).
-    const int smem = out_rows * kLanes + 16 + 2 * out_rows * 6;
-    if ((err = bt::smem_opt_in(decode_flat_kernel_shared, bt::kSmemMax)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, decode_flat_kernel_shared, kThreads, smem)) != cudaSuccess)
-      return static_cast<int>(err);
-    const int grid = per_sm < 1 ? 1 : (n < per_sm * sms ? n : per_sm * sms);
-    decode_flat_kernel_shared<<<grid, kThreads, smem, st>>>(a);
-    return static_cast<int>(cudaGetLastError());
+  int previous = 0;
+  cudaError_t err = bt::enter_device(l.device, &previous);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!tall) {
+    decode_flat_kernel_shared<<<l.grid, kThreads, shared_smem(a.out_rows), st>>>(a);
+    err = cudaGetLastError();
+  } else {
+    decode_flat_kernel_slices<<<l.grid, kThreads, 0, st>>>(a);
+    if ((err = cudaGetLastError()) == cudaSuccess) {
+      cudaLaunchConfig_t cfg;
+      cudaLaunchAttribute attr;
+      cluster_launch(a.out_rows, st, &cfg, &attr);
+      cfg.gridDim = dim3(l.cluster_grid);
+      if ((err = cudaLaunchKernelEx(&cfg, decode_flat_kernel_cluster, a)) == cudaSuccess)
+        err = cudaGetLastError();
+    }
   }
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_flat_kernel_slices,
-                                                           kThreads, 0)) != cudaSuccess)
-    return static_cast<int>(err);
-  const int ctas_on_card = per_sm < 1 ? 1 : per_sm * sms;
-  a.parts = std::max(1, std::min(ctas, ctas_on_card / n));
-  const int grid = static_cast<int>(std::min<long long>(static_cast<long long>(n) * a.parts,
-                                                        ctas_on_card));
-  decode_flat_kernel_slices<<<grid, kThreads, 0, st>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  int clusters = 0;
-  if ((err = cluster_config(out_rows, st, &cfg, &attr, &clusters)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  cfg.gridDim = dim3(ctas * (n < clusters ? n : clusters));
-  if ((err = cudaLaunchKernelEx(&cfg, decode_flat_kernel_cluster, a)) != cudaSuccess)
-    return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  if (previous != l.device) cudaSetDevice(previous);
+  return static_cast<int>(err);
+}
+
+// One launch on the current device (bt_decode_flat_prepare, then
+// bt_decode_flat_run): the caller allocates `out`, on the tall route `list`
+// (n ints), and `queue`.  Returns the CUDA error code (0 on success).
+extern "C" int bt_decode_flat_launch(
+    const void* comp, long long comp_stride, int comp_width, int comp_rows,
+    const void* p_used, const void* p_off, const void* p0, const void* dense,
+    const void* dq_idx, const void* se, const void* shift, long long s_rows,
+    const void* dq, int dq_rows, const void* row_a, int dcap, void* out, int n,
+    int out_rows, void* queue, void* list, const void* src_row, long long comp_n,
+    void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Launch l;
+  const int rc = bt_decode_flat_prepare(&l, comp, comp_stride, comp_width, comp_rows, p_used,
+                                        p_off, p0, dense, dq_idx, se, shift, s_rows, dq,
+                                        dq_rows, row_a, dcap, n, out_rows, src_row, comp_n, dev);
+  return rc != 0 ? rc : bt_decode_flat_run(&l, nullptr, out, queue, list, stream);
 }

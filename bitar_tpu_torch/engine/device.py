@@ -73,7 +73,17 @@ from ..memory.host_pool import PoolBackend, get_memory_pool
 from ..ops import registry
 from ..ops.cpu import native
 from ..ops.cpu.native import SEQUENCE_KEYS
-from ..ops.decode_flat import CB, DCHUNK, KBAND, LANES, _S_QUANTUM, decode_blocks_flat, plan_tensors
+from ..ops.decode_flat import (
+    CB,
+    DCHUNK,
+    KBAND,
+    LANES,
+    _S_QUANTUM,
+    FlatLaunch,
+    decode_blocks_flat,
+    plan_tensors,
+    prepare_flat_launch,
+)
 from ..ops.decode_tables import decode_blocks, pad_tables, table_tensors
 from ..ops.device_compress import _emit, engine_width, match_parse_device
 from ..ops.match import DEFAULT_OFFSETS, find_matches
@@ -162,6 +172,9 @@ class CompressedUnit:
     #: the unit's first decode.
     _slots_dev: torch.Tensor | None = field(default=None, repr=False)
     _slots_host: np.ndarray | None = field(default=None, repr=False)
+    #: B1's launch record of each burst (:class:`FlatLaunch`), by its first
+    #: block: built at the burst's first decode (``Engine._burst_launch``).
+    _flat_launches: dict[int, FlatLaunch] = field(default_factory=dict, repr=False)
     #: True while the unit's sequence tables sit in the engine's table store.
     _in_table_store: bool = field(default=False, repr=False)
     #: Host copy of the staged slot rows (compress/import), dropped once
@@ -263,6 +276,7 @@ class CompressedUnit:
         tensors alias the plan grant, and the slots become another unit's."""
         self._plan_dev = self._table_dev = self._lit_dev = None
         self._slots_dev = self._slots_host = None
+        self._flat_launches = {}
 
     def _check_live(self) -> None:
         if self.recycled:
@@ -1291,18 +1305,28 @@ class Engine:
 
     def _planned_bursts(self, unit: CompressedUnit, on_burst=None):
         """Launch the flat decode kernel burst by burst
-        (:meth:`_launch_bursts`), each launch's source from
-        :meth:`_flat_source`.  The unit's plan and slot table upload once."""
-        nrows = self.config.block_size // LANES
-        pt = unit.plan_device_arrays()
+        (:meth:`_launch_bursts`), each from its kept record
+        (:meth:`_burst_launch`)."""
+        return self._launch_bursts(unit, on_burst, lambda blocks: self._burst_launch(unit, blocks))
 
-        def launch(blocks: slice) -> torch.Tensor:
-            comp, src = self._flat_source(unit, blocks)
-            return decode_blocks_flat(comp, self._plan_rows(pt, blocks),
-                                      comp_rows=unit.plan_comp_rows, out_rows=nrows,
-                                      src_rows=src)
-
-        return self._launch_bursts(unit, on_burst, launch)
+    def _burst_launch(self, unit: CompressedUnit, blocks: slice) -> torch.Tensor:
+        """B1 over the burst ``blocks`` of ``unit`` from the burst's record
+        (:class:`FlatLaunch`: its plan rows, checks and launch shape), built
+        at the burst's first decode from :meth:`_flat_source` and kept on the
+        unit until :meth:`recycle`.  In place it reads the arena through the
+        burst's rows of the slot table, counted as ``arena.inplace_blocks``;
+        otherwise every call gathers the burst's rows anew."""
+        rec = unit._flat_launches.get(blocks.start)
+        if rec is not None and rec.src_rows is not None:
+            profiling.count("arena.inplace_blocks", rec.n)
+            return rec.run()
+        comp, src = self._flat_source(unit, blocks)
+        if rec is None:
+            rec = unit._flat_launches[blocks.start] = prepare_flat_launch(
+                comp, self._plan_rows(unit.plan_device_arrays(), blocks),
+                comp_rows=unit.plan_comp_rows, out_rows=self.config.block_size // LANES,
+                src_rows=src)
+        return rec.run(comp)
 
     def prepare_device_decode(self, unit: CompressedUnit):
         """Stage a fully-planned unit for repeated device-resident decode.
@@ -1322,13 +1346,9 @@ class Engine:
         nrows = self.config.block_size // LANES
         comp_rows = unit.plan_comp_rows
         comp, src = self._flat_source(unit, slice(0, unit.nblocks))
-        pt = unit.plan_device_arrays()
-
-        def launch() -> torch.Tensor:
-            return decode_blocks_flat(comp, pt, comp_rows=comp_rows, out_rows=nrows,
-                                      src_rows=src)
-
-        return launch
+        rec = prepare_flat_launch(comp, unit.plan_device_arrays(), comp_rows=comp_rows,
+                                  out_rows=nrows, src_rows=src)
+        return lambda: rec.run(comp)
 
     def _decompress_gpu_planned(self, unit: CompressedUnit, out: np.ndarray
                                 ) -> np.ndarray:

@@ -19,6 +19,10 @@ planner (``plan.cc``) turns every compressed block into a schedule over its
   source-row table it reads each block's comp row where it lies in a
   larger buffer (the engine's slot arena), so a resident unit decodes with
   no gathered copy.
+* ``prepare_flat_launch`` and ``FlatLaunch``: the wrapper split in two, its
+  checks and the kernel's packed arguments and grid settled once, then run
+  as often as wanted (the engine keeps one record a burst of a resident
+  unit); ``decode_blocks_flat`` is one of each.
 
 Plan wire, per block ``i`` (see ``decode_flat_reference`` for the order):
 
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -422,6 +427,20 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, c_int, c_int, vp,             # out, n, out_rows, queue
         vp, vp, c_ll,                     # list (tall route), source rows, comp rows
         vp]                               # stream
+    lib.bt_decode_flat_launch_bytes.restype = c_int
+    lib.bt_decode_flat_launch_bytes.argtypes = []
+    lib.bt_decode_flat_prepare.restype = c_int
+    lib.bt_decode_flat_prepare.argtypes = [
+        vp,                               # the record
+        vp, c_ll, c_int, c_int,           # comp, row stride, width, comp_rows
+        vp, vp, vp, vp, vp,               # p_used, p_off, p0, dense, dq_idx
+        vp, vp, c_ll,                     # se, shift, wire rows
+        vp, c_int, vp, c_int,             # dq, dq rows, row_a, dcap
+        c_int, c_int,                     # n, out_rows
+        vp, c_ll, c_int]                  # source rows, comp rows, device
+    lib.bt_decode_flat_run.restype = c_int
+    lib.bt_decode_flat_run.argtypes = [
+        vp, vp, vp, vp, vp, vp]           # record, comp, out, queue, list, stream
     lib.bt_decode_flat_resident_clusters.restype = c_int
     lib.bt_decode_flat_resident_clusters.argtypes = [c_int]
     lib.bt_decode_flat_cluster_ctas.restype = c_int
@@ -448,60 +467,6 @@ def resident_clusters(out_rows: int) -> int:
     return got
 
 
-def _launch_kernel(comp: torch.Tensor, pt: dict, comp_rows: int,
-                   out_rows: int, src_rows: torch.Tensor | None = None) -> torch.Tensor:
-    global launches, cluster_launches
-    n = comp.shape[0] if src_rows is None else src_rows.numel()
-    for k in ("p_used", "p_off", "p0", "dense", "dq_idx"):
-        t = pt[k]
-        require(t.device == comp.device and t.dtype == torch.int32
-                and t.is_contiguous() and t.shape == (n,),
-                lambda: f"plan {k}: want contiguous int32 [{n}] on {comp.device}")
-    for k, dt in (("se", torch.int16), ("shift", torch.int32),
-                  ("dq", torch.int16), ("row_a", torch.int32)):
-        t = pt[k]
-        require(t.device == comp.device and t.dtype == dt and t.is_contiguous(),
-                lambda: f"plan {k}: want contiguous {dt} on {comp.device}")
-    tiles = out_rows // LANES
-    s_rows = pt["se"].numel() // out_rows
-    require(pt["se"].shape[1:] == (tiles, LANES)
-            and pt["shift"].shape == pt["se"].shape,
-            lambda: f"se/shift: want [S, {tiles}, 128], got {tuple(pt['se'].shape)}")
-    dq_rows = pt["dq"].shape[0]
-    require(pt["dq"].shape == (dq_rows, out_rows, LANES),
-            lambda: f"dq: want [m, {out_rows}, 128], got {tuple(pt['dq'].shape)}")
-    ra = pt["row_a"]
-    require(ra.ndim == 4 and ra.shape[0] == dq_rows
-            and ra.shape[2:] == (LANES, tiles),
-            lambda: f"row_a: want [{dq_rows}, dcap, 128, {tiles}], got {tuple(ra.shape)}")
-    out = torch.empty((n, out_rows, LANES), dtype=torch.uint8, device=comp.device)
-    if n == 0:
-        return out
-    dq = pt["dq"]
-    if dq.data_ptr() % 8:             # the kernel reads a word's 4 dq entries at once
-        dq = dq.clone()
-    lib = load_kernel()
-    tall = cluster_ctas(out_rows) > 1
-    with torch.cuda.device(comp.device):      # launch on the tensors' device
-        stream = torch.cuda.current_stream(comp.device).cuda_stream
-        # The tall route lists its blocks with out passes for its cluster kernel.
-        listed = torch.empty(n if tall else 0, dtype=torch.int32, device=comp.device)
-        rc = lib.bt_decode_flat_launch(
-            comp.data_ptr(), comp.stride(0), comp.shape[1], comp_rows,
-            pt["p_used"].data_ptr(), pt["p_off"].data_ptr(), pt["p0"].data_ptr(),
-            pt["dense"].data_ptr(), pt["dq_idx"].data_ptr(),
-            pt["se"].data_ptr(), pt["shift"].data_ptr(), s_rows,
-            dq.data_ptr(), dq_rows, ra.data_ptr(), ra.shape[1],
-            out.data_ptr(), n, out_rows, block_queue(comp.device, stream).data_ptr(),
-            listed.data_ptr() if tall else None,
-            None if src_rows is None else src_rows.data_ptr(), comp.shape[0], stream)
-    check_cuda(rc, "decode_flat launch", lib)
-    launches += 1
-    device_launches[comp.device.index] += 1
-    cluster_launches += tall
-    return out
-
-
 def _check_src_rows(comp: torch.Tensor, plans: dict, src_rows: torch.Tensor) -> int:
     """The number of blocks a source-row table names; StatusError unless it
     is a contiguous int32 ``[n]`` tensor on ``comp``'s device and the plan's
@@ -514,6 +479,151 @@ def _check_src_rows(comp: torch.Tensor, plans: dict, src_rows: torch.Tensor) -> 
     require(tuple(plans["p_used"].shape) == (n,),
             lambda: f"src_rows names {n} blocks, the plan {tuple(plans['p_used'].shape)}")
     return n
+
+
+def _check_plans(pt: dict, n: int, device: torch.device, out_rows: int) -> None:
+    """StatusError unless ``pt`` holds the nine wire tensors of
+    :func:`plan_tensors` for ``n`` blocks of ``out_rows``-row planes on
+    ``device``, contiguous, in the kernel's dtypes and shapes."""
+    for k in ("p_used", "p_off", "p0", "dense", "dq_idx"):
+        t = pt[k]
+        require(t.device == device and t.dtype == torch.int32
+                and t.is_contiguous() and t.shape == (n,),
+                lambda: f"plan {k}: want contiguous int32 [{n}] on {device}")
+    for k, dt in (("se", torch.int16), ("shift", torch.int32),
+                  ("dq", torch.int16), ("row_a", torch.int32)):
+        t = pt[k]
+        require(t.device == device and t.dtype == dt and t.is_contiguous(),
+                lambda: f"plan {k}: want contiguous {dt} on {device}")
+    tiles = out_rows // LANES
+    require(pt["se"].shape[1:] == (tiles, LANES)
+            and pt["shift"].shape == pt["se"].shape,
+            lambda: f"se/shift: want [S, {tiles}, 128], got {tuple(pt['se'].shape)}")
+    dq_rows = pt["dq"].shape[0]
+    require(pt["dq"].shape == (dq_rows, out_rows, LANES),
+            lambda: f"dq: want [m, {out_rows}, 128], got {tuple(pt['dq'].shape)}")
+    ra = pt["row_a"]
+    require(ra.ndim == 4 and ra.shape[0] == dq_rows
+            and ra.shape[2:] == (LANES, tiles),
+            lambda: f"row_a: want [{dq_rows}, dcap, 128, {tiles}], got {tuple(ra.shape)}")
+
+
+class FlatLaunch:
+    """One B1 launch settled but for its output: what
+    :func:`decode_blocks_flat` would check and work out on every call, done
+    once by :func:`prepare_flat_launch`, so that :meth:`run` only allocates
+    the output, reads the current stream and launches.  A caller that decodes
+    the same blocks of resident rows again (the engine's bursts of a unit)
+    keeps the record and runs it as often as it likes, from any thread
+    (each run on its thread's current stream); ``runs`` counts its runs.
+
+    A record over a source-row table (``src_rows``) keeps the buffer of
+    resident rows it reads (``comp``); one over plain rows keeps none, since
+    such rows change from call to call: each :meth:`run` is given them, laid
+    out as those it was prepared on."""
+
+    __slots__ = ("comp", "plans", "src_rows", "n", "comp_rows", "out_rows", "device",
+                 "runs", "_runs_lock", "_layout", "_out_shape", "_tall", "_record", "_addr")
+
+    def run(self, comp: torch.Tensor | None = None) -> torch.Tensor:
+        """The decoded planes, ``[n, out_rows, 128]`` uint8 on the record's
+        device (on a CUDA device, queued on its current stream with that
+        stream's block queue).  ``comp``: the rows to read, laid out as those
+        the record was prepared on (dtype, shape, strides, device); by
+        default the kept buffer of a record over a source-row table.  Traced,
+        the span ``bitar.ops.decode_flat`` and the counters
+        ``decode_flat.blocks`` and, from the second run on,
+        ``decode_flat.prepared_blocks``."""
+        with profiling.annotate("bitar.ops.decode_flat"):
+            return self._launch(comp)
+
+    def _launch(self, comp: torch.Tensor | None) -> torch.Tensor:
+        global launches, cluster_launches
+        if comp is None:
+            require(self.comp is not None,
+                    "a record over plain rows is given them on every run")
+            comp = self.comp
+        elif comp is not self.comp:
+            require((comp.dtype, comp.device, comp.shape, comp.stride()) == self._layout,
+                    lambda: f"comp: want rows laid out as {self._layout}, got "
+                            f"{(comp.dtype, comp.device, comp.shape, comp.stride())}")
+        n = self.n
+        with self._runs_lock:
+            self.runs += 1
+            prepared = self.runs > 1
+        profiling.count("decode_flat.blocks", n)
+        if prepared:
+            profiling.count("decode_flat.prepared_blocks", n)
+        if self._record is None:                  # the CPU: the plain version
+            if self.src_rows is not None:
+                comp = comp.index_select(0, self.src_rows)
+            return decode_flat_reference(comp, self.plans, self.comp_rows, self.out_rows)
+        device = self.device
+        out = torch.empty(self._out_shape, dtype=torch.uint8, device=device)
+        if n == 0:
+            return out
+        stream = torch._C._cuda_getCurrentRawStream(device.index)
+        # The tall route lists its blocks with out passes for its cluster
+        # kernel; a list per run, as the queue is per stream.
+        listed = torch.empty(n, dtype=torch.int32, device=device) if self._tall else None
+        lib = load_kernel()
+        rc = lib.bt_decode_flat_run(
+            self._addr, None if comp is self.comp else comp.data_ptr(), out.data_ptr(),
+            block_queue(device, stream).data_ptr(),
+            None if listed is None else listed.data_ptr(), stream)
+        check_cuda(rc, "decode_flat launch", lib)
+        launches += 1
+        device_launches[device.index] += 1
+        cluster_launches += self._tall
+        return out
+
+
+def prepare_flat_launch(comp: torch.Tensor, plans: dict, *, comp_rows: int, out_rows: int,
+                        src_rows: torch.Tensor | None = None) -> FlatLaunch:
+    """Check and settle a B1 launch over ``comp`` (see
+    :func:`decode_blocks_flat`) into a :class:`FlatLaunch`, for one run or
+    many.  Raises the StatusError :func:`decode_blocks_flat` raises for
+    malformed rows, plans or source rows, on the CPU too (where the runs take
+    the plain version).  On a CUDA device the kernel's arguments and grids
+    are packed once, its launch shape read from what the card told the
+    kernel library earlier in the process."""
+    require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
+            lambda: f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
+    require(out_rows % LANES == 0 and comp_rows % LANES == 0,
+            "comp_rows and out_rows must be multiples of 128")
+    n = comp.shape[0] if src_rows is None else _check_src_rows(comp, plans, src_rows)
+    device = comp.device
+    require(device.type in ("cpu", "cuda"),
+            lambda: f"decode_blocks_flat: no kernel for device {device}")
+    _check_plans(plans, n, device, out_rows)
+    rec = FlatLaunch()
+    rec.comp = None if src_rows is None else comp
+    rec.plans, rec.src_rows, rec.n = plans, src_rows, n
+    rec.comp_rows, rec.out_rows, rec.device, rec.runs = comp_rows, out_rows, device, 0
+    rec._runs_lock = threading.Lock()
+    rec._layout = (comp.dtype, device, comp.shape, comp.stride())
+    rec._out_shape = (n, out_rows, LANES)
+    rec._tall = cluster_ctas(out_rows) > 1
+    rec._record = rec._addr = None
+    if device.type == "cpu":
+        return rec
+    dq = plans["dq"]
+    if dq.data_ptr() % 8:             # the kernel reads a word's 4 dq entries at once
+        rec.plans = plans = {**plans, "dq": dq.clone()}
+    lib = load_kernel()
+    rec._record = (ctypes.c_int64 * -(-lib.bt_decode_flat_launch_bytes() // 8))()
+    rec._addr = ctypes.addressof(rec._record)
+    pt, ra = plans, plans["row_a"]
+    rc = lib.bt_decode_flat_prepare(
+        rec._addr, comp.data_ptr(), comp.stride(0), comp.shape[1], comp_rows,
+        pt["p_used"].data_ptr(), pt["p_off"].data_ptr(), pt["p0"].data_ptr(),
+        pt["dense"].data_ptr(), pt["dq_idx"].data_ptr(),
+        pt["se"].data_ptr(), pt["shift"].data_ptr(), pt["se"].numel() // out_rows,
+        pt["dq"].data_ptr(), pt["dq"].shape[0], ra.data_ptr(), ra.shape[1],
+        n, out_rows, None if src_rows is None else src_rows.data_ptr(), comp.shape[0],
+        device.index)
+    check_cuda(rc, "decode_flat launch", lib)
+    return rec
 
 
 def decode_blocks_flat(comp: torch.Tensor, plans: dict, *, comp_rows: int,
@@ -529,20 +639,10 @@ def decode_blocks_flat(comp: torch.Tensor, plans: dict, *, comp_rows: int,
     and the result is ``[n, out_rows, 128]``.  Rows must lie in ``[0, N)``:
     the plain version raises past them, the kernel clips to them.  A CPU
     ``comp`` runs :func:`decode_flat_reference` (on the rows the table
-    selects); a CUDA one launches the kernel or raises StatusError.  Traced,
-    the span ``bitar.ops.decode_flat`` (to the launch) and the counter
+    selects); a CUDA one launches the kernel or raises StatusError.  One
+    :func:`prepare_flat_launch` and one run of the record.  Traced, the span
+    ``bitar.ops.decode_flat`` (to the launch) and the counter
     ``decode_flat.blocks``."""
     with profiling.annotate("bitar.ops.decode_flat"):
-        require(comp.dtype == torch.uint8 and comp.ndim == 2 and comp.stride(1) == 1,
-                lambda: f"comp: want [N, W] uint8 rows, got {tuple(comp.shape)} {comp.dtype}")
-        require(out_rows % LANES == 0 and comp_rows % LANES == 0,
-                "comp_rows and out_rows must be multiples of 128")
-        n = comp.shape[0] if src_rows is None else _check_src_rows(comp, plans, src_rows)
-        profiling.count("decode_flat.blocks", n)
-        if comp.device.type == "cpu":
-            if src_rows is not None:
-                comp = comp.index_select(0, src_rows)
-            return decode_flat_reference(comp, plans, comp_rows, out_rows)
-        require(comp.device.type == "cuda",
-                lambda: f"decode_blocks_flat: no kernel for device {comp.device}")
-        return _launch_kernel(comp, plans, comp_rows, out_rows, src_rows)
+        return prepare_flat_launch(comp, plans, comp_rows=comp_rows, out_rows=out_rows,
+                                   src_rows=src_rows)._launch(comp)

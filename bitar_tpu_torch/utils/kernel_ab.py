@@ -5,7 +5,7 @@ checkout's on one card, in turns, on the same inputs.
 
     python -m bitar_tpu_torch.utils.kernel_ab --old DIR [--out FILE]
         [--only match|match_walk|match_dyn|parse_walk|emit|decode_flat|decode_tables|
-                decode_planned]
+                decode_planned|scan_host]
     python -m bitar_tpu_torch.utils.kernel_ab --only match_routes|flat_sources|tables_sources
         [--out FILE]
 
@@ -42,7 +42,12 @@ and B1 together against B1 in place (:func:`ab_flat_sources`).
 RocksDB blocks of YCSB records (the generator of ``benchmark/reference/kv.py``,
 so it runs from the repository's root): the picks' slots and table-store
 rows gathered, then B2, against B2 reading them in place
-(:func:`ab_table_sources`).  The plain
+(:func:`ab_table_sources`).
+``--only scan_host`` times the scan's host path instead of a kernel: each
+checkout's ``Engine.decompress_device`` on one resident 1024 x 128 KiB unit,
+call by call by the host clock, with no synchronize and with one after
+each call, and this checkout's B1 launch record prepared and run apart
+(:func:`ab_scan_host`).  The plain
 versions are not timed here (``chip_smoke.py`` does that).  Prints one JSON
 object per shape and the card's name and power limit.  Needs CUDA.
 """
@@ -52,8 +57,10 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -68,6 +75,7 @@ LARGE = 1 << 20               # blocks of B1's and B2's cluster routes
 MID = 256 * 1024
 SKEWED_BLOCKS = 256           # the CLI's skewed suite (its default)
 SKEWED_BURST = 32             # one burst of it (the CLI's default burst size)
+SCAN_CALLS = 400              # calls a turn of --only scan_host
 
 
 def load_package(root: Path, name: str):
@@ -135,7 +143,8 @@ def main() -> int:
     ap.add_argument("--out", type=Path, help="also write the JSON lines here")
     ap.add_argument("--only", choices=("match", "match_walk", "match_dyn", "parse_walk", "emit",
                                        "decode_flat", "decode_tables", "decode_planned",
-                                       "match_routes", "flat_sources", "tables_sources"),
+                                       "match_routes", "flat_sources", "tables_sources",
+                                       "scan_host"),
                     help="time one kernel only")
     args = ap.parse_args()
     if args.old is None and args.only not in ("match_routes", "flat_sources", "tables_sources"):
@@ -172,6 +181,9 @@ def main() -> int:
     from bitar_tpu_torch_old.ops import decode_flat as odf
     from bitar_tpu_torch_old.ops import match as omt
 
+    if args.only == "scan_host":
+        ab_scan_host(emit, old, corpus)
+        return finish(args, lines)
     if args.only in (None, "decode_tables"):
         ab_tables(emit, timing, corpus, make_text_corpus(256))
     if args.only in (None, "decode_planned"):
@@ -332,6 +344,74 @@ def ab_flat_sources(emit, timing, btt, df, corpus: bytes) -> None:
         emit({"kernel": "decode_flat", "shape": name,
               "routes": "old: arena gather then B1, new: B1 in place",
               "equal": equal, **turns(timing, gather_then_b1, in_place, calls=100)})
+        eng.recycle(unit)
+        eng.release()
+
+
+def call_us(fn, calls: int, sync: bool) -> list[float]:
+    """Host microseconds of each of ``calls`` calls of ``fn`` (with
+    ``sync``, each call and a synchronize after it); the device is
+    synchronized before the first and after the last."""
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(calls):
+        t0 = time.perf_counter_ns()
+        fn()
+        if sync:
+            torch.cuda.synchronize()
+        got.append((time.perf_counter_ns() - t0) / 1e3)
+    torch.cuda.synchronize()
+    return got
+
+
+def quartiles(us: list[float]) -> dict:
+    q1, med, q3 = statistics.quantiles(us, n=4)
+    return {"median": med, "q1": q1, "q3": q3, "min": min(us), "calls": len(us)}
+
+
+def ab_scan_host(emit, old, corpus: bytes) -> None:
+    """The scan's host path (the ``lz4-128k.scan`` cell's call), untraced:
+    µs per ``Engine.decompress_device`` on one resident 1024 x 128 KiB unit
+    of the bench corpus (one burst of 1024, deferred commit), an engine of
+    each checkout in one process, in turns (old, new, new, old) of
+    ``SCAN_CALLS`` calls, each call timed: with no synchronize (the host's
+    time alone, the card working behind it) and with one after each call
+    (a scan as the benchmark's loop runs it).  A last line times this
+    checkout's B1 launch on the same unit apart: ``prepare_flat_launch``
+    and ``FlatLaunch.run`` (no synchronize)."""
+    import bitar_tpu_torch as btt
+    from bitar_tpu_torch.ops import decode_flat as df
+
+    sides = {}
+    for name, pkg in (("old", old), ("new", btt)):
+        cfg = pkg.EngineConfig(codec=pkg.Codec.LZ4, block_size=BLOCK, burst_size=1024,
+                               max_pool_slots=1024 + 32, commit="deferred")
+        eng = pkg.Engine(cfg, device="cuda").initialize()
+        unit = eng.compress(corpus[:1024 * BLOCK])
+        eng.ensure_plans(unit)
+        sides[name] = (eng, unit)
+    planes = {name: torch.cat(eng.decompress_device(unit)) for name, (eng, unit) in sides.items()}
+    equal = same(planes["new"], planes["old"])
+    shape = "scan host path: decompress_device of one resident 1024 x 128 KiB unit"
+    for sync in (False, True):
+        us, medians = {"old": [], "new": []}, {"old": [], "new": []}
+        for name in ("old", "new", "new", "old"):
+            eng, unit = sides[name]
+            got = call_us(lambda eng=eng, unit=unit: eng.decompress_device(unit), SCAN_CALLS, sync)
+            us[name] += got
+            medians[name].append(statistics.median(got))
+        emit({"kernel": "decode_flat", "shape": shape, "sync": sync, "equal": equal,
+              **{f"{k}_us": quartiles(v) for k, v in us.items()}, "turn_medians_us": medians})
+    eng, unit = sides["new"]
+    kw = dict(comp_rows=unit.plan_comp_rows, out_rows=BLOCK // 128, src_rows=unit.slot_table())
+    buf, pt = eng.arena.buffer, unit.plan_device_arrays()
+    prepare = call_us(lambda: df.prepare_flat_launch(buf, pt, **kw), SCAN_CALLS, False)
+    rec = df.prepare_flat_launch(buf, pt, **kw)
+    run = call_us(rec.run, SCAN_CALLS, False)
+    emit({"kernel": "decode_flat", "shape": "the new B1 launch record on the same unit",
+          "equal": same(rec.run(), planes["new"]), "prepare_us": quartiles(prepare),
+          "run_us": quartiles(run)})
+    for eng, unit in sides.values():
         eng.recycle(unit)
         eng.release()
 

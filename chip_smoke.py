@@ -164,10 +164,11 @@ Phases (any failure raises, and the script exits non-zero):
 5. times with CUDA events, kernel and plain version in turns (plain, kernel,
    kernel, plain), and for every kernel its held time (``timing.kernel_time_ms``:
    the calls queued behind the hold kernel, then run back to back; of the
-   kernel alone for B1, B2 and B7, through their launch functions, of the
-   wrapper's call for the others) and its wrapper's host time per call
-   (``timing.host_us_per_call``): B1 in place at the bench shape (and its
-   held time on the same rows gathered, beside it) and
+   kernel alone for B1, B2 and B7, through their launch functions (B1: a
+   prepared launch record's ``run``), of the wrapper's call for the others)
+   and its wrapper's host time per call (``timing.host_us_per_call``): B1 in
+   place at the bench shape (and its held time on the same rows gathered,
+   beside it) and
    on the text corpus (and, the kernel alone, on each class-pure batch);
    B3 at 64 x 128 KiB and at 1024 x 128 KiB in both modes (the kernels
    line takes 1024, indices, max_match 64); B2 in place on the MultiGet's
@@ -2267,11 +2268,13 @@ def main() -> int:
         timing, f"decode_flat bench {nblk} x 128 KiB, in place", card, "decode_flat",
         lambda: df.decode_blocks_flat(rows, pt, comp_rows=comp_rows, out_rows=nrows,
                                       src_rows=table),
-        lambda: df._launch_kernel(rows, pt, comp_rows, nrows, table)))
+        df.prepare_flat_launch(rows, pt, comp_rows=comp_rows, out_rows=nrows,
+                               src_rows=table).run))
     kernels["decode_flat"]["gathered_held_ms"] = wrapper_times(
         timing, f"decode_flat bench {nblk} x 128 KiB, gathered rows", card, "decode_flat",
         lambda: df.decode_blocks_flat(gathered, pt, comp_rows=comp_rows, out_rows=nrows),
-        lambda: df._launch_kernel(gathered, pt, comp_rows, nrows))
+        lambda rec=df.prepare_flat_launch(gathered, pt, comp_rows=comp_rows, out_rows=nrows):
+            rec.run(gathered))
     del gathered
     kernels["decode_flat"]["bound"] = decode_bound(pt, comp_len)
     trows, ttable, tpt, tcomp, tlen, _ = batches["text"]
@@ -2317,7 +2320,7 @@ def main() -> int:
             f"decode_flat tall route {shape}, in place",
             lambda rows=rows, t=t, pt=pt, cr=cr, nr=nr: df.decode_blocks_flat(
                 rows, pt, comp_rows=cr, out_rows=nr, src_rows=t),
-            lambda rows=rows, t=t, pt=pt, cr=cr, nr=nr: df._launch_kernel(rows, pt, cr, nr, t),
+            df.prepare_flat_launch(rows, pt, comp_rows=cr, out_rows=nr, src_rows=t).run,
             lambda g=g, pt=pt, cr=cr, nr=nr: df.decode_flat_reference(g, pt, cr, nr),
             "decode_flat", t.numel() * block, decode_bound(pt, clen, block), shape))
         del g

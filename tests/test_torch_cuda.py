@@ -44,7 +44,7 @@ import torch
 
 import bitar_tpu_torch as btt
 from bitar_tpu_torch.ops import decode_flat as tflat
-from bitar_tpu_torch.ops._build import block_queues
+from bitar_tpu_torch.ops._build import block_queue, block_queues
 from bitar_tpu_torch.ops import decode_tables as tdt
 from bitar_tpu_torch.ops import match as tmatch
 from bitar_tpu_torch.ops import device_compress as tdc
@@ -1473,6 +1473,118 @@ def test_prepare_device_decode_reads_in_place_on_card(cuda_device):
         assert b"".join(host[i, :int(n)].tobytes()
                         for i, n in enumerate(unit.manifest.raw_len)) == data
         eng.recycle(unit)
+
+
+def one_shot_launch(buf, pt, comp_rows, out_rows, table):
+    """B1 through the library's one-shot entry ``bt_decode_flat_launch``
+    (its 24 arguments, on the current device and stream): the planes."""
+    lib = tflat.load_kernel()
+    n = table.numel()
+    out = torch.empty((n, out_rows, 128), dtype=torch.uint8, device=buf.device)
+    listed = torch.empty(n, dtype=torch.int32, device=buf.device)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+    rc = lib.bt_decode_flat_launch(
+        buf.data_ptr(), buf.stride(0), buf.shape[1], comp_rows,
+        *(pt[k].data_ptr() for k in ("p_used", "p_off", "p0", "dense", "dq_idx", "se", "shift")),
+        pt["se"].numel() // out_rows, pt["dq"].data_ptr(), pt["dq"].shape[0],
+        pt["row_a"].data_ptr(), pt["row_a"].shape[1], out.data_ptr(), n, out_rows,
+        block_queue(buf.device, stream).data_ptr(), listed.data_ptr(), table.data_ptr(),
+        buf.shape[0], stream)
+    assert rc == 0, lib.bt_error(rc)
+    return out
+
+
+@pytest.mark.parametrize("shape", ["bench 1024 x 128 KiB", "bench 128 x 1 MiB",
+                                   "text 32 x 1 MiB", "skewed burst"])
+def test_flat_launch_record_equals_the_one_shot_launch(shape, cuda_device):
+    # A prepared record, run three times, gives the bytes of the library's
+    # one-shot launch and of the plain version: the shared route, the tall
+    # route's slice kernel (bench 1 MiB: no out pass) and cluster kernel
+    # (text 1 MiB), and a skewed burst of 4 KiB to 1 MiB blocks.
+    from bitar_tpu_torch.cli.demo import make_skewed_input
+
+    block = 128 * 1024 if "128 KiB" in shape else 1 << 20
+    sizes = None
+    if shape == "skewed burst":
+        data, sizes = make_skewed_input(block, 32)
+    else:
+        data = {"bench": make_corpus, "text": make_text_corpus}[shape.split()[0]](1024)
+        data = data[:int(shape.split()[1]) * block]
+    eng, unit = large_unit(cuda_device, data, block, sizes=sizes)
+    pt, comp_rows, nrows = unit.plan_device_arrays(), unit.plan_comp_rows, block // 128
+    buf, table = eng.arena.buffer, unit.slot_table()
+    rec = tflat.prepare_flat_launch(buf, pt, comp_rows=comp_rows, out_rows=nrows, src_rows=table)
+    before = (tflat.launches, tflat.cluster_launches)
+    got = [rec.run() for _ in range(3)]
+    tall = int(nrows > 1024)
+    assert (tflat.launches, tflat.cluster_launches) == (before[0] + 3, before[1] + 3 * tall)
+    assert rec.runs == 3
+    want = one_shot_launch(buf, pt, comp_rows, nrows, table)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, want) for g in got)
+    assert torch.equal(want, tflat.decode_flat_reference(buf.index_select(0, table), pt,
+                                                         comp_rows, nrows))
+    if shape == "text 32 x 1 MiB":
+        assert tflat.block_classes(pt)["out passes"].numel() == unit.nblocks
+    eng.recycle(unit)
+    eng.release()
+
+
+def test_flat_launch_record_on_a_second_stream(cuda_device):
+    # One record run on the default stream and on two side streams at once:
+    # each run takes its stream's block queue, every run decodes every
+    # block, and every queue is 0 again after.
+    _, rows, pt, comp_rows = engine_batch(cuda_device, 16 * 1024, 300)
+    want = tflat.decode_flat_reference(rows, pt, comp_rows, 128)
+    rec = tflat.prepare_flat_launch(rows, pt, comp_rows=comp_rows, out_rows=128)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    outs = [rec.run(rows)]
+    for _ in range(3):
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream(cuda_device))
+            with torch.cuda.stream(s):
+                outs.append(rec.run(rows))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    for s in [torch.cuda.current_stream(cuda_device), *streams]:
+        assert (cuda_device.index or 0, s.cuda_stream) in block_queues
+    assert all(int(q.abs().sum()) == 0 for q in block_queues.values())
+
+
+@pytest.mark.parametrize("codec", ["lz4", "zstd"])
+def test_resident_unit_keeps_its_burst_records_on_card(codec, cuda_device):
+    # Repeated decodes of a resident unit run the records its first decode
+    # built (in place for LZ4, gathered for Zstd's literal planes), traced
+    # as decode_flat.prepared_blocks; prepare_device_decode and a planned
+    # decompress round-trip beside them; recycle drops the records.
+    from bitar_tpu_torch.utils import profiling
+
+    data = make_corpus(5)[:40 * 16 * 1024]
+    cfg = btt.EngineConfig(codec=btt.Codec(codec), block_size=16 * 1024, burst_size=16,
+                           max_pool_slots=64)
+    with btt.Engine(cfg, device=cuda_device) as eng:
+        unit = eng.compress(data)
+        first = torch.cat(eng.decompress_device(unit))
+        records = dict(unit._flat_launches)
+        assert sorted(records) == [0, 16, 32]
+        profiling.snapshot(reset=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            again = torch.cat(eng.decompress_device(unit))
+            torch.cuda.synchronize()
+        counted = profiling.snapshot(reset=True)
+        assert all(unit._flat_launches[k] is r for k, r in records.items())
+        assert counted["decode_flat.prepared_blocks"] == counted["decode_flat.blocks"] == 40
+        assert counted.get("arena.inplace_blocks", 0) == (40 if codec == "lz4" else 0)
+        assert torch.equal(again, first)
+        assert eng.decompress(unit).tobytes() == data
+        assert torch.equal(eng.prepare_device_decode(unit)(), first)
+        host = first.reshape(unit.nblocks, -1).cpu().numpy()
+        assert b"".join(host[i, :int(n)].tobytes()
+                        for i, n in enumerate(unit.manifest.raw_len)) == data
+        eng.recycle(unit)
+        assert unit._flat_launches == {}
+        with pytest.raises(btt.StatusError):
+            eng.decompress_device(unit)
 
 
 def test_decode_flat_launch_past_2gib_of_output(cuda_device):

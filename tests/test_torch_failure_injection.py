@@ -254,7 +254,7 @@ def test_kernel_failure_raises():
     port = port_engine(use_tpu_kernels=True, block_size=16384)
     unit = port.compress(data)
     failure = StatusError(Status.IOError("decode_flat launch failed: CUDA error 700"))
-    with patch("bitar_tpu_torch.engine.device.decode_blocks_flat", side_effect=failure):
+    with patch("bitar_tpu_torch.ops.decode_flat.FlatLaunch.run", side_effect=failure):
         with pytest.raises(StatusError, match="CUDA error 700"):
             port.decompress(unit)
     assert port.stats.host_decode_bursts == 0

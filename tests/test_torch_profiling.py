@@ -213,9 +213,10 @@ def test_the_chrome_trace_holds_the_stores_names(store, planned, tmp_path):
     assert names == {"bitar.engine.decompress_device", "bitar.arena.gather_burst",
                      "bitar.ops.decode_flat", "bitar.engine.decompress",
                      "bitar.engine.readback", "bitar.engine.copy_out"}
+    # decompress runs the bursts' records that decompress_device built.
     assert set(profiling.snapshot()) == {"arena.gather_bytes", "arena.gather_stored_bytes",
-                                         "decode_flat.blocks", "engine.readback_bytes",
-                                         "engine.copy_out_bytes"}
+                                         "decode_flat.blocks", "decode_flat.prepared_blocks",
+                                         "engine.readback_bytes", "engine.copy_out_bytes"}
 
 
 def traced_flat_step(mesh, spec: dict) -> dict:
