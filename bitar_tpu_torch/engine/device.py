@@ -22,7 +22,9 @@ The paths, as in the reference package:
   entropy-decoded literal planes).  The planner's arguments are the
   reference engine's, so both packages build the same plan.  A unit with no
   plannable block, or with blocks narrower than 128 rows, gets sequence
-  tables instead (``_build_tables``).  The planner's host memory is
+  tables instead (``_build_tables``; Zstd blocks' tables index their
+  entropy-decoded literal planes, which the unit keeps beside them).  The
+  planner's host memory is
   process-wide, as in the reference engine: per-chunk scratch reused by
   every build, and the unit's plan wire in a grant from a free list that
   ``recycle`` refills; ``initialize`` prefaults both.
@@ -34,9 +36,12 @@ The paths, as in the reference package:
   slot, through the unit's slot table (``CompressedUnit.slot_table``); on
   the CPU, and for Zstd units, whose literal planes replace rows, the
   blocks' slots gathered first (``Engine._unit_rows``).  Units with
-  sequence tables gather and launch the sequence-table kernel
+  sequence tables launch the sequence-table kernel
   (``ops/decode_tables.py``; the host re-walks the framing of slots written
-  since it last looked, meanwhile).  Bursts are read back on a small thread
+  since it last looked, meanwhile) over the engine's table store, through
+  their slots, as their block picks do (``Engine._store_launch``): over the
+  arena (gathered first on the CPU), or over the literal store for units
+  with literal planes.  Bursts are read back on a small thread
   pool and land in the output as each completes (``Engine._land_bursts``).
   A unit with neither decodes on the host.
 * ``prepare_batched_decode`` merges several planned units into one flat
@@ -84,7 +89,7 @@ from ..ops.decode_flat import (
     plan_tensors,
     prepare_flat_launch,
 )
-from ..ops.decode_tables import decode_blocks, pad_tables, table_tensors
+from ..ops.decode_tables import decode_blocks, pad_tables
 from ..ops.device_compress import _emit, engine_width, match_parse_device
 from ..ops.match import DEFAULT_OFFSETS, find_matches
 from ..ops.match_sort import find_matches_sorted
@@ -98,8 +103,23 @@ _RAW_ID = codec_id(Codec.RAW)
 _ZSTD_ID = codec_id(Codec.ZSTD)
 #: per-block entries of the plan wire (sliced per burst)
 _BLOCK_KEYS = ("p_used", "p_off", "p0", "dense", "dq_idx")
-#: the host parser of each codec the sequence tables take
+#: the host parser of each codec whose tables index its stored bytes
 _PARSERS = {Codec.LZ4: "lz4", Codec.SNAPPY: "snappy"}
+
+
+def _parse_block(codec: Codec, stored: np.ndarray, block_size: int
+                 ) -> tuple[dict[str, np.ndarray], np.ndarray | None]:
+    """The sequence table of one stored LZ4, Snappy or Zstd block, and a
+    Zstd block's entropy-decoded literal plane (its ``lit_ptr`` indexes the
+    plane), else None.  Zstd's buffers are sized to the block: its literals
+    are never more than the bytes it decodes to, and every sequence but the
+    last of each Zstd block (literals only) matches at least 3 bytes.
+    Raises StatusError on a malformed block or a codec without tables."""
+    if codec == Codec.ZSTD:
+        return native.zstd_parse(stored, max_seq=block_size // 3 + 16, lit_cap=block_size)
+    if codec not in _PARSERS:
+        raise StatusError(Status.NotImplemented(f"no sequence tables for {codec.value} blocks"))
+    return native.parse_sequences(stored, _PARSERS[codec]), None
 
 
 def _reads_in_place(device: torch.device) -> bool:
@@ -152,6 +172,13 @@ class CompressedUnit:
     #: [nblocks, S] int32, and nseq [nblocks].
     tables: dict[str, np.ndarray] | None = None
     nseq: np.ndarray | None = None
+    #: Beside tables of a unit with Zstd blocks (host numpy): each block's
+    #: literal plane, laid end to end (uint8), and each plane's length
+    #: (int32 [nblocks]).  A Zstd block's plane is its entropy-decoded
+    #: literals; any other block's is its stored bytes, so every block's
+    #: table indexes one buffer (the engine's literal store).  None for a
+    #: unit without Zstd blocks, whose tables index its arena slots.
+    lit_planes: tuple[np.ndarray, np.ndarray] | None = None
     #: Flat plan (host numpy): p_used/p_off/p0/dense/dq_idx [nblocks] int32,
     #: se [S, tiles, 128] int16, shift [S, tiles, 128] int32, dq
     #: [m, nrows, 128] int16, row_a [m, dcap, 128, tiles] int32, host_blocks
@@ -163,7 +190,6 @@ class CompressedUnit:
     plan_comp_rows: int = 0
     recycled: bool = field(default=False)
     _plan_dev: dict | None = field(default=None, repr=False)
-    _table_dev: tuple | None = field(default=None, repr=False)
     #: ``lit_device_arrays()``: (planes, block -> row map), or () for a
     #: unit without literal planes.
     _lit_dev: tuple | None = field(default=None, repr=False)
@@ -175,7 +201,8 @@ class CompressedUnit:
     #: B1's launch record of each burst (:class:`FlatLaunch`), by its first
     #: block: built at the burst's first decode (``Engine._burst_launch``).
     _flat_launches: dict[int, FlatLaunch] = field(default_factory=dict, repr=False)
-    #: True while the unit's sequence tables sit in the engine's table store.
+    #: True while the unit's sequence tables (and its literal planes) sit
+    #: in the engine's table store (and literal store).
     _in_table_store: bool = field(default=False, repr=False)
     #: Host copy of the staged slot rows (compress/import), dropped once
     #: plans exist.
@@ -197,12 +224,6 @@ class CompressedUnit:
         if self._plan_dev is None:
             self._plan_dev = plan_tensors(self.plan_flat, self.engine.device)
         return self._plan_dev
-
-    def table_device_arrays(self) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """(nseq, tables) on the engine's device, uploaded once."""
-        if self._table_dev is None:
-            self._table_dev = table_tensors(self.tables, self.nseq, self.engine.device)
-        return self._table_dev
 
     def lit_device_arrays(self, width: int) -> tuple[torch.Tensor, torch.Tensor] | None:
         """The Zstd blocks' literal planes as ``[k, width]`` uint8 rows on
@@ -274,7 +295,7 @@ class CompressedUnit:
     def _drop_device_caches(self) -> None:
         """Drop every cache built for decode launches: on the CPU the plan
         tensors alias the plan grant, and the slots become another unit's."""
-        self._plan_dev = self._table_dev = self._lit_dev = None
+        self._plan_dev = self._lit_dev = None
         self._slots_dev = self._slots_host = None
         self._flat_launches = {}
 
@@ -337,10 +358,21 @@ class Engine:
         #: and its five tables by key, as views.
         self._table_store: tuple[torch.Tensor, torch.Tensor] | None = None
         self._table_views: dict[str, torch.Tensor] | None = None
+        #: Serializes units entering and leaving the two stores: decodes on
+        #: several threads (streams) enter units at once, and a store that
+        #: widens copies the rows already in it.
+        self._store_lock = threading.Lock()
+        #: The literal store (:meth:`_lit_store_enter`): [slots, W] uint8 on
+        #: the device, one row an arena slot: the literal planes of units
+        #: with Zstd blocks, W their widest plane rounded up to 128 bytes.
+        self._lit_store: torch.Tensor | None = None
         #: The last call's table units, each one's first row in the host
-        #: slots below, and their host slot tables laid end to end
+        #: slots below, their host slot tables laid end to end, which of
+        #: them have literal planes (and whether any, whether all), and
+        #: per-row arrays built on demand
         #: (:meth:`_pick_slot_map`); dropped by ``recycle``.
-        self._pick_slots: tuple[list, np.ndarray, np.ndarray] | None = None
+        self._pick_slots: tuple[list, np.ndarray, np.ndarray, np.ndarray, bool, bool,
+                                dict] | None = None
 
     # ------------------------------------------------------------------
     def initialize(self) -> "Engine":
@@ -374,7 +406,7 @@ class Engine:
             self._plan_executor.shutdown(wait=True, cancel_futures=True)
             self._plan_executor = None
         self.arena = None
-        self._table_store = self._table_views = self._pick_slots = None
+        self._table_store = self._table_views = self._lit_store = self._pick_slots = None
         self.state = EngineState.RELEASED
 
     def __enter__(self) -> "Engine":
@@ -848,41 +880,49 @@ class Engine:
         comp_rows = _round_rows(int(plane_bytes.max(initial=1)))
         return plans, comp_rows
 
-    def _build_tables(self, manifest: BlockManifest, staging: np.ndarray
-                      ) -> tuple[dict[str, np.ndarray] | None, np.ndarray | None]:
-        """Parse every block's sequence table; a RAW block is one literal
-        run of its stored bytes.  Returns (tables, nseq) padded to a
-        power-of-two row count of at least 128, or (None, None) when a
-        block is Zstd, malformed, or decodes to another size than its
+    def _build_tables(self, manifest: BlockManifest, staging: np.ndarray):
+        """Parse every block's sequence table (:func:`_parse_block`); a RAW
+        block is one literal run of its stored bytes.  Returns (tables, nseq,
+        lit_planes): tables padded to a power-of-two row count of at least
+        128, and where a block is Zstd the unit's literal planes
+        (:attr:`CompressedUnit.lit_planes`), else None.  All three are None
+        when a block is malformed or decodes to another size than its
         manifest says: the unit then decodes on the host."""
+        cfg = self.config
+        has_zstd = bool((manifest.codec_ids == _ZSTD_ID).any())
         per_block: list[dict[str, np.ndarray]] = []
+        planes: list[np.ndarray] = []
         for i in range(manifest.nblocks):
             codec = codec_from_id(int(manifest.codec_ids[i]))
             ln = int(manifest.raw_len[i])
+            stored = staging[i, :int(manifest.comp_len[i])]
             if codec == Codec.RAW:
                 per_block.append({"lit_ptr": np.zeros(1, np.int32),
                                   "lit_len": np.array([ln], np.int32),
                                   "off": np.zeros(1, np.int32),
                                   "mlen": np.zeros(1, np.int32),
                                   "out_pos": np.zeros(1, np.int32)})
+                planes.append(stored)
                 continue
-            if codec not in _PARSERS:
-                return None, None
             try:
-                t = native.parse_sequences(staging[i, :int(manifest.comp_len[i])],
-                                           _PARSERS[codec])
+                t, lit = _parse_block(codec, stored, cfg.block_size)
             except StatusError:
-                return None, None
+                return None, None, None
             ends = t["out_pos"] + t["lit_len"] + t["mlen"]
             total = int(ends[-1]) if ends.shape[0] else 0
-            if total != ln or (ends.shape[0] and int(ends.max()) > self.config.block_size):
+            if total != ln or (ends.shape[0] and int(ends.max()) > cfg.block_size):
                 logger.warning("block %d: parsed decode size %d != manifest raw_len %d; "
                                "the unit decodes on the host", i, total, ln)
-                return None, None
+                return None, None, None
             per_block.append(t)
+            planes.append(stored if lit is None else lit)
         cap = max(t["lit_ptr"].shape[0] for t in per_block)
         cap = max(128, 1 << (cap - 1).bit_length())
-        return pad_tables(per_block, SEQUENCE_KEYS, multiple=cap)
+        tables, nseq = pad_tables(per_block, SEQUENCE_KEYS, multiple=cap)
+        if not has_zstd:
+            return tables, nseq, None
+        lens = np.fromiter((p.shape[0] for p in planes), np.int32, len(planes))
+        return tables, nseq, (np.concatenate(planes), lens)
 
     def _submit_plan_build(self, manifest: BlockManifest, staging: np.ndarray):
         """Queue a plan build on the engine's single plan worker."""
@@ -930,7 +970,8 @@ class Engine:
             if plans is not None:
                 unit.plan_flat, unit.plan_comp_rows = plans
             elif unit.tables is None:
-                unit.tables, unit.nseq = self._build_tables(unit.manifest, staging)
+                unit.tables, unit.nseq, unit.lit_planes = self._build_tables(
+                    unit.manifest, staging)
             unit._planned = True
             unit._drop_staging()
 
@@ -941,7 +982,7 @@ class Engine:
         self._entry_guard()
         unit._check_live()
         if unit.tables is None:
-            unit.tables, unit.nseq = self._build_tables(
+            unit.tables, unit.nseq, unit.lit_planes = self._build_tables(
                 unit.manifest, self._staging_rows(unit))
 
     # ------------------------------------------------------------------
@@ -1028,7 +1069,7 @@ class Engine:
             else:
                 raise StatusError(Status.NotImplemented(
                     "device-resident decompress requires a device-decodable unit "
-                    "(lz4/snappy/raw with sequence tables, or a plan)"))
+                    "(lz4/snappy/zstd/raw with sequence tables, or a plan)"))
             self.stats.device_decode_bursts += len(results)
             return results
 
@@ -1047,7 +1088,10 @@ class Engine:
           ``burst_size``) launches of the table kernel over their slots and
           the engine's table store (:meth:`_table_store_enter`), read in
           place on the card through one upload of the picks' slots, gathered
-          on the CPU;
+          on the CPU; the picks of units with literal planes (Zstd) read the
+          engine's literal store instead of the arena, through the same
+          slots, on every device (a call with both kinds makes one group of
+          launches for each);
         * each planned unit touched is one launch of the flat kernel over
           its picks' plan entries, reading the picked slots in place on the
           card; the CPU and Zstd units (whose literal planes replace rows)
@@ -1088,7 +1132,7 @@ class Engine:
                 if unit.plan_flat is None and unit.tables is None:
                     raise StatusError(Status.NotImplemented(
                         "device-resident decompress requires a device-decodable unit "
-                        "(lz4/snappy/raw with sequence tables, or a plan)"))
+                        "(lz4/snappy/zstd/raw with sequence tables, or a plan)"))
             nb = np.array([unit.nblocks for unit in picked])
             bad = np.flatnonzero((bi < 0) | (bi >= nb[of]))
             if bad.size:
@@ -1121,66 +1165,113 @@ class Engine:
         ``burst_size`` picks a launch in pick order: [(pick positions,
         planes)].  ``picked``: the touched units, ``table``: which of them
         have sequence tables, ``of``: each pick's touched unit, ``bi``: its
-        block.  Each pick's slot comes from the units' host slot tables
-        (:meth:`_pick_slot_map`), uploaded once a call.  In place
-        (:meth:`_in_place`: table units have no literal planes) each launch
-        reads the picks' slots and table-store rows where they lie, through
-        those slots (traced, the counter ``arena.inplace_blocks``);
-        elsewhere it gathers both first."""
+        block.  The units enter the stores (:meth:`_table_store_enter`);
+        each pick's slot comes from their host slot tables laid end to end
+        (:meth:`_pick_slot_map`), and the slots upload once a call.  Each
+        launch reads its picks through their slots (:meth:`_store_launch`):
+        over the arena for LZ4 and Snappy units, over the literal store for
+        units with literal planes (Zstd).  A call with both kinds makes one
+        group of launches for each, the arena's first, from the one upload.
+        Traced, the picks' rows, upload and launches of a call with Zstd
+        picks run in the span ``bitar.engine.lit_picks``."""
         every = table.all()
         units = picked if every else [unit for unit, t in zip(picked, table, strict=True) if t]
         for unit in units:
             self._table_store_enter(unit)
-        starts, slots = self._pick_slot_map(units)
-        if every:                       # the common case: no pick to leave out
-            k = bi.size
-            rows = starts[of] + bi
-        else:
-            pos = np.flatnonzero(table[of])
-            k = pos.size
-            rows = starts[(np.cumsum(table) - 1)[of[pos]]] + bi[pos]
-        src = torch.from_numpy(slots[rows]).to(self.device)
+        starts, slots, kinds, lit_any, lit_all = self._pick_slot_map(units)
+        mixed = lit_any and not lit_all
+        with (profiling.annotate("bitar.engine.lit_picks") if lit_any
+              else contextlib.nullcontext()):
+            if every:                       # the common case: no pick to leave out
+                pos, tu, b = None, of, bi
+            else:
+                pos = np.flatnonzero(table[of])
+                tu, b = (np.cumsum(table) - 1)[of[pos]], bi[pos]
+            rows = starts[tu] + b
+            k = rows.size
+            groups = [(lit_all, 0, k)]
+            if mixed:
+                lit = kinds[tu]
+                order = np.argsort(lit, kind="stable")
+                rows, pos = rows[order], order if pos is None else pos[order]
+                split = k - int(np.count_nonzero(lit))
+                groups = [(False, 0, split), (True, split, k)]
+            src = torch.from_numpy(slots[rows]).to(self.device)
+            burst, in_place = self.config.burst_size, self._in_place(units[0])
+            launches = []
+            for lit, a, e in groups:
+                for s in range(a, e, burst):
+                    span = slice(s, min(e, s + burst))
+                    launches.append((np.arange(span.start, span.stop) if pos is None else pos[span],
+                                     self._store_launch(
+                                         src[span], nrows, lit, in_place,
+                                         lambda: self._pick_rows(units, "comp_len")[rows[span]],
+                                         lambda: self._pick_rows(units, "lit_len")[rows[span]])))
+            return launches
+
+    def _store_launch(self, src: torch.Tensor, nrows: int, lit: bool, in_place: bool,
+                      stored_bytes, lit_bytes) -> torch.Tensor:
+        """One B2 launch over the blocks in arena slots ``src`` (int32 on the
+        device), their tables in the table store.  ``lit``: the blocks'
+        literal planes, in the literal store, read through ``src`` on every
+        device; traced, the counters ``decode_tables.lit_blocks``,
+        ``decode_tables.lit_bytes`` (their planes' bytes) and
+        ``decode_tables.lit_stored_bytes`` (their stored bytes).  Else their
+        stored bytes in the arena: read where they lie through ``src``
+        (``in_place``, :meth:`_in_place`), or gathered first with their
+        tables (:meth:`_gather_slots`).  Traced in place, the counter
+        ``arena.inplace_blocks``.  ``stored_bytes()`` and ``lit_bytes()``
+        give the blocks' stored and plane bytes, asked only while tracing."""
+        n = src.shape[0]
         nseq, cols = self._table_store
-        burst = self.config.burst_size
+        if in_place:
+            profiling.count("arena.inplace_blocks", n)
+        if lit:
+            if profiling.enabled():
+                profiling.count("decode_tables.lit_blocks", n)
+                profiling.count("decode_tables.lit_bytes", int(lit_bytes().sum()))
+                profiling.count("decode_tables.lit_stored_bytes", int(stored_bytes().sum()))
+            comp = self._lit_store
+        elif in_place:
+            comp = self.arena.buffer
+        else:
+            comp = self._gather_slots(src, lambda: int(stored_bytes().sum()))
+            tables = dict(zip(SEQUENCE_KEYS, cols.index_select(1, src).unbind(0), strict=True))
+            return decode_blocks(comp, nseq.index_select(0, src), tables, out_rows=nrows)
+        return decode_blocks(comp, nseq, self._table_views, out_rows=nrows, src_rows=src)
 
-        def at(s: int) -> np.ndarray:
-            """The pick positions of the launch from pick ``s`` on."""
-            return np.arange(s, min(k, s + burst)) if every else pos[s:s + burst]
-
-        if self._in_place(units[0]):
-            profiling.count("arena.inplace_blocks", k)
-            return [(at(s), decode_blocks(self.arena.buffer, nseq, self._table_views,
-                                          out_rows=nrows, src_rows=src[s:s + burst]))
-                    for s in range(0, k, burst)]
-
-        def stored_bytes(span: slice) -> int:
-            """The stored bytes of the picks ``span`` (asked while tracing)."""
-            return int(np.concatenate([unit.manifest.comp_len for unit in units])[rows[span]].sum())
-
-        launches = []
-        for s in range(0, k, burst):
-            sl = src[s:s + burst]
-            comp = self._gather_slots(sl, lambda: stored_bytes(slice(s, s + burst)))
-            tables = dict(zip(SEQUENCE_KEYS, cols.index_select(1, sl).unbind(0), strict=True))
-            launches.append((at(s), decode_blocks(comp, nseq.index_select(0, sl), tables,
-                                                  out_rows=nrows)))
-        return launches
-
-    def _pick_slot_map(self, units: list) -> tuple[np.ndarray, np.ndarray]:
-        """The host slot tables of ``units`` laid end to end, and each
-        unit's first row there: block ``b`` of ``units[i]`` lies in slot
-        ``slots[starts[i] + b]``.  Kept for the next call that touches the
-        same units (a MultiGet's batches touch the same SSTs), so such a
-        call copies no unit's table; a call over other units builds it anew
-        (about what looking each pick up in its own unit's table costs).
+    def _pick_slot_map(self, units: list) -> tuple[np.ndarray, np.ndarray, np.ndarray,
+                                                    bool, bool]:
+        """The host slot tables of ``units`` laid end to end, each unit's
+        first row there, which units have literal planes (bool), and
+        whether any and whether all have them: block ``b`` of ``units[i]``
+        lies in slot ``slots[starts[i] + b]``.  Kept for the next call that
+        touches the same units (a MultiGet's batches touch the same SSTs),
+        so such a call copies no unit's table and asks no unit its kind; a
+        call over other units builds it anew (about what looking each pick
+        up in its own unit's table costs).
         It holds the units until then, ``recycle`` or ``release``."""
         kept = self._pick_slots
         if kept is None or len(kept[0]) != len(units) or any(
                 a is not b for a, b in zip(kept[0], units)):
             tables = [unit.host_slot_table() for unit in units]
             nb = np.array([t.size for t in tables], np.int64)
-            kept = self._pick_slots = (units, np.cumsum(nb) - nb, np.concatenate(tables))
-        return kept[1], kept[2]
+            kinds = np.array([unit.lit_planes is not None for unit in units])
+            kept = self._pick_slots = (units, np.cumsum(nb) - nb, np.concatenate(tables),
+                                       kinds, bool(kinds.any()), bool(kinds.all()), {})
+        return kept[1:6]
+
+    def _pick_rows(self, units: list, key: str) -> np.ndarray:
+        """A per-block array of ``units`` laid end to end as in
+        :meth:`_pick_slot_map`, kept with it: ``"comp_len"`` (the stored
+        bytes) or ``"lit_len"`` (the literal planes' bytes)."""
+        cache = self._pick_slots[6]
+        if key not in cache:
+            cache[key] = np.concatenate([
+                unit.manifest.comp_len if key == "comp_len"
+                else unit.lit_planes[1] if unit.lit_planes is not None
+                else np.zeros(unit.nblocks, np.int32) for unit in units])
+        return cache[key]
 
     def _planned_picks(self, unit: CompressedUnit, pos: np.ndarray, blocks: np.ndarray,
                        nrows: int) -> tuple[np.ndarray, torch.Tensor]:
@@ -1201,6 +1292,12 @@ class Engine:
         unit's rows."""
         if unit._in_table_store:
             return
+        with self._store_lock:
+            if not unit._in_table_store:
+                self._table_store_put(unit)
+
+    def _table_store_put(self, unit: CompressedUnit) -> None:
+        """:meth:`_table_store_enter`'s copy, under the store lock."""
         tables = torch.from_numpy(np.stack([unit.tables[k] for k in SEQUENCE_KEYS]))
         width = tables.shape[2]
         if self._table_store is None or self._table_store[1].shape[2] < width:
@@ -1219,17 +1316,46 @@ class Engine:
         tables = torch.nn.functional.pad(tables.to(self.device), (0, cols.shape[2] - width))
         cols.index_copy_(1, slots, tables)
         nseq.index_copy_(0, slots, torch.from_numpy(unit.nseq.astype(np.int32)).to(self.device))
+        if unit.lit_planes is not None:
+            self._lit_store_enter(unit, slots)
         unit._in_table_store = True
+
+    def _lit_store_enter(self, unit: CompressedUnit, slots: torch.Tensor) -> None:
+        """Put a unit's literal planes into the engine's literal store at its
+        slots (``slots``: int64 on the device), with its tables: row ``r``
+        holds the plane of the block in arena slot ``r``, zero past it.  The
+        store is as wide as the widest plane entered, rounded up to 128
+        bytes, and widens when a wider one enters; :meth:`recycle` zeroes a
+        unit's rows.  Traced, the span ``bitar.engine.lit_store_enter`` and
+        the counter ``engine.lit_store_bytes`` (the planes' bytes)."""
+        with profiling.annotate("bitar.engine.lit_store_enter"):
+            flat, lens = unit.lit_planes
+            width = max(LANES, -(-int(lens.max(initial=1)) // LANES) * LANES)
+            store = self._lit_store
+            if store is None or store.shape[1] < width:
+                wider = torch.zeros((self.arena.buffer.shape[0], width), dtype=torch.uint8,
+                                    device=self.device)
+                if store is not None:
+                    wider[:, :store.shape[1]] = store
+                store = self._lit_store = wider
+            rows = np.zeros((lens.size, store.shape[1]), np.uint8)
+            rows[np.arange(store.shape[1])[None, :] < lens[:, None]] = flat
+            store.index_copy_(0, slots, torch.from_numpy(rows).to(self.device))
+            profiling.count("engine.lit_store_bytes", int(lens.sum(dtype=np.int64)))
 
     def _decode_bursts(self, unit: CompressedUnit, on_burst=None):
         """Launch the sequence-table decode kernel burst by burst
-        (:meth:`_launch_bursts`) over gathered rows.  The tables upload
-        once per unit."""
+        (:meth:`_launch_bursts`) through the unit's slots, as its picks
+        launch (:meth:`_store_launch`): the unit enters the table store
+        (and its literal planes the literal store) once."""
+        self._table_store_enter(unit)
         nrows = self.config.block_size // LANES
-        nseq, cols = unit.table_device_arrays()
-        return self._launch_bursts(unit, on_burst, lambda blocks: decode_blocks(
-            self._unit_rows(unit, blocks), nseq[blocks],
-            {k: v[blocks] for k, v in cols.items()}, out_rows=nrows))
+        slots, lit, in_place = unit.slot_table(), unit.lit_planes is not None, self._in_place(unit)
+        comp_len = unit.manifest.comp_len
+        lit_len = unit.lit_planes[1] if lit else None
+        return self._launch_bursts(unit, on_burst, lambda blocks: self._store_launch(
+            slots[blocks], nrows, lit, in_place, lambda: comp_len[blocks],
+            lambda: lit_len[blocks]))
 
     def _launch_bursts(self, unit: CompressedUnit, on_burst, launch):
         """Queue ``launch(blocks)`` for each burst of ``unit`` (a slice of up
@@ -1455,8 +1581,8 @@ class Engine:
                         st = bad_io
                 else:
                     try:
-                        t = native.parse_sequences(rows[j, :int(m.comp_len[i])],
-                                                   _PARSERS[codec])
+                        t = _parse_block(codec, rows[j, :int(m.comp_len[i])],
+                                         self.config.block_size)[0]
                         ends = t["out_pos"] + t["lit_len"] + t["mlen"]
                         if (int(ends[-1]) if ends.shape[0] else 0) != int(m.raw_len[i]):
                             st = bad_io
@@ -1555,12 +1681,15 @@ class Engine:
                 self._pool_put(built[0])
         count = self.arena.recycle(unit.refs)
         self._pool_put(unit.plan_flat)
-        if unit._in_table_store:
-            nseq, cols = self._table_store
-            slots = unit.slot_table().long()
-            nseq.index_fill_(0, slots, 0)
-            cols.index_fill_(1, slots, 0)
-            unit._in_table_store = False
+        with self._store_lock:
+            if unit._in_table_store:
+                nseq, cols = self._table_store
+                slots = unit.slot_table().long()
+                nseq.index_fill_(0, slots, 0)
+                cols.index_fill_(1, slots, 0)
+                if unit.lit_planes is not None:
+                    self._lit_store.index_fill_(0, slots, 0)
+                unit._in_table_store = False
         self._pick_slots = None
         unit._drop_device_caches()
         unit._drop_staging()

@@ -204,8 +204,10 @@ def snappy_decompress(data, dst_cap: int | None = None) -> np.ndarray:
 
 
 def zstd_compress(data, dst_cap: int | None = None) -> np.ndarray:
-    """A zstd frame (``zstd.cc``: greedy matching, raw literals, predefined
-    FSE tables; an incompressible block is stored raw)."""
+    """A zstd frame (``zstd.cc``: greedy matching with repeat offsets; the
+    literals stored raw, as one RLE byte when uniform, or Huffman-coded
+    with direct 4-bit weights when that is smaller; sequences under the
+    predefined FSE tables; an incompressible block is stored raw)."""
     src = _as_u8(data)
     cap = dst_cap if dst_cap is not None else len(src) + len(src) // 255 + 64
     dst = np.empty(max(1, cap), dtype=np.uint8)

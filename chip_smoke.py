@@ -128,6 +128,11 @@ Phases (any failure raises, and the script exits non-zero):
      bench corpus (``decompress_blocks_device``, B2 only), each its raw
      block, traced: every pick read in place, no slot gathered; the call's
      host clock logged;
+   - Zstd block picks: 1,884 blocks picked across four 4 KiB Zstd units of
+     the ``rocksdb-zstd-4k`` cell's YCSB blocks, each its raw block, traced:
+     every pick decoded from the literal store in place, no slot gathered;
+     B2's held time over the literal store beside its time over the same
+     blocks' LZ4 frames in an LZ4 engine's arena, through the same picks;
    - a Zstd unit of 1024 x 128 KiB (B1 over the literal planes);
    - ``compress_matcher="tpu"`` (B3 hints, host emitter), LZ4 and Snappy,
      and ``"tpu-sort"``, each decoded through B1;
@@ -698,7 +703,9 @@ def table_batch(btt, data: bytes, block: int, max_passes: int | None = None):
     if unit.plan_flat is not None or unit.tables is None:
         raise AssertionError(f"{n} x {block} B: the unit did not take the table path")
     rows = eng.arena.gather_burst([r.slot for r in unit.refs])
-    nseq, tables = unit.table_device_arrays()
+    from bitar_tpu_torch.ops.decode_tables import table_tensors
+
+    nseq, tables = table_tensors(unit.tables, unit.nseq, eng.device)
     stats = (f"{n} x {block} B, ratio {unit.manifest.ratio():.3f}, sequences "
              f"{int(unit.nseq.sum())} (max {int(unit.nseq.max())} per block, S "
              f"{unit.tables['lit_ptr'].shape[1]})")
@@ -1277,6 +1284,87 @@ def block_picks_path(btt, data: bytes, card: str, units: int = 4, picks: int = 1
     for u in us:
         eng.recycle(u)
     eng.release()
+
+
+def zstd_block_picks_path(btt, timing, card: str, units: int = 4, unit_blocks: int = 1024,
+                          picks: int = 1884) -> int:
+    """Blocks picked across ``units`` 4 KiB Zstd units of YCSB blocks (the
+    ``rocksdb-zstd-4k`` cell's generator, so it runs from the repository's
+    root): each plane its raw block; traced, every pick read from the
+    literal store in place, no slot gathered, and ceil(picks / burst) B2
+    launches.  Then B2's held time over the literal store beside its held
+    time over the same blocks stored as LZ4 frames in an LZ4 engine's
+    arena, through the same picks, and each call's host clock.  Returns the
+    Zstd call's own B2 launches (the timings and the LZ4 engine launch B2
+    too, uncounted)."""
+    from benchmark.reference import kv
+    from bitar_tpu_torch.ops import decode_tables as dt
+    from bitar_tpu_torch.utils import profiling
+
+    t = kv.make({"generator": "rocksdb_ycsb", "units": units, "unit_blocks": unit_blocks},
+                2**31 + 25, TABLE_BLOCK)
+    ends = np.concatenate([[0], np.cumsum(t.sizes)])
+    rng = np.random.default_rng(25)
+    ui, bi = rng.integers(0, units, picks), rng.integers(0, unit_blocks, picks)
+    g = ui * unit_blocks + bi
+    held, stored, launched = {}, {}, {}
+    burst = 2048
+    for codec in (btt.Codec.ZSTD, btt.Codec.LZ4):
+        eng = engine(btt, codec, block=TABLE_BLOCK, nblocks=units * unit_blocks,
+                     burst_size=burst, min_match=4)
+        us = []
+        for u in range(units):
+            b0, b1 = u * unit_blocks, (u + 1) * unit_blocks
+            us.append(eng.compress(t.raw[ends[b0]:ends[b1]], sizes=t.sizes[b0:b1].tolist()))
+        profiling.snapshot(reset=True)
+        before = dt.launches
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = eng.decompress_blocks_device(us, ui, bi)
+        launched[codec.value] = dt.launches - before
+        counted = profiling.snapshot(reset=True)
+        zstd = codec == btt.Codec.ZSTD
+        if launched[codec.value] != -(-picks // burst):
+            raise AssertionError(f"{codec.value} block picks: {launched[codec.value]} B2 "
+                                 f"launches, not ceil({picks} / {burst})")
+        if any(u.tables is None or (u.lit_planes is not None) != zstd for u in us):
+            raise AssertionError(f"{codec.value} block picks: a unit did not decode from its "
+                                 "tables")
+        if (counted.get("arena.inplace_blocks") != picks or counted.get("arena.gather_bytes")
+                or (zstd and counted.get("decode_tables.lit_blocks") != picks)):
+            raise AssertionError(f"{codec.value} block picks: counters {counted}")
+        host = got.reshape(picks, -1).cpu().numpy()
+        if any(host[j, :t.sizes[b]].tobytes() != t.raw[ends[b]:ends[b + 1]].tobytes()
+               for j, b in enumerate(g.tolist())):
+            raise AssertionError(f"{codec.value} block picks: picks differ from their raw "
+                                 "blocks")
+        slots = np.concatenate([u.host_slot_table() for u in us])[g]
+        src = torch.from_numpy(slots).cuda()
+        comp = eng._lit_store if zstd else eng.arena.buffer
+        nseq, views = eng._table_store[0], eng._table_views
+        label = f"decode_tables {picks} YCSB picks over the {'literal store' if zstd else 'arena'}"
+        held[codec.value] = wrapper_times(
+            timing, label, card, "decode_tables",
+            lambda: dt.decode_blocks(comp, nseq, views, out_rows=TABLE_BLOCK // 128,
+                                     src_rows=src),
+            lambda: dt._launch_kernel(comp, nseq, views, TABLE_BLOCK // 128, None, src))
+        stored[codec.value] = int(np.concatenate([u.manifest.comp_len for u in us])[g].sum())
+        if zstd:
+            stored["literal planes"] = int(np.concatenate(
+                [u.lit_planes[1] for u in us])[g].sum())
+        host_us = timing.host_us_per_call(lambda: eng.decompress_blocks_device(us, ui, bi),
+                                          HOST_CALLS)
+        torch.cuda.synchronize()
+        log(f"main path {codec.value} block picks: {picks} of {units} x {unit_blocks} x "
+            f"{TABLE_BLOCK} B YCSB blocks bit-exact, all read in place; host clock [{card}]: "
+            f"{host_us:.1f} us/call ({HOST_CALLS} calls, no synchronize)")
+        for u in us:
+            eng.recycle(u)
+        eng.release()
+    log(f"decode_tables on {picks} YCSB picks [{card}] held: literal store {held['zstd']:.4f} "
+        f"ms, LZ4 frames {held['lz4']:.4f} ms (ratio {held['zstd'] / held['lz4']:.3f}); bytes "
+        f"read as literals or stored: literal planes {stored['literal planes']}, zstd frames "
+        f"{stored['zstd']}, lz4 frames {stored['lz4']}")
+    return launched["zstd"]
 
 
 def zstd_path(btt, data: bytes, card: str) -> None:
@@ -2126,6 +2214,11 @@ def main() -> int:
     counts["block picks path"] = {"decode_tables": dt.launches}
     if df.launches:
         raise AssertionError("the block picks path launched decode_flat")
+
+    df.launches = 0
+    counts["zstd block picks path"] = {"decode_tables": zstd_block_picks_path(btt, timing, card)}
+    if df.launches:
+        raise AssertionError("the Zstd block picks path launched decode_flat")
 
     df.launches = 0
     zstd_path(btt, corpus, card)

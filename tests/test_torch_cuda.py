@@ -6,8 +6,9 @@ B4's planes and ``walk_edge_batch``, B7 dense-plan decode on planner,
 random and pass-class plans, the emitter on parser layouts and
 ``edge_layouts``) against
 its plain PyTorch version on the card, and the engine's
-paths there (host and device compress, tables, Zstd, the tpu matchers,
-batched decode) and the multi-device dry run's.
+paths there (host and device compress, tables, Zstd planned and Zstd 4 KiB
+tables over the literal store, the tpu matchers, batched decode) and the
+multi-device dry run's.
 
 Blocks of 256 KiB to 1 MiB take B1's and B2's cluster routes (a plane
 spread over a thread-block cluster's shared memory): both against their
@@ -263,6 +264,90 @@ def test_traced_picks_of_sixteen_table_units_read_in_place(cuda_device):
             assert host[j].tobytes() == datas[u][b * block:(b + 1) * block], (j, u, b)
         for unit in units:
             eng.recycle(unit)
+
+
+def test_zstd_table_units_read_the_literal_store(cuda_device):
+    # 4 KiB Zstd units take the table path over the engine's literal store:
+    # picks over 16 units in bursts of 64 and whole-unit decodes equal the
+    # CPU engine's plain version and the raw blocks (random blocks stored
+    # RAW among them); traced, every pick decodes in place from the store
+    # (arena.inplace_blocks counts the picks), and no gather runs.
+    from bitar_tpu_torch.utils import profiling
+
+    block, nunits, nblocks = 4096, 16, 48
+    rng = np.random.default_rng(63)
+    datas, kw = sixteen_table_units(rng, block, nunits, nblocks)
+    ui, bi = rng.integers(0, nunits, 300), rng.integers(0, nblocks, 300)
+    got, whole = {}, {}
+    for dev in (cuda_device, "cpu"):
+        with btt.Engine(btt.EngineConfig(codec=btt.Codec.ZSTD, **kw), device=dev) as eng:
+            units = [eng.compress(d) for d in datas]
+            for unit in units:
+                eng.ensure_plans(unit)
+            assert all(u.plan_flat is None and u.lit_planes is not None for u in units)
+            before = tdt.launches
+            got[str(dev)] = eng.decompress_blocks_device(units, ui, bi).cpu()
+            if dev != "cpu":
+                assert tdt.launches == before + 5           # 300 picks, bursts of 64
+                profiling.snapshot(reset=True)
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    again = eng.decompress_blocks_device(units, ui, bi)
+                    torch.cuda.synchronize()
+                counted = profiling.snapshot(reset=True)
+                names = {e.key for e in prof.key_averages()}
+                assert {"bitar.engine.lit_picks", "bitar.ops.decode_tables"} <= names
+                assert not {n for n in names if "gather" in n or "indexSelect" in n}, names
+                assert (counted["arena.inplace_blocks"] == counted["decode_tables.lit_blocks"]
+                        == counted["decode_tables.blocks"] == len(ui))
+                assert not {"arena.gather_bytes", "arena.gather_stored_bytes"} & set(counted)
+                assert torch.equal(again.cpu(), got[str(dev)])
+            whole[str(dev)] = [torch.cat(eng.decompress_device(u)).cpu() for u in units[:3]]
+            for u, d in zip(units[:3], datas, strict=False):
+                out, status = eng.decompress_status(u)
+                assert out.tobytes() == d and not status.any()
+            assert eng.stats.host_decode_bursts == 0
+            for unit in units:
+                eng.recycle(unit)
+    assert torch.equal(got[str(cuda_device)], got["cpu"])
+    for a, b in zip(whole[str(cuda_device)], whole["cpu"], strict=True):
+        assert torch.equal(a, b)
+    flat = got["cpu"].reshape(len(ui), -1).numpy()
+    for j, (u, b) in enumerate(zip(ui.tolist(), bi.tolist(), strict=True)):
+        assert flat[j].tobytes() == datas[u][b * block:(b + 1) * block], (j, u, b)
+
+
+def test_whole_lz4_table_units_read_in_place_on_card(cuda_device):
+    # decompress_device of a 4 KiB LZ4 table unit launches as its picks do:
+    # B2 through the unit's slots over the arena and the table store, read
+    # in place; traced, nothing gathered; the bytes equal the CPU engine's.
+    from bitar_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(64)
+    datas, kw = sixteen_table_units(rng, nunits=3)
+    whole = {}
+    for dev in (cuda_device, "cpu"):
+        with btt.Engine(btt.EngineConfig(codec=btt.Codec.LZ4, **kw), device=dev) as eng:
+            units = [eng.compress(d) for d in datas]
+            for unit in units:
+                eng.ensure_plans(unit)
+            assert all(u.plan_flat is None and u.tables is not None for u in units)
+            profiling.snapshot(reset=True)
+            acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts):
+                whole[str(dev)] = [torch.cat(eng.decompress_device(u)).cpu() for u in units]
+            counted = profiling.snapshot(reset=True)
+            n = sum(u.nblocks for u in units)
+            assert counted["decode_tables.blocks"] == n
+            if dev != "cpu":
+                assert counted["arena.inplace_blocks"] == n
+                assert not {"arena.gather_bytes", "arena.gather_stored_bytes"} & set(counted)
+            for u, d in zip(units, datas, strict=True):
+                out, status = eng.decompress_status(u)
+                assert out.tobytes() == d and not status.any()
+                eng.recycle(u)
+    for a, b in zip(whole[str(cuda_device)], whole["cpu"], strict=True):
+        assert torch.equal(a, b)
 
 
 def lz4_tables(datas, min_match=4):

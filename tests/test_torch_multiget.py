@@ -177,10 +177,13 @@ def test_errors_raise_status_error():
     data = unit_data(4096, 4, 3)
     units = [eng.compress(data), eng.compress(data)]
     foreign = other.compress(data)
-    zeng = engine(4096, btt.Codec.ZSTD)
-    zunit = zeng.compress(data)                   # Zstd blocks have no sequence tables
-    zeng.ensure_plans(zunit)
-    assert zunit.plan_flat is None and zunit.tables is None
+    # An imported container with a corrupt block has no sequence tables.
+    cb = units[0].to_host()
+    packed = cb.packed.copy()
+    packed[int(cb.manifest.comp_off[1]):][:64] = 0xFF
+    hunit = other.import_unit(btt.CompressedBuffers(manifest=cb.manifest, packed=packed))
+    other.ensure_plans(hunit)
+    assert hunit.plan_flat is None and hunit.tables is None
     nb = units[0].nblocks
     bad = {
         "recycled unit": (eng, [units[0], units[1]], [0, 1], [0, 0]),
@@ -190,7 +193,7 @@ def test_errors_raise_status_error():
         "unit index past the units": (eng, units, [2], [0]),
         "lengths differ": (eng, units, [0, 1], [0]),
         "float picks": (eng, units, [0.0], [0.0]),
-        "host-only unit": (zeng, [zunit], [0], [0]),
+        "host-only unit": (other, [hunit], [0], [0]),
     }
     eng.recycle(units[1])
     for name, (e, us, ui, bi) in bad.items():
@@ -201,9 +204,9 @@ def test_errors_raise_status_error():
         assert ei.value.status.code == want, name
     empty = eng.decompress_blocks_device(units[:1], [], [])
     assert empty.shape == (0, 32, 128)
-    for e, u in ((eng, units[0]), (other, foreign), (zeng, zunit)):
+    for e, u in ((eng, units[0]), (other, foreign), (other, hunit)):
         e.recycle(u)
-    for e in (eng, other, zeng):
+    for e in (eng, other):
         e.release()
 
 
